@@ -1,0 +1,42 @@
+"""Candidate-lane compaction sizes and the dead-slot spread vector.
+
+The chunk's [B, G] enabled mask is compacted to K lanes before the
+fingerprint insert, row construction, invariant/constraint evaluation and
+enqueue (``ops/compact_cuda.py`` holds the kernel and its plain version).
+Invariants, as in the JAX package's ``ops/compact.py``:
+
+- ``K`` is a power of two and ``K >= G``, so one parent's worst-case
+  fan-out always fits and a batch always makes progress (``P >= 1``);
+- progress limiting: only the longest parent prefix whose fan-out fits K
+  is taken, and the caller advances its queue offset by ``P``;
+- dead compacted slots hold ``kspread``, the same vector the JAX lowerings
+  use, so ``lane_id`` is equal to theirs slot for slot.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def choose_k(B: int, G: int, requested=None) -> int:
+    """Compacted-lane count: the requested value or 16 lanes per parent,
+    floored at ``max(G, B)``, rounded up to a power of two and capped at
+    ``pow2(B * G)``."""
+    k = requested
+    if k is None:
+        k = min(16 * B, B * G)
+    return min(pow2(max(k, G, B)), pow2(B * G))
+
+
+def kspread(B: int, G: int, K: int, device) -> torch.Tensor:
+    """[K] int32 hash-spread addresses for dead compacted slots."""
+    v = (np.arange(K, dtype=np.int64) * 2654435761) % (B * G)
+    return torch.as_tensor(v.astype(np.int32), device=device)
