@@ -10,8 +10,12 @@ shapes (exactly: the checker computes integers and bytes), then drives
 the port's main path: the exhaustive check of ``configs/MCraft_bounded.cfg``
 to depth 9 at batch 2048, with the pinned state counts, and the
 ``configs/MCraft_noleader.cfg`` counterexample replayed to depth 9; then
-the same check to depth 11 (pinned level profile) and a run to depth 8
-under ``torch.profiler`` for the device's busy share.
+a depth-6 check with a tiny seen-set and queue (growth through the insert
+kernel and host spill, pinned counts), a depth-8 check whose batch
+dispatches run under CUDA sync debug mode "error" (no host wait for the
+device outside the one stats read per batch), the check to depth 11
+(pinned level profile) and a run to depth 8 under ``torch.profiler`` for
+the device's busy share.
 
 Output: the card's name and power limit, one line per phase, then a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path,
@@ -28,6 +32,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -36,6 +41,7 @@ B, G, K = 2048, 132, 32768      # main-path batch, grid, compacted lanes
 QUEUE, SEEN = 1 << 21, 1 << 25  # main-path queue rows, seen-set slots
 MCRAFT_L9_LEVELS = [1, 3, 18, 79, 318, 1218, 4433, 15510, 52467, 172129]
 MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED = 505004, 1421121
+MCRAFT_L6_DISTINCT, MCRAFT_L6_GENERATED = 9457, 24429
 MCRAFT_L11_LEVELS = MCRAFT_L9_LEVELS + [548904, 1703703]
 
 
@@ -142,10 +148,12 @@ def phase_compact(torch, device, gen):
     plain_ms = cuda_ms(torch, lambda: compact_cuda.compact_plain(
         en, K, kspr), 10)
     pt, _lid, _kv = compact_cuda.compact_plain(en, K, kspr)
-    P = int(pt[0])
+    P, total = int(pt[0]), int(pt[1])
     flat = (en & (torch.arange(B, device=device) < P)[:, None]).reshape(-1)
     library_ms = cuda_ms(torch, lambda: torch.nonzero(flat), 50)
-    nbytes = B * G + K * 4 + K * 4 + K + 8
+    # The mask once, kspread only for the dead slots, lane_id, kvalid and
+    # (P, total) written once.
+    nbytes = B * G + (K - total) * 4 + K * 4 + K + 8
     row = dict(name="compact", route="cuda",
                source="raft_tla_tpu_torch/csrc/compact.cu",
                replaces="raft_tla_tpu/ops/compact_pallas.py:73",
@@ -158,10 +166,15 @@ def phase_compact(torch, device, gen):
     return row
 
 
-def insert_bytes(n, n_valid, n_new):
-    # queries + valid + is_new, one 32-byte sector read per valid query's
-    # home slot and one written per claimed slot.
-    return n * (8 + 1 + 1) + 32 * n_valid + 32 * n_new
+def distinct_valid(torch, q, valid):
+    return int(torch.unique(q[valid]).numel())
+
+
+def insert_bytes(n, n_distinct, n_new):
+    # queries + valid + is_new + fail, one 32-byte sector read per distinct
+    # valid key (a duplicate finds its key where the first lane did) and
+    # one written per claimed slot.
+    return n * (8 + 1 + 1) + 4 + 32 * n_distinct + 32 * n_new
 
 
 def phase_insert(torch, device, gen, base, present):
@@ -191,7 +204,7 @@ def phase_insert(torch, device, gen, base, present):
                  setup=restore)
     plain_ms = cuda_ms(torch, lambda: fpset_cuda.insert_plain(
         work, q, valid), 2, setup=restore)
-    nbytes = insert_bytes(K, int(valid.sum()), n_new)
+    nbytes = insert_bytes(K, distinct_valid(torch, q, valid), n_new)
     row = dict(name="fpset_insert", route="cuda",
                source="raft_tla_tpu_torch/csrc/fpset.cu",
                replaces="raft_tla_tpu/ops/fpset_pallas.py:161",
@@ -249,8 +262,11 @@ def phase_fused_tail(torch, device, gen, base, present):
     plain_ms = cuda_ms(torch, lambda: fused_tail_cuda.insert_enqueue_plain(
         work, q, valid, krows, enq_ok, qa, next_count), 2,
         setup=restore)
-    nbytes = (insert_bytes(K, int(valid.sum()), int(new_k.sum()))
-              + K * sw + K + n_enq * sw)
+    # The insert's bytes, enq_ok and the count, and each enqueued row read
+    # once and written once (no other row need be touched).
+    nbytes = (insert_bytes(K, distinct_valid(torch, q, valid),
+                           int(new_k.sum()))
+              + K + 4 + 2 * n_enq * sw)
     row = dict(name="fused_tail", route="cuda",
                source="raft_tla_tpu_torch/csrc/fused_tail.cu",
                replaces="raft_tla_tpu/ops/fused_tail_pallas.py:103",
@@ -311,6 +327,75 @@ def phase_main_path(torch):
     need(all(c > 0 for c in counts.values()),
          f"a kernel was not launched on the main path: {counts}")
     return counts
+
+
+def phase_small_table(torch):
+    """MCraft_bounded to L6 with a tiny seen-set and queue: the table
+    grows by rehashing through the insert kernel, the next-level queue
+    spills to the host, and the counts still equal the pinned ones."""
+    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    from raft_tla_tpu_torch.engine.check import run_check
+    cfg = EngineConfig(batch=32, queue_capacity=1024, seen_capacity=256,
+                       record_trace=False, max_diameter=6)
+    reset_counts()
+    res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"), cfg,
+                    device="cuda")
+    counts = read_counts()
+    print(f"MCraft_bounded L6, tiny seen-set and queue: "
+          f"distinct={res.distinct} generated={res.generated} "
+          f"levels={res.levels} batches={res.batches} spills={res.spills} "
+          f"growths (capacity, seconds)={res.growth_stalls} "
+          f"launches {counts}")
+    need(len(res.growth_stalls) >= 2 and res.spills >= 2,
+         "the tiny run neither grew the seen-set twice nor spilled twice")
+    need(counts["fpset_insert"] > len(res.growth_stalls),
+         f"seen-set growth did not go through the insert kernel: {counts}")
+    need(res.distinct == MCRAFT_L6_DISTINCT
+         and res.generated == MCRAFT_L6_GENERATED
+         and res.levels == MCRAFT_L9_LEVELS[:7],
+         "MCraft_bounded L6 with growth and spill differs from the pinned "
+         "oracle")
+
+
+def phase_dispatch_sync_free(torch):
+    """MCraft_bounded to L8 at the main path's sizes with every batch's
+    dispatch under CUDA sync debug mode "error": a host wait for the
+    device inside a dispatch raises, so the engine's "sync" phase (the
+    one stats read per batch) holds every wait of the level loop."""
+    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
+    cfg = EngineConfig(batch=B, queue_capacity=QUEUE, seen_capacity=SEEN,
+                       record_trace=False, max_diameter=8)
+    engine = make_engine(setup, cfg, device="cuda")
+    body, checked = engine._body, []
+
+    def strict(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = body(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked.append(1)
+        return out
+
+    engine._body = strict
+    try:
+        res = engine.run(initial_states(setup))
+    except RuntimeError as e:
+        site = [f for f in traceback.extract_tb(e.__traceback__)
+                if "raft_tla_tpu_torch" in f.filename]
+        where = (f"{os.path.relpath(site[-1].filename, HERE)}:"
+                 f"{site[-1].lineno}" if site else "an unknown line")
+        raise PhaseFailed(f"a batch dispatch waited for the device at "
+                          f"{where}: {e}")
+    print(f"dispatch sync check L8: {len(checked)} batch dispatches under "
+          f"sync debug mode 'error', none waited for the device; "
+          f"distinct={res.distinct}")
+    need(len(checked) == res.batches > 0, "no batch was dispatched")
+    need(res.levels == MCRAFT_L9_LEVELS[:9],
+         "MCraft_bounded L8 levels differ from the pinned oracle")
 
 
 def phase_deep(torch):
@@ -428,6 +513,8 @@ def main() -> int:
     print(f"kernel phases: {time.time() - t} s")
     counts = phase_main_path(torch)
     phase_counterexample(torch)
+    phase_small_table(torch)
+    phase_dispatch_sync_free(torch)
     phase_deep(torch)
     phase_profile(torch)
     for row in rows:

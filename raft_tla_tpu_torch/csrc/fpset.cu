@@ -6,8 +6,9 @@
 // the lowest-lane ownership rule are in fpset.cuh.
 //
 // Bound on the H100: bytes, and latency.  At the main path's shapes
-// (32,768 queries into a 2^25-slot, 256 MB table) the work is one 32-byte
-// sector read per probe and one per claimed slot, about 2 MB at load 0.4:
+// (32,768 queries into a 2^25-slot, 256 MB table) the work is the queries,
+// one 32-byte sector read per distinct key (a duplicate finds its key
+// where the first lane did) and one written per claimed slot, about 1 MB:
 // under a microsecond at 3.35 TB/s.  The probes are dependent random
 // reads, so each lane waits one DRAM latency per probe; the design keeps
 // one lane per query and enough lanes in flight (128 blocks of 256) to

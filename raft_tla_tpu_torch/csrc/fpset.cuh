@@ -22,8 +22,11 @@
 // Slots never return to empty, so a lane that passes a slot held by
 // another key can never see that slot claimed for its own key later: two
 // lanes of one key walk the same chain and meet at one slot.  The raw slot
-// a key lands in may differ from the sequential kernel's; the stored key
-// set, `is_new`, the size and `fail` do not.
+// a key lands in may differ from the sequential kernel's.  When no query
+// fails, the stored key set, `is_new` and the size are the sequential
+// kernel's.  Near a full chain the different layout can make a different
+// query fail (or one fail where none did), so `fail` itself may differ;
+// the engine stops on `fail` either way.
 
 #pragma once
 

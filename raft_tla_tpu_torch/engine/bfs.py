@@ -209,7 +209,7 @@ class BFSEngine:
         sw, B, Q = self._sw, self._B, self._Q
         if (init_states is None) == (resume is None):
             raise ValueError("need exactly one of init_states or resume")
-        res = EngineResult(fused_stages=dict(self._plan.stages),
+        res = EngineResult(fused_stages=dict(self._plan),
                            device=str(dev))
         phases = res.phases
         for k in ("dispatch", "sync", "host"):

@@ -104,6 +104,9 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
                                           cons_ok, qnext, next_count)
         viol = new & (inv >= 0)
         vpos = viol.to(torch.int32).argmax()
+        # Indexing with a 0-dim device tensor reads it on the host; a
+        # one-element index keeps the dispatch free of device waits.
+        vinv = inv.index_select(0, vpos.view(1))[0]
 
         fam_counts = torch.zeros(F, dtype=torch.int64, device=device)
         fam_counts.index_add_(0, fam_of_g, en.sum(0))
@@ -112,7 +115,7 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
         scalars = torch.stack([
             P, pt[1].to(torch.int64), new.sum(), count.to(torch.int64),
             ovf.sum(), dead_b.any().to(torch.int64),
-            viol.any().to(torch.int64), inv[vpos], vpos,
+            viol.any().to(torch.int64), vinv, vpos,
             dead_b.to(torch.int32).argmax(), fail.to(torch.int64),
             (valid & ptaken).sum(), seen.size[0]])
         stats = torch.cat([scalars, fam_counts, fam_new])

@@ -259,12 +259,14 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
             en_conf=en_conf, en_noc=en_noc, fits=fits,
             en_aer_drop=en_aer_drop, en_aer=en_aer)
 
-    def lanes(x, values):
-        return torch.as_tensor(values, device=device).unsqueeze(0).expand(
-            x, -1)
+    # Per-lane index tables, on the device once: an upload per batch would
+    # make the host wait for the device on every dispatch.
+    ii_t = torch.arange(N, device=device).repeat_interleave(N)
+    jj_t = torch.arange(N, device=device).repeat(N)
+    slot_t = torch.arange(M, device=device)
 
-    ii_np = np.repeat(np.arange(N), N)
-    jj_np = np.tile(np.arange(N), N)
+    def lanes(x, table):
+        return table.unsqueeze(0).expand(x, -1)
 
     def rv_msg(st, i, j):
         cols = base_cols(RVQ, i, j, _t1(st.term, i))
@@ -303,7 +305,7 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
         en_t = (st.role == FOLLOWER) | (st.role == CANDIDATE)  # Timeout
         en_parts.append(en_t)
         ovf_parts.append(en_t & (st.term + 1 > 255))
-        ii, jj = lanes(x, ii_np), lanes(x, jj_np)            # RequestVote
+        ii, jj = lanes(x, ii_t), lanes(x, jj_t)              # RequestVote
         en = ((_t1(st.role, ii) == CANDIDATE)
               & (((_t1(st.votes_resp, ii) >> jj) & 1) == 0))
         m = rv_msg(st, ii, jj)
@@ -326,7 +328,7 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
         en_parts.append(en & ctx["ok"])
         ovf_parts.append((en & ~ctx["ok"])
                          | (en & ctx["ok"] & ctx["pack_bad"]))
-        s = lanes(x, np.arange(M))                           # Receive
+        s = lanes(x, slot_t)                                 # Receive
         rc = receive_ctx(st, s)
         reply_en = rc["en_rvq"] | rc["en_rej"] | rc["en_done"]
         reply_row = _w(rc["en_rvq"], rc["rvr_resp"],

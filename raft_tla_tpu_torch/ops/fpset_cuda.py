@@ -12,8 +12,11 @@ int64 keys (``ops/fpset.py pack`` of the JAX ``(hi, lo)`` lanes):
   an empty slot within ``PROBE_ROUNDS`` probes of its chain.
 
 The raw slot a key lands in may differ between the kernel and the plain
-version; the stored key set may not.  ``insert`` launches the kernel for
-CUDA tensors and takes ``insert_plain`` only for CPU tensors.
+version.  When no query fails, the stored key set, ``is_new`` and the
+size may not; near a full chain the different layouts can make different
+queries fail, so ``fail`` is the same only up to that (the engine stops
+on it either way).  ``insert`` launches the kernel for CUDA tensors and
+takes ``insert_plain`` only for CPU tensors.
 """
 
 from __future__ import annotations

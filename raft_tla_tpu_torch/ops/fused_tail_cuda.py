@@ -5,7 +5,8 @@ Replaces the JAX package's ``ops/fused_tail_pallas.py`` (``_tail_padded``).
 Contract of ``insert_enqueue(seen, keys, valid, krows, enq_ok, qnext,
 next_count) -> (is_new, fail, count)``:
 
-- ``is_new`` and ``fail``, and the table update, are ``fpset_cuda.insert``'s;
+- ``is_new`` and ``fail``, and the table update, are ``fpset_cuda.insert``'s
+  (so equal to the plain version's when no query fails);
 - each lane with ``is_new & enq_ok`` has its row ``krows[lane]`` written
   to ``qnext[next_count + rank]`` in place, rank counted among those lanes
   in lane order;

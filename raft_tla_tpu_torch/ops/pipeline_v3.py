@@ -16,20 +16,13 @@ to anything else: a kernel that does not build or launch stops the run.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict
 
 import torch
 
-STAGES = ("masks", "compact", "fingerprint", "insert", "enqueue")
 
-
-class V3Plan(NamedTuple):
-    stages: Dict[str, str]       # stage -> implementation
-
-
-def resolve_plan(device) -> V3Plan:
+def resolve_plan(device) -> Dict[str, str]:
+    """Stage -> implementation on ``device`` (``EngineResult.fused_stages``)."""
     kernel = "cuda" if torch.device(device).type == "cuda" else "plain"
-    return V3Plan(stages={
-        "masks": "torch", "compact": kernel, "fingerprint": "torch",
-        "insert": f"fused-{kernel}", "enqueue": f"fused-{kernel}"})
-
+    return {"masks": "torch", "compact": kernel, "fingerprint": "torch",
+            "insert": f"fused-{kernel}", "enqueue": f"fused-{kernel}"}
