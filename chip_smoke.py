@@ -4,30 +4,36 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's kernels from ``raft_tla_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card at the main path's
-shapes (exactly: the checker computes integers and bytes), then drives
-the port's main path: the exhaustive check of ``configs/MCraft_bounded.cfg``
-to depth 9 at batch 2048, with the pinned state counts, and the
-``configs/MCraft_noleader.cfg`` counterexample replayed to depth 9; then
-a depth-6 check with a tiny seen-set and queue (growth through the insert
-kernel and host spill, pinned counts), a depth-8 check whose batch
-dispatches run under CUDA sync debug mode "error" (no host wait for the
-device outside the one stats read per batch), the check to depth 11
-(pinned level profile) and a run to depth 8 under ``torch.profiler`` for
-the device's busy share.
+It builds the port's four kernels from ``raft_tla_tpu_torch/csrc`` (one
+nvcc each, all at once), holds each kernel against its plain PyTorch
+version on the card at the main path's shapes (exactly: the checker
+computes integers and bytes; the chunk front on parent windows of a v3
+check), then drives both plans of the port's main path, v3 (PyTorch
+front around the compaction kernel) and v4 (the chunk-front kernel), each
+with its launch counts checked: the exhaustive check of
+``configs/MCraft_bounded.cfg`` to depth 9 at batch 2048 with the pinned
+state counts, the ``configs/MCraft_noleader.cfg`` counterexample replayed
+to depth 9, a depth-6 check with a tiny seen-set and queue (growth
+through the insert kernel and host spill, pinned counts), a depth-8
+check whose batch dispatches run under CUDA sync debug mode "error" (no
+host wait for the device outside the one stats read per batch), the
+check to depth 11 (pinned levels and counts) and a run to depth 8 under
+``torch.profiler`` for the device's busy share.
 
 Output: the card's name and power limit, one line per phase, then a JSON
-line ``{"kernels": [...]}`` with each kernel's launches on the main path,
-its error against the plain version and its times beside its bound, and
-last ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
-before those two lines.  Imports nothing of JAX or the JAX package.
+line ``{"kernels": [...]}`` with each kernel's launches on the main path
+(compact on v3, the others on v4), its error against the plain version
+and its times beside its bound, and last ``{"ok": true, "device":
+{...}}``.  Any failed phase exits non-zero before those two lines.
+Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -42,7 +48,9 @@ QUEUE, SEEN = 1 << 21, 1 << 25  # main-path queue rows, seen-set slots
 MCRAFT_L9_LEVELS = [1, 3, 18, 79, 318, 1218, 4433, 15510, 52467, 172129]
 MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED = 505004, 1421121
 MCRAFT_L6_DISTINCT, MCRAFT_L6_GENERATED = 9457, 24429
+MCRAFT_L8_DISTINCT = 139327
 MCRAFT_L11_LEVELS = MCRAFT_L9_LEVELS + [548904, 1703703]
+MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED = 6005282, 17354955
 
 
 class PhaseFailed(Exception):
@@ -279,11 +287,200 @@ def phase_fused_tail(torch, device, gen, base, present):
     return row
 
 
+def front_err(torch, got, want):
+    """Largest |kernel - plain| over the front's 14 outputs, the per-lane
+    ones the kernel leaves unwritten on dead lanes compared on live lanes
+    (the plain version's total, so a wrong total shows)."""
+    from raft_tla_tpu_torch.ops.chunk_front import LIVE_ONLY, FrontOut
+    total = int(want.total)
+    return max_abs(torch, [(g[:total], w[:total]) if f in LIVE_ONLY
+                           else (g, w)
+                           for f, g, w in zip(FrontOut._fields, got, want)])
+
+
+def phase_front(torch, device):
+    """The v4 chunk front at the main path's shapes on real rows: parent
+    windows that a v3 check to L8 dispatched on the card.  Three calls
+    are held exactly against ``front_plain``: the 2048 rows of least
+    fan-out (the whole window fits K), a full window of the engine's own
+    (progress-limited) and the same window under the forged POR arrays
+    (every DuplicateMessage instance certified, priority = g)."""
+    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.models.actions2 import build_v2
+    from raft_tla_tpu_torch.models.invariants import (build_constraint,
+                                                      build_no_leader,
+                                                      build_type_ok)
+    from raft_tla_tpu_torch.models.schema import state_width, unflatten_state
+    from raft_tla_tpu_torch.ops import chunk_front_cuda
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
+    dims = setup.dims
+    engine = make_engine(setup, EngineConfig(
+        batch=B, queue_capacity=QUEUE, seen_capacity=SEEN,
+        record_trace=False, max_diameter=8, pipeline="v3"), device="cuda")
+    body, windows = engine._body, []
+
+    def capture(rows, valid, *args):
+        windows.append((rows.clone(), valid.clone()))
+        return body(rows, valid, *args)
+
+    engine._body = capture
+    engine.run(initial_states(setup))
+    v2 = build_v2(dims, device)
+    pool = torch.cat([r[v] for r, v in windows])
+    fanout = v2.masks(unflatten_state(pool, dims))[0].sum(1)
+    least = torch.sort(torch.argsort(fanout)[:B]).values
+    full = [w for w in windows if bool(w[1].all())]
+    need(full, "the v3 run dispatched no full window")
+    G = dims.n_instances
+    por_mask = torch.zeros(G, dtype=torch.bool)
+    off = dims.family_offsets[dims.family_names.index("DuplicateMessage")]
+    por_mask[off:off + dims.n_msg_slots] = True
+    por_pri = torch.arange(G, dtype=torch.int32)
+    kw = dict(dims=dims, v2=v2,
+              inv_fns=[build_type_ok(dims), build_no_leader(dims)],
+              constraint=build_constraint(dims, setup.bounds), B=B, K=K,
+              device=device)
+    front = chunk_front_cuda.Front(**kw)
+    front_por = chunk_front_cuda.Front(
+        **kw, por_mask=por_mask.numpy(), por_priority=por_pri.numpy())
+    cases = [("fitting", front, pool[least], torch.ones_like(full[-1][1])),
+             ("progress-limited", front, *full[-1]),
+             ("POR", front_por, *full[-1])]
+    err = 0.0
+    for name, fr, rows, valid in cases:
+        got = fr(rows, valid)
+        e = front_err(torch, got, fr.plain(rows, valid))
+        total, P = int(got.total), int(got.P)
+        print(f"chunk_front {name} window: P={P} total={int(got.total)} "
+              f"pruned={int(got.pruned.sum())} "
+              f"invariant hits={int((got.inv[:total] >= 0).sum())} "
+              f"constraint fails={int((~got.cons_ok[:total]).sum())} "
+              f"max_abs_err={e}")
+        need(e == 0.0, f"chunk_front differs from front_plain on the {name} "
+             "window")
+        if name == "POR":
+            need(bool(got.pruned.any()), "the POR window pruned nothing")
+        else:
+            need((P == B) == (name == "fitting"),
+                 f"the {name} window has P={P}")
+        err = max(err, e)
+    rows, valid = full[-1]
+    out = front(rows, valid)
+    total = int(out.total)
+    ms = cuda_ms(torch, lambda: front(rows, valid), 50)
+    plain_ms = cuda_ms(torch, lambda: front.plain(rows, valid), 5)
+    ops = device_ops(torch, lambda: front(rows, valid))
+    sw = state_width(dims)
+    # Read: the parent rows, valid, kspread in the dead slots and the salt
+    # tables; written: the three [B, G] masks, (P, total), lane_id, kvalid
+    # and on each live lane its row and six scalars (dead lanes are left
+    # unwritten by contract).
+    salts = 4 * (2 + 2 * (7 * dims.n_servers + 2 * dims.n_servers
+                          * dims.max_log + 2 * dims.n_servers ** 2)
+                 + 2 * dims.msg_width)
+    nbytes = (B * sw + B + (K - total) * 4 + salts + 3 * B * G + 8
+              + K * 4 + K + total * (sw + 8 * 5 + 1))
+    row = dict(name="chunk_front", route="cuda",
+               source="raft_tla_tpu_torch/csrc/chunk_front.cu",
+               replaces="raft_tla_tpu/ops/chunk_front_pallas.py:94",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=None)
+    print(f"chunk_front [{B},{sw}] -> K={K} (total {total}): kernel {ms} ms, "
+          f"plain {plain_ms} ms, bound {row['bound_ms']} ms ({nbytes} bytes), "
+          f"CUDA launches per call "
+          f"{len(ops) if ops else 'not measured'} "
+          f"(device microseconds under the profiler: {ops})")
+    del windows, pool, cases, out
+    return row
+
+
+def phase_other_dims(torch, device):
+    """The front at dims other than the main path's, as the kernel takes
+    them at run time: more message slots than a warp has lanes, a wider
+    message row, five servers.  A v3 check and a v4 check of each must
+    agree on every count, and the front kernel must equal front_plain on
+    every parent window the v3 check dispatched."""
+    from raft_tla_tpu_torch.engine.bfs import BFSEngine, EngineConfig
+    from raft_tla_tpu_torch.models.actions2 import build_v2
+    from raft_tla_tpu_torch.models.dims import RaftDims
+    from raft_tla_tpu_torch.models.invariants import (Bounds,
+                                                      build_constraint,
+                                                      build_type_ok)
+    from raft_tla_tpu_torch.models.pystate import init_state
+    from raft_tla_tpu_torch.ops import chunk_front_cuda
+    from raft_tla_tpu_torch.ops.compact import choose_k
+    cases = ((RaftDims(n_servers=3, n_values=2, max_log=4, n_msg_slots=40),
+              Bounds(max_term=2, max_log_len=3, max_msg_count=1), 7),
+             (RaftDims(n_servers=5, n_values=1, max_log=2, n_msg_slots=64),
+              Bounds(max_term=2, max_log_len=1, max_msg_count=1), 5))
+    for dims, bounds, depth in cases:
+        invs = {"TypeOK": build_type_ok(dims)}
+        cons = build_constraint(dims, bounds)
+        res, windows = {}, []
+        for pipeline in ("v3", "v4"):
+            engine = BFSEngine(dims, invariants=invs, constraint=cons,
+                               config=EngineConfig(
+                                   batch=256, queue_capacity=1 << 16,
+                                   seen_capacity=1 << 18, record_trace=False,
+                                   check_deadlock=False, max_diameter=depth,
+                                   pipeline=pipeline), device="cuda")
+            body = engine._body
+            if pipeline == "v3":
+                def capture(rows, valid, *args, body=body):
+                    windows.append((rows.clone(), valid.clone()))
+                    return body(rows, valid, *args)
+                engine._body = capture
+            reset_counts()
+            r = engine.run([init_state(dims)])
+            check_launches(pipeline, read_counts(), r.batches,
+                           f"dims {dims}")
+            res[pipeline] = (r.distinct, r.generated, r.levels,
+                             r.action_counts)
+        front = chunk_front_cuda.Front(
+            dims=dims, v2=build_v2(dims, device), inv_fns=list(invs.values()),
+            constraint=cons, B=256, K=choose_k(256, dims.n_instances),
+            device=device)
+        err = 0.0
+        for rows, valid in windows:
+            err = max(err, front_err(torch, front(rows, valid),
+                                     front.plain(rows, valid)))
+        print(f"dims {dims} to L{depth}: v3 and v4 distinct/generated/levels "
+              f"{res['v3'][:3]} / {res['v4'][:3]}; chunk_front on "
+              f"{len(windows)} windows max_abs_err={err}")
+        need(res["v3"] == res["v4"], f"v3 and v4 differ at dims {dims}")
+        need(err == 0.0, f"chunk_front differs from front_plain at dims "
+             f"{dims}")
+
+
+def device_ops(torch, fn):
+    """``[(kernel name, device microseconds)]`` of the device operations
+    one call of ``fn`` issues, as torch.profiler sees them (empty when the
+    profiler sees no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(short_name(e.name), e.time_range.end - e.time_range.start)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def short_name(name):
+    """A kernel's own name out of its demangled signature."""
+    m = re.search(r"(\w+)(?:<[^()]*>)?\(", name)
+    return (m.group(1) if m else name)[:48]
+
+
 def counters():
-    from raft_tla_tpu_torch.ops import compact_cuda, fpset_cuda
-    from raft_tla_tpu_torch.ops import fused_tail_cuda
+    from raft_tla_tpu_torch.ops import chunk_front_cuda, compact_cuda
+    from raft_tla_tpu_torch.ops import fpset_cuda, fused_tail_cuda
     return {"compact": compact_cuda, "fpset_insert": fpset_cuda,
-            "fused_tail": fused_tail_cuda}
+            "fused_tail": fused_tail_cuda, "chunk_front": chunk_front_cuda}
 
 
 def reset_counts():
@@ -295,53 +492,73 @@ def read_counts():
     return {name: mod.launches for name, mod in counters().items()}
 
 
-def phase_main_path(torch):
+def check_launches(pipeline, counts, batches, what):
+    """Each path's kernels launched, once per batch where they run per
+    batch; the v4 path never runs the v3 compaction (nor so the plain
+    front), the v3 path never the front kernel."""
+    if pipeline == "v3":
+        ok = (counts["compact"] == counts["fused_tail"] == batches > 0
+              and counts["fpset_insert"] > 0 and counts["chunk_front"] == 0)
+    else:
+        ok = (counts["chunk_front"] == counts["fused_tail"] == batches > 0
+              and counts["fpset_insert"] > 0 and counts["compact"] == 0)
+    need(ok, f"{what} ({pipeline}): launches {counts} over {batches} "
+         "batches")
+
+
+def bounded_config(pipeline, depth, **kw):
     from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    base = dict(batch=B, queue_capacity=QUEUE, seen_capacity=SEEN,
+                record_trace=False, max_diameter=depth, pipeline=pipeline)
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+def phase_main_path(torch, pipeline):
+    """MCraft_bounded to L9 at the main path's sizes, launches counted."""
     from raft_tla_tpu_torch.engine.check import run_check
-    cfg = EngineConfig(batch=B, queue_capacity=QUEUE, seen_capacity=SEEN,
-                       record_trace=False, max_diameter=9)
     torch.cuda.synchronize()
     reset_counts()
     t = time.time()
-    res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"), cfg,
-                    device="cuda")
+    res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                    bounded_config(pipeline, 9), device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
     counts = read_counts()
     ph = res.phases
-    print(f"MCraft_bounded L9: distinct={res.distinct} "
+    print(f"MCraft_bounded L9 {pipeline}: distinct={res.distinct} "
           f"generated={res.generated} levels={res.levels} "
           f"stop={res.stop_reason} batches={res.batches} "
           f"spills={res.spills} growths={res.growth_stalls}")
-    print(f"MCraft_bounded L9: {res.states_per_second} distinct states/s, "
-          f"{res.generated / res.wall_seconds} generated/s, "
+    print(f"MCraft_bounded L9 {pipeline}: {res.states_per_second} distinct "
+          f"states/s, {res.generated / res.wall_seconds} generated/s, "
           f"check {res.wall_seconds} s, call {wall} s, phases {ph}, "
           f"host blocked on the device {ph['sync'] / res.wall_seconds} "
           f"of the check, launches {counts}")
+    need(res.pipeline == pipeline, f"the engine ran {res.pipeline}")
     need(res.violation is None and res.deadlock is None,
          "MCraft_bounded reported a violation or deadlock")
     need(res.distinct == MCRAFT_L9_DISTINCT
          and res.generated == MCRAFT_L9_GENERATED
          and res.levels == MCRAFT_L9_LEVELS,
-         "MCraft_bounded L9 counts differ from the pinned oracle")
-    need(all(c > 0 for c in counts.values()),
-         f"a kernel was not launched on the main path: {counts}")
+         f"MCraft_bounded L9 ({pipeline}) counts differ from the pinned "
+         "oracle")
+    check_launches(pipeline, counts, res.batches, "MCraft_bounded L9")
     return counts
 
 
-def phase_small_table(torch):
+def phase_small_table(torch, pipeline):
     """MCraft_bounded to L6 with a tiny seen-set and queue: the table
     grows by rehashing through the insert kernel, the next-level queue
     spills to the host, and the counts still equal the pinned ones."""
-    from raft_tla_tpu_torch.engine.bfs import EngineConfig
     from raft_tla_tpu_torch.engine.check import run_check
-    cfg = EngineConfig(batch=32, queue_capacity=1024, seen_capacity=256,
-                       record_trace=False, max_diameter=6)
+    cfg = bounded_config(pipeline, 6, batch=32, queue_capacity=1024,
+                         seen_capacity=256)
     reset_counts()
     res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"), cfg,
                     device="cuda")
     counts = read_counts()
-    print(f"MCraft_bounded L6, tiny seen-set and queue: "
+    print(f"MCraft_bounded L6 {pipeline}, tiny seen-set and queue: "
           f"distinct={res.distinct} generated={res.generated} "
           f"levels={res.levels} batches={res.batches} spills={res.spills} "
           f"growths (capacity, seconds)={res.growth_stalls} "
@@ -353,22 +570,20 @@ def phase_small_table(torch):
     need(res.distinct == MCRAFT_L6_DISTINCT
          and res.generated == MCRAFT_L6_GENERATED
          and res.levels == MCRAFT_L9_LEVELS[:7],
-         "MCraft_bounded L6 with growth and spill differs from the pinned "
-         "oracle")
+         f"MCraft_bounded L6 ({pipeline}) with growth and spill differs "
+         "from the pinned oracle")
+    check_launches(pipeline, counts, res.batches, "MCraft_bounded L6")
 
 
-def phase_dispatch_sync_free(torch):
+def phase_dispatch_sync_free(torch, pipeline):
     """MCraft_bounded to L8 at the main path's sizes with every batch's
     dispatch under CUDA sync debug mode "error": a host wait for the
     device inside a dispatch raises, so the engine's "sync" phase (the
     one stats read per batch) holds every wait of the level loop."""
-    from raft_tla_tpu_torch.engine.bfs import EngineConfig
     from raft_tla_tpu_torch.engine.check import initial_states, make_engine
     from raft_tla_tpu_torch.utils.cfg import load_config
     setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
-    cfg = EngineConfig(batch=B, queue_capacity=QUEUE, seen_capacity=SEEN,
-                       record_trace=False, max_diameter=8)
-    engine = make_engine(setup, cfg, device="cuda")
+    engine = make_engine(setup, bounded_config(pipeline, 8), device="cuda")
     body, checked = engine._body, []
 
     def strict(*args):
@@ -388,54 +603,53 @@ def phase_dispatch_sync_free(torch):
                 if "raft_tla_tpu_torch" in f.filename]
         where = (f"{os.path.relpath(site[-1].filename, HERE)}:"
                  f"{site[-1].lineno}" if site else "an unknown line")
-        raise PhaseFailed(f"a batch dispatch waited for the device at "
-                          f"{where}: {e}")
-    print(f"dispatch sync check L8: {len(checked)} batch dispatches under "
-          f"sync debug mode 'error', none waited for the device; "
-          f"distinct={res.distinct}")
+        raise PhaseFailed(f"a {pipeline} batch dispatch waited for the "
+                          f"device at {where}: {e}")
+    print(f"dispatch sync check L8 {pipeline}: {len(checked)} batch "
+          f"dispatches under sync debug mode 'error', none waited for the "
+          f"device; distinct={res.distinct}")
     need(len(checked) == res.batches > 0, "no batch was dispatched")
-    need(res.levels == MCRAFT_L9_LEVELS[:9],
-         "MCraft_bounded L8 levels differ from the pinned oracle")
+    need(res.distinct == MCRAFT_L8_DISTINCT
+         and res.levels == MCRAFT_L9_LEVELS[:9],
+         f"MCraft_bounded L8 ({pipeline}) differs from the pinned oracle")
 
 
-def phase_deep(torch):
-    """MCraft_bounded to L11: the pinned level profile at 4.5M states."""
-    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+def phase_deep(torch, pipeline):
+    """MCraft_bounded to L11: the pinned level profile and the pinned
+    6,005,282 distinct / 17,354,955 generated (BASELINE.md)."""
     from raft_tla_tpu_torch.engine.check import run_check
-    cfg = EngineConfig(batch=B, queue_capacity=QUEUE, seen_capacity=SEEN,
-                       record_trace=False, max_diameter=11)
     reset_counts()
-    res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"), cfg,
-                    device="cuda")
+    res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                    bounded_config(pipeline, 11), device="cuda")
+    counts = read_counts()
     ph = res.phases
-    print(f"MCraft_bounded L11: distinct={res.distinct} "
+    print(f"MCraft_bounded L11 {pipeline}: distinct={res.distinct} "
           f"generated={res.generated} levels={res.levels} "
           f"batches={res.batches} spills={res.spills} "
           f"growths={res.growth_stalls}")
-    print(f"MCraft_bounded L11: {res.states_per_second} distinct states/s, "
-          f"{res.generated / res.wall_seconds} generated/s, check "
-          f"{res.wall_seconds} s, phases {ph}, launches {read_counts()}")
-    need(res.levels == MCRAFT_L11_LEVELS,
-         "MCraft_bounded L11 levels differ from the pinned oracle")
+    print(f"MCraft_bounded L11 {pipeline}: {res.states_per_second} distinct "
+          f"states/s, {res.generated / res.wall_seconds} generated/s, check "
+          f"{res.wall_seconds} s, phases {ph}, launches {counts}")
+    need(res.levels == MCRAFT_L11_LEVELS
+         and res.distinct == MCRAFT_L11_DISTINCT
+         and res.generated == MCRAFT_L11_GENERATED,
+         f"MCraft_bounded L11 ({pipeline}) differs from the pinned oracle")
+    check_launches(pipeline, counts, res.batches, "MCraft_bounded L11")
 
 
-def phase_profile(torch):
+def phase_profile(torch, pipeline):
     """Device busy share of a check to L8 under torch.profiler: the union
     of the device-side intervals over the wall time of the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from raft_tla_tpu_torch.engine.bfs import EngineConfig
     from raft_tla_tpu_torch.engine.check import run_check
-    cfg = EngineConfig(batch=B, queue_capacity=QUEUE, seen_capacity=SEEN,
-                       record_trace=False, max_diameter=8)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
-                        cfg, device="cuda")
+                        bounded_config(pipeline, 8), device="cuda")
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, end = 0, None
     for s, e in spans:
         if end is None or s > end:
@@ -445,29 +659,49 @@ def phase_profile(torch):
             busy += e - end
             end = e
     if not spans:
-        print("profile L8: the profiler saw no device time (not measured)")
+        print(f"profile L8 {pipeline}: the profiler saw no device time "
+              "(not measured)")
         return
     wall_us = res.wall_seconds * 1e6
-    print(f"profile L8 (under torch.profiler): check {res.wall_seconds} s, "
-          f"{res.batches} batches, device busy {busy / 1e6} s = "
-          f"{busy / wall_us} of the check, idle {1 - busy / wall_us}, "
-          f"{len(spans) / res.batches} device ops per batch, "
-          f"host dispatch {res.phases['dispatch'] / res.batches} s per batch")
+    print(f"profile L8 {pipeline} (under torch.profiler): check "
+          f"{res.wall_seconds} s, {res.batches} batches, device busy "
+          f"{busy / 1e6} s = {busy / wall_us} of the check, idle "
+          f"{1 - busy / wall_us}, {len(spans) / res.batches} device ops per "
+          f"batch, host dispatch {res.phases['dispatch'] / res.batches} s "
+          f"per batch")
+    by_name = collections.defaultdict(lambda: [0, 0])
+    for e in dev:
+        n = by_name[short_name(e.name)]
+        n[0] += 1
+        n[1] += e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    print(f"profile L8 {pipeline}: device ops by total time, as (name, ops "
+          f"per batch, device microseconds per batch): " + ", ".join(
+              f"({n}, {c / res.batches}, {us / res.batches})"
+              for n, (c, us) in top))
 
 
-def phase_counterexample(torch):
-    from raft_tla_tpu_torch.engine.check import run_check
+def phase_counterexample(torch, pipeline):
+    """configs/MCraft_noleader.cfg at its own engine sizes: the violation
+    and its replay to the first leader at depth 9."""
+    import dataclasses
+    from raft_tla_tpu_torch.engine.check import (engine_config_from_backend,
+                                                 initial_states, make_engine)
     from raft_tla_tpu_torch.models.dims import LEADER
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/MCraft_noleader.cfg"))
+    cfg = dataclasses.replace(engine_config_from_backend(setup),
+                              pipeline=pipeline)
     reset_counts()
     t = time.time()
-    res = run_check(os.path.join(HERE, "configs/MCraft_noleader.cfg"),
-                    device="cuda")
-    steps = res.engine.replay(res.violation.fingerprint) \
+    engine = make_engine(setup, cfg, device="cuda")
+    res = engine.run(initial_states(setup))
+    steps = engine.replay(res.violation.fingerprint) \
         if res.violation is not None else []
     counts = read_counts()
-    print(f"MCraft_noleader: stop={res.stop_reason} distinct={res.distinct} "
-          f"depth={len(steps) - 1} in {time.time() - t} s, "
-          f"launches {counts}")
+    print(f"MCraft_noleader {pipeline}: stop={res.stop_reason} "
+          f"distinct={res.distinct} depth={len(steps) - 1} in "
+          f"{time.time() - t} s, launches {counts}")
     need(res.violation is not None
          and res.violation.invariant == "NoLeaderElected",
          "MCraft_noleader did not stop on NoLeaderElected")
@@ -476,8 +710,7 @@ def phase_counterexample(torch):
          and LEADER in steps[-1][1].role
          and all(LEADER not in st.role for _g, st in steps[:-1]),
          "replay does not end at the first leader")
-    need(all(c > 0 for c in counts.values()),
-         f"a kernel was not launched on the counterexample path: {counts}")
+    check_launches(pipeline, counts, res.batches, "MCraft_noleader")
 
 
 def main() -> int:
@@ -510,15 +743,25 @@ def main() -> int:
     rows.append(phase_fused_tail(torch, device, gen, base, present))
     del base, present
     torch.cuda.empty_cache()
+    rows.append(phase_front(torch, device))
+    phase_other_dims(torch, device)
+    torch.cuda.empty_cache()
     print(f"kernel phases: {time.time() - t} s")
-    counts = phase_main_path(torch)
-    phase_counterexample(torch)
-    phase_small_table(torch)
-    phase_dispatch_sync_free(torch)
-    phase_deep(torch)
-    phase_profile(torch)
+    # The two paths in turns (v3, v4, then v4, v3 at L11): host times
+    # spread between calls, so they are compared within this one.
+    counts = {"v3": phase_main_path(torch, "v3"),
+              "v4": phase_main_path(torch, "v4")}
+    for pipeline in ("v3", "v4"):
+        phase_counterexample(torch, pipeline)
+        phase_small_table(torch, pipeline)
+        phase_dispatch_sync_free(torch, pipeline)
+    for pipeline in ("v4", "v3"):
+        phase_deep(torch, pipeline)
+    for pipeline in ("v4", "v3"):
+        phase_profile(torch, pipeline)
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        path = "v3" if row["name"] == "compact" else "v4"
+        row["launches"] = counts[path][row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

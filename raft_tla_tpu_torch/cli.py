@@ -1,9 +1,10 @@
 """Command line: ``python3 -m raft_tla_tpu_torch check <cfg>``.
 
 Runs the exhaustive check on the card (``--device cpu`` for the plain
-PyTorch versions) with the engine sizes of the cfg's ``\\* TPU:``
-directives, prints the TLC-style result block and, for a
-violation with trace recording on, the replayed counterexample.  Exit
+PyTorch versions) with the engine sizes and plan of the cfg's ``\\* TPU:``
+directives (``--pipeline`` overrides PIPELINE), prints the TLC-style
+result block and, for a violation with trace recording on, the replayed
+counterexample.  Exit
 code 0 when the run exhausts or stops on a budget, 1 on a violation or
 deadlock.
 """
@@ -28,12 +29,14 @@ def main(argv=None) -> int:
     c.add_argument("--device", default="cuda")
     c.add_argument("--max-diameter", type=int)
     c.add_argument("--no-trace", action="store_true")
+    c.add_argument("--pipeline", choices=("v3", "v4"))
     args = ap.parse_args(argv)
 
     setup = load_config(args.cfg)
-    cfg = dataclasses.replace(engine_config_from_backend(setup),
-                              max_diameter=args.max_diameter,
-                              record_trace=not args.no_trace)
+    cfg = engine_config_from_backend(setup)
+    cfg = dataclasses.replace(cfg, max_diameter=args.max_diameter,
+                              record_trace=not args.no_trace,
+                              pipeline=args.pipeline or cfg.pipeline)
     engine = make_engine(setup, cfg, device=args.device)
     res = engine.run(initial_states(setup))
     print(format_result(res))

@@ -50,4 +50,13 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total,
   return res;
 }
 
+// Host side: let `kernel` take `bytes` of dynamic shared memory, opting in
+// above the 48 KB every kernel gets.  Returns a cudaError_t.
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace rtt

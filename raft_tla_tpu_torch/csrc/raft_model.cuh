@@ -1,0 +1,532 @@
+// The v2 Raft model as device code, for the v4 chunk front (chunk_front.cu).
+//
+// Line for line the port's models/actions2.py (itself the JAX package's
+// models/actions2.py), on one state at a time:
+//   - the packed uint8 row of models/schema.py, decoded into ints in shared
+//     memory (message column 4, mprevLogIndex, sign-extended);
+//   - the guards of `masks` with the pack guard as overflow bits, through
+//     `send_ctx` / `receive_ctx`;
+//   - the fingerprint pieces of ops/fingerprint.py: per-position
+//     contributions, slot hashes, `finalize`, the sentinel remap;
+//   - the registry predicates TypeOK, NoLeaderElected and BoundedSpace
+//     (models/invariants.py).
+// Values are ints, as the PyTorch version's int64 fields are: a successor
+// value that does not fit its uint8 lane is kept whole for the hash and the
+// predicates and wraps only when the row is written, as flatten_state does.
+// Every read clamps its index exactly where the PyTorch version does (JAX
+// gathers clamp, plain loads do not).  Fingerprint sums wrap mod 2^32 in
+// native uint32 arithmetic.
+#pragma once
+
+#include "common.cuh"
+
+namespace rtt {
+
+constexpr int kMaxN = 8;                  // models/dims.py (bitmask lanes)
+constexpr int kMaxL = 16;                 // max_log this kernel supports
+constexpr int kMaxW = 4 + 2 + 2 * kMaxL;  // msg_width at kMaxL
+constexpr int kMaxM = 256;                // message slots
+constexpr int kMaxInv = 8;                // invariants per run
+constexpr int kNFam = 10;
+
+constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, NIL = 0;
+constexpr int RVQ = 0, RVR = 1, AEQ = 2, AER = 3;
+
+// Predicate codes (ops/chunk_front_cuda.py PREDICATES).
+constexpr int PRED_TYPE_OK = 1, PRED_NO_LEADER = 2;
+
+struct Dims {
+  int N, V, L, M, W, G, D, sw;
+  // byte offsets of the row's fields (models/schema.py order)
+  int o_term, o_role, o_voted, o_lt, o_lv, o_ll, o_ci, o_vr, o_vg, o_ni,
+      o_mi, o_msg, o_cnt;
+  int f_off[kNFam + 1];  // family offsets in the instance grid, then G
+};
+
+inline Dims make_dims(int N, int V, int L, int M) {
+  Dims d;
+  d.N = N;
+  d.V = V;
+  d.L = L;
+  d.M = M;
+  d.W = 4 + (6 > 2 + 2 * L ? 6 : 2 + 2 * L);
+  d.o_term = 0;
+  d.o_role = N;
+  d.o_voted = 2 * N;
+  d.o_lt = 3 * N;
+  d.o_lv = 3 * N + N * L;
+  d.o_ll = 3 * N + 2 * N * L;
+  d.o_ci = 4 * N + 2 * N * L;
+  d.o_vr = 5 * N + 2 * N * L;
+  d.o_vg = 6 * N + 2 * N * L;
+  d.o_ni = 7 * N + 2 * N * L;
+  d.o_mi = 7 * N + 2 * N * L + N * N;
+  d.D = 7 * N + 2 * N * L + 2 * N * N;  // the fingerprint's ordered part
+  d.o_msg = d.D;
+  d.o_cnt = d.D + M * d.W;
+  d.sw = d.o_cnt + M;
+  const int sizes[kNFam] = {N, N, N * N, N, N * V, N, N * N, M, M, M};
+  int acc = 0;
+  for (int f = 0; f < kNFam; ++f) {
+    d.f_off[f] = acc;
+    acc += sizes[f];
+  }
+  d.f_off[kNFam] = acc;
+  d.G = acc;
+  return d;
+}
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// Decode one packed row into ints (a warp's share: lanes stride the row).
+__device__ __forceinline__ void decode_row(const Dims& d,
+                                           const uint8_t* __restrict__ row,
+                                           int* sv, int lane) {
+  for (int p = lane; p < d.sw; p += 32) {
+    const int b = row[p];
+    const bool col4 = p >= d.o_msg && p < d.o_cnt && (p - d.o_msg) % d.W == 4;
+    sv[p] = col4 ? (int)(int8_t)b : b;
+  }
+}
+
+// One state: the decoded row in shared memory.
+struct St {
+  const Dims& d;
+  const int* v;
+  __device__ int term(int i) const { return v[d.o_term + i]; }
+  __device__ int role(int i) const { return v[d.o_role + i]; }
+  __device__ int voted(int i) const { return v[d.o_voted + i]; }
+  __device__ int lt(int i, int k) const { return v[d.o_lt + i * d.L + k]; }
+  __device__ int lv(int i, int k) const { return v[d.o_lv + i * d.L + k]; }
+  __device__ int ll(int i) const { return v[d.o_ll + i]; }
+  __device__ int ci(int i) const { return v[d.o_ci + i]; }
+  __device__ int vr(int i) const { return v[d.o_vr + i]; }
+  __device__ int vg(int i) const { return v[d.o_vg + i]; }
+  __device__ int ni(int i, int j) const { return v[d.o_ni + i * d.N + j]; }
+  __device__ int mi(int i, int j) const { return v[d.o_mi + i * d.N + j]; }
+  __device__ int msg(int s, int c) const { return v[d.o_msg + s * d.W + c]; }
+  __device__ int cnt(int s) const { return v[d.o_cnt + s]; }
+
+  __device__ int last_term(int i) const {
+    const int ln = ll(i);
+    return ln > 0 ? lt(i, clampi(ln - 1, 0, d.L - 1)) : 0;
+  }
+};
+
+// -- message rows (msg_row / base_cols of actions2.py) ----------------------
+
+__device__ __forceinline__ void base_cols(const Dims& d, int* m, int mtype,
+                                          int src, int dst, int mterm) {
+  for (int c = 0; c < d.W; ++c) m[c] = 0;
+  m[0] = mtype + 1;
+  m[1] = src + 1;
+  m[2] = dst + 1;
+  m[3] = mterm;
+}
+
+__device__ __forceinline__ void rv_msg(const St& st, int i, int j, int* m) {
+  base_cols(st.d, m, RVQ, i, j, st.term(i));
+  m[4] = st.last_term(i);
+  m[5] = st.ll(i);
+}
+
+// AppendEntries(i, j)'s request row; j in 0..N-1.
+__device__ __forceinline__ void ae_msg(const St& st, int i, int j, int* m) {
+  const int L = st.d.L;
+  const int ln = st.ll(i);
+  const int ni = st.ni(i, j);
+  const int prev = ni - 1;
+  const int prev_term =
+      (prev > 0 && prev <= ln) ? st.lt(i, clampi(prev - 1, 0, L - 1)) : 0;
+  const int last_entry = min(ln, ni);
+  const int n_ent = ln >= ni ? 1 : 0;
+  const int k = clampi(ni - 1, 0, L - 1);
+  base_cols(st.d, m, AEQ, i, j, st.term(i));
+  m[4] = prev;
+  m[5] = prev_term;
+  m[6] = n_ent;
+  m[7] = n_ent > 0 ? st.lt(i, k) : 0;
+  m[8] = n_ent > 0 ? st.lv(i, k) : 0;
+  m[9] = min(st.ci(i), last_entry);
+}
+
+__device__ __forceinline__ bool row_equal(const St& st, int t, const int* m) {
+  for (int c = 0; c < st.d.W; ++c)
+    if (st.msg(t, c) != m[c]) return false;
+  return true;
+}
+
+// -- Receive(m @ slot s): guards and derived values (receive_ctx) -----------
+
+struct Recv {
+  int cnt_s, i, j, mterm, t_i, ln, m4, m5, prev, n_ent, eterm, evalue,
+      mcommit;
+  bool grant, en_ut, en_rvq, en_rvr_drop, en_rvr, en_rej, en_rtf, en_done,
+      en_conf, en_noc, fits, en_aer_drop, en_aer;
+};
+
+__device__ __forceinline__ Recv receive_ctx(const St& st, int s) {
+  const Dims& d = st.d;
+  Recv r;
+  r.cnt_s = st.cnt(s);
+  const bool occ = r.cnt_s > 0;
+  const int mtype = st.msg(s, 0) - 1;
+  r.j = clampi(st.msg(s, 1) - 1, 0, d.N - 1);
+  r.i = clampi(st.msg(s, 2) - 1, 0, d.N - 1);
+  r.mterm = st.msg(s, 3);
+  const int i = r.i;
+  r.t_i = st.term(i);
+  const int role_i = st.role(i);
+  r.ln = st.ll(i);
+  r.en_ut = occ && r.mterm > r.t_i;
+  const bool le = occ && r.mterm <= r.t_i;
+
+  r.m4 = st.msg(s, 4);
+  r.m5 = st.msg(s, 5);
+  const int lt = st.last_term(i);
+  const bool rvq_logok = r.m4 > lt || (r.m4 == lt && r.m5 >= r.ln);
+  const int vf = st.voted(i);
+  r.grant = r.mterm == r.t_i && rvq_logok && (vf == NIL || vf == r.j + 1);
+  r.en_rvq = le && mtype == RVQ;
+  r.en_rvr_drop = le && mtype == RVR && r.mterm < r.t_i;
+  r.en_rvr = le && mtype == RVR && r.mterm == r.t_i;
+
+  r.prev = r.m4;
+  const int pterm = r.m5;
+  r.n_ent = st.msg(s, 6);
+  r.eterm = st.msg(s, 7);
+  r.evalue = st.msg(s, 8);
+  r.mcommit = st.msg(s, 9);
+  const bool aeq_logok =
+      r.prev == 0 || (r.prev > 0 && r.prev <= r.ln &&
+                      pterm == st.lt(i, clampi(r.prev - 1, 0, d.L - 1)));
+  const bool en_aeq = le && mtype == AEQ;
+  r.en_rej = en_aeq && (r.mterm < r.t_i || (r.mterm == r.t_i &&
+                                            role_i == FOLLOWER && !aeq_logok));
+  r.en_rtf = en_aeq && r.mterm == r.t_i && role_i == CANDIDATE;
+  const bool acc =
+      en_aeq && r.mterm == r.t_i && role_i == FOLLOWER && aeq_logok;
+  const int index = r.prev + 1;
+  const bool have_at = r.ln >= index;
+  const int term_at = st.lt(i, clampi(index - 1, 0, d.L - 1));
+  const bool done_shape = r.n_ent == 0 || (have_at && term_at == r.eterm);
+  r.en_done = acc && done_shape && r.mcommit == st.ci(i);
+  r.en_conf = acc && r.n_ent > 0 && have_at && term_at != r.eterm;
+  r.fits = r.ln < d.L;
+  r.en_noc = acc && r.n_ent > 0 && r.ln == r.prev;
+  r.en_aer_drop = le && mtype == AER && r.mterm < r.t_i;
+  r.en_aer = le && mtype == AER && r.mterm == r.t_i;
+  return r;
+}
+
+// The reply a Receive sends: RequestVoteResponse when en_rvq, else the
+// rejecting or the accepting AppendEntriesResponse.
+__device__ __forceinline__ void reply_row(const St& st, const Recv& r,
+                                          bool rvq, bool rej, int* m) {
+  const Dims& d = st.d;
+  if (rvq) {
+    base_cols(d, m, RVR, r.i, r.j, r.t_i);
+    m[4] = r.grant ? 1 : 0;
+    m[5] = r.ln;
+    for (int k = 0; k < d.L; ++k) {
+      m[6 + k] = st.lt(r.i, k);
+      m[6 + d.L + k] = st.lv(r.i, k);
+    }
+  } else {
+    base_cols(d, m, AER, r.i, r.j, r.t_i);
+    if (!rej) {
+      m[4] = 1;
+      m[5] = r.prev + r.n_ent;
+    }
+  }
+}
+
+// -- Send(m): slot resolution against the bag (send_ctx) --------------------
+
+struct Send {
+  bool ok, has_eq, pack_bad;
+  int idx;
+};
+
+// The resolution from the first equal occupied slot and the first free
+// slot (-1 for none) of the view: _first_true gives slot 0 when there is
+// neither.
+__device__ __forceinline__ Send resolve_send(const St& st, int first_eq,
+                                             int first_free, int skip_slot,
+                                             bool skip_gate) {
+  Send r;
+  r.has_eq = first_eq >= 0;
+  r.ok = r.has_eq || first_free >= 0;
+  r.idx = r.has_eq ? first_eq : (first_free >= 0 ? first_free : 0);
+  const int new_cnt =
+      st.cnt(r.idx) - ((skip_gate && r.idx == skip_slot) ? 1 : 0) + 1;
+  r.pack_bad = r.ok && new_cnt > 255;
+  return r;
+}
+
+// One thread resolves one send; `skip_gate` removes one copy of slot
+// `skip_slot` first (the atomic discard + send of a reply).
+__device__ __forceinline__ Send send_ctx(const St& st, const int* m,
+                                         int skip_slot, bool skip_gate) {
+  int first_eq = -1, first_free = -1;
+  for (int t = 0; t < st.d.M; ++t) {
+    const int c = st.cnt(t) - ((skip_gate && t == skip_slot) ? 1 : 0);
+    if (c > 0) {
+      if (first_eq < 0 && row_equal(st, t, m)) first_eq = t;
+    } else if (c == 0 && first_free < 0) {
+      first_free = t;
+    }
+  }
+  return resolve_send(st, first_eq, first_free, skip_slot, skip_gate);
+}
+
+// The same resolution by a whole warp, one lane per slot: every lane
+// passes the same `m` and gets the same result.
+__device__ __forceinline__ Send send_ctx_warp(const St& st, const int* m,
+                                              int skip_slot, bool skip_gate,
+                                              int lane) {
+  int first_eq = -1, first_free = -1;
+  for (int base = 0; base < st.d.M; base += 32) {
+    const int t = base + lane;
+    bool e = false, f = false;
+    if (t < st.d.M) {
+      const int c = st.cnt(t) - ((skip_gate && t == skip_slot) ? 1 : 0);
+      if (c > 0)
+        e = row_equal(st, t, m);
+      else
+        f = c == 0;
+    }
+    const unsigned be = __ballot_sync(0xffffffffu, e);
+    const unsigned bf = __ballot_sync(0xffffffffu, f);
+    if (first_eq < 0 && be) first_eq = base + __ffs(be) - 1;  // __ffs: 1-based
+    if (first_free < 0 && bf) first_free = base + __ffs(bf) - 1;
+  }
+  return resolve_send(st, first_eq, first_free, skip_slot, skip_gate);
+}
+
+// -- the instance grid ------------------------------------------------------
+
+struct Inst {
+  int fam, k, p1, p2;  // family, index in it, decoded parameters
+};
+
+__device__ __forceinline__ Inst decode_instance(const Dims& d, int g) {
+  Inst r;
+  r.fam = 0;
+  while (r.fam + 1 < kNFam && g >= d.f_off[r.fam + 1]) ++r.fam;
+  r.k = g - d.f_off[r.fam];
+  r.p1 = r.k;
+  r.p2 = 0;
+  if (r.fam == 2 || r.fam == 6) {
+    r.p1 = r.k / d.N;
+    r.p2 = r.k % d.N;
+  } else if (r.fam == 4) {
+    r.p1 = r.k / d.V;
+    r.p2 = r.k % d.V + 1;
+  }
+  return r;
+}
+
+// The guard of instance g with its pack guard: (enabled, overflow), as
+// actions2.py `masks` computes them lane by lane.
+__device__ __forceinline__ void guard(const St& st, int g, bool* en_out,
+                                      bool* ovf_out) {
+  const Dims& d = st.d;
+  const Inst in = decode_instance(d, g);
+  bool en = false, ovf = false;
+  int m[kMaxW];
+  switch (in.fam) {
+    case 0:  // Restart
+      en = true;
+      break;
+    case 1: {  // Timeout
+      const int i = in.k;
+      en = st.role(i) == FOLLOWER || st.role(i) == CANDIDATE;
+      ovf = en && st.term(i) + 1 > 255;
+      break;
+    }
+    case 2: {  // RequestVote(i, j)
+      const int i = in.p1, j = in.p2;
+      const bool want =
+          st.role(i) == CANDIDATE && ((st.vr(i) >> j) & 1) == 0;
+      if (want) {
+        rv_msg(st, i, j, m);
+        const Send c = send_ctx(st, m, -1, false);
+        const bool pack = c.pack_bad || m[4] > 127;
+        en = c.ok;
+        ovf = !c.ok || pack;
+      }
+      break;
+    }
+    case 3: {  // BecomeLeader
+      const int i = in.k;
+      const int votes = __popc(st.vg(i) & ((1 << d.N) - 1));
+      en = st.role(i) == CANDIDATE && 2 * votes > d.N;
+      break;
+    }
+    case 4: {  // ClientRequest(i, v)
+      const int i = in.p1;
+      const bool is_l = st.role(i) == LEADER, fits = st.ll(i) < d.L;
+      en = is_l && fits;
+      ovf = is_l && !fits;
+      break;
+    }
+    case 5:  // AdvanceCommitIndex
+      en = st.role(in.k) == LEADER;
+      break;
+    case 6: {  // AppendEntries(i, j)
+      const int i = in.p1, j = in.p2;
+      if (i != j && st.role(i) == LEADER) {
+        ae_msg(st, i, j, m);
+        const Send c = send_ctx(st, m, -1, false);
+        en = c.ok;
+        ovf = !c.ok || c.pack_bad;
+      }
+      break;
+    }
+    case 7: {  // Receive(slot s)
+      const int s = in.k;
+      const Recv r = receive_ctx(st, s);
+      const bool reply_en = r.en_rvq || r.en_rej || r.en_done;
+      bool reply_ok = true, reply_pack = false;
+      if (reply_en) {
+        reply_row(st, r, r.en_rvq, r.en_rej, m);
+        const Send c = send_ctx(st, m, s, r.cnt_s == 1);
+        reply_ok = c.ok;
+        reply_pack = c.pack_bad;
+      }
+      const bool overflow = (reply_en && !reply_ok) || (r.en_noc && !r.fits);
+      en = (r.en_ut || r.en_rvq || r.en_rvr_drop || r.en_rvr || r.en_rej ||
+            r.en_rtf || r.en_done || r.en_conf || r.en_noc ||
+            r.en_aer_drop || r.en_aer) &&
+           !overflow;
+      ovf = overflow || (reply_en && reply_pack);
+      break;
+    }
+    case 8: {  // DuplicateMessage(slot s)
+      const int c = st.cnt(in.k);
+      en = c > 0;
+      ovf = en && c + 1 > 255;
+      break;
+    }
+    default:  // DropMessage(slot s)
+      en = st.cnt(in.k) > 0;
+      break;
+  }
+  *en_out = en;
+  *ovf_out = ovf;
+}
+
+// -- fingerprint (ops/fingerprint.py) ----------------------------------------
+//
+// Salt tables, uploaded once per engine as uint32:
+//   [seed0, seed1, c_ord0[D], c_ord1[D], c_msg0[W], c_msg1[W]].
+
+struct Salts {
+  const uint32_t* p;
+  int D, W;
+  __device__ uint32_t seed(int ln) const { return p[ln]; }
+  __device__ uint32_t c_ord(int ln, int pos) const {
+    return p[2 + ln * D + pos];
+  }
+  __device__ uint32_t c_msg(int ln, int c) const {
+    return p[2 + 2 * D + ln * W + c];
+  }
+};
+
+__device__ __forceinline__ uint32_t contrib(const Salts& k, int ln, int pos,
+                                            int val) {
+  return fmix32((uint32_t)val * k.c_ord(ln, pos) + k.seed(ln));
+}
+
+// Slot hash of one message row given as ints (slot_hash).
+__device__ __forceinline__ uint32_t row_hash(const Salts& k, int ln,
+                                             const int* m, int W) {
+  uint32_t s = 0;
+  for (int c = 0; c < W; ++c) s += (uint32_t)m[c] * k.c_msg(ln, c);
+  const uint32_t seed = k.seed(ln);
+  return fmix32(fmix32(s ^ seed) * 0x85EBCA6Bu + seed);
+}
+
+__device__ __forceinline__ uint32_t slot_hash(const Salts& k, int ln,
+                                              const St& st, int s) {
+  uint32_t h = 0;
+  for (int c = 0; c < st.d.W; ++c)
+    h += (uint32_t)st.msg(s, c) * k.c_msg(ln, c);
+  const uint32_t seed = k.seed(ln);
+  return fmix32(fmix32(h ^ seed) * 0x85EBCA6Bu + seed);
+}
+
+__device__ __forceinline__ uint32_t finalize(uint32_t base, uint32_t msum,
+                                             uint32_t seed) {
+  return fmix32(base + fmix32(msum + seed) * 0x9E3779B9u);
+}
+
+// The all-ones pair is the seen-set's empty key: remap its lo lane.
+__device__ __forceinline__ uint32_t remap_sentinel(uint32_t hi, uint32_t lo) {
+  return (hi == 0xFFFFFFFFu && lo == 0xFFFFFFFFu) ? 0xFFFFFFFEu : lo;
+}
+
+// -- predicates on one state, by a whole warp --------------------------------
+
+__device__ __forceinline__ bool type_ok_warp(const St& st, int lane) {
+  const Dims& d = st.d;
+  bool ok = true;
+  for (int i = lane; i < d.N; i += 32) {
+    ok &= st.role(i) >= 0 && st.role(i) <= 2;
+    ok &= st.voted(i) >= 0 && st.voted(i) <= d.N;
+    ok &= st.ll(i) >= 0 && st.ll(i) <= d.L;
+    ok &= st.term(i) >= 0 && st.ci(i) >= 0;
+    ok &= st.vr(i) >= 0 && st.vr(i) < (1 << d.N);
+    ok &= st.vg(i) >= 0 && st.vg(i) < (1 << d.N);
+    for (int k = 0; k < d.L; ++k) {
+      const int t = st.lt(i, k), v = st.lv(i, k);
+      ok &= k < st.ll(i) ? (t >= 0 && v >= 1 && v <= d.V)
+                         : (t == 0 && v == 0);
+    }
+    for (int j = 0; j < d.N; ++j)
+      ok &= st.ni(i, j) >= 1 && st.mi(i, j) >= 0;
+  }
+  for (int s = lane; s < d.M; s += 32) {
+    if (st.cnt(s) > 0) {
+      const int mt = st.msg(s, 0), src = st.msg(s, 1), dst = st.msg(s, 2);
+      ok &= mt >= 1 && mt <= 4 && src >= 1 && src <= d.N && dst >= 1 &&
+            dst <= d.N && st.msg(s, 3) >= 0;
+    } else {
+      for (int c = 0; c < d.W; ++c) ok &= st.msg(s, c) == 0;
+    }
+    ok &= st.cnt(s) >= 0;
+  }
+  return __all_sync(0xffffffffu, ok);
+}
+
+__device__ __forceinline__ bool no_leader_warp(const St& st, int lane) {
+  bool ok = true;
+  for (int i = lane; i < st.d.N; i += 32) ok &= st.role(i) != LEADER;
+  return __all_sync(0xffffffffu, ok);
+}
+
+// BoundedSpace: each bound is INT_MAX when the cfg does not set it.
+struct Bounds {
+  int max_term, max_log_len, max_msg_count, max_in_flight;
+};
+
+__device__ __forceinline__ bool bounded_space_warp(const St& st,
+                                                   const Bounds& b,
+                                                   int lane) {
+  bool ok = true;
+  for (int i = lane; i < st.d.N; i += 32)
+    ok &= st.term(i) <= b.max_term && st.ll(i) <= b.max_log_len;
+  int in_flight = 0;
+  for (int base = 0; base < st.d.M; base += 32) {
+    const int s = base + lane;
+    const bool live = s < st.d.M;
+    if (live) ok &= st.cnt(s) <= b.max_msg_count;
+    in_flight += __popc(__ballot_sync(0xffffffffu, live && st.cnt(s) > 0));
+  }
+  return __all_sync(0xffffffffu, ok) && in_flight <= b.max_in_flight;
+}
+
+}  // namespace rtt

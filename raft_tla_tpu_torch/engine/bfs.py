@@ -1,4 +1,4 @@
-"""Single-device exhaustive BFS checker (the v3 plan).
+"""Single-device exhaustive BFS checker (the v3 and v4 plans).
 
 The JAX package's ``engine/bfs.py`` ``BFSEngine`` trimmed to its level
 loop: roots are invariant-checked on their unpacked encoding, ingested
@@ -22,6 +22,10 @@ The JAX loop runs up to ``sync_every`` batches per host round trip in a
 device ``while_loop``; this loop reads one packed stats tensor per batch.
 ``EngineResult.phases`` splits the wall time into the host's dispatch of
 each batch, its wait for the device (``sync``) and its own bookkeeping.
+``EngineConfig.pipeline`` picks the chunk's plan: "v3" (the default; the
+masks and lane stages in PyTorch around the compaction kernel) or "v4"
+(one front kernel, ``ops/chunk_front_cuda.py``); both end in the fused
+insert + enqueue kernel and give equal results.
 Checkpoints, partial-order reduction, observability and OOM degradation
 are not ported yet.
 """
@@ -44,14 +48,17 @@ from ..models.schema import (ROW_DTYPE, StateBatch, check_packable,
                              gather_states, stack_states, state_width,
                              unflatten_state)
 from ..ops import compact as compact_mod
-from ..ops import fpset
+from ..ops import fpset, pipeline_v3, pipeline_v4
+from ..ops.chunk_front_cuda import Front
 from ..ops.fingerprint import build_fingerprint
 from ..ops.fpset import pack
 from ..ops.fpset_cuda import insert
-from ..ops.pipeline_v3 import resolve_plan
 from ..utils.device import resolve_device
 from . import chunk as chunk_mod
 from .trace import PyTraceStore
+
+PLANS = {"v3": pipeline_v3, "v4": pipeline_v4}
+
 
 def host_rows(rows: torch.Tensor) -> np.ndarray:
     """A host copy of queue rows (on the CPU, ``.numpy()`` alone would be
@@ -68,6 +75,7 @@ class EngineConfig:
     record_trace: bool = True
     max_seconds: Optional[float] = None    # StopAfter duration budget
     max_diameter: Optional[int] = None     # StopAfter diameter budget
+    pipeline: str = "v3"                   # chunk plan: "v3" or "v4"
 
 
 @dataclasses.dataclass
@@ -135,9 +143,14 @@ class BFSEngine:
         self._inv_id = (build_inv_id(self._inv_fns) if self._inv_fns
                         else None)
         self._constraint = constraint
+        if cfg.pipeline not in PLANS:
+            raise ValueError(
+                f"pipeline must be 'v3' or 'v4', got {cfg.pipeline!r}: the "
+                "JAX package's 'auto', 'v1' and 'v2' plans are not ported "
+                "(ROADMAP.md A2)")
         self._v2 = build_v2(dims, dev)
         self._fingerprint = build_fingerprint(dims, dev)
-        self._plan = resolve_plan(dev)
+        self._plan = PLANS[cfg.pipeline].resolve_plan(dev)
         self._check_deadlock = (True if cfg.check_deadlock is None
                                 else cfg.check_deadlock)
         sw = state_width(dims)
@@ -148,10 +161,14 @@ class BFSEngine:
         self._sw, self._B, self._G, self._Q = sw, B, G, Q
         self._PAD = max(B, K)
         self._QTH = Q - K
+        front = None
+        if cfg.pipeline == "v4":
+            front = Front(dims=dims, v2=self._v2, inv_fns=self._inv_fns,
+                          constraint=constraint, B=B, K=K, device=dev)
         self._body = chunk_mod.build_chunk_body(
             dims=dims, v2=self._v2, inv_fns=self._inv_fns,
             constraint=constraint, B=B, K=K,
-            record_trace=cfg.record_trace, device=dev)
+            record_trace=cfg.record_trace, device=dev, front=front)
         self.trace = PyTraceStore()
 
     # ------------------------------------------------------------------
@@ -209,8 +226,8 @@ class BFSEngine:
         sw, B, Q = self._sw, self._B, self._Q
         if (init_states is None) == (resume is None):
             raise ValueError("need exactly one of init_states or resume")
-        res = EngineResult(fused_stages=dict(self._plan),
-                           device=str(dev))
+        res = EngineResult(pipeline=cfg.pipeline,
+                           fused_stages=dict(self._plan), device=str(dev))
         phases = res.phases
         for k in ("dispatch", "sync", "host"):
             phases[k] = 0.0

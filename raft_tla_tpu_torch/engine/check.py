@@ -3,9 +3,10 @@
 Invariant names resolve through ``models/invariants.py``'s registry, the
 ``BoundedSpace`` constraint reads MaxTerm/MaxLogLen/MaxMsgCount, and the
 cfg's StopAfter budgets and ``\\* TPU:`` directives (BATCH,
-QUEUE_CAPACITY, SEEN_CAPACITY) seed the engine config.  Precedence: caller
-> cfg directive > built-in default.  Every entry point takes ``device``
-and runs on the card unless the caller passes ``device="cpu"``.
+QUEUE_CAPACITY, SEEN_CAPACITY, PIPELINE) seed the engine config.
+Precedence: caller > cfg directive > built-in default.  Every entry
+point takes ``device`` and runs on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def engine_config_from_backend(setup: CheckSetup) -> EngineConfig:
     return EngineConfig(
         batch=be.get("BATCH", EngineConfig.batch),
         queue_capacity=be.get("QUEUE_CAPACITY", EngineConfig.queue_capacity),
-        seen_capacity=be.get("SEEN_CAPACITY", EngineConfig.seen_capacity))
+        seen_capacity=be.get("SEEN_CAPACITY", EngineConfig.seen_capacity),
+        pipeline=be.get("PIPELINE", EngineConfig.pipeline))
 
 
 def make_engine(setup: CheckSetup,

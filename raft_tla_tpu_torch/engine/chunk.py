@@ -1,16 +1,18 @@
-"""The per-batch BFS pipeline body (v3 plan, one device).
+"""The per-batch BFS pipeline body (v3 and v4 plans, one device).
 
 One batch: B rows off the level queue -> guards-only masks over the B*G
 lanes (``models/actions2.py``) -> compaction of the enabled lanes to K
 slots (kernel) -> delta fingerprints and sparse successors on the K lanes
 -> constraint, invariant id and packed rows -> fused insert + enqueue
 (kernel) -> the counters the host reads, packed into ONE int64 tensor so
-a batch costs one device-to-host copy.
+a batch costs one device-to-host copy.  On the v4 plan everything before
+the fused tail is one front call (``ops/chunk_front_cuda.py``).
 
 The same body as the JAX package's ``engine/chunk.py`` on its v2 +
-fused-tail branch, so every counter, the queue rows and the trace links
-are equal to the JAX v3 engine's.  Stats layout (``STAT_*`` offsets, then
-the per-family generated counts, then the per-family novel counts).
+fused-tail and fused-front branches, so every counter, the queue rows and
+the trace links are equal to the JAX v3 and v4 engines'.  Stats layout
+(``STAT_*`` offsets, then the per-family generated counts, then the
+per-family novel counts).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..models.invariants import build_inv_id
 from ..models.schema import flatten_state, gather_states, unflatten_state
 from ..ops import compact as compact_mod
+from ..ops.chunk_front import FrontOut
 from ..ops.compact_cuda import compact
 from ..ops.fpset import pack
 from ..ops.fused_tail_cuda import insert_enqueue
@@ -45,12 +48,14 @@ class BatchOut(NamedTuple):
 
 
 def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
-                     record_trace: bool, device):
+                     record_trace: bool, device, front=None):
     """Returns ``body(rows, valid, seen, qnext, next_count) -> BatchOut``.
 
     ``rows`` [B, sw] uint8 parents, ``valid`` [B] bool; the fused tail
     writes the enqueued successors into ``qnext`` from row ``next_count``
-    on and grows ``seen`` in place."""
+    on and grows ``seen`` in place.  ``front`` (the v4 plan's
+    ``ops/chunk_front_cuda.py`` ``Front``, built for the same predicates)
+    replaces the masks, compaction and lane stages with one front call."""
     G = dims.n_instances
     kspr = compact_mod.kspread(B, G, K, device)
     inv_id = build_inv_id(inv_fns) if inv_fns else None
@@ -62,7 +67,7 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
     F = len(dims.family_sizes)
     arange_b = torch.arange(B, device=device)
 
-    def body(rows, valid, seen, qnext, next_count: int) -> BatchOut:
+    def split_front(rows, valid):
         states = unflatten_state(rows, dims)
         en, ovf = v2.masks(states)
         en = en & valid[:, None]
@@ -71,8 +76,7 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
         # Progress limiting + compaction: the longest parent prefix whose
         # fan-out fits K, its enabled lanes in ascending flat order.
         pt, lane_id, kvalid = compact(en.contiguous(), K, kspr)
-        P = pt[0].to(torch.int64)
-        ptaken = arange_b < P
+        ptaken = arange_b < pt[0]
         en = en & ptaken[:, None]
         ovf = ovf & ptaken[:, None]
 
@@ -80,11 +84,10 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
         # plus per-lane deltas (models/actions2.py).
         lane = lane_id.to(torch.int64)
         pidx = lane // G
-        act = lane % G
         ph = v2.parent_hash(states)
         kparents = gather_states(states, pidx)
         kph = type(ph)(*(f.index_select(0, pidx) for f in ph))
-        kh, kl, kstates = v2.lane_out(kparents, kph, act)
+        kh, kl, kstates = v2.lane_out(kparents, kph, lane % G)
         if constraint is not None:
             cons_ok = constraint(kstates)
         else:
@@ -98,6 +101,22 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
         if record_trace:
             php, plp = v2.parent_fp(ph)
             parent_hi, parent_lo = php[pidx], plp[pidx]
+        return FrontOut(en=en, ovf=ovf, pruned=None, P=pt[0], total=pt[1],
+                        lane_id=lane_id, kvalid=kvalid, kh=kh, kl=kl,
+                        krows=krows, cons_ok=cons_ok, inv=inv,
+                        parent_hi=parent_hi, parent_lo=parent_lo)
+
+    run_front = front or split_front
+
+    def body(rows, valid, seen, qnext, next_count: int) -> BatchOut:
+        # en/ovf arrive progress-limited; P and total stay on the device.
+        (en, ovf, _pruned, P, total, lane_id, kvalid, kh, kl, krows,
+         cons_ok, inv, parent_hi, parent_lo) = run_front(rows, valid)
+        P = P.to(torch.int64)
+        ptaken = arange_b < P
+        act = lane_id.to(torch.int64) % G
+        if not record_trace:
+            parent_hi = parent_lo = None
 
         dead_b = valid & ptaken & ~en.any(1) & ~ovf.any(1)
         new, fail, count = insert_enqueue(seen, pack(kh, kl), kvalid, krows,
@@ -113,7 +132,7 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
         fam_new = torch.zeros(F, dtype=torch.int64, device=device)
         fam_new.index_add_(0, fam_of_g[act], new.to(torch.int64))
         scalars = torch.stack([
-            P, pt[1].to(torch.int64), new.sum(), count.to(torch.int64),
+            P, total.to(torch.int64), new.sum(), count.to(torch.int64),
             ovf.sum(), dead_b.any().to(torch.int64),
             viol.any().to(torch.int64), vinv, vpos,
             dead_b.to(torch.int32).argmax(), fail.to(torch.int64),

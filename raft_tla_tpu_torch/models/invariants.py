@@ -7,6 +7,10 @@ canary.  ``build_constraint`` is ``BoundedSpace`` over the cfg bounds: a
 state that fails it is counted and checked but never expanded.  Each
 predicate maps ``StateBatch [X] -> [X] bool``; the JAX package's
 ``models/invariants.py`` defines the same predicates per state.
+
+Each built predicate carries its registry name as ``.predicate`` (and the
+constraint its ``.bounds``): the v4 front kernel evaluates the predicates
+it has device code for by name (``ops/chunk_front_cuda.py``).
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ def build_type_ok(dims: RaftDims):
             out = out & c
         return out
 
+    type_ok.predicate = "TypeOK"
     return type_ok
 
 
@@ -68,6 +73,7 @@ def build_no_leader(dims: RaftDims):
     def no_leader(st: StateBatch):
         return (st.role != LEADER).all(1)
 
+    no_leader.predicate = "NoLeaderElected"
     return no_leader
 
 
@@ -99,6 +105,8 @@ def build_constraint(dims: RaftDims, bounds: Bounds):
             ok = ok & ((st.msg_cnt > 0).sum(1) <= bounds.max_in_flight)
         return ok
 
+    constraint.predicate = "BoundedSpace"
+    constraint.bounds = bounds
     return constraint
 
 

@@ -1,0 +1,210 @@
+"""The v4 chunk front: the CUDA kernel ``csrc/chunk_front.cu`` and its wrapper.
+
+Replaces the JAX package's ``ops/chunk_front_pallas.py`` (``_front_kernel``,
+built by ``build_front``).  A ``Front``, built once per engine, called on
+``(rows, valid)`` gives the 14 outputs of ``ops/chunk_front.py``
+(``FrontOut``).  For CPU tensors it runs
+``front_plain``; for CUDA tensors it launches the kernel (three launches
+on the current stream, counted as one front call) or raises.
+
+What the kernel takes is fixed when the front is built, and anything else
+raises ``ValueError`` there, on either device, so a v4 engine never finds
+out mid-run that its kernel cannot run it:
+
+- dims up to ``n_servers`` 8, ``max_log`` 16, ``n_msg_slots`` 256 whose
+  masks launch fits a block's shared memory (``check_dims``);
+- invariants by registry name (``PREDICATES``, at most 8), each built by
+  ``models/invariants.py`` (which tags it with ``.predicate``);
+- the ``BoundedSpace`` constraint or none.
+
+The fingerprint salt tables (``ops/fingerprint.py`` ``constants_np``) and
+the POR arrays are uploaded once, when the front is built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..models.invariants import build_inv_id
+from ..models.schema import state_width
+from ..utils import build
+from .chunk_front import FrontOut, front_plain
+from .compact import kspread as make_kspread
+from .fingerprint import constants_np
+
+#: Front calls that launched the kernel since the last reset.
+launches = 0
+
+#: Invariants with device code, by registry name -> the kernel's code.
+PREDICATES = {"TypeOK": 1, "NoLeaderElected": 2}
+MAX_SERVERS, MAX_LOG, MAX_SLOTS, MAX_INVARIANTS = 8, 16, 256, 8
+MAX_SMEM = 232448
+INT_MAX = 2**31 - 1
+
+
+def predicate_codes(inv_fns):
+    """Kernel codes of ``inv_fns`` in order; ``ValueError`` for a predicate
+    the kernel has no device code for."""
+    fns = list(inv_fns or [])
+    if len(fns) > MAX_INVARIANTS:
+        raise ValueError(f"chunk front: {len(fns)} invariants, the kernel "
+                         f"takes at most {MAX_INVARIANTS}")
+    codes = []
+    for fn in fns:
+        name = getattr(fn, "predicate", None)
+        if name not in PREDICATES:
+            raise ValueError(
+                f"chunk front: no device code for invariant "
+                f"{name or fn!r}; the kernel has {sorted(PREDICATES)}")
+        codes.append(PREDICATES[name])
+    return codes
+
+
+def constraint_bounds(constraint):
+    """``(max_term, max_log_len, max_msg_count, max_in_flight)`` with
+    INT_MAX for an unset bound (and for no constraint)."""
+    if constraint is None:
+        return (INT_MAX,) * 4
+    if getattr(constraint, "predicate", None) != "BoundedSpace":
+        raise ValueError(f"chunk front: no device code for constraint "
+                         f"{constraint!r}; the kernel has BoundedSpace")
+    b = constraint.bounds
+    vals = (b.max_term, b.max_log_len, b.max_msg_count, b.max_in_flight)
+    return tuple(INT_MAX if v is None else min(int(v), INT_MAX)
+                 for v in vals)
+
+
+def _align16(n):
+    return (n + 15) & ~15
+
+
+def check_dims(dims):
+    """``ValueError`` unless the kernel takes ``dims``: the static maxima,
+    and the masks launch's shared memory (8 warps, each a decoded row of
+    ints and two [G] byte masks) within the H100's 227 KB a block."""
+    smem = 8 * (_align16(4 * state_width(dims))
+                + _align16(2 * dims.n_instances))
+    if (dims.n_servers > MAX_SERVERS or dims.max_log > MAX_LOG
+            or dims.n_msg_slots > MAX_SLOTS or smem > MAX_SMEM):
+        raise ValueError(
+            f"chunk front: dims (n_servers={dims.n_servers}, max_log="
+            f"{dims.max_log}, n_msg_slots={dims.n_msg_slots}) exceed the "
+            f"kernel's ({MAX_SERVERS}, {MAX_LOG}, {MAX_SLOTS}, "
+            f"{MAX_SMEM} bytes of shared memory; these need {smem})")
+
+
+def salts(dims, device) -> torch.Tensor:
+    """``[seed0, seed1, c_ord0, c_ord1, c_msg0, c_msg1]`` as uint32 bits in
+    an int32 tensor (the kernel's layout)."""
+    c = constants_np(dims)
+    flat = np.concatenate([
+        np.array([c[0][2], c[1][2]], np.uint32), c[0][0], c[1][0],
+        c[0][1], c[1][1]]).astype(np.uint32)
+    return torch.as_tensor(flat.view(np.int32), device=device)
+
+
+def _lib():
+    lib = build.library("chunk_front")
+    fn = lib.chunk_front_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([i] * 4 + [p, p, i, i] + [p] * 5 + [i] * 5 + [p]
+                       + [p] * 13 + [p])
+    return lib
+
+
+class Front:
+    """The front of one engine (dims, predicates, B, K, POR arrays)."""
+
+    def __init__(self, *, dims, v2, inv_fns, constraint, B: int, K: int,
+                 device, por_mask=None, por_priority=None):
+        check_dims(dims)
+        self._codes = predicate_codes(inv_fns)
+        self._bounds = constraint_bounds(constraint)
+        if (por_mask is None) != (por_priority is None):
+            raise ValueError("por_mask and por_priority must be given "
+                             "together")
+        G = dims.n_instances
+        if K & (K - 1) or K < G:
+            raise ValueError(f"chunk front: K={K} must be a power of two "
+                             f">= G={G}")
+        dev = torch.device(device)
+        self.dims, self.B, self.K, self.G = dims, B, K, G
+        self.sw = state_width(dims)
+        self._v2, self._constraint = v2, constraint
+        self._inv_id = build_inv_id(list(inv_fns)) if inv_fns else None
+        self._kspread = make_kspread(B, G, K, dev)
+        self._por = None
+        if por_mask is not None:
+            pm = torch.as_tensor(np.asarray(por_mask), device=dev)
+            pp = torch.as_tensor(np.asarray(por_priority), device=dev)
+            if pm.shape != (G,) or pp.shape != (G,) \
+                    or pm.dtype != torch.bool or pp.dtype != torch.int32:
+                raise ValueError(f"POR mask/priority must be bool/int32 "
+                                 f"[{G}]")
+            self._por = (pm, pp)
+        self._salts = salts(dims, dev) if dev.type == "cuda" else None
+        self._inv_codes = torch.tensor(self._codes or [0], dtype=torch.int32,
+                                       device=dev)
+
+    def plain(self, rows, valid) -> FrontOut:
+        pm, pp = self._por or (None, None)
+        return front_plain(rows, valid, dims=self.dims, v2=self._v2,
+                           K=self.K, kspread=self._kspread,
+                           constraint=self._constraint, inv_id=self._inv_id,
+                           por_mask=pm, por_priority=pp)
+
+    def __call__(self, rows, valid) -> FrontOut:
+        global launches
+        if rows.device.type == "cpu":
+            return self.plain(rows, valid)
+        if rows.device.type != "cuda":
+            raise ValueError(f"chunk front: unsupported device {rows.device}")
+        B, G, K, sw = self.B, self.G, self.K, self.sw
+        if (rows.dtype != torch.uint8 or rows.shape != (B, sw)
+                or not rows.is_contiguous() or valid.dtype != torch.bool
+                or valid.shape != (B,) or rows.device != valid.device
+                or rows.device != self._kspread.device):
+            raise ValueError(f"chunk front: rows must be contiguous uint8 "
+                             f"[{B}, {sw}] and valid bool [{B}] on the "
+                             "front's device")
+        valid = valid.contiguous()
+        dev = rows.device
+        d = self.dims
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        scratch = empty((B, 6 + 2 * d.n_msg_slots), torch.int32)
+        pt = empty(2, torch.int32)
+        out = FrontOut(
+            en=empty((B, G), torch.bool), ovf=empty((B, G), torch.bool),
+            pruned=empty((B, G), torch.bool), P=pt[0], total=pt[1],
+            lane_id=empty(K, torch.int32), kvalid=empty(K, torch.bool),
+            kh=empty(K, torch.int64), kl=empty(K, torch.int64),
+            krows=empty((K, sw), torch.uint8),
+            cons_ok=empty(K, torch.bool), inv=empty(K, torch.int64),
+            parent_hi=empty(K, torch.int64), parent_lo=empty(K, torch.int64))
+        pm, pp = self._por or (None, None)
+        err = _lib().chunk_front_launch(
+            d.n_servers, d.n_values, d.max_log, d.n_msg_slots,
+            rows.data_ptr(), valid.data_ptr(), B, K,
+            self._kspread.data_ptr(),
+            pm.data_ptr() if pm is not None else None,
+            pp.data_ptr() if pp is not None else None,
+            self._salts.data_ptr(), self._inv_codes.data_ptr(),
+            len(self._codes), *self._bounds, scratch.data_ptr(),
+            out.en.data_ptr(), out.ovf.data_ptr(), out.pruned.data_ptr(),
+            pt.data_ptr(), out.lane_id.data_ptr(), out.kvalid.data_ptr(),
+            out.kh.data_ptr(), out.kl.data_ptr(), out.krows.data_ptr(),
+            out.cons_ok.data_ptr(), out.inv.data_ptr(),
+            out.parent_hi.data_ptr(), out.parent_lo.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, "chunk_front_launch")
+        launches += 1
+        return out
+
