@@ -2,15 +2,17 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --enqueue-tiles   (a tuning table, no smoke run)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's four kernels from ``raft_tla_tpu_torch/csrc`` (one
+It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
 nvcc each, all at once), holds each kernel against its plain PyTorch
 version on the card at the main path's shapes (exactly: the checker
 computes integers and bytes; the chunk front on parent windows of a v3
-check), then drives both plans of the port's main path, v3 (PyTorch
-front around the compaction kernel) and v4 (the chunk-front kernel), each
-with its launch counts checked: the exhaustive check of
+check, the enqueue on the mask and rows of a real batch), then drives
+both plans of the port's main path, v3 (PyTorch front around the
+compaction kernel) and v4 (the chunk-front kernel), each with its launch
+counts checked: the exhaustive check of
 ``configs/MCraft_bounded.cfg`` to depth 9 at batch 2048 with the pinned
 state counts, the ``configs/MCraft_noleader.cfg`` counterexample replayed
 to depth 9, a depth-6 check with a tiny seen-set and queue (growth
@@ -18,25 +20,37 @@ through the insert kernel and host spill, pinned counts), a depth-8
 check whose batch dispatches run under CUDA sync debug mode "error" (no
 host wait for the device outside the one stats read per batch), the
 check to depth 11 (pinned levels and counts) and a run to depth 8 under
-``torch.profiler`` for the device's busy share.
+``torch.profiler`` for the device's busy share.  Then the split tail
+(``enqueue_method="kernel"``: the insert kernel and the enqueue kernel in
+place of the fused one) drives the same check to depth 9 on both plans
+and to depth 11 on v4, with its own launch counts, the sync check (also
+for the two PyTorch enqueue lowerings) and the profile; a depth-9 run
+writes a checkpoint from which a second engine resumes to depth 11 (the
+seen set rebuilt through the insert kernel, timed); and a forged POR
+table runs through ``--por-table`` on both plans.
 
 Output: the card's name and power limit, one line per phase, then a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
-(compact on v3, the others on v4), its error against the plain version
-and its times beside its bound, and last ``{"ok": true, "device":
-{...}}``.  Any failed phase exits non-zero before those two lines.
+(compact on the fused v3 run, the fused tail and the front on the fused
+v4 run, the insert and the enqueue on the split v4 run, all to depth 9),
+its error against the plain version and its times beside its bound, and
+last ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before those two lines.
 Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -45,6 +59,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 B, G, K = 2048, 132, 32768      # main-path batch, grid, compacted lanes
 QUEUE, SEEN = 1 << 21, 1 << 25  # main-path queue rows, seen-set slots
+NEXT_COUNT = 123457             # rows already queued when a tail is held
 MCRAFT_L9_LEVELS = [1, 3, 18, 79, 318, 1218, 4433, 15510, 52467, 172129]
 MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED = 505004, 1421121
 MCRAFT_L6_DISTINCT, MCRAFT_L6_GENERATED = 9457, 24429
@@ -80,6 +95,34 @@ def cuda_ms(torch, fn, reps, setup=None):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(torch, fn, reps=20, samples=5):
+    """Milliseconds of one ``fn`` on the device when ``reps`` calls run
+    back to back: the calls are queued behind ~2 ms of device copies, so
+    the two events bracket device time only, not the host's launch path
+    (which a short kernel's single-call median mostly is).  ``fn`` must
+    not wait for the device.  Median over the samples in which the host
+    did stay ahead; None if it never did."""
+    pad = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    pad2 = torch.empty_like(pad)
+    fn()
+    times = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        for _ in range(3):
+            pad2.copy_(pad)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        ahead = not a.query()       # the device has not yet reached `a`
+        torch.cuda.synchronize()
+        if ahead:
+            times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times) if times else None
 
 
 def max_abs(torch, pairs):
@@ -236,7 +279,7 @@ def phase_fused_tail(torch, device, gen, base, present):
     krows = torch.randint(0, 256, (K, sw), generator=gen, device=device,
                           dtype=torch.uint8)
     rows_total = QUEUE + K
-    next_count = 123457
+    next_count = NEXT_COUNT
     qa = torch.randint(0, 256, (rows_total, sw), generator=gen, device=device,
                        dtype=torch.uint8)
     qb = qa.clone()
@@ -478,9 +521,11 @@ def short_name(name):
 
 def counters():
     from raft_tla_tpu_torch.ops import chunk_front_cuda, compact_cuda
-    from raft_tla_tpu_torch.ops import fpset_cuda, fused_tail_cuda
+    from raft_tla_tpu_torch.ops import enqueue_cuda, fpset_cuda
+    from raft_tla_tpu_torch.ops import fused_tail_cuda
     return {"compact": compact_cuda, "fpset_insert": fpset_cuda,
-            "fused_tail": fused_tail_cuda, "chunk_front": chunk_front_cuda}
+            "fused_tail": fused_tail_cuda, "chunk_front": chunk_front_cuda,
+            "enqueue": enqueue_cuda}
 
 
 def reset_counts():
@@ -492,18 +537,26 @@ def read_counts():
     return {name: mod.launches for name, mod in counters().items()}
 
 
-def check_launches(pipeline, counts, batches, what):
+def check_launches(pipeline, counts, batches, what, method="fused",
+                   inserts=None):
     """Each path's kernels launched, once per batch where they run per
     batch; the v4 path never runs the v3 compaction (nor so the plain
-    front), the v3 path never the front kernel."""
-    if pipeline == "v3":
-        ok = (counts["compact"] == counts["fused_tail"] == batches > 0
-              and counts["fpset_insert"] > 0 and counts["chunk_front"] == 0)
-    else:
-        ok = (counts["chunk_front"] == counts["fused_tail"] == batches > 0
-              and counts["fpset_insert"] > 0 and counts["compact"] == 0)
-    need(ok, f"{what} ({pipeline}): launches {counts} over {batches} "
-         "batches")
+    front), the v3 path never the front kernel.  The fused tail runs the
+    fused kernel each batch and the insert kernel only outside the batches
+    (root ingest, growth, a resume's rebuild); a split tail never runs the
+    fused kernel, runs the insert kernel each batch besides, and the
+    enqueue kernel each batch when that is its enqueue.  ``inserts``, where
+    given, is the exact number of insert launches outside the batches."""
+    front, other = (("compact", "chunk_front") if pipeline == "v3"
+                    else ("chunk_front", "compact"))
+    ok = counts[front] == batches > 0 and counts[other] == 0
+    per_batch = 0 if method == "fused" else batches
+    ok = ok and counts["fused_tail"] == batches - per_batch
+    ok = ok and counts["enqueue"] == (batches if method == "kernel" else 0)
+    outside = counts["fpset_insert"] - per_batch
+    ok = ok and (outside > 0 if inserts is None else outside == inserts)
+    need(ok, f"{what} ({pipeline}, {method} tail): launches {counts} over "
+         f"{batches} batches")
 
 
 def bounded_config(pipeline, depth, **kw):
@@ -514,23 +567,25 @@ def bounded_config(pipeline, depth, **kw):
     return EngineConfig(**base)
 
 
-def phase_main_path(torch, pipeline):
+def phase_main_path(torch, pipeline, method="fused"):
     """MCraft_bounded to L9 at the main path's sizes, launches counted."""
     from raft_tla_tpu_torch.engine.check import run_check
     torch.cuda.synchronize()
     reset_counts()
     t = time.time()
     res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
-                    bounded_config(pipeline, 9), device="cuda")
+                    bounded_config(pipeline, 9, enqueue_method=method),
+                    device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
     counts = read_counts()
     ph = res.phases
-    print(f"MCraft_bounded L9 {pipeline}: distinct={res.distinct} "
+    what = f"{pipeline} {method} tail"
+    print(f"MCraft_bounded L9 {what}: distinct={res.distinct} "
           f"generated={res.generated} levels={res.levels} "
           f"stop={res.stop_reason} batches={res.batches} "
           f"spills={res.spills} growths={res.growth_stalls}")
-    print(f"MCraft_bounded L9 {pipeline}: {res.states_per_second} distinct "
+    print(f"MCraft_bounded L9 {what}: {res.states_per_second} distinct "
           f"states/s, {res.generated / res.wall_seconds} generated/s, "
           f"check {res.wall_seconds} s, call {wall} s, phases {ph}, "
           f"host blocked on the device {ph['sync'] / res.wall_seconds} "
@@ -541,9 +596,11 @@ def phase_main_path(torch, pipeline):
     need(res.distinct == MCRAFT_L9_DISTINCT
          and res.generated == MCRAFT_L9_GENERATED
          and res.levels == MCRAFT_L9_LEVELS,
-         f"MCraft_bounded L9 ({pipeline}) counts differ from the pinned "
+         f"MCraft_bounded L9 ({what}) counts differ from the pinned "
          "oracle")
-    check_launches(pipeline, counts, res.batches, "MCraft_bounded L9")
+    need(not res.growth_stalls, "the main path's seen set grew")
+    check_launches(pipeline, counts, res.batches, "MCraft_bounded L9",
+                   method, inserts=1)
     return counts
 
 
@@ -575,7 +632,7 @@ def phase_small_table(torch, pipeline):
     check_launches(pipeline, counts, res.batches, "MCraft_bounded L6")
 
 
-def phase_dispatch_sync_free(torch, pipeline):
+def phase_dispatch_sync_free(torch, pipeline, method="fused"):
     """MCraft_bounded to L8 at the main path's sizes with every batch's
     dispatch under CUDA sync debug mode "error": a host wait for the
     device inside a dispatch raises, so the engine's "sync" phase (the
@@ -583,7 +640,10 @@ def phase_dispatch_sync_free(torch, pipeline):
     from raft_tla_tpu_torch.engine.check import initial_states, make_engine
     from raft_tla_tpu_torch.utils.cfg import load_config
     setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
-    engine = make_engine(setup, bounded_config(pipeline, 8), device="cuda")
+    engine = make_engine(setup, bounded_config(pipeline, 8,
+                                               enqueue_method=method),
+                         device="cuda")
+    what = f"{pipeline} {method} tail"
     body, checked = engine._body, []
 
     def strict(*args):
@@ -603,41 +663,45 @@ def phase_dispatch_sync_free(torch, pipeline):
                 if "raft_tla_tpu_torch" in f.filename]
         where = (f"{os.path.relpath(site[-1].filename, HERE)}:"
                  f"{site[-1].lineno}" if site else "an unknown line")
-        raise PhaseFailed(f"a {pipeline} batch dispatch waited for the "
+        raise PhaseFailed(f"a {what} batch dispatch waited for the "
                           f"device at {where}: {e}")
-    print(f"dispatch sync check L8 {pipeline}: {len(checked)} batch "
+    print(f"dispatch sync check L8 {what}: {len(checked)} batch "
           f"dispatches under sync debug mode 'error', none waited for the "
           f"device; distinct={res.distinct}")
     need(len(checked) == res.batches > 0, "no batch was dispatched")
     need(res.distinct == MCRAFT_L8_DISTINCT
          and res.levels == MCRAFT_L9_LEVELS[:9],
-         f"MCraft_bounded L8 ({pipeline}) differs from the pinned oracle")
+         f"MCraft_bounded L8 ({what}) differs from the pinned oracle")
 
 
-def phase_deep(torch, pipeline):
+def phase_deep(torch, pipeline, method="fused"):
     """MCraft_bounded to L11: the pinned level profile and the pinned
     6,005,282 distinct / 17,354,955 generated (BASELINE.md)."""
     from raft_tla_tpu_torch.engine.check import run_check
     reset_counts()
     res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
-                    bounded_config(pipeline, 11), device="cuda")
+                    bounded_config(pipeline, 11, enqueue_method=method),
+                    device="cuda")
     counts = read_counts()
     ph = res.phases
-    print(f"MCraft_bounded L11 {pipeline}: distinct={res.distinct} "
+    what = f"{pipeline} {method} tail"
+    print(f"MCraft_bounded L11 {what}: distinct={res.distinct} "
           f"generated={res.generated} levels={res.levels} "
           f"batches={res.batches} spills={res.spills} "
           f"growths={res.growth_stalls}")
-    print(f"MCraft_bounded L11 {pipeline}: {res.states_per_second} distinct "
+    print(f"MCraft_bounded L11 {what}: {res.states_per_second} distinct "
           f"states/s, {res.generated / res.wall_seconds} generated/s, check "
           f"{res.wall_seconds} s, phases {ph}, launches {counts}")
     need(res.levels == MCRAFT_L11_LEVELS
          and res.distinct == MCRAFT_L11_DISTINCT
          and res.generated == MCRAFT_L11_GENERATED,
-         f"MCraft_bounded L11 ({pipeline}) differs from the pinned oracle")
-    check_launches(pipeline, counts, res.batches, "MCraft_bounded L11")
+         f"MCraft_bounded L11 ({what}) differs from the pinned oracle")
+    check_launches(pipeline, counts, res.batches, "MCraft_bounded L11",
+                   method, inserts=1)
+    return res
 
 
-def phase_profile(torch, pipeline):
+def phase_profile(torch, pipeline, method="fused"):
     """Device busy share of a check to L8 under torch.profiler: the union
     of the device-side intervals over the wall time of the run."""
     from torch.autograd import DeviceType
@@ -646,8 +710,10 @@ def phase_profile(torch, pipeline):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
-                        bounded_config(pipeline, 8), device="cuda")
+                        bounded_config(pipeline, 8, enqueue_method=method),
+                        device="cuda")
         torch.cuda.synchronize()
+    what = f"{pipeline} {method} tail"
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, end = 0, None
@@ -659,11 +725,11 @@ def phase_profile(torch, pipeline):
             busy += e - end
             end = e
     if not spans:
-        print(f"profile L8 {pipeline}: the profiler saw no device time "
+        print(f"profile L8 {what}: the profiler saw no device time "
               "(not measured)")
         return
     wall_us = res.wall_seconds * 1e6
-    print(f"profile L8 {pipeline} (under torch.profiler): check "
+    print(f"profile L8 {what} (under torch.profiler): check "
           f"{res.wall_seconds} s, {res.batches} batches, device busy "
           f"{busy / 1e6} s = {busy / wall_us} of the check, idle "
           f"{1 - busy / wall_us}, {len(spans) / res.batches} device ops per "
@@ -675,10 +741,319 @@ def phase_profile(torch, pipeline):
         n[0] += 1
         n[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    print(f"profile L8 {pipeline}: device ops by total time, as (name, ops "
+    print(f"profile L8 {what}: device ops by total time, as (name, ops "
           f"per batch, device microseconds per batch): " + ", ".join(
               f"({n}, {c / res.batches}, {us / res.batches})"
               for n, (c, us) in top))
+
+
+def capture_enqueue_batch(torch):
+    """``(krows, enq)`` of the fullest batch of a split-tail v4 check to
+    L8 at the main path's sizes: what the enqueue kernel is given there."""
+    from raft_tla_tpu_torch.engine import chunk as chunk_mod
+    from raft_tla_tpu_torch.engine.check import run_check
+    real, best = chunk_mod.enqueue, []
+
+    def capture(qnext, next_count, krows, enq):
+        n = int(enq.sum())
+        if not best or n > best[0]:
+            best[:] = [n, krows.clone(), enq.clone()]
+        return real(qnext, next_count, krows, enq)
+
+    chunk_mod.enqueue = capture
+    try:
+        res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                        bounded_config("v4", 8, enqueue_method="kernel"),
+                        device="cuda")
+    finally:
+        chunk_mod.enqueue = real
+    need(res.distinct == MCRAFT_L8_DISTINCT and best,
+         "the capture run of the split tail differs from the pinned oracle")
+    return best[1], best[2]
+
+
+def phase_enqueue(torch, device, gen):
+    """The enqueue kernel against ``enqueue_plain``, exactly (whole queue
+    and count), at K lanes of 473-byte rows into the main path's queue at
+    a non-zero ``next_count``: on the rows and mask of a real L8 batch, on
+    the empty, full and alternating masks, and on 1,000 lanes (no multiple
+    of the kernel's tile).  Timed on the real batch."""
+    from raft_tla_tpu_torch.ops import enqueue as enq_mod
+    from raft_tla_tpu_torch.ops import enqueue_cuda
+    krows, real = capture_enqueue_batch(torch)
+    sw = krows.shape[1]
+    need(krows.shape == (K, sw) and sw == 473, f"captured rows {krows.shape}")
+    rand_rows = torch.randint(0, 256, (K, sw), generator=gen, device=device,
+                              dtype=torch.uint8)
+    lanes = torch.arange(K, device=device)
+    cases = [("real L8 batch", krows, real),
+             ("empty", rand_rows, lanes < 0),
+             ("full", rand_rows, lanes >= 0),
+             ("alternating", rand_rows, lanes % 2 == 1),
+             ("1,000 lanes", rand_rows[:1000],
+              torch.rand(1000, generator=gen, device=device) < 0.3)]
+    next_count = NEXT_COUNT
+    qa = torch.randint(0, 256, (QUEUE + K, sw), generator=gen, device=device,
+                       dtype=torch.uint8)
+    qb = qa.clone()
+    err = 0.0
+    for name, rows, enq in cases:
+        cnt_k = enqueue_cuda.enqueue(qa, next_count, rows, enq)
+        cnt_p = enq_mod.enqueue_plain(qb, next_count, rows, enq)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(qa, qb))
+        e = max_abs(torch, [(cnt_k, cnt_p)])
+        print(f"enqueue {name}: {rows.shape[0]} lanes, "
+              f"enqueued={int(cnt_k) - next_count} queue_equal={equal} "
+              f"max_abs_err={e}")
+        need(e == 0.0 and equal and int(cnt_k) - next_count == int(enq.sum()),
+             f"enqueue differs from its plain version on the {name} mask")
+        err = max(err, e)
+    del qb
+    n_enq = int(real.sum())
+    need(n_enq > 0, "the captured batch enqueued nothing")
+    all_lanes = lanes >= 0
+
+    def kernel():
+        enqueue_cuda.enqueue(qa, next_count, krows, real)
+
+    def kernel_full():
+        enqueue_cuda.enqueue(qa, next_count, rand_rows, all_lanes)
+
+    def scatter():
+        enq_mod.enqueue_scatter(qa, next_count, krows, real, QUEUE)
+
+    def window():
+        enq_mod.enqueue_window(qa, next_count, krows, real)
+
+    # One wrapper call between two events is mostly the host's launch path
+    # at this size, so the kernel and the lowerings (none waits for the
+    # device) are timed queued back to back; the single-call median, as
+    # the other kernels are timed, and the profiler's figure stand beside.
+    single_ms = cuda_ms(torch, kernel, 50)
+    ms = queued_ms(torch, kernel) or single_ms
+    full_ms = queued_ms(torch, kernel_full) or cuda_ms(torch, kernel_full,
+                                                       20)
+    # The one-call library form: index_copy_ of all K rows, the others to
+    # their trash rows (the "scatter" lowering); "window" beside it.
+    library_ms = queued_ms(torch, scatter) or cuda_ms(torch, scatter, 20)
+    window_ms = queued_ms(torch, window) or cuda_ms(torch, window, 20)
+    plain_ms = cuda_ms(torch, lambda: enq_mod.enqueue_plain(
+        qa, next_count, krows, real), 10)
+    dev_us = [us for _n, us in device_ops(torch, kernel)]
+    full_us = [us for _n, us in device_ops(torch, kernel_full)]
+    # The mask once, each enqueued row read once and written once, the count.
+    nbytes = K + 2 * n_enq * sw + 4
+    row = dict(name="enqueue", route="cuda",
+               source="raft_tla_tpu_torch/csrc/enqueue.cu",
+               replaces="raft_tla_tpu/ops/enqueue_pallas.py:97",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               library_ms=library_ms)
+    print(f"enqueue K={K} rows of {sw} B, {n_enq} enqueued, into a "
+          f"{QUEUE + K}-row queue, queued back to back: kernel {ms} ms "
+          f"(full mask {full_ms} ms), index_copy_ with trash rows "
+          f"{library_ms} ms, window lowering {window_ms} ms; one call "
+          f"between two events: kernel {single_ms} ms, plain {plain_ms} ms; "
+          f"bound {row['bound_ms']} ms ({nbytes} bytes); device "
+          f"microseconds of the call's operations under the profiler: real "
+          f"batch {dev_us or 'not measured'}, full mask "
+          f"{full_us or 'not measured'}")
+    del qa
+    return row
+
+
+def enqueue_tiles(torch, device):
+    """``python3 chip_smoke.py --enqueue-tiles``: the enqueue kernel's own
+    time at several tile sizes, each built from ``csrc/enqueue.cu`` with
+    its ``kTile`` replaced, on the rows and mask of a real L8 batch and
+    on the full mask (profiler device microseconds, five samples, and 200
+    launches between two events).  Not part of the smoke run."""
+    import ctypes
+    from raft_tla_tpu_torch.utils import build
+    krows, real = capture_enqueue_batch(torch)
+    n, sw = krows.shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    qa = torch.randint(0, 256, (QUEUE + n, sw), generator=gen, device=device,
+                       dtype=torch.uint8)
+    full = torch.ones(n, dtype=torch.bool, device=device)
+    count = torch.empty(1, dtype=torch.int32, device=device)
+    src = (build.CSRC / "enqueue.cu").read_text()
+    marker = "constexpr int kTile = 64;"
+    need(marker in src, "csrc/enqueue.cu no longer declares kTile = 64")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
+    try:
+        for tile in (256, 128, 64, 32, 64, 256):
+            cu = os.path.join(tmp, f"enqueue{tile}.cu")
+            with open(cu, "w") as f:
+                f.write(src.replace(marker, f"constexpr int kTile = {tile};"))
+            so = os.path.join(tmp, f"libenqueue{tile}.so")
+            subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
+                            str(build.CSRC), "-o", so, cu], check=True)
+            fn = ctypes.CDLL(so).enqueue_launch
+            p, i = ctypes.c_void_p, ctypes.c_int
+            fn.restype, fn.argtypes = i, [p, i, p, i, p, ctypes.c_longlong,
+                                          p, p]
+            for name, enq in (("real L8 batch", real), ("full mask", full)):
+                def call():
+                    build.check(fn(
+                        enq.data_ptr(), n, krows.data_ptr(), sw,
+                        qa.data_ptr(), NEXT_COUNT, count.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream), "enqueue")
+                us = sorted(op[1] for _ in range(5)
+                            for op in device_ops(torch, call))
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(200):
+                    call()
+                b.record()
+                torch.cuda.synchronize()
+                print(f"enqueue tile {tile}, {name} ({int(enq.sum())} rows): "
+                      f"device microseconds {us}, 200 launches between two "
+                      f"events {a.elapsed_time(b) * 5} microseconds each")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_resume(torch, pipeline):
+    """Checkpoint and resume on the card: a split-tail check to L9 writes
+    its level-9 snapshot (under the system's temporary directory, removed
+    again), a second engine rebuilds the seen set from the
+    snapshot's keys through the insert kernel (timed) and resumes to L11
+    with the pinned counts.  Also timed: the rebuild of as many random
+    keys as L11 holds, the size a later resume or growth would meet."""
+    import numpy as np
+    from raft_tla_tpu_torch.engine import checkpoint as ckpt
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.ops import fpset
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
+    d9, d11 = len(MCRAFT_L9_LEVELS) - 1, len(MCRAFT_L11_LEVELS) - 1
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        first = make_engine(setup, bounded_config(
+            pipeline, d9, enqueue_method="kernel", checkpoint_dir=ckdir,
+            checkpoint_every=d9), device="cuda")
+        res9 = first.run(initial_states(setup))
+        path = ckpt.latest(ckdir)
+        need(path is not None and path.endswith(f"level_{d9:05d}.npz"),
+             f"no level-{d9} snapshot in {sorted(os.listdir(ckdir))}")
+        size = os.path.getsize(path)
+        t = time.time()
+        ck = ckpt.load(path)
+        load_s = time.time() - t
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    need(res9.distinct == MCRAFT_L9_DISTINCT
+         and ck.seen_hi.shape[0] == MCRAFT_L9_DISTINCT
+         and ck.frontier.shape[0] == MCRAFT_L9_LEVELS[-1]
+         and ck.levels == tuple(MCRAFT_L9_LEVELS),
+         "the level-9 snapshot differs from the pinned oracle")
+    engine = make_engine(setup, bounded_config(pipeline, d11,
+                                               enqueue_method="kernel"),
+                         device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    point = engine.resume_point(ck)
+    torch.cuda.synchronize()
+    rebuild_s = time.time() - t
+    rebuild_launches = read_counts()["fpset_insert"]
+    res = engine.run(resume=point)
+    counts = read_counts()
+    print(f"checkpoint L9 {pipeline}: {size} bytes, written with the level-0 "
+          f"snapshot in {res9.phases['checkpoint']} s, loaded in {load_s} s; "
+          f"seen set of {ck.seen_hi.shape[0]} keys rebuilt into "
+          f"{point.seen.capacity} slots through the insert kernel in "
+          f"{rebuild_s} s ({rebuild_launches} launches, host to device copy "
+          "included)")
+    print(f"resume L9 -> L11 {pipeline}: distinct={res.distinct} "
+          f"generated={res.generated} levels={res.levels} "
+          f"batches={res.batches} check {res.wall_seconds} s (the first "
+          f"run's {ck.wall_seconds} s included), launches {counts}")
+    need(rebuild_launches >= 1, "the rebuild bypassed the insert kernel")
+    need(res.levels == MCRAFT_L11_LEVELS
+         and res.distinct == MCRAFT_L11_DISTINCT
+         and res.generated == MCRAFT_L11_GENERATED,
+         f"the resumed run ({pipeline}) differs from the pinned oracle")
+    check_launches(pipeline, counts, res.batches, "resume L9 -> L11",
+                   "kernel", inserts=rebuild_launches)
+    del point, res, first
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(11)
+    keys = np.unique(rng.randint(0, 1 << 63, MCRAFT_L11_DISTINCT,
+                                 dtype=np.int64).astype(np.uint64))
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    torch.cuda.synchronize()
+    t = time.time()
+    big = fpset.from_host_keys(hi, lo, SEEN, engine.device)
+    torch.cuda.synchronize()
+    print(f"seen-set rebuild of {keys.shape[0]} random keys into 2^25 slots "
+          f"through the insert kernel: {time.time() - t} s (host to device "
+          f"copy included), size {int(big.size[0])}")
+    need(int(big.size[0]) == keys.shape[0], "the large rebuild lost keys")
+
+
+def phase_por(torch):
+    """A forged POR table (every DuplicateMessage instance certified,
+    priority = g; not a sound certificate, it drives the masking) through
+    ``--por-table`` to L8 at the main path's sizes: the two plans agree on
+    every count and on the pruned lanes per family, and reduce the run."""
+    from raft_tla_tpu_torch import cli
+    from raft_tla_tpu_torch.analysis.por import PorTable
+    from raft_tla_tpu_torch.engine.check import run_check
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    import numpy as np
+    cfg_path = os.path.join(HERE, "configs/MCraft_bounded.cfg")
+    dims = load_config(cfg_path).dims
+    G = dims.n_instances
+    mask = np.zeros(G, bool)
+    off = dims.family_offsets[dims.family_names.index("DuplicateMessage")]
+    mask[off:off + dims.n_msg_slots] = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_por_")
+    try:
+        path = os.path.join(tmp, "por.json")
+        PorTable(model=repr(dims), n_instances=G, ample_mask=mask,
+                 priority=np.arange(G, dtype=np.int32),
+                 predicates=("TypeOK", "CONSTRAINT")).save(path)
+        out = {}
+        for pipeline in ("v3", "v4"):
+            reset_counts()
+            res = run_check(cfg_path, bounded_config(pipeline, 8,
+                                                     por_table=path),
+                            device="cuda")
+            counts = read_counts()
+            out[pipeline] = (res.distinct, res.generated, res.levels,
+                             res.action_counts, res.action_pruned)
+            print(f"POR L8 {pipeline}: {res.por_instances} certified "
+                  f"instances, distinct={res.distinct} "
+                  f"generated={res.generated} levels={res.levels} "
+                  f"pruned={sum(res.action_pruned.values())} by family "
+                  f"{res.action_pruned} launches {counts}")
+            need(res.por_instances == dims.n_msg_slots,
+                 f"the table certified {res.por_instances} instances")
+            check_launches(pipeline, counts, res.batches, "POR L8")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["check", cfg_path, "--por-table", path,
+                           "--pipeline", "v4", "--max-diameter",
+                           str(bounded_config("v4", 8).max_diameter),
+                           "--no-trace", "--enqueue-method", "kernel"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    need(out["v3"] == out["v4"], "v3 and v4 differ under the POR table")
+    distinct, _gen, _lv, _ac, pruned = out["v4"]
+    need(sum(pruned.values()) > 0 and pruned["DuplicateMessage"] == 0
+         and distinct < MCRAFT_L8_DISTINCT,
+         "the POR table did not reduce the run")
+    need(rc == 0 and f"distinct states    {distinct}\n" in buf.getvalue()
+         and f"{sum(pruned.values())} enabled lanes pruned" in buf.getvalue(),
+         "check --por-table printed other counts: " + buf.getvalue()[:400])
+    print(f"POR through the command line (v4, split tail): distinct "
+          f"{distinct}, as the engine runs")
 
 
 def phase_counterexample(torch, pipeline):
@@ -734,6 +1109,9 @@ def main() -> int:
     took = build.build_all()
     print(f"build: {time.time() - t} s (per source {took})")
     device = torch.device("cuda")
+    if sys.argv[1:] == ["--enqueue-tiles"]:
+        enqueue_tiles(torch, device)
+        return 0
     gen = torch.Generator(device=device)
     gen.manual_seed(20261016)
     t = time.time()
@@ -744,6 +1122,7 @@ def main() -> int:
     del base, present
     torch.cuda.empty_cache()
     rows.append(phase_front(torch, device))
+    rows.append(phase_enqueue(torch, device, gen))
     phase_other_dims(torch, device)
     torch.cuda.empty_cache()
     print(f"kernel phases: {time.time() - t} s")
@@ -759,9 +1138,27 @@ def main() -> int:
         phase_deep(torch, pipeline)
     for pipeline in ("v4", "v3"):
         phase_profile(torch, pipeline)
+    # The split tail, after the fused one in the same call.
+    counts["v3 split"] = phase_main_path(torch, "v3", "kernel")
+    counts["v4 split"] = phase_main_path(torch, "v4", "kernel")
+    # Host times spread between runs, so the two tails take turns.
+    turns = [(m, phase_deep(torch, "v4", m))
+             for m in ("fused", "kernel", "kernel", "fused")]
+    print("L11 v4 in turns, as (tail, check seconds, dispatch seconds per "
+          "batch): " + ", ".join(
+              f"({m}, {r.wall_seconds}, {r.phases['dispatch'] / r.batches})"
+              for m, r in turns))
+    for pipeline, method in (("v3", "kernel"), ("v4", "kernel"),
+                             ("v4", "scatter"), ("v4", "window")):
+        phase_dispatch_sync_free(torch, pipeline, method)
+    for pipeline in ("v4", "v3"):
+        phase_profile(torch, pipeline, "kernel")
+    phase_resume(torch, "v4")
+    phase_por(torch)
+    paths = {"compact": "v3", "fused_tail": "v4", "chunk_front": "v4",
+             "fpset_insert": "v4 split", "enqueue": "v4 split"}
     for row in rows:
-        path = "v3" if row["name"] == "compact" else "v4"
-        row["launches"] = counts[path][row["name"]]
+        row["launches"] = counts[paths[row["name"]]][row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -2,11 +2,15 @@
 
 Runs the exhaustive check on the card (``--device cpu`` for the plain
 PyTorch versions) with the engine sizes and plan of the cfg's ``\\* TPU:``
-directives (``--pipeline`` overrides PIPELINE), prints the TLC-style
-result block and, for a violation with trace recording on, the replayed
-counterexample.  Exit
-code 0 when the run exhausts or stops on a budget, 1 on a violation or
-deadlock.
+directives (a flag overrides its directive: ``--pipeline`` PIPELINE,
+``--checkpoint-dir`` CHECKPOINT_DIR, ``--checkpoint-every``,
+``--checkpoint-interval``, ``--keep-checkpoints``, ``--por-table``
+POR_TABLE), prints the TLC-style result block and, for a violation with
+trace recording on, the replayed counterexample.  ``--resume PATH``
+continues from a level snapshot, ``--resume auto`` from the newest intact
+one in the checkpoint directory; ``--enqueue-method`` picks the chunk's
+tail.  Exit code 0 when the run exhausts or stops on a budget, 1 on a
+violation or deadlock.
 """
 
 from __future__ import annotations
@@ -15,8 +19,10 @@ import argparse
 import dataclasses
 import sys
 
+from .engine import checkpoint as ckpt_mod
 from .engine.check import (engine_config_from_backend, format_result,
                            initial_states, make_engine)
+from .ops.pipeline_v3 import ENQUEUE_METHODS
 from .models.pystate import format_state
 from .utils.cfg import load_config
 
@@ -30,15 +36,63 @@ def main(argv=None) -> int:
     c.add_argument("--max-diameter", type=int)
     c.add_argument("--no-trace", action="store_true")
     c.add_argument("--pipeline", choices=("v3", "v4"))
+    c.add_argument("--enqueue-method", choices=ENQUEUE_METHODS,
+                   help="the chunk's tail: fused insert+enqueue kernel "
+                        "(default), or the insert kernel and then the "
+                        "enqueue kernel / a PyTorch lowering")
+    c.add_argument("--checkpoint-dir",
+                   help="write level-boundary snapshots here")
+    c.add_argument("--checkpoint-every", type=int,
+                   help="snapshot every k BFS levels (default 1)")
+    c.add_argument("--checkpoint-interval", type=float,
+                   help="least seconds between snapshots (default 60; "
+                        "0 = every eligible level)")
+    c.add_argument("--keep-checkpoints", type=int,
+                   help="keep only the newest N intact snapshots")
+    c.add_argument("--resume",
+                   help="snapshot .npz to resume from, or 'auto' for the "
+                        "newest in the checkpoint directory")
+    c.add_argument("--por-table", metavar="FILE",
+                   help="apply a certified POR table (the artifact of the "
+                        "JAX package's `analyze --passes por "
+                        "--por-artifact FILE`)")
     args = ap.parse_args(argv)
 
     setup = load_config(args.cfg)
     cfg = engine_config_from_backend(setup)
-    cfg = dataclasses.replace(cfg, max_diameter=args.max_diameter,
-                              record_trace=not args.no_trace,
-                              pipeline=args.pipeline or cfg.pipeline)
+
+    def resolve(flag, current):
+        return current if flag is None else flag
+
+    cfg = dataclasses.replace(
+        cfg, max_diameter=args.max_diameter,
+        record_trace=not args.no_trace,
+        pipeline=resolve(args.pipeline, cfg.pipeline),
+        enqueue_method=resolve(args.enqueue_method, cfg.enqueue_method),
+        checkpoint_dir=resolve(args.checkpoint_dir, cfg.checkpoint_dir),
+        checkpoint_every=resolve(args.checkpoint_every,
+                                 cfg.checkpoint_every),
+        checkpoint_interval_seconds=float(resolve(
+            args.checkpoint_interval,
+            setup.backend.get("CHECKPOINT_INTERVAL", 60.0))),
+        keep_checkpoints=resolve(args.keep_checkpoints,
+                                 cfg.keep_checkpoints),
+        por_table=resolve(args.por_table, cfg.por_table))
     engine = make_engine(setup, cfg, device=args.device)
-    res = engine.run(initial_states(setup))
+    resume = args.resume
+    if resume == "auto":
+        if not cfg.checkpoint_dir:
+            ap.error("--resume auto requires --checkpoint-dir (or a "
+                     "CHECKPOINT_DIR directive)")
+        resume = ckpt_mod.latest(cfg.checkpoint_dir)
+        if resume is None:
+            ap.error("--resume auto: no checkpoint found in "
+                     f"{cfg.checkpoint_dir!r}")
+        print(f"resuming from {resume}")
+    if resume is None:
+        res = engine.run(initial_states(setup))
+    else:
+        res = engine.run(resume=resume)
     print(format_result(res))
     if res.violation is not None and not args.no_trace:
         for depth, (g, st) in enumerate(

@@ -24,17 +24,29 @@ device ``while_loop``; this loop reads one packed stats tensor per batch.
 each batch, its wait for the device (``sync``) and its own bookkeeping.
 ``EngineConfig.pipeline`` picks the chunk's plan: "v3" (the default; the
 masks and lane stages in PyTorch around the compaction kernel) or "v4"
-(one front kernel, ``ops/chunk_front_cuda.py``); both end in the fused
-insert + enqueue kernel and give equal results.
-Checkpoints, partial-order reduction, observability and OOM degradation
-are not ported yet.
+(one front kernel, ``ops/chunk_front_cuda.py``).  ``enqueue_method`` picks
+the tail: the fused insert + enqueue kernel (the default) or the split
+tail, the insert kernel followed by the enqueue kernel or a PyTorch
+lowering.  Every combination gives equal results.
+
+Also the JAX engine's, in the same terms: level-boundary checkpoints in
+its ``.npz`` format and ``run(resume=...)`` (``engine/checkpoint.py``; a
+snapshot of either package resumes in the other), the TLCGet exit
+budgets over distinct / generated / queue (checked after each batch,
+where the JAX loop checks after each ``sync_every`` chunk), and the
+partial-order reduction fed by a certified table (``analysis/por.py``;
+``por=True`` would certify in process through the jaxpr analyzer, which
+is not ported).  Progress lines, observability, OOM degradation, the
+asynchronous and disk-backed spill and the native trace store are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +59,7 @@ from ..models.schema import (ROW_DTYPE, StateBatch, check_packable,
                              decode_state, encode_state, flatten_state,
                              gather_states, stack_states, state_width,
                              unflatten_state)
+from ..analysis import por as por_mod
 from ..ops import compact as compact_mod
 from ..ops import fpset, pipeline_v3, pipeline_v4
 from ..ops.chunk_front_cuda import Front
@@ -54,6 +67,7 @@ from ..ops.fingerprint import build_fingerprint
 from ..ops.fpset import pack
 from ..ops.fpset_cuda import insert
 from ..utils.device import resolve_device
+from . import checkpoint as ckpt_mod
 from . import chunk as chunk_mod
 from .trace import PyTraceStore
 
@@ -76,6 +90,31 @@ class EngineConfig:
     max_seconds: Optional[float] = None    # StopAfter duration budget
     max_diameter: Optional[int] = None     # StopAfter diameter budget
     pipeline: str = "v3"                   # chunk plan: "v3" or "v4"
+    # The chunk's tail.  "fused": one insert + enqueue kernel (the JAX
+    # plans' fused tail).  Split, the insert kernel and then: "kernel",
+    # the enqueue kernel (JAX: enqueue_method="pallas" with
+    # insert_method="pallas", or v3_force_stages={"insert": "xla"} on the
+    # fused plans); "scatter" / "window", the PyTorch lowerings of the
+    # JAX enqueue methods of those names.  One field where the JAX
+    # package has three: the port has one insert.
+    enqueue_method: str = "fused"
+    # Further TLCGet budgets as (counter, threshold) pairs over "distinct"
+    # / "generated" / "queue", checked after every batch; stop_reason
+    # "<counter>_budget".  Duration and diameter ride the fields above.
+    exit_conditions: tuple = ()
+    # Level-boundary snapshots (engine/checkpoint.py): every
+    # checkpoint_every levels, at most once per
+    # checkpoint_interval_seconds, keeping the newest keep_checkpoints
+    # (None or 0 = all).
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1
+    checkpoint_interval_seconds: float = 0.0
+    keep_checkpoints: Optional[int] = None
+    # Partial-order reduction: a certified analysis/por.py PorTable or
+    # the path of its artifact, admission-checked at engine build.
+    # por=True (certify in process) needs the analyzer, not ported.
+    por: bool = False
+    por_table: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -92,6 +131,10 @@ class EngineResult:
     diameter: int = 0
     levels: List[int] = dataclasses.field(default_factory=list)
     action_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Enabled lanes the POR mask dropped, per action family (all zero
+    # with POR off), and the certified instances the run's table carried.
+    action_pruned: Dict[str, int] = dataclasses.field(default_factory=dict)
+    por_instances: int = 0
     violation: Optional[Violation] = None
     deadlock: Optional[PyState] = None
     stop_reason: str = "exhausted"
@@ -104,7 +147,8 @@ class EngineResult:
     device: str = ""
     # Host wall seconds: "dispatch" (issuing a batch's work), "sync"
     # (waiting for the device at the per-batch stats read), "host" (the
-    # loop's own bookkeeping: trace, spill, growth, uploads).
+    # loop's own bookkeeping: trace, spill, growth, uploads),
+    # "checkpoint" (snapshot writes).
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
@@ -115,8 +159,9 @@ class EngineResult:
 @dataclasses.dataclass
 class ResumePoint:
     """A level boundary to continue from: the frontier rows of level
-    ``diameter``, the seen set and the counters so far (``interop.py``
-    builds one from a JAX engine's level snapshot)."""
+    ``diameter``, the seen set and the counters so far
+    (``BFSEngine.resume_point`` builds one from a ``Checkpoint``,
+    ``interop.py`` the pieces from a JAX engine's host arrays)."""
 
     frontier: torch.Tensor           # [n, sw] uint8
     seen: fpset.FPSet
@@ -125,6 +170,52 @@ class ResumePoint:
     diameter: int
     levels: Tuple[int, ...]
     action_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    wall_seconds: float = 0.0        # checking time already spent
+    # (fps, parents, actions) numpy columns and the roots, or None/{}.
+    trace: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+    roots: Dict[int, PyState] = dataclasses.field(default_factory=dict)
+
+
+def exit_condition_hit(conds, res, queue_rows) -> Optional[str]:
+    """The first tripped TLCGet budget as its stop_reason, or None."""
+    live = {"distinct": res.distinct, "generated": res.generated,
+            "queue": queue_rows}
+    for counter, threshold in conds:
+        if live[counter] > threshold:
+            return f"{counter}_budget"
+    return None
+
+
+def resolve_por(cfg: EngineConfig, dims, invariants, constraint):
+    """``EngineConfig.por`` / ``por_table`` -> an admitted ``PorTable`` or
+    None (POR off).  A path loads the artifact (its fingerprint is
+    checked there); ``check_table`` then holds the table to this run's
+    model, invariants and constraint."""
+    if cfg.por and cfg.por_table is None:
+        raise NotImplementedError(
+            "por=True certifies in process through the jaxpr analyzer, "
+            "which is not ported (ROADMAP A8); pass por_table, the "
+            "artifact of the JAX package's `analyze --passes por "
+            "--por-artifact FILE`")
+    table = cfg.por_table
+    if table is None:
+        return None
+    if isinstance(table, str):
+        table = por_mod.load_table(table)
+    por_mod.check_table(table, dims, invariant_names=list(invariants),
+                        has_constraint=constraint is not None)
+    return table
+
+
+def por_device_arrays(table, device):
+    """``(mask [G] bool, priority [G] int32)`` tensors of an admitted
+    table, or ``(None, None)`` when there is nothing to mask: a table
+    with no certified instance builds the exact body of a run without
+    POR."""
+    if table is None or not table.certified:
+        return None, None
+    return (torch.as_tensor(table.ample_mask, device=device),
+            torch.as_tensor(table.priority, device=device))
 
 
 class BFSEngine:
@@ -150,7 +241,12 @@ class BFSEngine:
                 "(ROADMAP.md A2)")
         self._v2 = build_v2(dims, dev)
         self._fingerprint = build_fingerprint(dims, dev)
-        self._plan = PLANS[cfg.pipeline].resolve_plan(dev)
+        self._plan = PLANS[cfg.pipeline].resolve_plan(dev, cfg.enqueue_method)
+        if cfg.checkpoint_dir is not None:
+            ckpt_mod.check_dims_checkpointable(dims)
+        self._por_table = resolve_por(cfg, dims, invariants or {},
+                                      constraint)
+        por_mask, por_priority = por_device_arrays(self._por_table, dev)
         self._check_deadlock = (True if cfg.check_deadlock is None
                                 else cfg.check_deadlock)
         sw = state_width(dims)
@@ -164,11 +260,14 @@ class BFSEngine:
         front = None
         if cfg.pipeline == "v4":
             front = Front(dims=dims, v2=self._v2, inv_fns=self._inv_fns,
-                          constraint=constraint, B=B, K=K, device=dev)
+                          constraint=constraint, B=B, K=K, device=dev,
+                          por_mask=por_mask, por_priority=por_priority)
         self._body = chunk_mod.build_chunk_body(
             dims=dims, v2=self._v2, inv_fns=self._inv_fns,
             constraint=constraint, B=B, K=K,
-            record_trace=cfg.record_trace, device=dev, front=front)
+            record_trace=cfg.record_trace, device=dev, front=front,
+            enqueue_method=cfg.enqueue_method, Q=Q,
+            por_mask=por_mask, por_priority=por_priority)
         self.trace = PyTraceStore()
 
     # ------------------------------------------------------------------
@@ -219,17 +318,91 @@ class BFSEngine:
         res.growth_stalls.append((seen.capacity, round(stall, 3)))
         return seen, t0 + stall
 
+    def resume_point(self, ck: ckpt_mod.Checkpoint) -> ResumePoint:
+        """A ``Checkpoint`` as this engine's ``ResumePoint``: the seen set
+        rebuilt on the device from the saved keys, through the insert, in
+        a table large enough to stay at most half full."""
+        if ck.dims != self.dims:
+            raise ValueError(
+                f"checkpoint dims {ck.dims} != engine dims {self.dims}")
+        cap = self._seen_cap
+        while ck.seen_hi.shape[0] > compact_mod.pow2(cap) // 2:
+            cap *= 2
+        fr = np.ascontiguousarray(ck.frontier).astype(np.uint8,
+                                                       casting="safe")
+        return ResumePoint(
+            frontier=torch.as_tensor(fr),
+            seen=fpset.from_host_keys(ck.seen_hi, ck.seen_lo, cap,
+                                      self.device),
+            distinct=ck.distinct, generated=ck.generated,
+            diameter=ck.diameter, levels=tuple(ck.levels),
+            action_counts=dict(ck.action_counts),
+            wall_seconds=ck.wall_seconds,
+            trace=(ck.trace_fps, ck.trace_parents, ck.trace_actions),
+            roots=dict(ck.roots))
+
+    def _write_checkpoint(self, qcur, cur_count, pending, seen, res, trace,
+                          wall):
+        """Snapshot the level boundary: this level's frontier (device rows,
+        then the host segments), the seen keys, counters and trace."""
+        cfg = self.config
+        if cfg.record_trace:
+            tf, tp, ta = trace.export()
+            roots = dict(trace.roots)
+        else:
+            tf = tp = np.empty(0, np.uint64)
+            ta = np.empty(0, np.int32)
+            roots = {}
+        seen_hi, seen_lo = fpset.to_host_keys(seen)
+        ck = ckpt_mod.Checkpoint(
+            dims=self.dims,
+            frontier=np.concatenate([host_rows(qcur[:cur_count]), *pending]),
+            seen_hi=seen_hi, seen_lo=seen_lo,
+            distinct=res.distinct, generated=res.generated,
+            diameter=res.diameter, levels=tuple(res.levels),
+            action_counts=dict(res.action_counts), wall_seconds=wall,
+            trace_fps=tf, trace_parents=tp, trace_actions=ta, roots=roots)
+        ckpt_mod.save(os.path.join(cfg.checkpoint_dir,
+                                   f"level_{res.diameter:05d}.npz"), ck)
+        # Retention after the write: the newest snapshot lands first.
+        ckpt_mod.gc(cfg.checkpoint_dir, cfg.keep_checkpoints)
+
     # ------------------------------------------------------------------
     def run(self, init_states: Optional[List[PyState]] = None,
-            resume: Optional[ResumePoint] = None) -> EngineResult:
+            resume: Union[None, str, ckpt_mod.Checkpoint,
+                          ResumePoint] = None) -> EngineResult:
+        """Check from ``init_states``, or continue from ``resume``: a
+        snapshot's path, a loaded ``Checkpoint`` or a ``ResumePoint``."""
         dims, cfg, dev = self.dims, self.config, self.device
         sw, B, Q = self._sw, self._B, self._Q
         if (init_states is None) == (resume is None):
             raise ValueError("need exactly one of init_states or resume")
+        if isinstance(resume, str):
+            resume = ckpt_mod.load(resume)
+        if isinstance(resume, ckpt_mod.Checkpoint):
+            ck = resume
+            if cfg.record_trace and ck.distinct > 0 \
+                    and ck.trace_fps.size == 0:
+                raise ValueError(
+                    "checkpoint was written with trace recording "
+                    "disabled; counterexample replay could never reach "
+                    "a root — resume with record_trace=False "
+                    "(--no-trace) or restart from scratch")
+            if not cfg.record_trace and ck.trace_fps.size > 0 \
+                    and cfg.checkpoint_dir is not None:
+                raise ValueError(
+                    "resuming a trace-carrying checkpoint with trace "
+                    "recording disabled would write trace-less snapshots "
+                    "into the same directory, shadowing the intact ones "
+                    "for any later trace-on resume; use a different "
+                    "checkpoint_dir or keep tracing enabled")
+            resume = self.resume_point(ck)
         res = EngineResult(pipeline=cfg.pipeline,
-                           fused_stages=dict(self._plan), device=str(dev))
+                           fused_stages=dict(self._plan), device=str(dev),
+                           por_instances=(self._por_table.certified
+                                          if self._por_table else 0))
         phases = res.phases
-        for k in ("dispatch", "sync", "host"):
+        for k in ("dispatch", "sync", "host", "checkpoint"):
             phases[k] = 0.0
         trace = self.trace = PyTraceStore()
         t_enter = time.time()
@@ -256,6 +429,12 @@ class BFSEngine:
             res.distinct, res.generated = resume.distinct, resume.generated
             res.diameter, res.levels = resume.diameter, list(resume.levels)
             res.action_counts = dict(resume.action_counts)
+            # Duration accumulates across restarts: wall_seconds, the rate
+            # and the max_seconds budget all measure total checking time.
+            t0 -= resume.wall_seconds
+            if cfg.record_trace and resume.trace is not None:
+                trace.add_batch(*resume.trace)
+                trace.roots.update(resume.roots)
         else:
             encoded = [encode_state(s, dims) for s in init_states]
             roots = stack_states(encoded, dev)
@@ -288,6 +467,16 @@ class BFSEngine:
                         and time.time() - t0 > cfg.max_seconds:
                     res.stop_reason = "duration_budget"
                     break
+                if base and cfg.exit_conditions:
+                    # "queue" during ingest: enqueued rows, spilled rows
+                    # and the roots not yet ingested.
+                    hit = exit_condition_hit(
+                        cfg.exit_conditions, res,
+                        next_count + spilled(spill_next)
+                        + rows_all.shape[0] - base)
+                    if hit:
+                        res.stop_reason = hit
+                        break
                 rows = torch.zeros((B, sw), dtype=ROW_DTYPE, device=dev)
                 part = rows_all[base:base + B]
                 rows[:part.shape[0]] = part
@@ -323,8 +512,23 @@ class BFSEngine:
         arange_b = torch.arange(B, device=dev)
         F = len(dims.family_sizes)
         S = chunk_mod.N_SCALARS
+        # A resumed run does not rewrite the snapshot it loaded (without
+        # trace it would replace a trace-carrying file by an empty one),
+        # and its interval clock starts at the restart.
+        skip_ckpt_level = resume.diameter if resume is not None else -1
+        last_ckpt = time.time() if resume is not None else float("-inf")
         while (cur_count > 0 or pending) and res.violation is None \
                 and res.stop_reason == "exhausted":
+            if cfg.checkpoint_dir is not None \
+                    and res.diameter % max(1, cfg.checkpoint_every) == 0 \
+                    and res.diameter != skip_ckpt_level \
+                    and (time.time() - last_ckpt
+                         >= cfg.checkpoint_interval_seconds):
+                t_h = time.time()
+                self._write_checkpoint(qcur, cur_count, pending, seen, res,
+                                       trace, wall=t_h - t0)
+                last_ckpt = time.time()
+                phases["checkpoint"] += last_ckpt - t_h
             if cfg.max_diameter is not None \
                     and res.diameter >= cfg.max_diameter:
                 res.stop_reason = "diameter_budget"
@@ -351,9 +555,12 @@ class BFSEngine:
                     next_count = st[chunk_mod.STAT_COUNT]
                     res.distinct += st[chunk_mod.STAT_NEW]
                     res.generated += st[chunk_mod.STAT_TOTAL]
-                    for name, c in zip(dims.family_names, st[S:S + F]):
+                    for name, c, p in zip(dims.family_names, st[S:S + F],
+                                          st[S + 2 * F:S + 3 * F]):
                         res.action_counts[name] = \
                             res.action_counts.get(name, 0) + c
+                        res.action_pruned[name] = \
+                            res.action_pruned.get(name, 0) + p
                     if st[chunk_mod.STAT_NEW]:
                         self._record(out.new, out.kh, out.kl, out.parent_hi,
                                      out.parent_lo, out.actions)
@@ -385,6 +592,17 @@ class BFSEngine:
                         res.deadlock = self._decode_row(
                             rows[st[chunk_mod.STAT_DPOS]])
                         res.stop_reason = "deadlock"
+                    elif cfg.exit_conditions:
+                        # TLC's "queue" is the whole unexplored queue: the
+                        # rest of this level and everything enqueued for
+                        # the next.  A violation or deadlock in the same
+                        # batch outranks a budget stop.
+                        hit = exit_condition_hit(
+                            cfg.exit_conditions, res,
+                            max(0, cur_count - offset) + spilled(pending)
+                            + next_count + spilled(spill_next))
+                        if hit:
+                            res.stop_reason = hit
                     phases["host"] += time.time() - t_h
                     if res.stop_reason != "exhausted":
                         break

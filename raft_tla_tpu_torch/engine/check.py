@@ -3,7 +3,8 @@
 Invariant names resolve through ``models/invariants.py``'s registry, the
 ``BoundedSpace`` constraint reads MaxTerm/MaxLogLen/MaxMsgCount, and the
 cfg's StopAfter budgets and ``\\* TPU:`` directives (BATCH,
-QUEUE_CAPACITY, SEEN_CAPACITY, PIPELINE) seed the engine config.
+QUEUE_CAPACITY, SEEN_CAPACITY, PIPELINE, CHECKPOINT_DIR, CHECKPOINT_EVERY,
+CHECKPOINT_INTERVAL, KEEP_CHECKPOINTS, POR_TABLE) seed the engine config.
 Precedence: caller > cfg directive > built-in default.  Every entry
 point takes ``device`` and runs on the card unless the caller passes
 ``device="cpu"``.
@@ -51,7 +52,16 @@ def engine_config_from_backend(setup: CheckSetup) -> EngineConfig:
         batch=be.get("BATCH", EngineConfig.batch),
         queue_capacity=be.get("QUEUE_CAPACITY", EngineConfig.queue_capacity),
         seen_capacity=be.get("SEEN_CAPACITY", EngineConfig.seen_capacity),
-        pipeline=be.get("PIPELINE", EngineConfig.pipeline))
+        pipeline=be.get("PIPELINE", EngineConfig.pipeline),
+        checkpoint_dir=be.get("CHECKPOINT_DIR"),
+        checkpoint_every=be.get("CHECKPOINT_EVERY",
+                                EngineConfig.checkpoint_every),
+        checkpoint_interval_seconds=float(
+            be.get("CHECKPOINT_INTERVAL",
+                   EngineConfig.checkpoint_interval_seconds)),
+        keep_checkpoints=be.get("KEEP_CHECKPOINTS"),
+        por=bool(be.get("POR", False)),
+        por_table=be.get("POR_TABLE"))
 
 
 def make_engine(setup: CheckSetup,
@@ -59,9 +69,6 @@ def make_engine(setup: CheckSetup,
                 device="cuda") -> BFSEngine:
     """An engine with the cfg fallbacks applied (CHECK_DEADLOCK, StopAfter
     budgets); the caller's config is never mutated."""
-    if setup.exit_conditions:
-        raise NotImplementedError(
-            f"TLCGet exit budgets {setup.exit_conditions} are not ported yet")
     base = engine_config or engine_config_from_backend(setup)
     cfg = dataclasses.replace(
         base,
@@ -71,7 +78,8 @@ def make_engine(setup: CheckSetup,
         max_seconds=(base.max_seconds if base.max_seconds is not None
                      else setup.max_seconds),
         max_diameter=(base.max_diameter if base.max_diameter is not None
-                      else setup.max_diameter))
+                      else setup.max_diameter),
+        exit_conditions=(base.exit_conditions or setup.exit_conditions))
     return BFSEngine(setup.dims, invariants=resolve_invariants(setup),
                      constraint=resolve_constraint(setup), config=cfg,
                      device=device)
@@ -84,12 +92,16 @@ def initial_states(setup: CheckSetup) -> List[PyState]:
 
 
 def run_check(cfg_path: str, engine_config: Optional[EngineConfig] = None,
-              device="cuda") -> EngineResult:
-    """Parse the cfg, build the engine, run it; the engine rides on the
-    result as ``res.engine`` (for ``replay``)."""
+              device="cuda", resume=None) -> EngineResult:
+    """Parse the cfg, build the engine, run it (from the cfg's initial
+    states, or from ``resume``: a snapshot's path or a ``Checkpoint``);
+    the engine rides on the result as ``res.engine`` (for ``replay``)."""
     setup = load_config(cfg_path)
     engine = make_engine(setup, engine_config, device=device)
-    res = engine.run(initial_states(setup))
+    if resume is None:
+        res = engine.run(initial_states(setup))
+    else:
+        res = engine.run(resume=resume)
     res.engine = engine
     return res
 
@@ -112,6 +124,10 @@ def format_result(res: EngineResult) -> str:
         for name, c in sorted(res.action_counts.items(),
                               key=lambda kv: -kv[1]):
             lines.append(f"  {name:22s} {c}")
+    if res.por_instances:
+        lines.append(f"POR                {res.por_instances} certified "
+                     f"instances, {sum(res.action_pruned.values())} "
+                     "enabled lanes pruned")
     if res.growth_stalls:
         lines.append("seen-set growths   " + ", ".join(
             f"{c}@{s}s" for c, s in res.growth_stalls))

@@ -140,8 +140,8 @@ class Front:
         self._kspread = make_kspread(B, G, K, dev)
         self._por = None
         if por_mask is not None:
-            pm = torch.as_tensor(np.asarray(por_mask), device=dev)
-            pp = torch.as_tensor(np.asarray(por_priority), device=dev)
+            pm = torch.as_tensor(por_mask, device=dev)   # arrays or tensors
+            pp = torch.as_tensor(por_priority, device=dev)
             if pm.shape != (G,) or pp.shape != (G,) \
                     or pm.dtype != torch.bool or pp.dtype != torch.int32:
                 raise ValueError(f"POR mask/priority must be bool/int32 "

@@ -36,6 +36,17 @@ def choose_k(B: int, G: int, requested=None) -> int:
     return min(pow2(max(k, G, B)), pow2(B * G))
 
 
+def inv_positions(mask: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Invert a boolean mask's compaction map: ``result[k]`` is the index
+    of the (k+1)-th True lane for ``k < mask.sum()``, clipped into range
+    past that (callers gate the dead slots).  [out_len] int64; the JAX
+    package's ``ops/compact.py inv_positions``, used by the "window"
+    enqueue lowering."""
+    cum = mask.to(torch.int64).cumsum(0)
+    q = torch.arange(1, out_len + 1, dtype=torch.int64, device=mask.device)
+    return torch.searchsorted(cum, q).clamp_(0, mask.shape[0] - 1)
+
+
 def kspread(B: int, G: int, K: int, device) -> torch.Tensor:
     """[K] int32 hash-spread addresses for dead compacted slots."""
     v = (np.arange(K, dtype=np.int64) * 2654435761) % (B * G)

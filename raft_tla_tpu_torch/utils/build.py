@@ -28,7 +28,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 
 #: Kernel sources, one shared library each.
-SOURCES = ("compact", "fpset", "fused_tail", "chunk_front")
+SOURCES = ("compact", "fpset", "fused_tail", "chunk_front", "enqueue")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

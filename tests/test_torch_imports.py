@@ -62,6 +62,36 @@ def test_static_scan_finds_no_jax_imports():
     assert not hits, hits
 
 
+@pytest.mark.parametrize("rel", [
+    "ops/enqueue.py", "ops/enqueue_cuda.py", "engine/checkpoint.py",
+    "analysis/por.py", "analysis/__init__.py"])
+def test_split_tail_modules_are_covered(rel):
+    """The modules of the split tail, the checkpoints and the POR table
+    are among the scanned sources, import on a machine without a card,
+    and name neither jax nor the JAX package in an import."""
+    import importlib
+    path = os.path.join(PORT, rel)
+    assert path in set(_port_sources())
+    name = "raft_tla_tpu_torch." + rel[:-3].replace("/", ".")
+    mod = importlib.import_module(name.removesuffix(".__init__"))
+    src = open(path).read()
+    assert not re.search(r"^\s*(?:import|from)\s+(jax|jaxlib|raft_tla_tpu)\b"
+                         r"(?!_torch)", src, re.M)
+    assert mod.__file__ == path
+
+
+def test_every_kernel_source_has_its_loader():
+    """Each ``csrc/<name>.cu`` in the build list exists and one wrapper
+    module loads it at call time (never at import)."""
+    from raft_tla_tpu_torch.utils import build
+    assert "enqueue" in build.SOURCES
+    wrappers = "".join(open(p).read() for p in _port_sources()
+                       if os.sep + "ops" + os.sep in p)
+    for name in build.SOURCES:
+        assert os.path.exists(os.path.join(PORT, "csrc", f"{name}.cu")), name
+        assert f'build.library("{name}")' in wrappers, name
+
+
 def test_cuda_requested_without_cuda_raises(monkeypatch):
     from raft_tla_tpu_torch.engine.check import make_engine
     from raft_tla_tpu_torch.utils.cfg import load_config
