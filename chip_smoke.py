@@ -2,7 +2,10 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels         (the kernel phases and the v4
+                                             profile only)
     python3 chip_smoke.py --enqueue-tiles   (a tuning table, no smoke run)
+    python3 chip_smoke.py --front-variants  (a tuning table, no smoke run)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -29,12 +32,22 @@ writes a checkpoint from which a second engine resumes to depth 11 (the
 seen set rebuilt through the insert kernel, timed); and a forged POR
 table runs through ``--por-table`` on both plans.
 
+The compaction is also held on masks built around its traps (zero
+fan-out rows after the last row that fits, total == K on and inside a
+scan block, P == 1, B not a multiple of the scan block) and the front on
+a window whose boundary falls inside a scan block; each kernel phase
+prints the kernel's time for one call between two CUDA events, its
+device time among calls queued back to back, its launches' device
+microseconds under torch.profiler and, for the compaction and the front,
+each launch's grid, registers, spill bytes and shared memory.
+
 Output: the card's name and power limit, one line per phase, then a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
 (compact on the fused v3 run, the fused tail and the front on the fused
 v4 run, the insert and the enqueue on the split v4 run, all to depth 9),
 its error against the plain version and its times beside its bound, and
-last ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before those two lines.
+last ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
+before those two lines.
 Imports nothing of JAX or the JAX package.
 """
 
@@ -68,6 +81,15 @@ MCRAFT_L11_LEVELS = MCRAFT_L9_LEVELS + [548904, 1703703]
 MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED = 6005282, 17354955
 
 
+#: The keys of each kernel's entry in the JSON line: `ms` is one wrapper
+#: call between two CUDA events (the host's launch path included),
+#: `queued_ms` the device time of one call among calls queued back to
+#: back, `library_ms` one call of the library yardstick between two events.
+ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+
 class PhaseFailed(Exception):
     pass
 
@@ -99,7 +121,7 @@ def cuda_ms(torch, fn, reps, setup=None):
 
 def queued_ms(torch, fn, reps=20, samples=5):
     """Milliseconds of one ``fn`` on the device when ``reps`` calls run
-    back to back: the calls are queued behind ~2 ms of device copies, so
+    back to back: the calls are queued behind ~8 ms of device copies, so
     the two events bracket device time only, not the host's launch path
     (which a short kernel's single-call median mostly is).  ``fn`` must
     not wait for the device.  Median over the samples in which the host
@@ -110,7 +132,7 @@ def queued_ms(torch, fn, reps=20, samples=5):
     times = []
     for _ in range(samples):
         torch.cuda.synchronize()
-        for _ in range(3):
+        for _ in range(12):
             pad2.copy_(pad)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -172,48 +194,124 @@ def dup_heavy_queries(torch, gen, device, present):
     return q, valid
 
 
+QUEUED_REPS, QUEUED_SAMPLES = 10, 5
+
+
+def fresh_batches(torch, gen, device, present):
+    """One ``dup_heavy_queries`` batch for each call ``queued_ms`` makes
+    with QUEUED_REPS and QUEUED_SAMPLES: an insert queued back to back
+    must not meet its own keys again (its table cannot be restored
+    between calls without timing the copy).  The ~8,000 new keys of each
+    batch raise the table's load by about 0.00024."""
+    return [dup_heavy_queries(torch, gen, device, present)
+            for _ in range(1 + QUEUED_REPS * QUEUED_SAMPLES)]
+
+
 def copy_table(torch, s):
     from raft_tla_tpu_torch.ops.fpset import FPSet
     return FPSet(keys=s.keys.clone(), size=s.size.clone(),
                  owner=s.owner.clone())
 
 
+def fanout_mask(torch, gen, device, counts, n_lanes=G):
+    """[len(counts), n_lanes] bool with counts[b] enabled lanes in row b, at
+    places drawn from ``gen``."""
+    c = torch.as_tensor(counts, device=device)
+    order = torch.rand((c.shape[0], n_lanes), generator=gen,
+                       device=device).argsort(1)
+    return order < c[:, None]
+
+
+def compact_cases(torch, gen, device):
+    """``(name, en, K, P)``: random masks at densities 0, 0.06 and
+    1, then masks built around the compaction's traps (the expected P
+    beside each).  All at the main path's B, G and K except the two that
+    cannot be there: P == 1 needs two rows' fan-out above K (K = 256, the
+    least power of two at or above G) and B - 7 rows is no multiple of a
+    scan block's 16 rows."""
+    def rand(b, density):
+        return torch.rand((b, G), generator=gen, device=device) < density
+
+    def fan(head, rest_lo=40):
+        rest = torch.randint(rest_lo, G + 1, (B - len(head),), generator=gen,
+                             device=device).tolist()
+        return fanout_mask(torch, gen, device, list(head) + rest)
+
+    full_rows = K // G                    # 248 full rows fit, 32,736 lanes
+    return [
+        ("density 0.0", rand(B, 0.0), K, B),
+        ("density 0.06", rand(B, 0.06), K, B),
+        ("density 1.0", rand(B, 1.0), K, full_rows),
+        # cum stays <= K over the zero rows after the last row that fits
+        ("zero rows after the last fitting row",
+         fan([G] * full_rows + [0] * 12), K, full_rows + 12),
+        ("total == K on a block edge", fan([128] * 256), K, 256),
+        ("total == K inside a block",
+         fan([64] + [128] * 255 + [64]), K, 257),
+        ("boundary inside a block", fan([100] * 327, rest_lo=69), K, 327),
+        ("P == 1 (K = 256)", rand(B, 1.0), 256, 1),
+        ("B - 7 rows, density 0.06", rand(B - 7, 0.06), K, B - 7),
+        ("B - 7 rows, boundary inside a block",
+         fan([100] * 327, rest_lo=69)[:B - 7].contiguous(), K, 327),
+    ]
+
+
 def phase_compact(torch, device, gen):
     from raft_tla_tpu_torch.ops import compact_cuda
     from raft_tla_tpu_torch.ops.compact import kspread
-    kspr = kspread(B, G, K, device)
     err = 0.0
-    for density in (0.0, 0.06, 1.0):
-        en = torch.rand((B, G), generator=gen, device=device) < density
-        got = compact_cuda.compact(en, K, kspr)
-        want = compact_cuda.compact_plain(en, K, kspr)
+    for name, en, k, want_p in compact_cases(torch, gen, device):
+        kspr = kspread(en.shape[0], G, k, device)
+        got = compact_cuda.compact(en, k, kspr)
+        want = compact_cuda.compact_plain(en, k, kspr)
         torch.cuda.synchronize()
         e = max_abs(torch, zip(got, want))
-        print(f"compact density {density}: P={int(got[0][0])} "
-              f"total={int(got[0][1])} max_abs_err={e}")
-        need(e == 0.0, f"compact differs from its plain version at "
-             f"density {density}")
+        P, total = int(got[0][0]), int(got[0][1])
+        print(f"compact {name} [{en.shape[0]},{G}] -> K={k}: P={P} "
+              f"total={total} max_abs_err={e}")
+        need(e == 0.0, f"compact differs from its plain version on the "
+             f"{name} mask")
+        need(int(want[0][0]) == want_p, f"the {name} mask has P="
+             f"{int(want[0][0])}, built for {want_p}")
         err = max(err, e)
+    kspr = kspread(B, G, K, device)
     en = torch.rand((B, G), generator=gen, device=device) < 0.06
-    ms = cuda_ms(torch, lambda: compact_cuda.compact(en, K, kspr), 50)
+
+    def kernel():
+        compact_cuda.compact(en, K, kspr)
+
+    ms = cuda_ms(torch, kernel, 50)
+    queued = queued_ms(torch, kernel)
+    dev_us = device_ops(torch, kernel)
     plain_ms = cuda_ms(torch, lambda: compact_cuda.compact_plain(
         en, K, kspr), 10)
     pt, _lid, _kv = compact_cuda.compact_plain(en, K, kspr)
     P, total = int(pt[0]), int(pt[1])
     flat = (en & (torch.arange(B, device=device) < P)[:, None]).reshape(-1)
+    # torch.nonzero reads its output size back to the host, so it can only
+    # be timed one call at a time, as `ms` is.
     library_ms = cuda_ms(torch, lambda: torch.nonzero(flat), 50)
+    library_us = device_ops(torch, lambda: torch.nonzero(flat))
     # The mask once, kspread only for the dead slots, lane_id, kvalid and
     # (P, total) written once.
     nbytes = B * G + (K - total) * 4 + K * 4 + K + 8
     row = dict(name="compact", route="cuda",
                source="raft_tla_tpu_torch/csrc/compact.cu",
                replaces="raft_tla_tpu/ops/compact_pallas.py:73",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=library_ms)
-    print(f"compact [{B},{G}] -> K={K} at density 0.06: kernel {ms} ms, "
-          f"plain {plain_ms} ms, torch.nonzero {library_ms} ms, "
-          f"bound {row['bound_ms']} ms ({nbytes} bytes)")
+    print(f"compact [{B},{G}] -> K={K} at density 0.06: one call between "
+          f"two events: kernel {ms} ms, torch.nonzero {library_ms} ms (it "
+          f"waits for the host to read its size), plain {plain_ms} ms; "
+          f"kernel queued back to back {queued} ms; bound {row['bound_ms']} "
+          f"ms ({nbytes} bytes); device microseconds under the profiler: "
+          f"kernel {dev_us or 'not measured'}, torch.nonzero "
+          f"{library_us or 'not measured'}")
+    info = compact_cuda.launch_info(B, G, K)
+    print(f"compact launches at [{B},{G}] -> K={K}: {info}")
+    need(all(i["grid"] > 1 for i in info.values()),
+         "a compaction launch runs on one block")
     return row
 
 
@@ -253,17 +351,26 @@ def phase_insert(torch, device, gen, base, present):
 
     ms = cuda_ms(torch, lambda: fpset_cuda.insert(work, q, valid), 20,
                  setup=restore)
+    dev_us = device_ops(torch, lambda: fpset_cuda.insert(work, q, valid),
+                        setup=restore)
     plain_ms = cuda_ms(torch, lambda: fpset_cuda.insert_plain(
         work, q, valid), 2, setup=restore)
+    restore()
+    batches = iter(fresh_batches(torch, gen, device, present))
+    queued = queued_ms(torch, lambda: fpset_cuda.insert(
+        work, *next(batches)), QUEUED_REPS, QUEUED_SAMPLES)
     nbytes = insert_bytes(K, distinct_valid(torch, q, valid), n_new)
     row = dict(name="fpset_insert", route="cuda",
                source="raft_tla_tpu_torch/csrc/fpset.cu",
                replaces="raft_tla_tpu/ops/fpset_pallas.py:161",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=None)
-    print(f"fpset_insert: kernel {ms} ms, plain {plain_ms} ms, "
-          f"bound {row['bound_ms']} ms ({nbytes} bytes)")
+    print(f"fpset_insert: one call between two events: kernel {ms} ms, "
+          f"plain {plain_ms} ms; kernel queued back to back (a fresh batch "
+          f"of the same kind each call) {queued} ms; bound {row['bound_ms']} "
+          f"ms ({nbytes} bytes); device microseconds under the profiler "
+          f"{dev_us or 'not measured'}")
     del a, b, work
     return row
 
@@ -307,12 +414,20 @@ def phase_fused_tail(torch, device, gen, base, present):
         work.keys.copy_(base.keys)
         work.size.copy_(base.size)
 
-    ms = cuda_ms(torch, lambda: fused_tail_cuda.insert_enqueue(
-        work, q, valid, krows, enq_ok, qa, next_count), 20,
-        setup=restore)
+    def kernel():
+        fused_tail_cuda.insert_enqueue(work, q, valid, krows, enq_ok, qa,
+                                       next_count)
+
+    ms = cuda_ms(torch, kernel, 20, setup=restore)
+    dev_us = device_ops(torch, kernel, setup=restore)
     plain_ms = cuda_ms(torch, lambda: fused_tail_cuda.insert_enqueue_plain(
         work, q, valid, krows, enq_ok, qa, next_count), 2,
         setup=restore)
+    restore()
+    batches = iter(fresh_batches(torch, gen, device, present))
+    queued = queued_ms(torch, lambda: fused_tail_cuda.insert_enqueue(
+        work, *next(batches), krows, enq_ok, qa, next_count), QUEUED_REPS,
+        QUEUED_SAMPLES)
     # The insert's bytes, enq_ok and the count, and each enqueued row read
     # once and written once (no other row need be touched).
     nbytes = (insert_bytes(K, distinct_valid(torch, q, valid),
@@ -321,11 +436,14 @@ def phase_fused_tail(torch, device, gen, base, present):
     row = dict(name="fused_tail", route="cuda",
                source="raft_tla_tpu_torch/csrc/fused_tail.cu",
                replaces="raft_tla_tpu/ops/fused_tail_pallas.py:103",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=None)
-    print(f"fused_tail: kernel {ms} ms, plain {plain_ms} ms, "
-          f"bound {row['bound_ms']} ms ({nbytes} bytes)")
+    print(f"fused_tail: one call between two events: kernel {ms} ms, plain "
+          f"{plain_ms} ms; kernel queued back to back (a fresh batch of the "
+          f"same kind each call) {queued} ms; bound {row['bound_ms']} ms "
+          f"({nbytes} bytes); device microseconds under the profiler "
+          f"{dev_us or 'not measured'}")
     del a, work, qa
     return row
 
@@ -341,21 +459,15 @@ def front_err(torch, got, want):
                            for f, g, w in zip(FrontOut._fields, got, want)])
 
 
-def phase_front(torch, device):
-    """The v4 chunk front at the main path's shapes on real rows: parent
-    windows that a v3 check to L8 dispatched on the card.  Three calls
-    are held exactly against ``front_plain``: the 2048 rows of least
-    fan-out (the whole window fits K), a full window of the engine's own
-    (progress-limited) and the same window under the forged POR arrays
-    (every DuplicateMessage instance certified, priority = g)."""
+def front_rig(torch, device):
+    """``(setup, v2, Front keywords, windows)`` of MCraft_bounded at the
+    main path's sizes: the parent windows a v3 check to L8 dispatched."""
     from raft_tla_tpu_torch.engine.bfs import EngineConfig
     from raft_tla_tpu_torch.engine.check import initial_states, make_engine
     from raft_tla_tpu_torch.models.actions2 import build_v2
     from raft_tla_tpu_torch.models.invariants import (build_constraint,
                                                       build_no_leader,
                                                       build_type_ok)
-    from raft_tla_tpu_torch.models.schema import state_width, unflatten_state
-    from raft_tla_tpu_torch.ops import chunk_front_cuda
     from raft_tla_tpu_torch.utils.cfg import load_config
     setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
     dims = setup.dims
@@ -371,6 +483,24 @@ def phase_front(torch, device):
     engine._body = capture
     engine.run(initial_states(setup))
     v2 = build_v2(dims, device)
+    kw = dict(dims=dims, v2=v2,
+              inv_fns=[build_type_ok(dims), build_no_leader(dims)],
+              constraint=build_constraint(dims, setup.bounds), B=B, K=K,
+              device=device)
+    return setup, v2, kw, windows
+
+
+def phase_front(torch, device):
+    """The v4 chunk front at the main path's shapes on real rows: parent
+    windows that a v3 check to L8 dispatched on the card.  Three calls
+    are held exactly against ``front_plain``: the 2048 rows of least
+    fan-out (the whole window fits K), a full window of the engine's own
+    (progress-limited) and the same window under the forged POR arrays
+    (every DuplicateMessage instance certified, priority = g)."""
+    from raft_tla_tpu_torch.models.schema import state_width, unflatten_state
+    from raft_tla_tpu_torch.ops import chunk_front_cuda
+    setup, v2, kw, windows = front_rig(torch, device)
+    dims = setup.dims
     pool = torch.cat([r[v] for r, v in windows])
     fanout = v2.masks(unflatten_state(pool, dims))[0].sum(1)
     least = torch.sort(torch.argsort(fanout)[:B]).values
@@ -381,16 +511,14 @@ def phase_front(torch, device):
     off = dims.family_offsets[dims.family_names.index("DuplicateMessage")]
     por_mask[off:off + dims.n_msg_slots] = True
     por_pri = torch.arange(G, dtype=torch.int32)
-    kw = dict(dims=dims, v2=v2,
-              inv_fns=[build_type_ok(dims), build_no_leader(dims)],
-              constraint=build_constraint(dims, setup.bounds), B=B, K=K,
-              device=device)
     front = chunk_front_cuda.Front(**kw)
     front_por = chunk_front_cuda.Front(
         **kw, por_mask=por_mask.numpy(), por_priority=por_pri.numpy())
     cases = [("fitting", front, pool[least], torch.ones_like(full[-1][1])),
              ("progress-limited", front, *full[-1]),
-             ("POR", front_por, *full[-1])]
+             ("POR", front_por, *full[-1]),
+             ("mid-block boundary", front, *mid_block_window(
+                 torch, pool, fanout))]
     err = 0.0
     for name, fr, rows, valid in cases:
         got = fr(rows, valid)
@@ -405,6 +533,9 @@ def phase_front(torch, device):
              "window")
         if name == "POR":
             need(bool(got.pruned.any()), "the POR window pruned nothing")
+        elif name == "mid-block boundary":
+            need(P % 16 == 7 and not bool(valid[P - 4:P].any())
+                 and bool(valid[P]), f"the {name} window has P={P}")
         else:
             need((P == B) == (name == "fitting"),
                  f"the {name} window has P={P}")
@@ -413,6 +544,7 @@ def phase_front(torch, device):
     out = front(rows, valid)
     total = int(out.total)
     ms = cuda_ms(torch, lambda: front(rows, valid), 50)
+    queued = queued_ms(torch, lambda: front(rows, valid))
     plain_ms = cuda_ms(torch, lambda: front.plain(rows, valid), 5)
     ops = device_ops(torch, lambda: front(rows, valid))
     sw = state_width(dims)
@@ -428,16 +560,44 @@ def phase_front(torch, device):
     row = dict(name="chunk_front", route="cuda",
                source="raft_tla_tpu_torch/csrc/chunk_front.cu",
                replaces="raft_tla_tpu/ops/chunk_front_pallas.py:94",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=None)
-    print(f"chunk_front [{B},{sw}] -> K={K} (total {total}): kernel {ms} ms, "
-          f"plain {plain_ms} ms, bound {row['bound_ms']} ms ({nbytes} bytes), "
+    print(f"chunk_front [{B},{sw}] -> K={K} (total {total}): one call "
+          f"between two events {ms} ms, plain {plain_ms} ms; queued back to "
+          f"back {queued} ms; bound {row['bound_ms']} ms ({nbytes} bytes), "
           f"CUDA launches per call "
           f"{len(ops) if ops else 'not measured'} "
           f"(device microseconds under the profiler: {ops})")
+    info = front.launch_info()
+    print(f"chunk_front launches at [{B},{sw}] -> K={K}: {info}")
+    need(all(i["grid"] > 1 for i in info.values()),
+         "a front launch runs on one block")
+    need(info["masks_kernel"]["dynamic_smem"]
+         == chunk_front_cuda.masks_smem(dims)
+         and info["lanes_kernel"]["dynamic_smem"]
+         == chunk_front_cuda.lanes_smem(dims),
+         "check_dims counts other shared memory than the launches take")
     del windows, pool, cases, out
     return row
+
+
+def mid_block_window(torch, pool, fanout):
+    """A progress-limited window of real rows whose last taken row falls
+    inside a 16-row block of the compaction, with 4-19 invalid (zero
+    fan-out) rows right before it: the rows of most fan-out that fit K,
+    the invalid rows, then the row that does not fit, then any rows."""
+    order = torch.argsort(fanout, descending=True)
+    n1 = int((fanout[order].cumsum(0) <= K).sum())
+    nz = (7 - n1) % 16
+    nz += 16 if nz < 4 else 0
+    need(n1 + nz + 1 <= B, f"{n1} rows of most fan-out fit K")
+    n_rest = B - n1 - nz
+    rows = torch.cat([pool[order[:n1]], pool[order[:nz]],
+                      pool[order[n1:n1 + n_rest]]])
+    valid = torch.ones(B, dtype=torch.bool, device=rows.device)
+    valid[n1:n1 + nz] = False
+    return rows, valid
 
 
 def phase_other_dims(torch, device):
@@ -498,13 +658,18 @@ def phase_other_dims(torch, device):
              f"{dims}")
 
 
-def device_ops(torch, fn):
+def device_ops(torch, fn, setup=None):
     """``[(kernel name, device microseconds)]`` of the device operations
     one call of ``fn`` issues, as torch.profiler sees them (empty when the
-    profiler sees no device activity)."""
+    profiler sees no device activity); ``setup`` runs before each call,
+    outside the profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    if setup:
+        setup()
     fn()
+    if setup:
+        setup()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -828,15 +993,16 @@ def phase_enqueue(torch, device, gen):
 
     # One wrapper call between two events is mostly the host's launch path
     # at this size, so the kernel and the lowerings (none waits for the
-    # device) are timed queued back to back; the single-call median, as
-    # the other kernels are timed, and the profiler's figure stand beside.
-    single_ms = cuda_ms(torch, kernel, 50)
-    ms = queued_ms(torch, kernel) or single_ms
+    # device) are also timed queued back to back; the profiler's figure
+    # stands beside.
+    ms = cuda_ms(torch, kernel, 50)
+    queued = queued_ms(torch, kernel)
     full_ms = queued_ms(torch, kernel_full) or cuda_ms(torch, kernel_full,
                                                        20)
     # The one-call library form: index_copy_ of all K rows, the others to
     # their trash rows (the "scatter" lowering); "window" beside it.
-    library_ms = queued_ms(torch, scatter) or cuda_ms(torch, scatter, 20)
+    library_ms = cuda_ms(torch, scatter, 50)
+    library_queued = queued_ms(torch, scatter)
     window_ms = queued_ms(torch, window) or cuda_ms(torch, window, 20)
     plain_ms = cuda_ms(torch, lambda: enq_mod.enqueue_plain(
         qa, next_count, krows, real), 10)
@@ -847,14 +1013,15 @@ def phase_enqueue(torch, device, gen):
     row = dict(name="enqueue", route="cuda",
                source="raft_tla_tpu_torch/csrc/enqueue.cu",
                replaces="raft_tla_tpu/ops/enqueue_pallas.py:97",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=library_ms)
     print(f"enqueue K={K} rows of {sw} B, {n_enq} enqueued, into a "
-          f"{QUEUE + K}-row queue, queued back to back: kernel {ms} ms "
+          f"{QUEUE + K}-row queue, queued back to back: kernel {queued} ms "
           f"(full mask {full_ms} ms), index_copy_ with trash rows "
-          f"{library_ms} ms, window lowering {window_ms} ms; one call "
-          f"between two events: kernel {single_ms} ms, plain {plain_ms} ms; "
+          f"{library_queued} ms, window lowering {window_ms} ms; one call "
+          f"between two events: kernel {ms} ms, index_copy_ with trash rows "
+          f"{library_ms} ms, plain {plain_ms} ms; "
           f"bound {row['bound_ms']} ms ({nbytes} bytes); device "
           f"microseconds of the call's operations under the profiler: real "
           f"batch {dev_us or 'not measured'}, full mask "
@@ -914,6 +1081,95 @@ def enqueue_tiles(torch, device):
                       f"device microseconds {us}, 200 launches between two "
                       f"events {a.elapsed_time(b) * 5} microseconds each")
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: ``--front-variants``: (name, [(text in csrc/chunk_front.cu, its
+#: replacement)]).  The last two only attribute time: they skip a phase.
+FRONT_VARIANTS = [
+    ("as built", []),
+    ("lanes without a minimum of blocks an SM", [(
+        "__launch_bounds__(kThreads, 4)\nlanes_kernel(",
+        "__launch_bounds__(kThreads)\nlanes_kernel(")]),
+    ("lanes in their own order", [(
+        "    const int l = t < nl ? order[t] : -1;",
+        "    const int l = t < nl ? t : -1;")]),
+    ("no successors (timing only)", [(
+        "for (int r = t_lo + warp; r < t_hi; r += kWarps) {",
+        "for (int r = t_lo + warp; r < 0; r += kWarps) {")]),
+    ("no predicates (timing only)", [
+        ("const bool cons = rtt::bounded_space_warp(st, bounds, lane);",
+         "const bool cons = true;"),
+        ("for (int p = 0; p < n_inv && inv < 0; ++p) {\n    const int code",
+         "for (int p = 0; p < 0 && inv < 0; ++p) {\n    const int code")]),
+    ("no TypeOK (timing only)", [(
+        "? rtt::type_ok_warp(st, lane)", "? true")]),
+    ("no row stores (timing only)", [(
+        "for (int c = c_lo + lane; c < c_hi; c += 32)",
+        "for (int c = c_lo + lane; c < 0; c += 32)")]),
+    ("no scalars (timing only)", [(
+        "      lane_edits(d, k, St{d, pv}, lg[l],",
+        "      if (false) lane_edits(d, k, St{d, pv}, lg[l],")]),
+]
+
+
+def front_variants(torch, device):
+    """``python3 chip_smoke.py --front-variants``: the front's launches'
+    device microseconds (profiler, five samples each) and its queued time
+    on the progress-limited main-path window, for variants of
+    ``csrc/chunk_front.cu`` built with the substitutions of
+    FRONT_VARIANTS.  Not part of the smoke run."""
+    import ctypes
+    from raft_tla_tpu_torch.ops import chunk_front_cuda
+    from raft_tla_tpu_torch.utils import build
+    _setup, _v2, kw, windows = front_rig(torch, device)
+    rows, valid = [w for w in windows if bool(w[1].all())][-1]
+    front = chunk_front_cuda.Front(**kw)
+    want = front.plain(rows, valid)
+    src = (build.CSRC / "chunk_front.cu").read_text()
+    argtypes = chunk_front_cuda._lib().chunk_front_launch.argtypes
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_front_")
+    real_lib = chunk_front_cuda._lib
+    try:
+        procs = []
+        for n, (name, subs) in enumerate(FRONT_VARIANTS):
+            text = src
+            for old, new in subs:
+                need(old in text, f"csrc/chunk_front.cu lost {old!r}")
+                text = text.replace(old, new)
+            cu = os.path.join(tmp, f"front{n}.cu")
+            with open(cu, "w") as f:
+                f.write(text)
+            so = os.path.join(tmp, f"libfront{n}.so")
+            procs.append((name, so, subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                 "-o", so, cu])))
+        for name, so, proc in procs:
+            need(proc.wait() == 0, f"nvcc failed on the {name} variant")
+        for name, so, _proc in procs + procs[:1]:
+            lib = ctypes.CDLL(so)
+            lib.chunk_front_launch.restype = ctypes.c_int
+            lib.chunk_front_launch.argtypes = argtypes
+            chunk_front_cuda._lib = lambda lib=lib: lib
+            err = front_err(torch, front(rows, valid), want)
+            us = [device_ops(torch, lambda: front(rows, valid))
+                  for _ in range(5)]
+            by = {k: sorted(dict(u)[k] for u in us) for k in dict(us[0])}
+            info = lib.chunk_front_kernel_info
+            out = (ctypes.c_int * len(build.INFO_KEYS))()
+            info.restype = ctypes.c_int
+            info.argtypes = [ctypes.c_int] * 7 + [
+                ctypes.POINTER(ctypes.c_int)]
+            d = kw["dims"]
+            build.check(info(2, d.n_servers, d.n_values, d.max_log,
+                             d.n_msg_slots, B, K, out), "kernel_info")
+            print(f"front variant {name}: lanes launch "
+                  f"{dict(zip(build.INFO_KEYS, out))}")
+            print(f"front variant {name}: max_abs_err {err}, queued "
+                  f"{queued_ms(torch, lambda: front(rows, valid))} ms, "
+                  f"device microseconds {by}")
+    finally:
+        chunk_front_cuda._lib = real_lib
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1112,6 +1368,9 @@ def main() -> int:
     if sys.argv[1:] == ["--enqueue-tiles"]:
         enqueue_tiles(torch, device)
         return 0
+    if sys.argv[1:] == ["--front-variants"]:
+        front_variants(torch, device)
+        return 0
     gen = torch.Generator(device=device)
     gen.manual_seed(20261016)
     t = time.time()
@@ -1123,6 +1382,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.append(phase_front(torch, device))
     rows.append(phase_enqueue(torch, device, gen))
+    if sys.argv[1:] == ["--kernels"]:
+        print(f"kernel phases: {time.time() - t} s")
+        phase_profile(torch, "v4")
+        print(json.dumps({"kernels": [{k: r.get(k) for k in ROW_KEYS}
+                                      for r in rows]}))
+        return 0
     phase_other_dims(torch, device)
     torch.cuda.empty_cache()
     print(f"kernel phases: {time.time() - t} s")
@@ -1159,9 +1424,8 @@ def main() -> int:
              "fpset_insert": "v4 split", "enqueue": "v4 split"}
     for row in rows:
         row["launches"] = counts[paths[row["name"]]][row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -59,4 +59,24 @@ inline int allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Host side: one launch's shape and what its kernel was built with, into
+// out[7] = grid, block, dynamic shared bytes, registers a thread, local
+// (spill) bytes a thread, static shared bytes, max threads a block.
+// Returns a cudaError_t.
+template <typename Kernel>
+inline int kernel_info(Kernel kernel, int grid, int block, size_t smem,
+                       int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = grid;
+  out[1] = block;
+  out[2] = (int)smem;
+  out[3] = a.numRegs;
+  out[4] = (int)a.localSizeBytes;
+  out[5] = (int)a.sharedSizeBytes;
+  out[6] = a.maxThreadsPerBlock;
+  return 0;
+}
+
 }  // namespace rtt

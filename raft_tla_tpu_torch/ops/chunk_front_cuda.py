@@ -5,14 +5,15 @@ built by ``build_front``).  A ``Front``, built once per engine, called on
 ``(rows, valid)`` gives the 14 outputs of ``ops/chunk_front.py``
 (``FrontOut``).  For CPU tensors it runs
 ``front_plain``; for CUDA tensors it launches the kernel (three launches
-on the current stream, counted as one front call) or raises.
+on the current stream: masks, the multi-block compaction, lanes; counted
+as one front call) or raises.
 
 What the kernel takes is fixed when the front is built, and anything else
 raises ``ValueError`` there, on either device, so a v4 engine never finds
 out mid-run that its kernel cannot run it:
 
 - dims up to ``n_servers`` 8, ``max_log`` 16, ``n_msg_slots`` 256 whose
-  masks launch fits a block's shared memory (``check_dims``);
+  masks and lanes launches fit a block's shared memory (``check_dims``);
 - invariants by registry name (``PREDICATES``, at most 8), each built by
   ``models/invariants.py`` (which tags it with ``.predicate``);
 - the ``BoundedSpace`` constraint or none.
@@ -37,6 +38,9 @@ from .fingerprint import constants_np
 
 #: Front calls that launched the kernel since the last reset.
 launches = 0
+
+#: The CUDA launches of one front call, in order.
+KERNELS = ("masks_kernel", "compact_scan_kernel", "lanes_kernel")
 
 #: Invariants with device code, by registry name -> the kernel's code.
 PREDICATES = {"TypeOK": 1, "NoLeaderElected": 2}
@@ -81,12 +85,32 @@ def _align16(n):
     return (n + 15) & ~15
 
 
+def masks_smem(dims):
+    """Shared bytes of the masks launch: 8 warps, each a decoded row of
+    ints and two [G] byte masks."""
+    return 8 * (_align16(4 * state_width(dims))
+                + _align16(2 * dims.n_instances))
+
+
+def lanes_smem(dims):
+    """Shared bytes of the lanes launch (``csrc/chunk_front.cu``
+    ``lanes_smem``): 8 decoded parents and 8 warps' decoded successors
+    (rows of ints), 8 warps' byte rows, a 64-lane run's edit lists
+    (``13 + 2 N`` edits of an int value and a 16-bit position each) and
+    message rows (W ints), 9 int arrays of 64, 32 ints of block scan and
+    16 family counts."""
+    sw = state_width(dims)
+    edits = 64 * (13 + 2 * dims.n_servers)
+    return (16 * _align16(4 * sw) + 8 * _align16(sw + 16)
+            + _align16(4 * edits) + _align16(2 * edits)
+            + _align16(4 * 64 * dims.msg_width) + 4 * (9 * 64 + 32 + 16))
+
+
 def check_dims(dims):
     """``ValueError`` unless the kernel takes ``dims``: the static maxima,
-    and the masks launch's shared memory (8 warps, each a decoded row of
-    ints and two [G] byte masks) within the H100's 227 KB a block."""
-    smem = 8 * (_align16(4 * state_width(dims))
-                + _align16(2 * dims.n_instances))
+    and the masks and lanes launches' shared memory within the H100's 227
+    KB a block."""
+    smem = max(masks_smem(dims), lanes_smem(dims))
     if (dims.n_servers > MAX_SERVERS or dims.max_log > MAX_LOG
             or dims.n_msg_slots > MAX_SLOTS or smem > MAX_SMEM):
         raise ValueError(
@@ -112,7 +136,7 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] * 4 + [p, p, i, i] + [p] * 5 + [i] * 5 + [p]
+        fn.argtypes = ([i] * 4 + [p, p, i, i] + [p] * 5 + [i] * 5 + [p, p]
                        + [p] * 13 + [p])
     return lib
 
@@ -158,6 +182,14 @@ class Front:
                            constraint=self._constraint, inv_id=self._inv_id,
                            por_mask=pm, por_priority=pp)
 
+    def launch_info(self):
+        """``{kernel: build.kernel_info}`` of each launch of one call."""
+        d = self.dims
+        return {name: build.kernel_info(
+                    "chunk_front", i, d.n_servers, d.n_values, d.max_log,
+                    d.n_msg_slots, self.B, self.K)
+                for i, name in enumerate(KERNELS)}
+
     def __call__(self, rows, valid) -> FrontOut:
         global launches
         if rows.device.type == "cpu":
@@ -180,6 +212,7 @@ class Front:
             return torch.empty(shape, dtype=dtype, device=dev)
 
         scratch = empty((B, 6 + 2 * d.n_msg_slots), torch.int32)
+        counts = empty(B, torch.int32)
         pt = empty(2, torch.int32)
         out = FrontOut(
             en=empty((B, G), torch.bool), ovf=empty((B, G), torch.bool),
@@ -198,8 +231,9 @@ class Front:
             pp.data_ptr() if pp is not None else None,
             self._salts.data_ptr(), self._inv_codes.data_ptr(),
             len(self._codes), *self._bounds, scratch.data_ptr(),
-            out.en.data_ptr(), out.ovf.data_ptr(), out.pruned.data_ptr(),
-            pt.data_ptr(), out.lane_id.data_ptr(), out.kvalid.data_ptr(),
+            counts.data_ptr(), out.en.data_ptr(), out.ovf.data_ptr(),
+            out.pruned.data_ptr(), pt.data_ptr(), out.lane_id.data_ptr(),
+            out.kvalid.data_ptr(),
             out.kh.data_ptr(), out.kl.data_ptr(), out.krows.data_ptr(),
             out.cons_ok.data_ptr(), out.inv.data_ptr(),
             out.parent_hi.data_ptr(), out.parent_lo.data_ptr(),

@@ -11,7 +11,9 @@ Contract, for a [B, G] enabled mask and K compacted lanes:
 
 ``P`` and ``total`` come back as a [2] int32 device tensor, so the chunk
 reads them without a host round trip.  ``compact`` launches the kernel for
-CUDA tensors and takes ``compact_plain`` only for CPU tensors.
+CUDA tensors (two CUDA launches on the current stream, the row counts and
+the multi-block scan and write, counted as one call) and takes
+``compact_plain`` only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from ..utils import build
 
 #: Kernel launches since the last reset (chip_smoke reads it).
 launches = 0
+
+#: The CUDA launches of one ``compact`` call, in order.
+KERNELS = ("count_kernel", "compact_scan_kernel")
 
 
 def compact_plain(en: torch.Tensor, K: int, kspread: torch.Tensor):
@@ -46,10 +51,15 @@ def _lib():
     fn = lib.compact_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i] + [p] * 6
     return lib
+
+
+def launch_info(B: int, G: int, K: int):
+    """``{kernel: build.kernel_info}`` of each launch of one call."""
+    return {name: build.kernel_info("compact", i, B, G, K)
+            for i, name in enumerate(KERNELS)}
 
 
 def compact(en: torch.Tensor, K: int, kspread: torch.Tensor):
@@ -67,13 +77,16 @@ def compact(en: torch.Tensor, K: int, kspread: torch.Tensor):
         raise ValueError("compact: kspread must be int32 [K] on en's device")
     if K & (K - 1) or K < G:
         raise ValueError(f"compact: K={K} must be a power of two >= G={G}")
+    if B < 1:
+        raise ValueError("compact: en must have a row")
+    counts = torch.empty(B, dtype=torch.int32, device=en.device)
     pt = torch.empty(2, dtype=torch.int32, device=en.device)
     lane_id = torch.empty(K, dtype=torch.int32, device=en.device)
     kvalid = torch.empty(K, dtype=torch.bool, device=en.device)
     stream = torch.cuda.current_stream(en.device).cuda_stream
     err = _lib().compact_launch(
-        en.data_ptr(), B, G, K, kspread.data_ptr(), pt.data_ptr(),
-        lane_id.data_ptr(), kvalid.data_ptr(), stream)
+        en.data_ptr(), B, G, K, kspread.data_ptr(), counts.data_ptr(),
+        pt.data_ptr(), lane_id.data_ptr(), kvalid.data_ptr(), stream)
     build.check(err, "compact_launch")
     launches += 1
     return pt, lane_id, kvalid

@@ -101,6 +101,26 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+#: What ``kernel_info`` reports of one launch.
+INFO_KEYS = ("grid", "block", "dynamic_smem", "registers", "local_bytes",
+             "static_smem", "max_threads")
+
+
+def kernel_info(name: str, which: int, *args: int) -> dict:
+    """Launch ``which`` of ``csrc/<name>.cu``'s entry point at the sizes
+    ``args``: its grid, block and dynamic shared memory as the launcher
+    computes them, and the registers, spill bytes, static shared memory
+    and thread limit its kernel was built with (``cudaFuncGetAttributes``
+    through the library's ``<name>_kernel_info``)."""
+    fn = getattr(library(name), f"{name}_kernel_info")
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * (1 + len(args))
+                   + [ctypes.POINTER(ctypes.c_int)])
+    check(fn(which, *args, out), f"{name}_kernel_info")
+    return dict(zip(INFO_KEYS, out))
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:

@@ -192,3 +192,34 @@ def test_front_rejects_what_the_kernel_cannot_run(rig):
                 K=256, device="cpu")
     noleader = load_config(os.path.join(REPO, "configs/MCraft_noleader.cfg"))
     chunk_front_cuda.check_dims(noleader.dims)
+
+
+def test_check_dims_raises_exactly_past_the_shared_memory():
+    """``check_dims`` accepts the main path's and the other-dims phase's
+    dims and raises exactly where the masks or the lanes launch would need
+    more than 232,448 bytes of shared memory a block (chip_smoke.py holds
+    ``lanes_smem`` against the launcher's own figure on the card)."""
+    main = load_config(BOUNDED).dims
+    # sw = 473, W = 12, 19 edits a lane: 16 rows of 1,904 B of ints, 8 byte
+    # rows of 496 B, 64 lanes' 19 edits of 4 + 2 B and 12-int message rows,
+    # 624 ints.
+    assert chunk_front_cuda.lanes_smem(main) == (
+        16 * 1904 + 8 * 496 + 64 * 19 * 6 + 64 * 12 * 4 + 624 * 4)
+    for d in (main, RaftDims(n_servers=3, n_values=2, max_log=4,
+                             n_msg_slots=40),
+              RaftDims(n_servers=5, n_values=1, max_log=2, n_msg_slots=64)):
+        chunk_front_cuda.check_dims(d)
+    outcomes = set()
+    for n, log in ((3, 16), (8, 4), (5, 8)):
+        for m in range(1, chunk_front_cuda.MAX_SLOTS + 1):
+            d = RaftDims(n_servers=n, n_values=2, max_log=log, n_msg_slots=m)
+            over = max(chunk_front_cuda.masks_smem(d),
+                       chunk_front_cuda.lanes_smem(d)) \
+                > chunk_front_cuda.MAX_SMEM
+            outcomes.add(over)
+            if over:
+                with pytest.raises(ValueError, match="exceed the kernel"):
+                    chunk_front_cuda.check_dims(d)
+            else:
+                chunk_front_cuda.check_dims(d)
+    assert outcomes == {False, True}

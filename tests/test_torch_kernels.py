@@ -28,14 +28,42 @@ def _keys(pairs):
     return tfpset.pack(_i64(pairs[:, 0]), _i64(pairs[:, 1]))
 
 
-@pytest.mark.parametrize("density", [0.0, 0.06, 0.3, 1.0])
+def _fanout_mask(rng, counts, G):
+    """[len(counts), G] bool with counts[b] enabled lanes in row b."""
+    order = rng.rand(len(counts), G).argsort(1)
+    return order < np.asarray(counts)[:, None]
+
+
+# Masks built around the compaction's traps, at B = 37 rows (no multiple
+# of the CUDA scan's 16-row blocks) and G = 10: (K, the row fan-outs up to
+# the boundary, the P they must give).  Rows past the listed ones have
+# fan-out 5, so none of them fits after a boundary.
+_TRAPS = {
+    "zero rows after the last fitting row": (64, [10] * 6 + [0] * 3, 9),
+    "total == K on a block edge": (64, [4] * 16, 16),
+    "total == K inside a block": (64, [4] * 15 + [2, 2], 17),
+    "boundary inside a block": (64, [3] * 21, 21),
+    "P == 1 at the least K >= G": (16, [10, 10], 1),
+    "P == B with trailing zero rows": (512, [5] * 32 + [0] * 5, 37),
+}
+
+
+@pytest.mark.parametrize("density", [0.0, 0.06, 0.3, 1.0] + list(_TRAPS))
 def test_compact_matches_pallas(density):
-    B, G, K = 24, 132, 256
-    rng = np.random.RandomState(7 + int(density * 100))
-    en = rng.rand(B, G) < density
+    if density in _TRAPS:
+        B, G = 37, 10
+        K, head, want_p = _TRAPS[density]
+        rng = np.random.RandomState(len(head) + K)
+        en = _fanout_mask(rng, head + [5] * (B - len(head)), G)
+    else:
+        B, G, K = 24, 132, 256
+        rng = np.random.RandomState(7 + int(density * 100))
+        en = rng.rand(B, G) < density
+        want_p = None
     P, total, lane_id, kvalid = (np.asarray(x) for x in
                                  compact_pallas.build_compactor(B, G, K)(
                                      jnp.asarray(en)))
+    assert want_p is None or int(P) == want_p
     kspr = tcompact.kspread(B, G, K, "cpu")
     assert (kspr.numpy() == np.asarray(jcompact.kspread(B, G, K))).all()
     pt, lid, kv = compact_cuda.compact(torch.as_tensor(en), K, kspr)
