@@ -6,6 +6,7 @@
                                              profile only)
     python3 chip_smoke.py --enqueue-tiles   (a tuning table, no smoke run)
     python3 chip_smoke.py --front-variants  (a tuning table, no smoke run)
+    python3 chip_smoke.py --tail-variants   (a tuning table, no smoke run)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -34,12 +35,21 @@ table runs through ``--por-table`` on both plans.
 
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
-scan block, P == 1, B not a multiple of the scan block) and the front on
-a window whose boundary falls inside a scan block; each kernel phase
-prints the kernel's time for one call between two CUDA events, its
-device time among calls queued back to back, its launches' device
-microseconds under torch.profiler and, for the compaction and the front,
-each launch's grid, registers, spill bytes and shared memory.
+scan block, P == 1, B not a multiple of the scan block), the front on
+a window whose boundary falls inside a scan block, and the insert and
+the fused tail on batches built around theirs (n = 1, 512, 1,000 and
+2^20 lanes, a 4,096-slot table grown through the kernel, one new key on
+every lane, one present key on every lane, no valid lane, a table that
+fails, enq_ok all false and all true, the last row on the queue's last
+row, rows of 403 bytes, of configs/raft5_bounded.cfg's width (a tile
+staged in several turns) and of the widest the kernel takes; the whole
+queue compared, the owner scratch clear
+after every call); each kernel phase prints the kernel's time for one
+call between two CUDA events, its device time among calls queued back
+to back, its launches' device microseconds under torch.profiler (for
+the insert and the fused tail also at the seen-set loads of L9 and L11,
+and checked to be the wrapper's kernels and nothing else) and each
+launch's grid, registers, spill bytes and shared memory.
 
 Output: the card's name and power limit, one line per phase, then a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
@@ -323,25 +333,163 @@ def insert_bytes(n, n_distinct, n_new):
     # queries + valid + is_new + fail, one 32-byte sector read per distinct
     # valid key (a duplicate finds its key where the first lane did) and
     # one written per claimed slot.
-    return n * (8 + 1 + 1) + 4 + 32 * n_distinct + 32 * n_new
+    return n * (8 + 1 + 1) + 1 + 32 * n_distinct + 32 * n_new
+
+
+def owner_clear(torch, s):
+    from raft_tla_tpu_torch.ops.fpset import NO_OWNER
+    return bool((s.owner == NO_OWNER).all())
+
+
+def insert_traps(torch, gen, device, base, present):
+    """``[(name, table, keys, valid)]``: the batches the insert must
+    survive beside the main path's.  ``table()`` makes the batch's table
+    on the card (the 2^25-slot table at load 0.4 unless named)."""
+    from raft_tla_tpu_torch.ops import fpset
+    q, _v = dup_heavy_queries(torch, gen, device, present)
+    ones = torch.ones(K, dtype=torch.bool, device=device)
+    _h, _l, one = random_keys(torch, 1, gen, device)
+    _h, _l, wide = random_keys(torch, 1 << 20, gen, device)
+    small_pool = random_keys(torch, 300, gen, device)[2]
+    small = small_pool[torch.randint(0, 300, (512,), generator=gen,
+                                     device=device)]
+    _h, _l, over = random_keys(torch, 1024, gen, device)
+
+    def main():
+        return copy_table(torch, base)
+
+    def rand_valid(n, p=0.8):
+        return torch.rand(n, generator=gen, device=device) < p
+
+    return [
+        ("n = 1 (the root ingest)", main, one, ones[:1]),
+        ("n = 512 into 4,096 slots (the L6 front's K)",
+         lambda: fpset.empty(4096, device), small, rand_valid(512)),
+        ("n = 1,000 (no multiple of a tile)", main, q[:1000],
+         rand_valid(1000)),
+        ("all 32,768 lanes one new key", main, one.expand(K).contiguous(),
+         ones),
+        ("one present key on every lane", main,
+         present[:1].expand(K).contiguous(), ones),
+        ("no valid lane", main, q, ones & False),
+        ("n = 2^20 distinct keys into 2^21 slots (a rehash chunk, load 0.5)",
+         lambda: fpset.empty(1 << 21, device), torch.unique(wide),
+         None),
+        ("a 64-slot table that fails", lambda: fpset.empty(64, device),
+         over, ones[:1024]),
+    ]
+
+
+def held_insert(torch, name, s, q, valid):
+    """The insert kernel against insert_plain on copies of ``s``: exact
+    (is_new, fail, size, key set; only fail where a query fails), and the
+    owner scratch all NO_OWNER after the call.  Returns max_abs_err."""
+    from raft_tla_tpu_torch.ops import fpset_cuda
+    a, b = copy_table(torch, s), copy_table(torch, s)
+    new_k, fail_k = fpset_cuda.insert(a, q, valid)
+    new_p, fail_p = fpset_cuda.insert_plain(b, q, valid)
+    torch.cuda.synchronize()
+    failed = bool(fail_p) or bool(fail_k)
+    pairs = [(fail_k, fail_p)] if failed else [
+        (new_k, new_p), (fail_k, fail_p), (a.size, b.size),
+        (torch.sort(a.keys).values, torch.sort(b.keys).values)]
+    err = max_abs(torch, pairs)
+    clear = owner_clear(torch, a)
+    print(f"fpset_insert trap {name}: n={q.shape[0]} capacity={s.capacity} "
+          f"new={int(new_k.sum())} fail={bool(fail_k)} max_abs_err={err} "
+          f"owner scratch clear={clear}")
+    need(err == 0.0 and clear, f"fpset_insert differs from its plain "
+         f"version on the {name} batch")
+    return err
+
+
+def grow_trap(torch, gen, device):
+    """Batches of 512 into a 4,096-slot table that doubles through the
+    insert kernel (fpset.grow) whenever the next batch could take it past
+    half full, against the plain version on a CPU table grown the same
+    way; every batch exact, the owner scratch clear."""
+    from raft_tla_tpu_torch.ops import fpset, fpset_cuda
+    pool = random_keys(torch, 9000, gen, device)[2]
+    tk, tp = fpset.empty(4096, device), fpset.empty(4096, "cpu")
+    err, grows, peak = 0.0, 0, 0.0
+    while grows < 2:
+        if int(tp.size[0]) + 512 > tp.capacity // 2:
+            tk = fpset.grow(tk, 2 * tk.capacity)
+            tp = fpset.grow(tp, 2 * tp.capacity)
+            grows += 1
+        q = pool[torch.randint(0, pool.shape[0], (512,), generator=gen,
+                               device=device)]
+        v = torch.rand(512, generator=gen, device=device) < 0.9
+        new_k, fail_k = fpset_cuda.insert(tk, q, v)
+        new_p, fail_p = fpset_cuda.insert(tp, q.cpu(), v.cpu())
+        err = max(err, max_abs(torch, [
+            (new_k, new_p), (fail_k, fail_p), (tk.size, tp.size),
+            (torch.sort(tk.keys).values, torch.sort(tp.keys).values)]))
+        need(owner_clear(torch, tk), "owner scratch left set in the grow "
+             "trap")
+        peak = max(peak, int(tp.size[0]) / tp.capacity)
+    print(f"fpset_insert trap 4,096 slots grown twice through the kernel: "
+          f"capacity {tk.capacity}, size {int(tk.size[0])}, highest load "
+          f"{peak}, max_abs_err={err}")
+    need(err == 0.0, "fpset_insert differs from its plain version on the "
+         "growing table")
+    return err
+
+
+def launch_check(torch, what, fn, kernels, setup=None):
+    """The profiled call's device operations are exactly the wrapper's
+    kernel launches, in order (nothing else of PyTorch's).  The profiler
+    now and then misses a short launch, so up to three profiles are taken:
+    none may show another operation, and one must show all of them."""
+    for _ in range(3):
+        ops = device_ops(torch, fn, setup=setup)
+        names = [n for n, _us in ops]
+        need(set(names) <= set(kernels),
+             f"{what} issued {names}, not just {list(kernels)}")
+        if names == list(kernels):
+            break
+    print(f"{what}: {len(ops)} CUDA launches a call, device microseconds "
+          f"{ops}")
+    need(names == list(kernels), f"{what}: the profiler saw {names} in three "
+         f"profiles, not {list(kernels)}")
+
+
+def probe_loads(torch, device, gen):
+    """The insert at the main path's real loads (the 2^25-slot table at
+    L9 holds ~0.015, at L11 ~0.18): queued time and per-launch device
+    microseconds of the load-0.4 phase's batch kind."""
+    from raft_tla_tpu_torch.ops import fpset_cuda
+    for load in (0.015, 0.18):
+        table, present = prefilled_table(torch, gen, device, load)
+        batches = iter(fresh_batches(torch, gen, device, present))
+        queued = queued_ms(torch, lambda: fpset_cuda.insert(
+            table, *next(batches)), QUEUED_REPS, QUEUED_SAMPLES)
+        q, valid = dup_heavy_queries(torch, gen, device, present)
+        ops = device_ops(torch, lambda: fpset_cuda.insert(table, q, valid))
+        print(f"fpset_insert at load {load} (2^25 slots): queued back to "
+              f"back {queued} ms; device microseconds {ops or 'not measured'}")
+        del table, present, batches
+        torch.cuda.empty_cache()
 
 
 def phase_insert(torch, device, gen, base, present):
     from raft_tla_tpu_torch.ops import fpset_cuda
+    err = 0.0
+    for name, table, q, valid in insert_traps(torch, gen, device, base,
+                                              present):
+        if valid is None:
+            valid = torch.ones_like(q, dtype=torch.bool)
+        err = max(err, held_insert(torch, name, table(), q, valid))
+        torch.cuda.empty_cache()
+    err = max(err, grow_trap(torch, gen, device))
     q, valid = dup_heavy_queries(torch, gen, device, present)
     load = int(base.size[0]) / base.capacity
-    a, b = copy_table(torch, base), copy_table(torch, base)
+    a = copy_table(torch, base)
     new_k, fail_k = fpset_cuda.insert(a, q, valid)
-    new_p, fail_p = fpset_cuda.insert_plain(b, q, valid)
     torch.cuda.synchronize()
-    err = max_abs(torch, [
-        (new_k, new_p), (fail_k, fail_p), (a.size, b.size),
-        (torch.sort(a.keys).values, torch.sort(b.keys).values)])
     n_new = int(new_k.sum())
-    print(f"fpset_insert {K} queries into 2^25 slots at load {load}: "
-          f"new={n_new} fail={bool(fail_k)} size={int(a.size[0])} "
-          f"max_abs_err={err}")
-    need(err == 0.0, "fpset_insert differs from its plain version")
+    err = max(err, held_insert(torch, f"main path at load {load}", base, q,
+                               valid))
     need(n_new > 0 and not bool(fail_k), "fpset_insert phase inserted nothing")
     work = copy_table(torch, base)
 
@@ -351,8 +499,6 @@ def phase_insert(torch, device, gen, base, present):
 
     ms = cuda_ms(torch, lambda: fpset_cuda.insert(work, q, valid), 20,
                  setup=restore)
-    dev_us = device_ops(torch, lambda: fpset_cuda.insert(work, q, valid),
-                        setup=restore)
     plain_ms = cuda_ms(torch, lambda: fpset_cuda.insert_plain(
         work, q, valid), 2, setup=restore)
     restore()
@@ -362,53 +508,134 @@ def phase_insert(torch, device, gen, base, present):
     nbytes = insert_bytes(K, distinct_valid(torch, q, valid), n_new)
     row = dict(name="fpset_insert", route="cuda",
                source="raft_tla_tpu_torch/csrc/fpset.cu",
-               replaces="raft_tla_tpu/ops/fpset_pallas.py:161",
+               replaces="raft_tla_tpu/ops/fpset_pallas.py:162",
                max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=None)
-    print(f"fpset_insert: one call between two events: kernel {ms} ms, "
-          f"plain {plain_ms} ms; kernel queued back to back (a fresh batch "
-          f"of the same kind each call) {queued} ms; bound {row['bound_ms']} "
-          f"ms ({nbytes} bytes); device microseconds under the profiler "
-          f"{dev_us or 'not measured'}")
-    del a, b, work
+    print(f"fpset_insert {K} queries into 2^25 slots at load {load}: one "
+          f"call between two events: kernel {ms} ms, plain {plain_ms} ms; "
+          f"kernel queued back to back (a fresh batch of the same kind each "
+          f"call) {queued} ms; bound {row['bound_ms']} ms ({nbytes} bytes)")
+    launch_check(torch, "fpset_insert", lambda: fpset_cuda.insert(
+        work, q, valid), fpset_cuda.KERNELS, setup=restore)
+    info = fpset_cuda.launch_info(K)
+    print(f"fpset_insert launches at n={K}: {info}; at n=2^20: "
+          f"{fpset_cuda.launch_info(1 << 20)}")
+    del a, work
     return row
 
 
-def phase_fused_tail(torch, device, gen, base, present):
-    from raft_tla_tpu_torch.models.schema import state_width
-    from raft_tla_tpu_torch.models.dims import RaftDims
+def held_tail(torch, name, s, q, valid, krows, enq_ok, qa, qb, next_count):
+    """The fused tail against insert_enqueue_plain on copies of ``s`` and
+    on the two queues ``qa`` / ``qb`` (equal before): is_new, fail, count,
+    size, key set and the WHOLE queue equal (only fail where a query
+    fails), the owner scratch clear.  Returns max_abs_err."""
     from raft_tla_tpu_torch.ops import fused_tail_cuda
-    sw = state_width(RaftDims(n_servers=3, n_values=2, max_log=3,
-                              n_msg_slots=32))
-    q, valid = dup_heavy_queries(torch, gen, device, present)
-    enq_ok = torch.rand(K, generator=gen, device=device) < 0.7
-    krows = torch.randint(0, 256, (K, sw), generator=gen, device=device,
-                          dtype=torch.uint8)
-    rows_total = QUEUE + K
-    next_count = NEXT_COUNT
-    qa = torch.randint(0, 256, (rows_total, sw), generator=gen, device=device,
-                       dtype=torch.uint8)
-    qb = qa.clone()
-    a, b = copy_table(torch, base), copy_table(torch, base)
+    a, b = copy_table(torch, s), copy_table(torch, s)
     new_k, fail_k, cnt_k = fused_tail_cuda.insert_enqueue(
         a, q, valid, krows, enq_ok, qa, next_count)
     new_p, fail_p, cnt_p = fused_tail_cuda.insert_enqueue_plain(
         b, q, valid, krows, enq_ok, qb, next_count)
     torch.cuda.synchronize()
-    rows_equal = bool(torch.equal(qa, qb))
-    err = max_abs(torch, [
-        (new_k, new_p), (fail_k, fail_p), (cnt_k, cnt_p), (a.size, b.size),
-        (torch.sort(a.keys).values, torch.sort(b.keys).values)])
+    failed = bool(fail_p) or bool(fail_k)
+    if failed:
+        err, rows_equal = max_abs(torch, [(fail_k, fail_p)]), True
+        qa.copy_(qb)
+    else:
+        rows_equal = bool(torch.equal(qa, qb))
+        err = max_abs(torch, [
+            (new_k, new_p), (fail_k, fail_p), (cnt_k, cnt_p),
+            (a.size, b.size),
+            (torch.sort(a.keys).values, torch.sort(b.keys).values)])
+    clear = owner_clear(torch, a)
     n_enq = int(cnt_k) - next_count
-    print(f"fused_tail K={K} rows of {sw} B into a {rows_total}-row queue: "
-          f"new={int(new_k.sum())} enqueued={n_enq} queue_equal={rows_equal} "
-          f"max_abs_err={err}")
-    need(err == 0.0 and rows_equal,
-         "fused_tail differs from its plain version")
+    print(f"fused_tail trap {name}: n={q.shape[0]} rows of {krows.shape[1]} "
+          f"B, new={int(new_k.sum())} enqueued={n_enq} at {next_count} of "
+          f"{qa.shape[0]} rows, fail={bool(fail_k)} queue_equal={rows_equal} "
+          f"max_abs_err={err} owner scratch clear={clear}")
+    need(err == 0.0 and rows_equal and clear,
+         f"fused_tail differs from its plain version on the {name} batch")
+    return err, n_enq
+
+
+def phase_fused_tail(torch, device, gen, base, present):
+    from raft_tla_tpu_torch.models.schema import state_width
+    from raft_tla_tpu_torch.models.dims import RaftDims
+    from raft_tla_tpu_torch.ops import fpset, fused_tail_cuda
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    sw = state_width(RaftDims(n_servers=3, n_values=2, max_log=3,
+                              n_msg_slots=32))
+    krows = torch.randint(0, 256, (K, sw), generator=gen, device=device,
+                          dtype=torch.uint8)
+    rows_total = QUEUE + K
+    qa = torch.randint(0, 256, (rows_total, sw), generator=gen, device=device,
+                       dtype=torch.uint8)
+    qb = qa.clone()
+    err = 0.0
+    ok_rand = torch.rand(K, generator=gen, device=device) < 0.7
+    for name, table, q, valid in insert_traps(torch, gen, device, base,
+                                              present):
+        if valid is None:
+            continue                # the rehash chunk is the insert's alone
+        n = q.shape[0]
+        e, _n = held_tail(torch, name, table(), q, valid, krows[:n],
+                          ok_rand[:n], qa, qb, NEXT_COUNT)
+        err = max(err, e)
+    q, valid = dup_heavy_queries(torch, gen, device, present)
+    for name, ok in (("enq_ok all false", ok_rand & False),
+                     ("enq_ok all true", ok_rand | True)):
+        err = max(err, held_tail(torch, name, base, q, valid, krows, ok, qa,
+                                 qb, NEXT_COUNT)[0])
+    # K distinct new keys, all enqueued: the last row lands on the queue's
+    # last row.
+    _h, _l, fresh = random_keys(torch, K, gen, device)
+    need(torch.unique(fresh).shape[0] == K, "the fresh keys collide")
+    e, n_enq = held_tail(torch, "the last live row on the queue's last row",
+                         base, fresh, ok_rand | True, krows, ok_rand | True,
+                         qa, qb, QUEUE)
+    need(n_enq == K, f"{n_enq} rows enqueued, not {K}")
+    err = max(err, e)
+    # Rows of MCraft_noleader's width, into a smaller queue.
+    sw403 = state_width(RaftDims(n_servers=3, n_values=2, max_log=2,
+                                 n_msg_slots=32))
+    r403 = torch.randint(0, 256, (K, sw403), generator=gen, device=device,
+                         dtype=torch.uint8)
+    q403a = torch.randint(0, 256, ((1 << 16) + K, sw403), generator=gen,
+                          device=device, dtype=torch.uint8)
+    q403b = q403a.clone()
+    err = max(err, held_tail(torch, f"rows of {sw403} B",
+                             fpset.empty(1 << 18, device), q, valid, r403,
+                             ok_rand, q403a, q403b, 12345)[0])
+    del r403, q403a, q403b
+    # Rows too wide for a 64-lane tile to fit the stage at once, so that a
+    # tile is staged in turns: raft5_bounded's rows at K lanes, and the
+    # widest rows the kernel takes (a turn a row) on 1,000 lanes.
+    sw5 = state_width(load_config(os.path.join(
+        HERE, "configs/raft5_bounded.cfg")).dims)
+    _tile, widest = fused_tail_cuda.geometry()
+    need(64 * sw5 > widest, f"{sw5}-byte rows fit the stage at once")
+    for w, n in ((sw5, K), (widest, 1000)):
+        rw = torch.randint(0, 256, (n, w), generator=gen, device=device,
+                           dtype=torch.uint8)
+        qwa = torch.randint(0, 256, (4096 + n, w), generator=gen,
+                            device=device, dtype=torch.uint8)
+        qwb = qwa.clone()
+        err = max(err, held_tail(torch, f"rows of {w} B",
+                                 fpset.empty(1 << 18, device), q[:n],
+                                 valid[:n], rw, ok_rand[:n], qwa, qwb,
+                                 777)[0])
+        del rw, qwa, qwb
+    e, n_enq = held_tail(torch, "main path", base, q, valid, krows, ok_rand,
+                         qa, qb, NEXT_COUNT)
+    err = max(err, e)
     need(n_enq > 0, "fused_tail phase enqueued nothing")
-    del qb, b
+    enq_ok, next_count = ok_rand, NEXT_COUNT
+    del qb
     work = copy_table(torch, base)
+    a = copy_table(torch, base)
+    new_k, _f, _c = fused_tail_cuda.insert_enqueue(a, q, valid, krows, enq_ok,
+                                                   qa, next_count)
+    n_new = int(new_k.sum())
 
     def restore():
         work.keys.copy_(base.keys)
@@ -419,7 +646,6 @@ def phase_fused_tail(torch, device, gen, base, present):
                                        next_count)
 
     ms = cuda_ms(torch, kernel, 20, setup=restore)
-    dev_us = device_ops(torch, kernel, setup=restore)
     plain_ms = cuda_ms(torch, lambda: fused_tail_cuda.insert_enqueue_plain(
         work, q, valid, krows, enq_ok, qa, next_count), 2,
         setup=restore)
@@ -430,20 +656,25 @@ def phase_fused_tail(torch, device, gen, base, present):
         QUEUED_SAMPLES)
     # The insert's bytes, enq_ok and the count, and each enqueued row read
     # once and written once (no other row need be touched).
-    nbytes = (insert_bytes(K, distinct_valid(torch, q, valid),
-                           int(new_k.sum()))
+    nbytes = (insert_bytes(K, distinct_valid(torch, q, valid), n_new)
               + K + 4 + 2 * n_enq * sw)
     row = dict(name="fused_tail", route="cuda",
                source="raft_tla_tpu_torch/csrc/fused_tail.cu",
-               replaces="raft_tla_tpu/ops/fused_tail_pallas.py:103",
+               replaces="raft_tla_tpu/ops/fused_tail_pallas.py:104",
                max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=None)
-    print(f"fused_tail: one call between two events: kernel {ms} ms, plain "
-          f"{plain_ms} ms; kernel queued back to back (a fresh batch of the "
-          f"same kind each call) {queued} ms; bound {row['bound_ms']} ms "
-          f"({nbytes} bytes); device microseconds under the profiler "
-          f"{dev_us or 'not measured'}")
+    print(f"fused_tail K={K} rows of {sw} B into a {rows_total}-row queue, "
+          f"{n_enq} enqueued: one call between two events: kernel {ms} ms, "
+          f"plain {plain_ms} ms; kernel queued back to back (a fresh batch "
+          f"of the same kind each call) {queued} ms; bound {row['bound_ms']} "
+          f"ms ({nbytes} bytes)")
+    launch_check(torch, "fused_tail", kernel, fused_tail_cuda.KERNELS,
+                 setup=restore)
+    info = fused_tail_cuda.launch_info(K)
+    print(f"fused_tail launches at K={K}: {info}")
+    need(all(i["grid"] > 1 for i in info.values()),
+         "a fused-tail launch runs on one block")
     del a, work, qa
     return row
 
@@ -1012,7 +1243,7 @@ def phase_enqueue(torch, device, gen):
     nbytes = K + 2 * n_enq * sw + 4
     row = dict(name="enqueue", route="cuda",
                source="raft_tla_tpu_torch/csrc/enqueue.cu",
-               replaces="raft_tla_tpu/ops/enqueue_pallas.py:97",
+               replaces="raft_tla_tpu/ops/enqueue_pallas.py:98",
                max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=library_ms)
@@ -1170,6 +1401,244 @@ def front_variants(torch, device):
                   f"device microseconds {by}")
     finally:
         chunk_front_cuda._lib = real_lib
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: ``--tail-variants``: the insert designs measured against the built one,
+#: as (name, [(file in csrc/, text in it, its replacement)]), applied in order
+#: to a copy of the sources.  (b) folds ``own`` into the claim: a lane that
+#: meets an empty slot reserves its owner word (CAS NO_OWNER -> lane) and
+#: only then, after a fence, publishes its key; a lane that finds its key
+#: where the owner word is set takes atomicMin there; a lane that loses
+#: the reservation of an empty slot waits for the winner's key (safe under
+#: independent thread scheduling: the winner is resident and needs only
+#: its fence and one store).  (c) runs (b)'s two passes as one cooperative
+#: launch sized to the resident grid, a grid barrier between them.
+_PAIRED_PROBES = """  for (uint32_t r = 0; r < kProbeRounds; r += 2) {
+    const uint32_t i0 = (h1 + r * h2) & cmask;
+    const uint32_t i1 = (h1 + (r + 1) * h2) & cmask;
+    const unsigned long long c0 = ld_relaxed(&table[i0]);
+    const unsigned long long c1 = ld_relaxed(&table[i1]);
+    if (probe_slot(i0, c0, key, l, table, owner, &slot)) break;
+    if (probe_slot(i1, c1, key, l, table, owner, &slot)) break;
+  }"""
+_ONE_PROBE = """  for (uint32_t r = 0; r < kProbeRounds; ++r) {
+    const uint32_t i = (h1 + r * h2) & cmask;
+    if (probe_slot(i, ld_relaxed(&table[i]), key, l, table, owner, &slot))
+      break;
+  }"""
+_CAS_CLAIM = """  if (cur == kEmpty) {
+    cur = atomicCAS(&table[idx], kEmpty, key);
+    if (cur == kEmpty) {
+      owner[idx] = l;
+      *slot = (int)idx;
+      return true;
+    }
+  }
+  if (cur == key) *slot = (int)idx;
+  return cur == key;"""
+_RESERVE_CLAIM = """  if (cur == kEmpty) {
+    if (atomicCAS(&owner[idx], kNoOwner, l) == kNoOwner) {
+      asm volatile("fence.acq_rel.gpu;" ::: "memory");
+      asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+                   :: "l"(&table[idx]), "l"(key) : "memory");
+      *slot = (int)idx;
+      return true;
+    }
+    while ((cur = ld_relaxed(&table[idx])) == kEmpty) __nanosleep(32);
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+    if (cur != key) return false;
+    *slot = (int)idx;
+    atomicMin(&owner[idx], l);
+    return true;
+  }
+  if (cur != key) return false;
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  *slot = (int)idx;
+  int o;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];"
+               : "=r"(o) : "l"(&owner[idx]) : "memory");
+  if (o != kNoOwner) atomicMin(&owner[idx], l);
+  return true;"""
+_OWN_LAUNCH = """  e = launch(own_kernel, blocks, kInsertThreads, stream, true,
+             (const int*)sp, n, op);
+  if (e != cudaSuccess) return e;
+"""
+_CLAIM_LAUNCH = """  cudaError_t e = launch(probe_claim_kernel, blocks, kInsertThreads, stream,
+                         false, qp, vp, n, tp, cmask, op, sp, fp);
+  if (e != cudaSuccess) return e;
+"""
+_COOP_LAUNCH = """  void* args[] = {&qp, &vp, &n, &tp, (void*)&cmask, &op, &sp, &np, &zp,
+                  &fp, &ep, &cp};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      tile_count ? (const void*)insert_coop_kernel<true>
+                 : (const void*)insert_coop_kernel<false>,
+      coop_blocks(n), kInsertThreads, args, 0, stream);
+  return e != cudaSuccess ? e : cudaGetLastError();
+"""
+_COOP_KERNEL = """template <bool kTiles>
+__global__ void __launch_bounds__(kInsertThreads)
+insert_coop_kernel(const unsigned long long* __restrict__ q,
+                   const uint8_t* __restrict__ valid, int n,
+                   unsigned long long* table, uint32_t cmask, int* owner,
+                   int* slot, uint8_t* __restrict__ is_new,
+                   unsigned long long* size, uint8_t* fail,
+                   const uint8_t* __restrict__ enq_ok,
+                   int* __restrict__ tile_count) {
+  __shared__ int smem[kInsertThreads / 32];
+  if (blockIdx.x == 0 && threadIdx.x == 0) *fail = 0;
+  const int stride = gridDim.x * kInsertThreads;
+  for (int l0 = blockIdx.x * kInsertThreads; l0 < n; l0 += stride)
+    claim_lane(l0 + threadIdx.x, n, q, valid, table, cmask, owner, slot);
+  cooperative_groups::this_grid().sync();
+  launch_dependents();
+  for (int l0 = blockIdx.x * kInsertThreads; l0 < n; l0 += stride)
+    resolve_block<kTiles>(l0, n, slot, owner, is_new, size, fail, enq_ok,
+                          tile_count, smem);
+}
+
+inline int coop_blocks(int n) {
+  static int resident = 0;
+  if (!resident) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, insert_coop_kernel<true>, kInsertThreads, 0);
+    resident = sms * per_sm;
+  }
+  const int need = (n + kInsertThreads - 1) / kInsertThreads;
+  return need < 1 ? 1 : (need < resident ? need : resident);
+}
+
+"""
+_RESERVE = [("fpset.cuh", _CAS_CLAIM, _RESERVE_CLAIM),
+            ("fpset.cuh", _OWN_LAUNCH, "")]
+TAIL_VARIANTS = [
+    ("as built", []),
+    ("no programmatic dependent launch", [
+        ("fpset.cuh", "stream, true,", "stream, false,"),
+        ("fused_tail.cu", "s, true,", "s, false,")]),
+    ("one probe at a time", [("fpset.cuh", _PAIRED_PROBES, _ONE_PROBE)]),
+    ("(b) own folded into the claim (reserve, then publish)", _RESERVE),
+    ("(c) one cooperative launch", _RESERVE + [
+        ("fpset.cuh", '#include "common.cuh"',
+         '#include <cooperative_groups.h>\n\n#include "common.cuh"'),
+        ("fpset.cuh", "// Blocks of one insert pass:",
+         _COOP_KERNEL + "// Blocks of one insert pass:"),
+        ("fpset.cuh", _CLAIM_LAUNCH, _COOP_LAUNCH)]),
+]
+
+
+def build_tail_variant(tmp, v, subs):
+    """Start nvcc on csrc/fpset.cu and csrc/fused_tail.cu with ``subs``
+    applied to a copy of the sources under ``tmp``: ``[(source, so,
+    process)]``."""
+    from raft_tla_tpu_torch.utils import build
+    src = os.path.join(tmp, f"csrc{v}")
+    shutil.copytree(build.CSRC, src)
+    for name, old, new in subs:
+        path = os.path.join(src, name)
+        with open(path) as f:
+            text = f.read()
+        need(old in text, f"csrc/{name} lost {old[:60]!r}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    procs = []
+    for name in ("fpset", "fused_tail"):
+        so = os.path.join(tmp, f"lib{name}{v}.so")
+        procs.append((name, so, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-I", src, "-o", so,
+             os.path.join(src, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def tail_variants(torch, device):
+    """``python3 chip_smoke.py --tail-variants``: the insert and the fused
+    tail built from each of TAIL_VARIANTS, each held exactly against its
+    plain version and timed (queued back to back, and per launch under
+    the profiler) at loads 0.015 and 0.4 of the 2^25-slot table, on
+    batches of the kernel phases' kind.  Not part of the smoke run."""
+    import ctypes
+    from raft_tla_tpu_torch.ops import fpset_cuda, fused_tail_cuda
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    tables = {load: prefilled_table(torch, gen, device, load)
+              for load in (0.015, 0.4)}
+    sw = 473
+    krows = torch.randint(0, 256, (K, sw), generator=gen, device=device,
+                          dtype=torch.uint8)
+    qa = torch.randint(0, 256, ((1 << 16) + K, sw), generator=gen,
+                       device=device, dtype=torch.uint8)
+    qb = qa.clone()
+    enq_ok = torch.rand(K, generator=gen, device=device) < 0.7
+    real = (fpset_cuda._lib, fused_tail_cuda._lib)
+    argtypes = (fpset_cuda._lib().fpset_insert_launch.argtypes,
+                fused_tail_cuda._lib().fused_tail_launch.argtypes)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tail_")
+    try:
+        procs = [(name, src, so, proc)
+                 for v, (name, subs) in enumerate(TAIL_VARIANTS)
+                 for src, so, proc in build_tail_variant(tmp, v, subs)]
+        built = collections.defaultdict(dict)
+        for name, src, so, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                print(f"tail variant {name}: nvcc {src}.cu failed: "
+                      f"{log[-800:]}")
+            else:
+                built[name][src] = so
+        for name, _subs in TAIL_VARIANTS + TAIL_VARIANTS[:1]:
+            if len(built[name]) < 2:
+                continue
+            libs = []
+            for src, fn, types in (("fpset", "fpset_insert_launch",
+                                    argtypes[0]),
+                                   ("fused_tail", "fused_tail_launch",
+                                    argtypes[1])):
+                lib = ctypes.CDLL(built[name][src])
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = types
+                libs.append(lib)
+            fpset_cuda._lib = lambda lib=libs[0]: lib
+            fused_tail_cuda._lib = lambda lib=libs[1]: lib
+            for load, (base, present) in tables.items():
+                q, valid = dup_heavy_queries(torch, gen, device, present)
+                err = held_insert(torch, f"{name}, load {load}", base, q,
+                                  valid)
+                err = max(err, held_tail(
+                    torch, f"{name}, load {load}", base, q, valid, krows,
+                    enq_ok, qa, qb, 12345)[0])
+                work = copy_table(torch, base)
+
+                def restore():
+                    work.keys.copy_(base.keys)
+                    work.size.copy_(base.size)
+
+                ops_i = device_ops(torch, lambda: fpset_cuda.insert(
+                    work, q, valid), setup=restore)
+                ops_t = device_ops(torch, lambda: fused_tail_cuda
+                                   .insert_enqueue(work, q, valid, krows,
+                                                   enq_ok, qa, 12345),
+                                   setup=restore)
+                restore()
+                batches = iter(fresh_batches(torch, gen, device, present))
+                qi = queued_ms(torch, lambda: fpset_cuda.insert(
+                    work, *next(batches)), QUEUED_REPS, QUEUED_SAMPLES)
+                restore()
+                batches = iter(fresh_batches(torch, gen, device, present))
+                qt = queued_ms(torch, lambda: fused_tail_cuda.insert_enqueue(
+                    work, *next(batches), krows, enq_ok, qa, 12345),
+                    QUEUED_REPS, QUEUED_SAMPLES)
+                qb.copy_(qa)
+                print(f"tail variant {name} at load {load}: insert queued "
+                      f"{qi} ms, device microseconds {ops_i}; fused tail "
+                      f"queued {qt} ms, device microseconds {ops_t}; "
+                      f"max_abs_err {err}")
+                del work
+    finally:
+        fpset_cuda._lib, fused_tail_cuda._lib = real
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1371,6 +1840,9 @@ def main() -> int:
     if sys.argv[1:] == ["--front-variants"]:
         front_variants(torch, device)
         return 0
+    if sys.argv[1:] == ["--tail-variants"]:
+        tail_variants(torch, device)
+        return 0
     gen = torch.Generator(device=device)
     gen.manual_seed(20261016)
     t = time.time()
@@ -1380,6 +1852,7 @@ def main() -> int:
     rows.append(phase_fused_tail(torch, device, gen, base, present))
     del base, present
     torch.cuda.empty_cache()
+    probe_loads(torch, device, gen)
     rows.append(phase_front(torch, device))
     rows.append(phase_enqueue(torch, device, gen))
     if sys.argv[1:] == ["--kernels"]:

@@ -50,6 +50,39 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total,
   return res;
 }
 
+// Programmatic dependent launch (Hopper): a kernel launched with
+// `dependent` set may start while the kernel before it on the stream is
+// still running, and must call grid_dependency_wait() before it reads what
+// that kernel writes.  launch_dependents() in the earlier kernel lets the
+// later one's blocks become resident early.  Without the attribute the
+// wait returns at once.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Host side: launch `kernel` on `stream`, as a programmatic dependent of
+// the launch before it when `dependent` is set.  Returns a cudaError_t.
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch(void (*kernel)(KArgs...), int grid, int block,
+                          cudaStream_t stream, bool dependent,
+                          Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, (KArgs)args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 // Host side: let `kernel` take `bytes` of dynamic shared memory, opting in
 // above the 48 KB every kernel gets.  Returns a cudaError_t.
 template <typename Kernel>

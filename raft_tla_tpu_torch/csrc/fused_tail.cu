@@ -1,85 +1,74 @@
-// Fused seen-set insert -> enqueue for the v3 chunk tail.
+// Fused seen-set insert -> enqueue for the chunk tail.
 //
 // Replaces raft_tla_tpu/ops/fused_tail_pallas.py `_kernel` (reached
 // through `_tail_padded`), which probes each query in lane order and, the
 // moment it resolves as new, DMAs its row to the running enqueue cursor.
-// Here the insert is fpset.cuh's three parallel passes (the same probe
-// device code as csrc/fpset.cu), then
+// Here four launches on one stream, each a programmatic dependent of the
+// one before (no host round trip, no other device operation):
 //
-//   4. scan: one block of 1024 threads walks the K lanes in tiles of
-//      8 per thread and gives every lane with is_new & enq_ok its rank in
-//      lane order, dst = next_count + rank (-1 for the rest), and the new
-//      count;
-//   5. copy: one warp per lane copies an enqueued 473-byte row from the
-//      compacted rows to qnext[dst] (rows are neither 4- nor 16-byte
-//      aligned, so the warp copies bytes, consecutive threads on
-//      consecutive bytes).
+//   1-3. probe/claim, own and resolve: fpset.cuh's insert passes (the same
+//      device code as csrc/fpset.cu); resolve also writes, for each tile of
+//      64 lanes, how many of its lanes have is_new & enq_ok;
+//   4. enqueue_tiles_kernel: a block per 64-lane tile sums the counts of
+//      the tiles before it, ranks its lanes in lane order and writes its
+//      rows as one contiguous span of the queue, staged in shared memory
+//      and stored 16 bytes at a time (enqueue.cuh).  The block of the last
+//      tile writes the new count.
 //
 // When no query fails, live rows, is_new and the new count match the TPU
 // kernel (fpset.cuh says how far fail does); its per-lane trash writes are
-// not part of the contract and are not made.
+// not part of the contract and are not made: rows at and past the new
+// count are left as they were.
 //
 // Bound on the H100: bytes.  The work reads the K keys and flags, one
 // probe sector per distinct key, and only the rows it enqueues, and writes
-// those rows: at K = 32,768 lanes with ~5,000 enqueued 473-byte rows about
-// 6 MB, under 2 us at 3.35 TB/s.  The design reads only the rows it
-// enqueues and keeps the scan to one block (K flags fit one block's loop
-// in a few microseconds); the byte copy is the part to widen first if this
-// kernel shows up in the profile.
+// those rows: at K = 32,768 lanes with ~7,600 enqueued 473-byte rows about
+// 7 MB, about 2 us at 3.35 TB/s.  The first design took 58 us queued at the
+// phase's shapes: its scan was one block of 1,024 threads on one of 132
+// SMs, reading flags a byte a thread 8 bytes apart (31 us, where its note
+// expected a few), then a warp per lane over all K lanes copied a row a
+// byte per thread (8 us), after a fill, three insert launches and a
+// comparison.  Here the scan is spread over 512 blocks with no dependency
+// between them, the copy moves 16-byte words, and the fill and the
+// comparison are gone; what is left is the probe's chain of dependent
+// reads, the row gather's round trips to memory and four launch
+// latencies, which the programmatic dependency overlaps.
 
+#include "enqueue.cuh"
 #include "fpset.cuh"
 
 namespace {
 
-constexpr int kScanThreads = 1024;
-constexpr int kItems = 8;
-constexpr int kCopyThreads = 256;
-
-__global__ void __launch_bounds__(kScanThreads)
-enqueue_scan_kernel(const uint8_t* __restrict__ is_new,
-                    const uint8_t* __restrict__ enq_ok, int n,
-                    int next_count, int* __restrict__ dst,
-                    int* __restrict__ count_out) {
-  __shared__ int scratch[32];
-  int carry = 0;
-  for (int t0 = 0; t0 < n; t0 += kScanThreads * kItems) {
-    const int l0 = t0 + threadIdx.x * kItems;
-    uint32_t bits = 0;
-    int c = 0;
-#pragma unroll
-    for (int q = 0; q < kItems; ++q) {
-      const int l = l0 + q;
-      if (l < n && is_new[l] && enq_ok[l]) {
-        bits |= 1u << q;
-        ++c;
-      }
-    }
-    int tile_total;
-    int pos = next_count + carry +
-              rtt::block_exclusive_scan(c, &tile_total, scratch);
-#pragma unroll
-    for (int q = 0; q < kItems; ++q) {
-      const int l = l0 + q;
-      if (l < n) dst[l] = ((bits >> q) & 1u) ? pos++ : -1;
-    }
-    carry += tile_total;
-  }
-  if (threadIdx.x == 0) count_out[0] = next_count + carry;
-}
+using rtt::kCopyThreads;
+using rtt::kTailTile;
+static_assert(kCopyThreads >= kTailTile, "a thread a lane of the tile");
 
 __global__ void __launch_bounds__(kCopyThreads)
-copy_rows_kernel(const uint8_t* __restrict__ krows, int sw,
-                 const int* __restrict__ dst, int n,
-                 uint8_t* __restrict__ qnext) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;
-  const int d = dst[row];
-  if (d < 0) return;
-  const uint8_t* src = krows + (size_t)row * sw;
-  uint8_t* out = qnext + (size_t)d * sw;
-  for (int j = lane; j < sw; j += 32) out[j] = src[j];
+enqueue_tiles_kernel(const uint8_t* __restrict__ is_new,
+                     const uint8_t* __restrict__ enq_ok,
+                     const int* __restrict__ tile_count, int n,
+                     const uint8_t* __restrict__ krows, int sw,
+                     uint8_t* __restrict__ qnext, long long next_count,
+                     int* __restrict__ count_out) {
+  __shared__ __align__(16) uint8_t stage[rtt::kStageBytes];
+  __shared__ int smem[32];
+  __shared__ int src_lane[kTailTile];
+  rtt::grid_dependency_wait();
+  const int t = blockIdx.x;
+  const int t0 = t * kTailTile;
+  const int l = t0 + threadIdx.x;
+  // The flags' loads go out before the counts' sum waits on its own.
+  const int flag =
+      (int)threadIdx.x < kTailTile && l < n && is_new[l] && enq_ok[l];
+  const int before = rtt::sum_before(tile_count, t, smem);
+  const int total = rtt::copy_tile(flag, t0, krows, sw, qnext,
+                                   next_count + before, smem, src_lane,
+                                   stage);
+  if (threadIdx.x == 0 && t == (int)gridDim.x - 1)
+    count_out[0] = (int)(next_count + before + total);
 }
+
+int tail_blocks(int n) { return n > 0 ? (n + kTailTile - 1) / kTailTile : 1; }
 
 }  // namespace
 
@@ -87,22 +76,45 @@ extern "C" int fused_tail_launch(const void* q, const void* valid,
                                  const void* enq_ok, int n, void* table,
                                  long long capacity, void* owner, void* slot,
                                  void* is_new, void* size, void* fail,
-                                 const void* krows, int sw, void* qnext,
-                                 int next_count, void* dst, void* count_out,
-                                 void* stream) {
+                                 void* tile_count, const void* krows, int sw,
+                                 void* qnext, long long next_count,
+                                 void* count_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = rtt::launch_insert(q, valid, n, table, capacity, owner,
-                                     slot, is_new, size, fail, s);
+                                     slot, is_new, size, fail, enq_ok,
+                                     tile_count, s);
   if (e != cudaSuccess) return (int)e;
-  enqueue_scan_kernel<<<1, kScanThreads, 0, s>>>(
-      (const uint8_t*)is_new, (const uint8_t*)enq_ok, n, next_count,
-      (int*)dst, (int*)count_out);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long threads = (long long)n * 32;
-  const int blocks = (int)((threads + kCopyThreads - 1) / kCopyThreads);
-  if (blocks > 0)
-    copy_rows_kernel<<<blocks, kCopyThreads, 0, s>>>(
-        (const uint8_t*)krows, sw, (const int*)dst, n, (uint8_t*)qnext);
-  return (int)cudaGetLastError();
+  return (int)rtt::launch(
+      enqueue_tiles_kernel, tail_blocks(n), kCopyThreads, s, true,
+      (const uint8_t*)is_new, (const uint8_t*)enq_ok,
+      (const int*)tile_count, n, (const uint8_t*)krows, sw,
+      (uint8_t*)qnext, next_count, (int*)count_out);
+}
+
+// Launch `which` of one fused tail of n lanes (0 probe/claim, 1 own, 2
+// resolve, 3 the tiles' scan and copy) for chip_smoke.py.
+extern "C" int fused_tail_kernel_info(int which, int n, int* out) {
+  const int blocks = rtt::insert_blocks(n);
+  if (which == 0)
+    return rtt::kernel_info(rtt::probe_claim_kernel, blocks,
+                            rtt::kInsertThreads, 0, out);
+  if (which == 1)
+    return rtt::kernel_info(rtt::own_kernel, blocks, rtt::kInsertThreads, 0,
+                            out);
+  if (which == 2)
+    return rtt::kernel_info(rtt::resolve_kernel<true>, blocks,
+                            rtt::kInsertThreads, 0, out);
+  if (which == 3)
+    return rtt::kernel_info(enqueue_tiles_kernel, tail_blocks(n),
+                            kCopyThreads, 0, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch geometry the wrapper sizes its scratch and checks rows by:
+// out[0] = lanes of a tile (ints of the per-tile count scratch: one a
+// tile), out[1] = the widest row the stage takes (one row a turn after a
+// 16-byte lead).
+extern "C" void fused_tail_geometry(int* out) {
+  out[0] = kTailTile;
+  out[1] = rtt::kStageBytes - 16;
 }

@@ -71,6 +71,7 @@ def insert_plain(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor):
 
 
 def check_queries(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor):
+    """Raise on queries the insert does not take (on any device)."""
     dev = seen.keys.device
     if keys.device != dev or valid.device != dev:
         raise ValueError("insert: queries and table on different devices")
@@ -78,7 +79,9 @@ def check_queries(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor):
         raise ValueError("insert: keys must be int64, valid bool")
     if keys.shape != valid.shape or keys.dim() != 1:
         raise ValueError("insert: keys and valid must be [n]")
-    if seen.owner is None:
+    if keys.shape[0] >= 1 << 31:
+        raise ValueError("insert: more than 2^31 - 1 queries")
+    if dev.type == "cuda" and seen.owner is None:
         raise ValueError("insert: CUDA table without its owner scratch")
 
 
@@ -93,20 +96,33 @@ def _lib():
     return lib
 
 
+#: The CUDA launches of one call, in order (``launch_info``).
+KERNELS = ("probe_claim_kernel", "own_kernel", "resolve_kernel")
+
+
+def launch_info(n: int):
+    """``{kernel: build.kernel_info}`` of each launch of one call of n
+    queries."""
+    return {name: build.kernel_info("fpset", i, n)
+            for i, name in enumerate(KERNELS)}
+
+
 def insert(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor):
-    """``(is_new [n] bool, fail [] bool)``; see the module contract."""
+    """``(is_new [n] bool, fail [] bool)``; see the module contract.  On
+    the card: three launches, and no other device operation (the outputs are
+    allocated, the kernels zero and write ``fail``)."""
     global launches
+    check_queries(seen, keys, valid)
     if keys.device.type == "cpu":
         return insert_plain(seen, keys, valid)
     if keys.device.type != "cuda":
         raise ValueError(f"insert: unsupported device {keys.device}")
-    check_queries(seen, keys, valid)
     keys, valid = keys.contiguous(), valid.contiguous()
     n = keys.shape[0]
     dev = keys.device
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     is_new = torch.empty(n, dtype=torch.bool, device=dev)
-    fail = torch.zeros(1, dtype=torch.int32, device=dev)
+    fail = torch.empty((), dtype=torch.bool, device=dev)
     err = _lib().fpset_insert_launch(
         keys.data_ptr(), valid.data_ptr(), n, seen.keys.data_ptr(),
         seen.capacity, seen.owner.data_ptr(), slot.data_ptr(),
@@ -114,4 +130,4 @@ def insert(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor):
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "fpset_insert_launch")
     launches += 1
-    return is_new, fail[0] != 0
+    return is_new, fail

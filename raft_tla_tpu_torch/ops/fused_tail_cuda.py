@@ -21,6 +21,7 @@ takes ``insert_enqueue_plain`` only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,32 +45,57 @@ def insert_enqueue_plain(seen: FPSet, keys, valid, krows, enq_ok, qnext,
     return is_new, fail, count
 
 
+#: The CUDA launches of one call, in order (``launch_info``).
+KERNELS = ("probe_claim_kernel", "own_kernel", "resolve_kernel",
+           "enqueue_tiles_kernel")
+
+
+def tiles(n: int, tile: int) -> int:
+    """Tiles of n lanes: the blocks of the enqueue launch (at least one,
+    which writes the count when n is 0) and the ints of the per-tile
+    count scratch."""
+    return max(1, -(-n // tile))
+
+
+@functools.cache
+def geometry():
+    """``(tile, widest row)`` of the built kernel: the lanes of one tile of
+    its enqueue launch, and the widest row in bytes its shared-memory
+    stage takes."""
+    out = (ctypes.c_int * 2)()
+    _lib().fused_tail_geometry(out)
+    return out[0], out[1]
+
+
+def launch_info(n: int):
+    """``{kernel: build.kernel_info}`` of each launch of one call of n
+    lanes."""
+    return {name: build.kernel_info("fused_tail", i, n)
+            for i, name in enumerate(KERNELS)}
+
+
 def _lib():
     lib = build.library("fused_tail")
     fn = lib.fused_tail_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, ctypes.c_longlong, p, p, p, p, p, p, i,
-                       p, i, p, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, i, p, ll, p, p, p, p, p, p, p, i, p, ll, p,
+                       p]
+        lib.fused_tail_geometry.restype = None
+        lib.fused_tail_geometry.argtypes = [p]
     return lib
 
 
-def insert_enqueue(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor,
-                   krows: torch.Tensor, enq_ok: torch.Tensor,
-                   qnext: torch.Tensor, next_count: int):
-    """``(is_new, fail, count)``; see the module contract."""
-    global launches
+def check_tail(seen: FPSet, keys, valid, krows, enq_ok, qnext,
+               next_count: int):
+    """Raise on arguments the fused tail does not take (on any device)."""
+    if krows.dim() != 2 or qnext.dim() != 2:
+        raise ValueError("insert_enqueue: rows must be [n, sw] / [Q, sw]")
     n, sw = krows.shape
     if next_count < 0 or next_count + n > qnext.shape[0]:
         raise ValueError(f"insert_enqueue: {n} rows at {next_count} overrun "
                          f"the {qnext.shape[0]}-row queue")
-    if krows.device.type == "cpu":
-        return insert_enqueue_plain(seen, keys, valid, krows, enq_ok, qnext,
-                                    next_count)
-    if krows.device.type != "cuda":
-        raise ValueError(f"insert_enqueue: unsupported device {krows.device}")
-    keys, valid = keys.contiguous(), valid.contiguous()
     check_queries(seen, keys, valid)
     if (krows.dtype != torch.uint8 or qnext.dtype != torch.uint8
             or qnext.shape[1] != sw or not krows.is_contiguous()
@@ -77,20 +103,45 @@ def insert_enqueue(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor,
             or enq_ok.shape != (n,) or keys.shape != (n,)):
         raise ValueError("insert_enqueue: rows must be contiguous uint8 "
                          "[n, sw] / [Q, sw], keys int64 [n], enq_ok bool [n]")
-    dev = krows.device
+    dev = keys.device
+    if krows.device != dev or enq_ok.device != dev or qnext.device != dev:
+        raise ValueError("insert_enqueue: arguments on different devices")
+    if qnext.shape[0] >= 1 << 31:
+        raise ValueError("insert_enqueue: at most 2^31 - 1 queue rows")
+
+
+def insert_enqueue(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor,
+                   krows: torch.Tensor, enq_ok: torch.Tensor,
+                   qnext: torch.Tensor, next_count: int):
+    """``(is_new, fail, count)``; see the module contract.  On the card:
+    four launches, and no other device operation."""
+    global launches
+    check_tail(seen, keys, valid, krows, enq_ok, qnext, next_count)
+    if krows.device.type == "cpu":
+        return insert_enqueue_plain(seen, keys, valid, krows, enq_ok, qnext,
+                                    next_count)
+    if krows.device.type != "cuda":
+        raise ValueError(f"insert_enqueue: unsupported device {krows.device}")
+    keys, valid = keys.contiguous(), valid.contiguous()
     enq_ok = enq_ok.contiguous()
+    n, sw = krows.shape
+    tile, widest = geometry()
+    if sw > widest:
+        raise ValueError(f"insert_enqueue: rows of {sw} bytes, the kernel "
+                         f"takes at most {widest}")
+    dev = krows.device
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     is_new = torch.empty(n, dtype=torch.bool, device=dev)
-    fail = torch.zeros(1, dtype=torch.int32, device=dev)
-    dst = torch.empty(n, dtype=torch.int32, device=dev)
+    fail = torch.empty((), dtype=torch.bool, device=dev)
+    tile_count = torch.empty(tiles(n, tile), dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
     err = _lib().fused_tail_launch(
         keys.data_ptr(), valid.data_ptr(), enq_ok.data_ptr(), n,
         seen.keys.data_ptr(), seen.capacity, seen.owner.data_ptr(),
         slot.data_ptr(), is_new.data_ptr(), seen.size.data_ptr(),
-        fail.data_ptr(), krows.data_ptr(), sw, qnext.data_ptr(), next_count,
-        dst.data_ptr(), count.data_ptr(),
+        fail.data_ptr(), tile_count.data_ptr(), krows.data_ptr(), sw,
+        qnext.data_ptr(), next_count, count.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "fused_tail_launch")
     launches += 1
-    return is_new, fail[0] != 0, count[0]
+    return is_new, fail, count[0]

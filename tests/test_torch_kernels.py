@@ -176,3 +176,216 @@ def test_fused_tail_matches_pallas_including_live_rows():
         q_j = np.asarray(q_j)
         assert (q_t.numpy()[:hi] == q_j[:hi]).all()      # live rows
         assert (q_t.numpy()[hi:] == qinit[hi:]).all()    # no trash writes
+
+
+# --- Trap batches of the insert and the fused tail (the batches the CUDA
+# kernels are held to on the card, at sizes a CPU run takes) ---------------
+
+def _pairs(rng, n, hi=1 << 32):
+    return rng.randint(0, hi, size=(n, 2), dtype=np.uint64).astype(np.uint32)
+
+
+def _trap(name):
+    """``(capacity, prefill pairs, query pairs, valid)`` of a trap batch,
+    from a numpy seed of its own."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    old = _pairs(rng, 200)
+    if name == "n = 1 (the root ingest)":
+        return 4096, old, _pairs(rng, 1), np.ones(1, bool)
+    if name == "n = 512 into 4,096 slots":
+        pool = np.concatenate([old[:60], _pairs(rng, 240)])
+        return 4096, old, pool[rng.randint(0, 300, 512)], rng.rand(512) < 0.8
+    if name == "n = 1,000 (no multiple of a tile)":
+        pool = np.concatenate([old[:100], _pairs(rng, 500)])
+        return 8192, old, pool[rng.randint(0, 600, 1000)], rng.rand(1000) < 0.8
+    if name == "1,024 lanes one new key":
+        return 8192, old, np.repeat(_pairs(rng, 1), 1024, 0), np.ones(1024, bool)
+    if name == "one present key on every lane":
+        return 8192, old, np.repeat(old[7:8], 1024, 0), np.ones(1024, bool)
+    if name == "no valid lane":
+        return 8192, old, _pairs(rng, 1024, 300), np.zeros(1024, bool)
+    if name == "a 64-slot table that fails":
+        return 64, old[:20], _pairs(rng, 1024), np.ones(1024, bool)
+    raise KeyError(name)
+
+
+_INSERT_TRAPS = ["n = 1 (the root ingest)", "n = 512 into 4,096 slots",
+                 "n = 1,000 (no multiple of a tile)", "1,024 lanes one new key",
+                 "one present key on every lane", "no valid lane",
+                 "a 64-slot table that fails"]
+
+
+def _tables(capacity, prefill):
+    j = jfpset.empty(capacity)
+    t = tfpset.empty(capacity, "cpu")
+    ok = np.ones(len(prefill), bool)
+    j, _n, _f = fpset_pallas.insert(j, jnp.asarray(prefill[:, 0]),
+                                    jnp.asarray(prefill[:, 1]), jnp.asarray(ok))
+    fpset_cuda.insert(t, _keys(prefill), torch.as_tensor(ok))
+    _same_table(j, t)
+    return j, t
+
+
+@pytest.mark.parametrize("trap", _INSERT_TRAPS)
+def test_insert_traps_match_pallas(trap):
+    capacity, prefill, q, valid = _trap(trap)
+    j, t = _tables(capacity, prefill)
+    j, new_j, fail_j = fpset_pallas.insert(
+        j, jnp.asarray(q[:, 0]), jnp.asarray(q[:, 1]), jnp.asarray(valid))
+    new_t, fail_t = fpset_cuda.insert(t, _keys(q), torch.as_tensor(valid))
+    assert (new_t.numpy() == np.asarray(new_j)).all()
+    assert bool(fail_t) == bool(fail_j) == (trap == "a 64-slot table that "
+                                                    "fails")
+    _same_table(j, t)
+
+
+def test_insert_matches_pallas_on_a_growing_table():
+    """Batches of 512 into 4,096 slots, the table doubled (the port through
+    its insert, the JAX one rebuilt from its keys) whenever the next batch
+    could take it past half full, as the engine grows it."""
+    rng = np.random.RandomState(12)
+    pool = _pairs(rng, 5000)
+    j, t = jfpset.empty(4096), tfpset.empty(4096, "cpu")
+    grows, peak = 0, 0.0
+    while grows < 2:
+        if int(t.size[0]) + 512 > t.capacity // 2:
+            t = tfpset.grow(t, 2 * t.capacity, chunk=1000)
+            j = jfpset.from_host_keys(*jfpset.to_host_keys(j), t.capacity)
+            grows += 1
+        q = pool[rng.randint(0, len(pool), 512)]
+        valid = rng.rand(512) < 0.9
+        j, new_j, fail_j = fpset_pallas.insert(
+            j, jnp.asarray(q[:, 0]), jnp.asarray(q[:, 1]), jnp.asarray(valid))
+        new_t, fail_t = fpset_cuda.insert(t, _keys(q), torch.as_tensor(valid))
+        assert (new_t.numpy() == np.asarray(new_j)).all()
+        assert not bool(fail_t) and not bool(fail_j)
+        _same_table(j, t)
+        peak = max(peak, int(t.size[0]) / t.capacity)
+    assert t.capacity == 16384 and 0.3 < peak <= 0.5
+
+
+_TAIL_TRAPS = _INSERT_TRAPS + ["enq_ok all false", "enq_ok all true",
+                               "the last live row on the queue's last row",
+                               "rows of 403 bytes", "rows of 679 bytes"]
+
+
+@pytest.mark.parametrize("trap", _TAIL_TRAPS)
+def test_fused_tail_traps_match_pallas(trap):
+    """The port's insert_enqueue against the JAX fused tail: is_new, fail,
+    the table, the count, the live rows, and every other row of the
+    port's queue unchanged (the JAX kernel's trash rows lie past it)."""
+    base = trap if trap in _INSERT_TRAPS else "n = 1,000 (no multiple of a tile)"
+    capacity, prefill, q, valid = _trap(base)
+    rng = np.random.RandomState(len(trap))
+    n = len(q)
+    sw = {"rows of 403 bytes": 403,
+          "rows of 679 bytes": 679}.get(trap, 473)    # MCraft_noleader, raft5
+    enq_ok = {"enq_ok all false": np.zeros(n, bool),
+              "enq_ok all true": np.ones(n, bool)}.get(trap, rng.rand(n) < 0.7)
+    nc, rows = 37, 37 + n + 5
+    if trap == "the last live row on the queue's last row":
+        q, valid, enq_ok = _pairs(rng, n), np.ones(n, bool), np.ones(n, bool)
+        nc = rows - n
+    krows = rng.randint(0, 256, (n, sw)).astype(np.uint8)
+    npad = 1 << (n - 1).bit_length()
+    qinit = rng.randint(0, 256, (rows + npad, sw)).astype(np.uint8)
+    j, t = _tables(capacity, prefill)
+    j, new_j, fail_j, q_j = fused_tail_pallas.insert_enqueue(
+        j, jnp.asarray(q[:, 0]), jnp.asarray(q[:, 1]), jnp.asarray(valid),
+        jnp.asarray(krows), jnp.asarray(enq_ok), jnp.asarray(qinit),
+        jnp.int32(nc), rows)
+    q_t = torch.as_tensor(qinit[:rows].copy())
+    new_t, fail_t, cnt = fused_tail_cuda.insert_enqueue(
+        t, _keys(q), torch.as_tensor(valid), torch.as_tensor(krows),
+        torch.as_tensor(enq_ok), q_t, nc)
+    new_j = np.asarray(new_j)
+    assert (new_t.numpy() == new_j).all()
+    assert bool(fail_t) == bool(fail_j)
+    _same_table(j, t)
+    count = nc + int((new_j & enq_ok).sum())
+    assert int(cnt) == count
+    assert (q_t.numpy() == np.asarray(q_j)[:rows]).all()
+    assert (q_t.numpy()[count:] == qinit[count:rows]).all()
+    if trap == "the last live row on the queue's last row":
+        assert count == rows
+    if trap == "enq_ok all true":
+        assert count - nc == int(new_j.sum()) > 0
+
+
+# --- The wrappers ---------------------------------------------------------
+
+def _tail_args(n=64, sw=473, rows=200):
+    t = tfpset.empty(4096, "cpu")
+    keys = _keys(_pairs(np.random.RandomState(1), n))
+    return dict(seen=t, keys=keys, valid=torch.ones(n, dtype=torch.bool),
+                krows=torch.zeros((n, sw), dtype=torch.uint8),
+                enq_ok=torch.ones(n, dtype=torch.bool),
+                qnext=torch.zeros((rows, sw), dtype=torch.uint8),
+                next_count=0)
+
+
+_BAD_TAIL = {
+    "queue overrun": dict(next_count=137 + 1),
+    "negative next_count": dict(next_count=-1),
+    "int32 keys": dict(keys=torch.zeros(64, dtype=torch.int32)),
+    "uint8 valid": dict(valid=torch.ones(64, dtype=torch.uint8)),
+    "int16 rows": dict(krows=torch.zeros((64, 473), dtype=torch.int16)),
+    "non-contiguous rows": dict(
+        krows=torch.zeros((473, 64), dtype=torch.uint8).t()),
+    "non-contiguous queue": dict(
+        qnext=torch.zeros((473, 200), dtype=torch.uint8).t()),
+    "queue of another width": dict(qnext=torch.zeros((200, 472),
+                                                     dtype=torch.uint8)),
+    "uint8 enq_ok": dict(enq_ok=torch.ones(64, dtype=torch.uint8)),
+    "enq_ok of another length": dict(enq_ok=torch.ones(63, dtype=torch.bool)),
+    "keys of another length": dict(keys=torch.zeros(63, dtype=torch.int64),
+                                   valid=torch.ones(63, dtype=torch.bool)),
+}
+
+
+@pytest.mark.parametrize("case", list(_BAD_TAIL))
+def test_fused_tail_wrapper_raises(case):
+    args = _tail_args()
+    args.update(_BAD_TAIL[case])
+    before = fused_tail_cuda.launches
+    with pytest.raises(ValueError):
+        fused_tail_cuda.insert_enqueue(**args)
+    assert fused_tail_cuda.launches == before
+
+
+_BAD_INSERT = {
+    "int32 keys": (torch.zeros(8, dtype=torch.int32),
+                   torch.ones(8, dtype=torch.bool)),
+    "uint8 valid": (torch.zeros(8, dtype=torch.int64),
+                    torch.ones(8, dtype=torch.uint8)),
+    "[n, 1] keys": (torch.zeros((8, 1), dtype=torch.int64),
+                    torch.ones((8, 1), dtype=torch.bool)),
+    "shapes differ": (torch.zeros(8, dtype=torch.int64),
+                      torch.ones(7, dtype=torch.bool)),
+}
+
+
+@pytest.mark.parametrize("case", list(_BAD_INSERT))
+def test_insert_wrapper_raises(case):
+    keys, valid = _BAD_INSERT[case]
+    before = fpset_cuda.launches
+    with pytest.raises(ValueError):
+        fpset_cuda.insert(tfpset.empty(64, "cpu"), keys, valid)
+    assert fpset_cuda.launches == before
+
+
+def test_wrappers_count_no_launch_on_cpu_tensors():
+    before = (fpset_cuda.launches, fused_tail_cuda.launches)
+    args = _tail_args()
+    new, fail = fpset_cuda.insert(args["seen"], args["keys"], args["valid"])
+    assert int(new.sum()) == 64 and not bool(fail)
+    new, fail, cnt = fused_tail_cuda.insert_enqueue(**_tail_args())
+    assert int(cnt) == 64 and fail.dim() == 0 and cnt.dim() == 0
+    assert (fpset_cuda.launches, fused_tail_cuda.launches) == before
+
+
+@pytest.mark.parametrize("n,tiles", [(0, 1), (1, 1), (64, 1), (65, 2),
+                                     (1000, 16), (32768, 512),
+                                     (1 << 20, 16384)])
+def test_fused_tail_tiles(n, tiles):
+    assert fused_tail_cuda.tiles(n, 64) == tiles
