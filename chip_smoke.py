@@ -2,18 +2,19 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels         (the kernel phases and the v4
-                                             profile only)
-    python3 chip_smoke.py --enqueue-tiles   (a tuning table, no smoke run)
-    python3 chip_smoke.py --front-variants  (a tuning table, no smoke run)
-    python3 chip_smoke.py --tail-variants   (a tuning table, no smoke run)
+    python3 chip_smoke.py --kernels           (the kernel phases and the
+                                               v4 profile only)
+    python3 chip_smoke.py --enqueue-variants  (a tuning table, no smoke run)
+    python3 chip_smoke.py --front-variants    (a tuning table, no smoke run)
+    python3 chip_smoke.py --tail-variants     (a tuning table, no smoke run)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
 nvcc each, all at once), holds each kernel against its plain PyTorch
 version on the card at the main path's shapes (exactly: the checker
 computes integers and bytes; the chunk front on parent windows of a v3
-check, the enqueue on the mask and rows of a real batch), then drives
+check, the enqueue on the mask and rows of a real batch, the whole queue
+compared), then drives
 both plans of the port's main path, v3 (PyTorch front around the
 compaction kernel) and v4 (the chunk-front kernel), each with its launch
 counts checked: the exhaustive check of
@@ -44,12 +45,19 @@ fails, enq_ok all false and all true, the last row on the queue's last
 row, rows of 403 bytes, of configs/raft5_bounded.cfg's width (a tile
 staged in several turns) and of the widest the kernel takes; the whole
 queue compared, the owner scratch clear
-after every call); each kernel phase prints the kernel's time for one
+after every call), and the enqueue on masks built around its own (runs
+across 64-lane tile edges, one flag in each tile's last lane, an
+unaligned flags view, empty, full and alternating masks, 1,000 lanes,
+all lanes ending on the queue's last row, rows of 5, 403, 679, 951,
+30,704 bytes and the widest); each kernel phase prints the kernel's time for one
 call between two CUDA events, its device time among calls queued back
 to back, its launches' device microseconds under torch.profiler (for
 the insert and the fused tail also at the seen-set loads of L9 and L11,
-and checked to be the wrapper's kernels and nothing else) and each
-launch's grid, registers, spill bytes and shared memory.
+and checked to be the wrapper's kernels and nothing else for the insert,
+the fused tail and the enqueue) and each launch's grid, registers, spill
+bytes and shared memory.  ``--enqueue-variants``, ``--front-variants``
+and ``--tail-variants`` build the designs the shipped kernels were
+measured against by source substitution and time them.
 
 Output: the card's name and power limit, one line per phase, then a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
@@ -94,10 +102,11 @@ MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED = 6005282, 17354955
 #: The keys of each kernel's entry in the JSON line: `ms` is one wrapper
 #: call between two CUDA events (the host's launch path included),
 #: `queued_ms` the device time of one call among calls queued back to
-#: back, `library_ms` one call of the library yardstick between two events.
-ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+#: back, `library_ms` one call of the library yardstick between two events,
+#: `headers` the headers of raft_tla_tpu_torch/csrc the source includes.
+ROW_KEYS = ("name", "route", "source", "headers", "replaces", "launches",
+            "max_abs_err", "ms", "queued_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
 
 
 class PhaseFailed(Exception):
@@ -307,6 +316,7 @@ def phase_compact(torch, device, gen):
     nbytes = B * G + (K - total) * 4 + K * 4 + K + 8
     row = dict(name="compact", route="cuda",
                source="raft_tla_tpu_torch/csrc/compact.cu",
+               headers=["compact.cuh", "common.cuh"],
                replaces="raft_tla_tpu/ops/compact_pallas.py:73",
                max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -508,6 +518,7 @@ def phase_insert(torch, device, gen, base, present):
     nbytes = insert_bytes(K, distinct_valid(torch, q, valid), n_new)
     row = dict(name="fpset_insert", route="cuda",
                source="raft_tla_tpu_torch/csrc/fpset.cu",
+               headers=["fpset.cuh", "common.cuh"],
                replaces="raft_tla_tpu/ops/fpset_pallas.py:162",
                max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -660,6 +671,7 @@ def phase_fused_tail(torch, device, gen, base, present):
               + K + 4 + 2 * n_enq * sw)
     row = dict(name="fused_tail", route="cuda",
                source="raft_tla_tpu_torch/csrc/fused_tail.cu",
+               headers=["fpset.cuh", "enqueue.cuh", "common.cuh"],
                replaces="raft_tla_tpu/ops/fused_tail_pallas.py:104",
                max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -790,6 +802,7 @@ def phase_front(torch, device):
               + K * 4 + K + total * (sw + 8 * 5 + 1))
     row = dict(name="chunk_front", route="cuda",
                source="raft_tla_tpu_torch/csrc/chunk_front.cu",
+               headers=["raft_model.cuh", "compact.cuh", "common.cuh"],
                replaces="raft_tla_tpu/ops/chunk_front_pallas.py:94",
                max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -1168,47 +1181,104 @@ def capture_enqueue_batch(torch):
     return best[1], best[2]
 
 
-def phase_enqueue(torch, device, gen):
-    """The enqueue kernel against ``enqueue_plain``, exactly (whole queue
-    and count), at K lanes of 473-byte rows into the main path's queue at
-    a non-zero ``next_count``: on the rows and mask of a real L8 batch, on
-    the empty, full and alternating masks, and on 1,000 lanes (no multiple
-    of the kernel's tile).  Timed on the real batch."""
+def enqueue_traps(torch, gen, device, rand_rows):
+    """The masks phase_enqueue holds the kernel on at K lanes of 473-byte
+    rows, beyond the real batch: ``[(name, rows, enq)]``."""
+    lanes = torch.arange(K, device=device)
+    cross = torch.zeros(K, dtype=torch.bool, device=device)
+    for edge in range(64, K, 64):     # a run across each tile edge
+        cross[edge - 1 - edge % 5:edge + 3 + (edge // 64) % 40] = True
+    # Flags past a 16-byte boundary of an allocation: the wrapper clones.
+    shifted = torch.zeros(K + 1, dtype=torch.bool, device=device)
+    shifted[1:] = torch.rand(K, generator=gen, device=device) < 0.3
+    need(shifted[1:].data_ptr() % 16 == 1, "the flags view is aligned")
+    return [("empty", rand_rows, lanes < 0),
+            ("full", rand_rows, lanes >= 0),
+            ("alternating", rand_rows, lanes % 2 == 1),
+            ("runs across tile edges", rand_rows, cross),
+            ("one flag in each tile's last lane", rand_rows,
+             lanes % 64 == 63),
+            ("an unaligned flags view", rand_rows, shifted[1:]),
+            ("1,000 lanes", rand_rows[:1000],
+             torch.rand(1000, generator=gen, device=device) < 0.3)]
+
+
+def held_enqueue(torch, name, qa, qb, next_count, rows, enq):
+    """The enqueue kernel against ``enqueue_plain`` on the two queues ``qa``
+    / ``qb`` (equal before): the WHOLE queue and the count equal.  Returns
+    max_abs_err."""
     from raft_tla_tpu_torch.ops import enqueue as enq_mod
     from raft_tla_tpu_torch.ops import enqueue_cuda
+    cnt_k = enqueue_cuda.enqueue(qa, next_count, rows, enq)
+    cnt_p = enq_mod.enqueue_plain(qb, next_count, rows, enq)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(qa, qb))
+    err = max_abs(torch, [(cnt_k, cnt_p)])
+    n_enq = int(cnt_k) - next_count
+    print(f"enqueue {name}: {rows.shape[0]} lanes of {rows.shape[1]} B, "
+          f"enqueued={n_enq} at {next_count} of {qa.shape[0]} rows, "
+          f"queue_equal={equal} max_abs_err={err}")
+    need(err == 0.0 and equal and n_enq == int(enq.sum()),
+         f"enqueue differs from its plain version on {name}")
+    return err
+
+
+def phase_enqueue(torch, device, gen):
+    """The enqueue kernel against ``enqueue_plain``, exactly (whole queue
+    and count): at K lanes of 473-byte rows into the main path's queue at
+    a non-zero ``next_count`` on the rows and mask of a real L8 batch and
+    on the masks of ``enqueue_traps``; all K lanes with the last live row
+    on the queue's last row; rows of 403, 679 and 951 bytes (a tile staged
+    in one, two and two turns), of 30,704 bytes and of the widest the
+    stage takes (a turn a row), and of 5 bytes.  Timed on the real batch
+    and on the full mask."""
+    from raft_tla_tpu_torch.models.dims import RaftDims
+    from raft_tla_tpu_torch.models.schema import state_width
+    from raft_tla_tpu_torch.ops import enqueue as enq_mod
+    from raft_tla_tpu_torch.ops import enqueue_cuda
+    from raft_tla_tpu_torch.utils.cfg import load_config
     krows, real = capture_enqueue_batch(torch)
     sw = krows.shape[1]
     need(krows.shape == (K, sw) and sw == 473, f"captured rows {krows.shape}")
     rand_rows = torch.randint(0, 256, (K, sw), generator=gen, device=device,
                               dtype=torch.uint8)
-    lanes = torch.arange(K, device=device)
-    cases = [("real L8 batch", krows, real),
-             ("empty", rand_rows, lanes < 0),
-             ("full", rand_rows, lanes >= 0),
-             ("alternating", rand_rows, lanes % 2 == 1),
-             ("1,000 lanes", rand_rows[:1000],
-              torch.rand(1000, generator=gen, device=device) < 0.3)]
     next_count = NEXT_COUNT
     qa = torch.randint(0, 256, (QUEUE + K, sw), generator=gen, device=device,
                        dtype=torch.uint8)
     qb = qa.clone()
-    err = 0.0
-    for name, rows, enq in cases:
-        cnt_k = enqueue_cuda.enqueue(qa, next_count, rows, enq)
-        cnt_p = enq_mod.enqueue_plain(qb, next_count, rows, enq)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(qa, qb))
-        e = max_abs(torch, [(cnt_k, cnt_p)])
-        print(f"enqueue {name}: {rows.shape[0]} lanes, "
-              f"enqueued={int(cnt_k) - next_count} queue_equal={equal} "
-              f"max_abs_err={e}")
-        need(e == 0.0 and equal and int(cnt_k) - next_count == int(enq.sum()),
-             f"enqueue differs from its plain version on the {name} mask")
-        err = max(err, e)
+    err = held_enqueue(torch, "real L8 batch", qa, qb, next_count, krows,
+                       real)
+    for name, rows, enq in enqueue_traps(torch, gen, device, rand_rows):
+        err = max(err, held_enqueue(torch, name, qa, qb, next_count, rows,
+                                    enq))
+    all_lanes = torch.ones(K, dtype=torch.bool, device=device)
+    err = max(err, held_enqueue(
+        torch, "all lanes, the last live row on the queue's last row", qa,
+        qb, QUEUE, rand_rows, all_lanes))
     del qb
+    # Other widths: MCraft_noleader (403), raft5_bounded (679: 45 rows a
+    # stage turn), TPUraft (951: 33 a turn), 30,704 and the widest (a turn
+    # a row), and 5 bytes (a 16-byte line spans several runs).
+    _tile, widest = enqueue_cuda.geometry()
+    widths = [state_width(RaftDims(n_servers=3, n_values=2, max_log=2,
+                                   n_msg_slots=32))]
+    widths += [state_width(load_config(os.path.join(HERE, f"configs/{c}"))
+                           .dims) for c in ("raft5_bounded.cfg",
+                                            "TPUraft.cfg")]
+    need(widths == [403, 679, 951], f"row widths {widths}")
+    for w, n in ([(w, K) for w in widths + [5]]
+                 + [(30704, 1000), (widest, 1000)]):
+        rw = torch.randint(0, 256, (n, w), generator=gen, device=device,
+                           dtype=torch.uint8)
+        wa = torch.randint(0, 256, (4096 + n, w), generator=gen,
+                           device=device, dtype=torch.uint8)
+        wb = wa.clone()
+        enq = torch.rand(n, generator=gen, device=device) < 0.5
+        err = max(err, held_enqueue(torch, f"rows of {w} B", wa, wb, 777,
+                                    rw, enq))
+        del rw, wa, wb
     n_enq = int(real.sum())
     need(n_enq > 0, "the captured batch enqueued nothing")
-    all_lanes = lanes >= 0
 
     def kernel():
         enqueue_cuda.enqueue(qa, next_count, krows, real)
@@ -1237,81 +1307,418 @@ def phase_enqueue(torch, device, gen):
     window_ms = queued_ms(torch, window) or cuda_ms(torch, window, 20)
     plain_ms = cuda_ms(torch, lambda: enq_mod.enqueue_plain(
         qa, next_count, krows, real), 10)
-    dev_us = [us for _n, us in device_ops(torch, kernel)]
-    full_us = [us for _n, us in device_ops(torch, kernel_full)]
+    launch_check(torch, "enqueue", kernel, enqueue_cuda.KERNELS)
+    full_us = device_ops(torch, kernel_full)
     # The mask once, each enqueued row read once and written once, the count.
     nbytes = K + 2 * n_enq * sw + 4
+    full_bytes = K + 2 * K * sw + 4
     row = dict(name="enqueue", route="cuda",
                source="raft_tla_tpu_torch/csrc/enqueue.cu",
+               headers=["enqueue.cuh", "common.cuh"],
                replaces="raft_tla_tpu/ops/enqueue_pallas.py:98",
                max_abs_err=err, ms=ms, queued_ms=queued, plain_ms=plain_ms,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                library_ms=library_ms)
     print(f"enqueue K={K} rows of {sw} B, {n_enq} enqueued, into a "
           f"{QUEUE + K}-row queue, queued back to back: kernel {queued} ms "
-          f"(full mask {full_ms} ms), index_copy_ with trash rows "
-          f"{library_queued} ms, window lowering {window_ms} ms; one call "
-          f"between two events: kernel {ms} ms, index_copy_ with trash rows "
-          f"{library_ms} ms, plain {plain_ms} ms; "
+          f"(full mask {full_ms} ms, bound "
+          f"{full_bytes / HBM_BYTES_PER_S * 1e3} ms), index_copy_ with "
+          f"trash rows {library_queued} ms, window lowering {window_ms} ms; "
+          f"one call between two events: kernel {ms} ms, index_copy_ with "
+          f"trash rows {library_ms} ms, plain {plain_ms} ms; "
           f"bound {row['bound_ms']} ms ({nbytes} bytes); device "
-          f"microseconds of the call's operations under the profiler: real "
-          f"batch {dev_us or 'not measured'}, full mask "
+          f"microseconds of the full mask's launches under the profiler "
           f"{full_us or 'not measured'}")
+    print(f"enqueue launches at K={K}: {enqueue_cuda.launch_info(K)}")
     del qa
     return row
 
 
-def enqueue_tiles(torch, device):
-    """``python3 chip_smoke.py --enqueue-tiles``: the enqueue kernel's own
-    time at several tile sizes, each built from ``csrc/enqueue.cu`` with
-    its ``kTile`` replaced, on the rows and mask of a real L8 batch and
-    on the full mask (profiler device microseconds, five samples, and 200
-    launches between two events).  Not part of the smoke run."""
+#: ``--enqueue-variants``: the designs B5 was measured against, and steps
+#: of the built one left out, each a list of (source in
+#: raft_tla_tpu_torch/csrc, text, replacement); a text of None replaces
+#: the whole file, a (start, end) pair the text from start up to end.
+_FIRST_ENQUEUE = r"""#include "common.cuh"
+namespace {
+constexpr int kThreads = 256, kWarps = kThreads / 32, kTile = 64;
+__device__ __forceinline__ void copy_row(const uint8_t* __restrict__ src,
+                                         uint8_t* __restrict__ out, int sw,
+                                         int lane) {
+  const int head = min(sw, (int)((4 - ((uintptr_t)out & 3)) & 3));
+  if (lane < head) out[lane] = src[lane];
+  const int words = (sw - head) >> 2;
+  const uint8_t* s = src + head;
+  uint32_t* o = (uint32_t*)(out + head);
+#pragma unroll 4
+  for (int w = lane; w < words; w += 32) {
+    const uint8_t* p = s + 4 * w;
+    o[w] = (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) |
+           ((uint32_t)p[3] << 24);
+  }
+  const int done = head + 4 * words;
+  if (lane < sw - done) out[done + lane] = src[done + lane];
+}
+__global__ void __launch_bounds__(kThreads)
+enqueue_kernel(const uint8_t* __restrict__ enq, int n,
+               const uint8_t* __restrict__ krows, int sw,
+               uint8_t* __restrict__ qnext, long long next_count,
+               int* __restrict__ count_out) {
+  __shared__ int scratch[32];
+  __shared__ int src_lane[kTile];
+  const int t0 = blockIdx.x * kTile;
+  int mine = 0;
+  const uint4* v = (const uint4*)enq;
+  for (int i = threadIdx.x; i < t0 / 16; i += kThreads) {
+    const uint4 w = v[i];
+    mine += __popc(__vsetne4(w.x, 0u)) + __popc(__vsetne4(w.y, 0u)) +
+            __popc(__vsetne4(w.z, 0u)) + __popc(__vsetne4(w.w, 0u));
+  }
+  int before;
+  rtt::block_exclusive_scan(mine, &before, scratch);
+  const int l = t0 + threadIdx.x;
+  const int flag = (threadIdx.x < kTile && l < n && enq[l]) ? 1 : 0;
+  int tile_total;
+  const int rank = rtt::block_exclusive_scan(flag, &tile_total, scratch);
+  if (flag) src_lane[rank] = l;
+  __syncthreads();
+  if (threadIdx.x == 0 && blockIdx.x == gridDim.x - 1)
+    count_out[0] = (int)(next_count + before + tile_total);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t first = (size_t)(next_count + before);
+  for (int r = warp; r < tile_total; r += kWarps)
+    copy_row(krows + (size_t)src_lane[r] * sw, qnext + (first + r) * sw, sw,
+             lane);
+}
+}  // namespace
+extern "C" int enqueue_launch(const void* enq, int n, const void* krows,
+                              int sw, void* qnext, long long next_count,
+                              void* tile_count, void* count_out,
+                              void* stream) {
+  const int blocks = n > 0 ? (n + kTile - 1) / kTile : 1;
+  enqueue_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)enq, n, (const uint8_t*)krows, sw, (uint8_t*)qnext,
+      next_count, (int*)count_out);
+  return (int)cudaGetLastError();
+}
+"""
+
+_LOOKBACK_ENQUEUE = r"""#include "enqueue.cuh"
+namespace {
+enum : unsigned { kAgg = 1u << 30, kIncl = 2u << 30, kVal = kAgg - 1 };
+// Tiles by ticket (count_out counts them out, so a tile's predecessors
+// are running), each publishing its flag count, then its inclusive
+// prefix; warp 0 looks back 32 tiles at a time while the copies fly.
+__global__ void __launch_bounds__(rtt::kCopyThreads)
+enqueue_lookback_kernel(const uint8_t* __restrict__ enq, int n,
+                        const uint8_t* __restrict__ krows, int sw,
+                        uint8_t* __restrict__ qnext, long long next_count,
+                        unsigned* status, int* count_out) {
+  __shared__ __align__(16) rtt::TileStage st;
+  __shared__ int tile, before;
+  if (threadIdx.x == 0) {
+    rtt::stage_init(st);
+    tile = atomicAdd(count_out, 1);
+  }
+  __syncthreads();
+  const int t = tile;
+  const int t0 = t * rtt::kCopyTile;
+  const unsigned long long f = rtt::tile_flags<true>(enq, nullptr, t0, n);
+  const int total = __popcll(f);
+  const uint8_t* kend = krows + (size_t)n * sw;
+  const int per = rtt::turn_rows(sw);
+  int rows = min(per, total);
+  rtt::stage_issue(krows, kend, sw, t0, f, 0, rows, st);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    volatile unsigned* vs = status;
+    if (lane == 0) vs[t] = (t ? kAgg : kIncl) | (unsigned)total;
+    int sum = 0;
+    for (int p = t - 1; p >= 0; p -= 32) {
+      const int i = p - lane;
+      unsigned s = i >= 0 ? (unsigned)vs[i] : (unsigned)kIncl;
+      while (__any_sync(0xffffffffu, (s & (kAgg | kIncl)) == 0))
+        if ((s & (kAgg | kIncl)) == 0) s = vs[i];
+      const unsigned incl = __ballot_sync(0xffffffffu, s & kIncl);
+      const int stop = incl ? __ffs(incl) - 1 : 31;
+      int v = lane <= stop ? (int)(s & kVal) : 0;
+      for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      sum += v;
+      if (incl) break;
+    }
+    if (lane == 0) {
+      if (t) vs[t] = kIncl | (unsigned)(sum + total);
+      before = sum;
+    }
+  }
+  __syncthreads();
+  const long long first = next_count + before;
+  for (int r0 = 0, turn = 0;; ++turn) {
+    rtt::stage_wait(st, turn);
+    rtt::store_turn(st, qnext + (first + r0) * (long long)sw, rows, sw);
+    r0 += rows;
+    if (r0 >= total) break;
+    __syncthreads();
+    rows = min(per, total - r0);
+    rtt::stage_issue(krows, kend, sw, t0, f, r0, rows, st);
+  }
+  if (threadIdx.x == 0 && t == (int)gridDim.x - 1)
+    count_out[0] = (int)(first + total);
+}
+}  // namespace
+extern "C" int enqueue_launch(const void* enq, int n, const void* krows,
+                              int sw, void* qnext, long long next_count,
+                              void* tile_count, void* count_out,
+                              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int tiles = rtt::copy_tiles(n);
+  cudaError_t e = cudaMemsetAsync(tile_count, 0, sizeof(int) * tiles, s);
+  if (e == cudaSuccess) e = cudaMemsetAsync(count_out, 0, sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  enqueue_lookback_kernel<<<tiles, rtt::kCopyThreads, 0, s>>>(
+      (const uint8_t*)enq, n, (const uint8_t*)krows, sw, (uint8_t*)qnext,
+      next_count, (unsigned*)tile_count, (int*)count_out);
+  return (int)cudaGetLastError();
+}
+"""
+
+_WORD_GATHER = r"""// The stage packed as the span is (row r of the turn at byte r * sw): a
+// thread builds 16-byte lines of it from the two aligned 16-byte loads
+// covering each in its source row (four where it straddles two rows),
+// two lines' loads issued together; bytes where a load would leave the
+// tensor.  No copy is left in flight, so the mbarrier goes unused.
+__device__ __forceinline__ void stage_init(TileStage&) {}
+
+__device__ __forceinline__ unsigned long long drop_low(unsigned long long x,
+                                                       int k) {
+  for (; k > 0 && x; --k) x &= x - 1;
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long below(int i) {
+  return i ? ~0ull >> (64 - i) : 0ull;
+}
+
+__device__ __forceinline__ void load_line(const uint8_t* p,
+                                          const uint8_t* lo,
+                                          const uint8_t* hi, uint4* a,
+                                          uint4* b) {
+  const uint8_t* al = line_of(p, 0);
+  if (al >= lo && al + 32 <= hi) {
+    *a = *reinterpret_cast<const uint4*>(al);
+    *b = *reinterpret_cast<const uint4*>(al + 16);
+    return;
+  }
+  uint32_t w[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const uint8_t* q = al + j;
+    if (q >= lo && q < hi) w[j >> 2] |= (uint32_t)*q << (8 * (j & 3));
+  }
+  *a = make_uint4(w[0], w[1], w[2], w[3]);
+  *b = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+__device__ __forceinline__ void stage_issue(const uint8_t* __restrict__ krows,
+                                            const uint8_t* kend, int sw,
+                                            int t0, unsigned long long f,
+                                            int r0, int rows, TileStage& st) {
+  unsigned long long turn = drop_low(f, r0);
+  if (rows < __popcll(turn)) turn &= ~drop_low(turn, rows);
+  const int i = threadIdx.x;
+  int* lanes = st.row_off;  // the turn's lanes by row
+  if (i < kCopyTile && ((turn >> i) & 1))
+    lanes[__popcll(turn & below(i))] = t0 + i;
+  __syncthreads();
+  const int len = rows * sw;
+  uint8_t* stage = st.bytes;
+  if (sw < 16) {
+    for (int k = threadIdx.x; k < len; k += kCopyThreads) {
+      const int r = k / sw;
+      stage[k] = krows[(size_t)lanes[r] * sw + (k - r * sw)];
+    }
+    return;
+  }
+  const int lines = (len + 15) >> 4;
+  uint4* out = reinterpret_cast<uint4*>(stage);
+  for (int c0 = threadIdx.x; c0 < lines; c0 += 2 * kCopyThreads) {
+    uint4 a[2], b[2], c[2], d[2];
+    int sh[2], sh2[2], m[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int line = c0 + u * kCopyThreads;
+      m[u] = 16;
+      if (line >= lines) continue;
+      const int k = 16 * line;
+      const int r = k / sw;
+      const int in_row = k - r * sw;
+      const uint8_t* p = krows + (size_t)lanes[r] * sw + in_row;
+      sh[u] = (int)(reinterpret_cast<uintptr_t>(p) & 15);
+      load_line(p, krows, kend, &a[u], &b[u]);
+      if (sw - in_row < 16 && r + 1 < rows) {
+        m[u] = sw - in_row;
+        const uint8_t* q = krows + (size_t)lanes[r + 1] * sw - m[u];
+        sh2[u] = (int)(reinterpret_cast<uintptr_t>(q) & 15);
+        load_line(q, krows, kend, &c[u], &d[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int line = c0 + u * kCopyThreads;
+      if (line >= lines) continue;
+      uint4 v = extract16(a[u], b[u], sh[u]);
+      if (m[u] < 16) v = blend16(v, extract16(c[u], d[u], sh2[u]), m[u]);
+      out[line] = v;
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_wait(TileStage&, int) {
+  __syncthreads();
+}
+
+__device__ __forceinline__ void store_turn(const TileStage& st,
+                                           uint8_t* __restrict__ dst,
+                                           int rows, int sw) {
+  const int t = threadIdx.x;
+  const int len = rows * sw;
+  const uint8_t* stage = st.bytes;
+  const int head = min(len, (int)((16 - (reinterpret_cast<uintptr_t>(dst) &
+                                         15)) & 15));
+  if (t < head) dst[t] = stage[t];
+  const int vecs = (len - head) >> 4;
+  const uint4* s = reinterpret_cast<const uint4*>(stage);
+  uint4* d = reinterpret_cast<uint4*>(dst + head);
+  for (int i = t; i < vecs; i += kCopyThreads)
+    d[i] = extract16(s[i], s[i + 1], head);
+  const int done = head + 16 * vecs;
+  if (t < len - done) dst[done + t] = stage[done + t];
+}
+
+"""
+
+_STORE_TURN = ("    store_turn(st, qnext + (first + r0) * (long long)sw, rows, "
+               "sw);\n")
+ENQUEUE_VARIANTS = [
+    ("as built", []),
+    ("the first design: one launch, every block re-counting the flags "
+     "before its tile, a warp a row", [("enqueue.cu", None,
+                                        _FIRST_ENQUEUE)]),
+    ("decoupled look-back: one launch after two memsets, tiles by ticket",
+     [("enqueue.cu", None, _LOOKBACK_ENQUEUE)]),
+    ("the copies after the wait", [
+        ("enqueue.cuh", "  if (!kSplit) grid_dependency_wait();\n",
+         "  grid_dependency_wait();\n"),
+        ("enqueue.cuh", "  if (kSplit) grid_dependency_wait();\n", "")]),
+    ("the tile launch no programmatic dependent", [
+        ("enqueue.cu", "rtt::kCopyThreads, s, true,",
+         "rtt::kCopyThreads, s, false,")]),
+    ("the count launch no programmatic dependent", [
+        ("enqueue.cu", "  rtt::grid_dependency_wait();\n  rtt::launch_dependents();\n",
+         "  rtt::launch_dependents();\n"),
+        ("enqueue.cu", "kCountThreads, s, true,", "kCountThreads, s, false,")]),
+    ("(time only) no stores", [
+        ("enqueue.cuh", _STORE_TURN, "")]),
+    ("(time only) no copies, no stores", [
+        ("enqueue.cuh", _STORE_TURN, ""),
+        ("enqueue.cuh", "      bytes = (int)(c1 - c0);", "      bytes = 0;")]),
+    ("(time only) the stores without the funnel shifts", [
+        ("enqueue.cuh", ("    const int k = head + 16 * i;  // the line's first",
+                         "    d[i] = v;"),
+         "    uint4 v = reinterpret_cast<const uint4*>(st.bytes)[i];\n")]),
+    ("(time only) the tile launch returns at once", [
+        ("enqueue.cuh", "  if (threadIdx.x == 0) stage_init(st);\n",
+         "  if (kSplit) return;\n  if (threadIdx.x == 0) stage_init(st);\n")]),
+    ("128 threads a tile block", [
+        ("enqueue.cuh", "constexpr int kCopyThreads = 256;",
+         "constexpr int kCopyThreads = 128;")]),
+    ("16-byte loads through registers into a packed stage", [
+        ("enqueue.cuh", "  return (kStageBytes - 64) / (sw + 32);",
+         "  return (kStageBytes - 16) / sw;"),
+        ("enqueue.cuh", ("// The tile block's mbarrier",
+                         "// The tile's flags as a mask"), _WORD_GATHER)]),
+]
+
+
+def enqueue_variants(torch, device):
+    """``python3 chip_smoke.py --enqueue-variants``: the split tail's
+    enqueue built from each of ENQUEUE_VARIANTS, each held exactly against
+    its plain version (whole queue and count) on the real L8 batch, the
+    trap masks of phase_enqueue and all K lanes at the queue's end, and
+    timed queued back to back on the real batch and on the full mask, with
+    its launches' device microseconds under the profiler.  A variant
+    named "(time only)" leaves a step out to attribute time: it is timed
+    though it is not exact (each writes inside the queue or not at all).
+    The built design runs first and last.  Not part of the smoke run."""
     import ctypes
-    from raft_tla_tpu_torch.utils import build
+    from raft_tla_tpu_torch.ops import enqueue_cuda
     krows, real = capture_enqueue_batch(torch)
-    n, sw = krows.shape
     gen = torch.Generator(device=device)
-    gen.manual_seed(1)
-    qa = torch.randint(0, 256, (QUEUE + n, sw), generator=gen, device=device,
+    gen.manual_seed(6)
+    sw = krows.shape[1]
+    rand_rows = torch.randint(0, 256, (K, sw), generator=gen, device=device,
+                              dtype=torch.uint8)
+    full = torch.ones(K, dtype=torch.bool, device=device)
+    qa = torch.randint(0, 256, (QUEUE + K, sw), generator=gen, device=device,
                        dtype=torch.uint8)
-    full = torch.ones(n, dtype=torch.bool, device=device)
-    count = torch.empty(1, dtype=torch.int32, device=device)
-    src = (build.CSRC / "enqueue.cu").read_text()
-    marker = "constexpr int kTile = 64;"
-    need(marker in src, "csrc/enqueue.cu no longer declares kTile = 64")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
+    qb = qa.clone()
+    enqueue_cuda.geometry()
+    real_lib = enqueue_cuda._lib
+    argtypes = real_lib().enqueue_launch.argtypes
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_enqueue_")
     try:
-        for tile in (256, 128, 64, 32, 64, 256):
-            cu = os.path.join(tmp, f"enqueue{tile}.cu")
-            with open(cu, "w") as f:
-                f.write(src.replace(marker, f"constexpr int kTile = {tile};"))
-            so = os.path.join(tmp, f"libenqueue{tile}.so")
-            subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
-                            str(build.CSRC), "-o", so, cu], check=True)
-            fn = ctypes.CDLL(so).enqueue_launch
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn.restype, fn.argtypes = i, [p, i, p, i, p, ctypes.c_longlong,
-                                          p, p]
-            for name, enq in (("real L8 batch", real), ("full mask", full)):
-                def call():
-                    build.check(fn(
-                        enq.data_ptr(), n, krows.data_ptr(), sw,
-                        qa.data_ptr(), NEXT_COUNT, count.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream), "enqueue")
-                us = sorted(op[1] for _ in range(5)
-                            for op in device_ops(torch, call))
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                for _ in range(200):
-                    call()
-                b.record()
-                torch.cuda.synchronize()
-                print(f"enqueue tile {tile}, {name} ({int(enq.sum())} rows): "
-                      f"device microseconds {us}, 200 launches between two "
-                      f"events {a.elapsed_time(b) * 5} microseconds each")
+        procs = [(name, src, so, proc)
+                 for v, (name, subs) in enumerate(ENQUEUE_VARIANTS)
+                 for src, so, proc in build_variant(tmp, v, subs,
+                                                    ("enqueue",))]
+        built = {}
+        for name, src, so, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                print(f"enqueue variant {name}: nvcc {src}.cu failed: "
+                      f"{log[-1500:]}")
+            else:
+                built[name] = so
+                print(f"enqueue variant {name}: {ptxas_summary(log)}")
+        for name, _subs in ENQUEUE_VARIANTS + ENQUEUE_VARIANTS[:1]:
+            if name not in built:
+                continue
+            lib = ctypes.CDLL(built[name])
+            lib.enqueue_launch.restype = ctypes.c_int
+            lib.enqueue_launch.argtypes = argtypes
+            enqueue_cuda._lib = lambda lib=lib: lib
+            try:
+                err = held_enqueue(torch, f"{name}: real L8 batch", qa, qb,
+                                   NEXT_COUNT, krows, real)
+                for case, rows, enq in enqueue_traps(torch, gen, device,
+                                                     rand_rows):
+                    err = max(err, held_enqueue(
+                        torch, f"{name}: {case}", qa, qb, NEXT_COUNT, rows,
+                        enq))
+                err = max(err, held_enqueue(
+                    torch, f"{name}: all lanes at the queue's end", qa, qb,
+                    QUEUE, rand_rows, full))
+            except PhaseFailed as e:
+                print(f"enqueue variant {name}: {e}")
+                qb.copy_(qa)
+                if not name.startswith("(time only)"):
+                    continue
+            times = {}
+            for what, rows, enq in (("real L8 batch", krows, real),
+                                    ("full mask", rand_rows, full)):
+                def call(rows=rows, enq=enq):
+                    enqueue_cuda.enqueue(qa, NEXT_COUNT, rows, enq)
+                times[what] = (queued_ms(torch, call),
+                               [us for _n, us in device_ops(torch, call)])
+            qb.copy_(qa)
+            print(f"enqueue variant {name}: queued back to back, real L8 "
+                  f"batch {times['real L8 batch'][0]} ms, full mask "
+                  f"{times['full mask'][0]} ms; device microseconds of the "
+                  f"call's operations: real batch "
+                  f"{times['real L8 batch'][1] or 'not measured'}, full "
+                  f"mask {times['full mask'][1] or 'not measured'}; "
+                  f"max_abs_err {err}")
     finally:
+        enqueue_cuda._lib = real_lib
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1530,8 +1937,33 @@ TAIL_VARIANTS = [
 ]
 
 
-def build_tail_variant(tmp, v, subs):
-    """Start nvcc on csrc/fpset.cu and csrc/fused_tail.cu with ``subs``
+def substitute(text, name, old, new):
+    """``text`` of csrc/``name`` with ``old`` replaced by ``new``: all of
+    it where ``old`` is None, the text from ``old[0]`` up to ``old[1]``
+    where it is a pair, else each occurrence of ``old``."""
+    if old is None:
+        return new
+    if isinstance(old, tuple):
+        start, end = old
+        need(start in text and end in text[text.index(start):],
+             f"csrc/{name} lost {start[:60]!r} .. {end[:60]!r}")
+        a = text.index(start)
+        return text[:a] + new + text[text.index(end, a):]
+    need(old in text, f"csrc/{name} lost {old[:60]!r}")
+    return text.replace(old, new)
+
+
+def ptxas_summary(log):
+    """``[(kernel, "Used N registers, ...")]`` out of ``nvcc -Xptxas -v``
+    output."""
+    names = [m.group(1) if m else "?" for m in (
+        re.search(r"\d+([A-Za-z_]+_kernel)", f) for f in re.findall(
+            r"Compiling entry function '([^']+)'", log))]
+    return list(zip(names, re.findall(r"Used \d+ registers[^\n]*", log)))
+
+
+def build_variant(tmp, v, subs, names):
+    """Start nvcc on each csrc/<name>.cu of ``names`` with ``subs``
     applied to a copy of the sources under ``tmp``: ``[(source, so,
     process)]``."""
     from raft_tla_tpu_torch.utils import build
@@ -1541,15 +1973,14 @@ def build_tail_variant(tmp, v, subs):
         path = os.path.join(src, name)
         with open(path) as f:
             text = f.read()
-        need(old in text, f"csrc/{name} lost {old[:60]!r}")
         with open(path, "w") as f:
-            f.write(text.replace(old, new))
+            f.write(substitute(text, name, old, new))
     procs = []
-    for name in ("fpset", "fused_tail"):
+    for name in names:
         so = os.path.join(tmp, f"lib{name}{v}.so")
         procs.append((name, so, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-I", src, "-o", so,
-             os.path.join(src, f"{name}.cu")],
+            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", src,
+             "-o", so, os.path.join(src, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     return procs
 
@@ -1580,7 +2011,8 @@ def tail_variants(torch, device):
     try:
         procs = [(name, src, so, proc)
                  for v, (name, subs) in enumerate(TAIL_VARIANTS)
-                 for src, so, proc in build_tail_variant(tmp, v, subs)]
+                 for src, so, proc in build_variant(
+                     tmp, v, subs, ("fpset", "fused_tail"))]
         built = collections.defaultdict(dict)
         for name, src, so, proc in procs:
             log, _ = proc.communicate()
@@ -1834,8 +2266,8 @@ def main() -> int:
     took = build.build_all()
     print(f"build: {time.time() - t} s (per source {took})")
     device = torch.device("cuda")
-    if sys.argv[1:] == ["--enqueue-tiles"]:
-        enqueue_tiles(torch, device)
+    if sys.argv[1:] == ["--enqueue-variants"]:
+        enqueue_variants(torch, device)
         return 0
     if sys.argv[1:] == ["--front-variants"]:
         front_variants(torch, device)

@@ -53,9 +53,11 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total,
 // Programmatic dependent launch (Hopper): a kernel launched with
 // `dependent` set may start while the kernel before it on the stream is
 // still running, and must call grid_dependency_wait() before it reads what
-// that kernel writes.  launch_dependents() in the earlier kernel lets the
-// later one's blocks become resident early.  Without the attribute the
-// wait returns at once.
+// that kernel writes.  Such data must not reach the kernel through a
+// `const __restrict__` pointer: the compiler takes it for read-only over
+// the whole kernel and may load it before the wait.  launch_dependents()
+// in the earlier kernel lets the later one's blocks become resident early.
+// Without the attribute the wait returns at once.
 __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }

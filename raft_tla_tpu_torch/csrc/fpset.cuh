@@ -173,7 +173,7 @@ probe_claim_kernel(const unsigned long long* __restrict__ q,
 }
 
 __global__ void __launch_bounds__(kInsertThreads)
-own_kernel(const int* __restrict__ slot, int n, int* owner) {
+own_kernel(const int* slot, int n, int* owner) {
   grid_dependency_wait();
   launch_dependents();
   const int l = blockIdx.x * kInsertThreads + threadIdx.x;
@@ -184,7 +184,7 @@ own_kernel(const int* __restrict__ slot, int n, int* owner) {
 
 template <bool kTiles>
 __global__ void __launch_bounds__(kInsertThreads)
-resolve_kernel(const int* __restrict__ slot, int n, int* owner,
+resolve_kernel(const int* slot, int n, int* owner,
                uint8_t* __restrict__ is_new, unsigned long long* size,
                uint8_t* fail, const uint8_t* __restrict__ enq_ok,
                int* __restrict__ tile_count) {

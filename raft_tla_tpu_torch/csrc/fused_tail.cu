@@ -9,11 +9,12 @@
 //   1-3. probe/claim, own and resolve: fpset.cuh's insert passes (the same
 //      device code as csrc/fpset.cu); resolve also writes, for each tile of
 //      64 lanes, how many of its lanes have is_new & enq_ok;
-//   4. enqueue_tiles_kernel: a block per 64-lane tile sums the counts of
-//      the tiles before it, ranks its lanes in lane order and writes its
-//      rows as one contiguous span of the queue, staged in shared memory
-//      and stored 16 bytes at a time (enqueue.cuh).  The block of the last
-//      tile writes the new count.
+//   4. enqueue_tiles_kernel<false> (enqueue.cuh, also the split tail's
+//      tile launch): a block per 64-lane tile reads its flags as a mask,
+//      copies the rows of each run of enqueued lanes into shared memory
+//      with one bulk copy, sums the counts of the tiles before it and
+//      writes its rows as one contiguous span of the queue, 16 bytes at a
+//      time.  The block of the last tile writes the new count.
 //
 // When no query fails, live rows, is_new and the new count match the TPU
 // kernel (fpset.cuh says how far fail does); its per-lane trash writes are
@@ -31,46 +32,14 @@
 // comparison.  Here the scan is spread over 512 blocks with no dependency
 // between them, the copy moves 16-byte words, and the fill and the
 // comparison are gone; what is left is the probe's chain of dependent
-// reads, the row gather's round trips to memory and four launch
-// latencies, which the programmatic dependency overlaps.
+// reads, the row copy's round trip to memory and four launch latencies,
+// which the programmatic dependency overlaps.
 
 #include "enqueue.cuh"
 #include "fpset.cuh"
 
-namespace {
-
-using rtt::kCopyThreads;
-using rtt::kTailTile;
-static_assert(kCopyThreads >= kTailTile, "a thread a lane of the tile");
-
-__global__ void __launch_bounds__(kCopyThreads)
-enqueue_tiles_kernel(const uint8_t* __restrict__ is_new,
-                     const uint8_t* __restrict__ enq_ok,
-                     const int* __restrict__ tile_count, int n,
-                     const uint8_t* __restrict__ krows, int sw,
-                     uint8_t* __restrict__ qnext, long long next_count,
-                     int* __restrict__ count_out) {
-  __shared__ __align__(16) uint8_t stage[rtt::kStageBytes];
-  __shared__ int smem[32];
-  __shared__ int src_lane[kTailTile];
-  rtt::grid_dependency_wait();
-  const int t = blockIdx.x;
-  const int t0 = t * kTailTile;
-  const int l = t0 + threadIdx.x;
-  // The flags' loads go out before the counts' sum waits on its own.
-  const int flag =
-      (int)threadIdx.x < kTailTile && l < n && is_new[l] && enq_ok[l];
-  const int before = rtt::sum_before(tile_count, t, smem);
-  const int total = rtt::copy_tile(flag, t0, krows, sw, qnext,
-                                   next_count + before, smem, src_lane,
-                                   stage);
-  if (threadIdx.x == 0 && t == (int)gridDim.x - 1)
-    count_out[0] = (int)(next_count + before + total);
-}
-
-int tail_blocks(int n) { return n > 0 ? (n + kTailTile - 1) / kTailTile : 1; }
-
-}  // namespace
+static_assert(rtt::kCopyTile == rtt::kTailTile,
+              "resolve counts the tiles of the copy");
 
 extern "C" int fused_tail_launch(const void* q, const void* valid,
                                  const void* enq_ok, int n, void* table,
@@ -85,10 +54,11 @@ extern "C" int fused_tail_launch(const void* q, const void* valid,
                                      tile_count, s);
   if (e != cudaSuccess) return (int)e;
   return (int)rtt::launch(
-      enqueue_tiles_kernel, tail_blocks(n), kCopyThreads, s, true,
-      (const uint8_t*)is_new, (const uint8_t*)enq_ok,
-      (const int*)tile_count, n, (const uint8_t*)krows, sw,
-      (uint8_t*)qnext, next_count, (int*)count_out);
+      rtt::enqueue_tiles_kernel<false>, rtt::copy_tiles(n),
+      rtt::kCopyThreads, s, true, (const uint8_t*)is_new,
+      (const uint8_t*)enq_ok, (const int*)tile_count, n,
+      (const uint8_t*)krows, sw, (uint8_t*)qnext, next_count,
+      (int*)count_out);
 }
 
 // Launch `which` of one fused tail of n lanes (0 probe/claim, 1 own, 2
@@ -105,8 +75,8 @@ extern "C" int fused_tail_kernel_info(int which, int n, int* out) {
     return rtt::kernel_info(rtt::resolve_kernel<true>, blocks,
                             rtt::kInsertThreads, 0, out);
   if (which == 3)
-    return rtt::kernel_info(enqueue_tiles_kernel, tail_blocks(n),
-                            kCopyThreads, 0, out);
+    return rtt::kernel_info(rtt::enqueue_tiles_kernel<false>,
+                            rtt::copy_tiles(n), rtt::kCopyThreads, 0, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -115,6 +85,6 @@ extern "C" int fused_tail_kernel_info(int which, int n, int* out) {
 // tile), out[1] = the widest row the stage takes (one row a turn after a
 // 16-byte lead).
 extern "C" void fused_tail_geometry(int* out) {
-  out[0] = kTailTile;
-  out[1] = rtt::kStageBytes - 16;
+  out[0] = rtt::kTailTile;
+  out[1] = rtt::kWidestRow;
 }

@@ -8,19 +8,51 @@ int32 device tensor, rows at and past it are unspecified.  ``next_count``
 is a host int (the level loop holds it from the last stats read), so the
 call makes no host wait.  ``enqueue`` launches the kernel for CUDA tensors
 and takes ``enqueue_plain`` only for CPU tensors.
+
+On the card a call is two launches and no other device operation: a count
+of the flags of each 64-lane tile, then the tile launch the fused tail
+also runs (``csrc/enqueue.cuh``), a programmatic dependent of the first.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..utils import build
 from .enqueue import enqueue_plain
+from .fused_tail_cuda import tiles
 
 #: Kernel launches since the last reset (chip_smoke reads it).
 launches = 0
+
+#: The CUDA launches of one call, in order (``launch_info``).
+KERNELS = ("enqueue_count_kernel", "enqueue_tiles_kernel")
+
+
+def count_scratch(n: int, tile: int, device) -> torch.Tensor:
+    """The per-tile count scratch of a call of n lanes: one int32 a tile
+    (``tiles``), written by the count launch before the tile launch reads
+    it, so never filled."""
+    return torch.empty(tiles(n, tile), dtype=torch.int32, device=device)
+
+
+@functools.cache
+def geometry():
+    """``(tile, widest row)`` of the built kernel: the lanes of one tile,
+    and the widest row in bytes its shared-memory stage takes."""
+    out = (ctypes.c_int * 2)()
+    _lib().enqueue_geometry(out)
+    return out[0], out[1]
+
+
+def launch_info(n: int):
+    """``{kernel: build.kernel_info}`` of each launch of one call of n
+    lanes."""
+    return {name: build.kernel_info("enqueue", i, n)
+            for i, name in enumerate(KERNELS)}
 
 
 def _lib():
@@ -29,7 +61,9 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, ctypes.c_longlong, p, p]
+        fn.argtypes = [p, i, p, i, p, ctypes.c_longlong, p, p, p]
+        lib.enqueue_geometry.restype = None
+        lib.enqueue_geometry.argtypes = [p]
     return lib
 
 
@@ -53,14 +87,20 @@ def enqueue(qnext: torch.Tensor, next_count: int, krows: torch.Tensor,
             or qnext.shape[0] >= 1 << 31):
         raise ValueError("enqueue: rows must be contiguous uint8 [n, sw] / "
                          "[Q, sw] and enq bool [n], on one device")
+    tile, widest = geometry()
+    if sw > widest:
+        raise ValueError(f"enqueue: rows of {sw} bytes, the kernel takes at "
+                         f"most {widest}")
     enq = enq.contiguous()
-    if enq.data_ptr() % 16:          # the kernel reads the flags 16 at a time
+    if enq.data_ptr() % 16:          # the counts read the flags 16 at a time
         enq = enq.clone()
-    count = torch.empty(1, dtype=torch.int32, device=krows.device)
+    dev = krows.device
+    tile_count = count_scratch(n, tile, dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
     err = _lib().enqueue_launch(
         enq.data_ptr(), n, krows.data_ptr(), sw, qnext.data_ptr(),
-        next_count, count.data_ptr(),
-        torch.cuda.current_stream(krows.device).cuda_stream)
+        next_count, tile_count.data_ptr(), count.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "enqueue_launch")
     launches += 1
     return count[0]

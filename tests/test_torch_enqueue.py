@@ -30,12 +30,14 @@ from raft_tla_tpu_torch.engine.chunk import build_chunk_body
 from raft_tla_tpu_torch.ops import enqueue as enq_mod
 from raft_tla_tpu_torch.ops import enqueue_cuda, pipeline_v3, pipeline_v4
 from raft_tla_tpu_torch.ops.compact import inv_positions
+from raft_tla_tpu_torch.utils import build
 from raft_tla_tpu_torch.utils.cfg import load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOUNDED = os.path.join(REPO, "configs/MCraft_bounded.cfg")
 
 K, Q, NEXT = 256, 512, 37        # lanes, live queue rows, rows already there
+TILE = 64                        # lanes of a tile of the CUDA enqueue
 SEG = enqueue_pallas.SEG
 
 
@@ -54,29 +56,43 @@ def _mask(case: str, rng) -> np.ndarray:
         m = rng.rand(K) < 0.15
     elif case == "last_lanes":                # a run ending on the last lane
         m[K - SEG - 2:] = True
+    elif case == "cross_tile_runs":           # a run across each 64-lane
+        for edge in range(TILE, K, TILE):     # tile edge, one across two
+            m[edge - 1 - edge % 5:edge + 3 + edge // TILE] = True
+        m[TILE - 20:3 * TILE + 7] = True
+    elif case == "tile_last_lanes":           # one flag, each tile's last
+        m[TILE - 1::TILE] = True
+    elif case == "ragged_k":                  # K no multiple of a tile
+        m = rng.rand(K - 56) < 0.4
+        m[TILE - 3:TILE + 2] = True
+        m[-5:] = True
     else:
         assert case == "empty"
     return m
 
 
 MASKS = ("empty", "full", "short_run", "long_run", "many_short_runs",
-         "random", "last_lanes")
+         "random", "last_lanes", "cross_tile_runs", "tile_last_lanes",
+         "ragged_k")
 
 
-@pytest.mark.parametrize("sw", [473, 403])
+@pytest.mark.parametrize("sw", [473, 403, 679, 951])
 @pytest.mark.parametrize("case", MASKS)
 def test_enqueue_lowerings_equal_jax_on_live_rows(case, sw):
+    """Row widths of MCraft_bounded (473), MCraft_noleader (403),
+    raft5_bounded (679) and TPUraft (951)."""
     rng = np.random.RandomState(1000 * MASKS.index(case) + sw)
     enq = _mask(case, rng)
-    krows = rng.randint(0, 256, (K, sw)).astype(np.uint8)
-    q0 = rng.randint(0, 256, (Q + K, sw)).astype(np.uint8)   # sentinel rows
+    k = enq.shape[0]
+    krows = rng.randint(0, 256, (k, sw)).astype(np.uint8)
+    q0 = rng.randint(0, 256, (Q + k, sw)).astype(np.uint8)   # sentinel rows
     live = NEXT + int(enq.sum())
 
     jq = np.asarray(enqueue_pallas.enqueue(
         jnp.asarray(q0), jnp.int32(NEXT), jnp.asarray(krows),
         jnp.asarray(enq), interpret=True))
     epos = NEXT + np.cumsum(enq) - 1
-    epos = np.where(enq, epos, Q + np.arange(K))
+    epos = np.where(enq, epos, Q + np.arange(k))
     jscatter = np.asarray(jnp.asarray(q0).at[jnp.asarray(epos)].set(
         jnp.asarray(krows)))
     assert np.array_equal(jq[:live], jscatter[:live])
@@ -109,6 +125,16 @@ def test_inv_positions_equals_jax():
         want = np.asarray(j_compact.inv_positions(jnp.asarray(m), out_len))
         got = inv_positions(torch.as_tensor(m), out_len).numpy()
         assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,tiles", [(0, 1), (1, 1), (64, 1), (65, 2),
+                                     (1000, 16), (32768, 512)])
+def test_enqueue_count_scratch(n, tiles):
+    """One int32 a 64-lane tile (at least one: the n = 0 launch still
+    writes the count), sized without loading the library."""
+    scratch = enqueue_cuda.count_scratch(n, TILE, "cpu")
+    assert scratch.dtype == torch.int32 and scratch.shape == (tiles,)
+    assert "enqueue" not in build._libs
 
 
 def test_wrapper_checks_bounds_and_counts_no_launch_on_cpu():
