@@ -32,7 +32,22 @@ and to depth 11 on v4, with its own launch counts, the sync check (also
 for the two PyTorch enqueue lowerings) and the profile; a depth-9 run
 writes a checkpoint from which a second engine resumes to depth 11 (the
 seen set rebuilt through the insert kernel, timed); and a forged POR
-table runs through ``--por-table`` on both plans.
+table runs through ``--por-table`` on both plans.  The engine runs
+``sync_every`` batches a host round trip, one step captured as a CUDA
+graph and replayed: the launch counts are counted a step (a replay
+launches what the wrappers recorded at capture), the tiny-table run also
+at ``sync_every`` 8 (growth and spill inside chunks), the sync check
+covers each chunk's dispatch, and MCraft_bounded L9 and L11 run at
+``sync_every`` 1 and 32 in turns.  Then the north-star model: the front,
+the fused tail and the trace append held and timed at the shapes of
+``configs/TPUraft.cfg`` on a real window; the cfg as written (batch
+8192, queue 4,194,304 rows, seen 2^25) to depth 9 with trace on, against
+the oracle's 24,753,442 distinct, 84,522,610 generated and ten levels,
+an L9 state replayed from the trace; a profile to L6; the split tail to
+L8, a 2^20-row queue spilling to files to L8, v3 to L6,
+``configs/raft5_bounded.cfg`` with capacities from the card to L8; and a
+run capped (``set_per_process_memory_fraction``) between what batch 4096
+and batch 8192 need, which must degrade to 4096 and give the L8 counts.
 
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
@@ -59,7 +74,8 @@ bytes and shared memory.  ``--enqueue-variants``, ``--front-variants``
 and ``--tail-variants`` build the designs the shipped kernels were
 measured against by source substitution and time them.
 
-Output: the card's name and power limit, one line per phase, then a JSON
+Output: the card's name and power limit, one line per phase, the total
+seconds, then a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
 (compact on the fused v3 run, the fused tail and the front on the fused
 v4 run, the insert and the enqueue on the split v4 run, all to depth 9),
@@ -97,6 +113,14 @@ MCRAFT_L6_DISTINCT, MCRAFT_L6_GENERATED = 9457, 24429
 MCRAFT_L8_DISTINCT = 139327
 MCRAFT_L11_LEVELS = MCRAFT_L9_LEVELS + [548904, 1703703]
 MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED = 6005282, 17354955
+# The oracle's north-star model (BASELINE.md, configs/TPUraft.cfg):
+# enqueued states per level, and cumulative distinct / generated.
+TPURAFT_LEVELS = [1, 5, 45, 310, 1995, 12306, 72870, 417420, 2324195,
+                  12619505]
+TPURAFT_DISTINCT = {5: 17852, 6: 114187, 7: 706142, 8: 4237772,
+                    9: 24753442}
+TPURAFT_GENERATED = {5: 50900, 6: 348800, 7: 2265410, 8: 14090975,
+                     9: 84522610}
 
 
 #: The keys of each kernel's entry in the JSON line: `ms` is one wrapper
@@ -449,9 +473,9 @@ def grow_trap(torch, gen, device):
 def launch_check(torch, what, fn, kernels, setup=None):
     """The profiled call's device operations are exactly the wrapper's
     kernel launches, in order (nothing else of PyTorch's).  The profiler
-    now and then misses a short launch, so up to three profiles are taken:
+    now and then sees nothing of a call, so up to five profiles are taken:
     none may show another operation, and one must show all of them."""
-    for _ in range(3):
+    for _ in range(5):
         ops = device_ops(torch, fn, setup=setup)
         names = [n for n, _us in ops]
         need(set(names) <= set(kernels),
@@ -460,7 +484,7 @@ def launch_check(torch, what, fn, kernels, setup=None):
             break
     print(f"{what}: {len(ops)} CUDA launches a call, device microseconds "
           f"{ops}")
-    need(names == list(kernels), f"{what}: the profiler saw {names} in three "
+    need(names == list(kernels), f"{what}: the profiler saw {names} in five "
          f"profiles, not {list(kernels)}")
 
 
@@ -536,15 +560,27 @@ def phase_insert(torch, device, gen, base, present):
     return row
 
 
+def device_count(torch, value, device):
+    """``value`` as the int32 count a kernel reads on the card, written by
+    a kernel launched just before (a fill): the way the level loop hands
+    a count over, the launch before having written it."""
+    nc = torch.empty(1, dtype=torch.int32, device=device)
+    nc.fill_(value)
+    return nc
+
+
 def held_tail(torch, name, s, q, valid, krows, enq_ok, qa, qb, next_count):
     """The fused tail against insert_enqueue_plain on copies of ``s`` and
     on the two queues ``qa`` / ``qb`` (equal before): is_new, fail, count,
     size, key set and the WHOLE queue equal (only fail where a query
-    fails), the owner scratch clear.  Returns max_abs_err."""
+    fails), the owner scratch clear.  The kernel reads ``next_count``
+    from the card, written by the launch just before.  Returns
+    max_abs_err."""
     from raft_tla_tpu_torch.ops import fused_tail_cuda
     a, b = copy_table(torch, s), copy_table(torch, s)
     new_k, fail_k, cnt_k = fused_tail_cuda.insert_enqueue(
-        a, q, valid, krows, enq_ok, qa, next_count)
+        a, q, valid, krows, enq_ok, qa,
+        device_count(torch, next_count, q.device), next_count)
     new_p, fail_p, cnt_p = fused_tail_cuda.insert_enqueue_plain(
         b, q, valid, krows, enq_ok, qb, next_count)
     torch.cuda.synchronize()
@@ -639,8 +675,33 @@ def phase_fused_tail(torch, device, gen, base, present):
     e, n_enq = held_tail(torch, "main path", base, q, valid, krows, ok_rand,
                          qa, qb, NEXT_COUNT)
     err = max(err, e)
+    # Two tails chained as in a chunk: the second reads, as its count, the
+    # count the first one's last launch wrote on the card.
+    a, b = copy_table(torch, base), copy_table(torch, base)
+    (_h, _l, k1), (_h, _l, k2) = (random_keys(torch, K, gen, device)
+                                  for _ in range(2))
+    _n, _f, c1 = fused_tail_cuda.insert_enqueue(
+        a, k1, valid, krows, ok_rand, qa,
+        device_count(torch, NEXT_COUNT, device), NEXT_COUNT)
+    new_k, _f, c2 = fused_tail_cuda.insert_enqueue(
+        a, k2, valid, krows, ok_rand, qa, c1.view(1), NEXT_COUNT + K)
+    _n, _f, p1 = fused_tail_cuda.insert_enqueue_plain(
+        b, k1, valid, krows, ok_rand, qb, NEXT_COUNT)
+    new_p, _f, p2 = fused_tail_cuda.insert_enqueue_plain(
+        b, k2, valid, krows, ok_rand, qb, p1)
+    torch.cuda.synchronize()
+    e = max_abs(torch, [(c2, p2), (new_k, new_p), (a.size, b.size)])
+    equal = bool(torch.equal(qa, qb))
+    print(f"fused_tail chained (the count the launch before wrote): "
+          f"{int(c2) - NEXT_COUNT} rows, queue_equal={equal} "
+          f"max_abs_err={e}")
+    need(e == 0.0 and equal, "two chained fused tails differ from the "
+         "plain version")
+    err = max(err, e)
+    del a, b
     need(n_enq > 0, "fused_tail phase enqueued nothing")
     enq_ok, next_count = ok_rand, NEXT_COUNT
+    nc = device_count(torch, next_count, device)
     del qb
     work = copy_table(torch, base)
     a = copy_table(torch, base)
@@ -654,7 +715,7 @@ def phase_fused_tail(torch, device, gen, base, present):
 
     def kernel():
         fused_tail_cuda.insert_enqueue(work, q, valid, krows, enq_ok, qa,
-                                       next_count)
+                                       nc, next_count)
 
     ms = cuda_ms(torch, kernel, 20, setup=restore)
     plain_ms = cuda_ms(torch, lambda: fused_tail_cuda.insert_enqueue_plain(
@@ -663,8 +724,8 @@ def phase_fused_tail(torch, device, gen, base, present):
     restore()
     batches = iter(fresh_batches(torch, gen, device, present))
     queued = queued_ms(torch, lambda: fused_tail_cuda.insert_enqueue(
-        work, *next(batches), krows, enq_ok, qa, next_count), QUEUED_REPS,
-        QUEUED_SAMPLES)
+        work, *next(batches), krows, enq_ok, qa, nc, next_count),
+        QUEUED_REPS, QUEUED_SAMPLES)
     # The insert's bytes, enq_ok and the count, and each enqueued row read
     # once and written once (no other row need be touched).
     nbytes = (insert_bytes(K, distinct_valid(torch, q, valid), n_new)
@@ -702,9 +763,20 @@ def front_err(torch, got, want):
                            for f, g, w in zip(FrontOut._fields, got, want)])
 
 
+def dispatch_eagerly(engine):
+    """Have ``engine`` dispatch each chunk step itself in place of a graph
+    replay, so that a hook on ``engine._step.body`` sees every batch (a
+    graph runs the body once, at capture).  Instrumentation only."""
+    def runner(qcur, qnext, seen, res):
+        return lambda: engine._step(qcur, seen, qnext, engine._tbuf,
+                                    engine._cs)
+    engine._runner = runner
+
+
 def front_rig(torch, device):
     """``(setup, v2, Front keywords, windows)`` of MCraft_bounded at the
-    main path's sizes: the parent windows a v3 check to L8 dispatched."""
+    main path's sizes: the parent windows a v3 check to L8 dispatched
+    (its steps dispatched eagerly, so a hook on the body sees each)."""
     from raft_tla_tpu_torch.engine.bfs import EngineConfig
     from raft_tla_tpu_torch.engine.check import initial_states, make_engine
     from raft_tla_tpu_torch.models.actions2 import build_v2
@@ -717,14 +789,17 @@ def front_rig(torch, device):
     engine = make_engine(setup, EngineConfig(
         batch=B, queue_capacity=QUEUE, seen_capacity=SEEN,
         record_trace=False, max_diameter=8, pipeline="v3"), device="cuda")
-    body, windows = engine._body, []
+    dispatch_eagerly(engine)
+    body, windows = engine._step.body, []
 
     def capture(rows, valid, *args):
         windows.append((rows.clone(), valid.clone()))
         return body(rows, valid, *args)
 
-    engine._body = capture
+    engine._step.body = capture
     engine.run(initial_states(setup))
+    # Steps whose cond failed ran on no valid row.
+    windows = [w for w in windows if bool(w[1].any())]
     v2 = build_v2(dims, device)
     kw = dict(dims=dims, v2=v2,
               inv_fns=[build_type_ok(dims), build_no_leader(dims)],
@@ -791,15 +866,7 @@ def phase_front(torch, device):
     plain_ms = cuda_ms(torch, lambda: front.plain(rows, valid), 5)
     ops = device_ops(torch, lambda: front(rows, valid))
     sw = state_width(dims)
-    # Read: the parent rows, valid, kspread in the dead slots and the salt
-    # tables; written: the three [B, G] masks, (P, total), lane_id, kvalid
-    # and on each live lane its row and six scalars (dead lanes are left
-    # unwritten by contract).
-    salts = 4 * (2 + 2 * (7 * dims.n_servers + 2 * dims.n_servers
-                          * dims.max_log + 2 * dims.n_servers ** 2)
-                 + 2 * dims.msg_width)
-    nbytes = (B * sw + B + (K - total) * 4 + salts + 3 * B * G + 8
-              + K * 4 + K + total * (sw + 8 * 5 + 1))
+    nbytes = front_bytes(dims, B, K, total)
     row = dict(name="chunk_front", route="cuda",
                source="raft_tla_tpu_torch/csrc/chunk_front.cu",
                headers=["raft_model.cuh", "compact.cuh", "common.cuh"],
@@ -814,7 +881,8 @@ def phase_front(torch, device):
           f"{len(ops) if ops else 'not measured'} "
           f"(device microseconds under the profiler: {ops})")
     info = front.launch_info()
-    print(f"chunk_front launches at [{B},{sw}] -> K={K}: {info}")
+    print(f"chunk_front launches at [{B},{sw}] -> K={K}: {info}; blocks an "
+          f"SM {front.occupancy()}")
     need(all(i["grid"] > 1 for i in info.values()),
          "a front launch runs on one block")
     need(info["masks_kernel"]["dynamic_smem"]
@@ -824,6 +892,20 @@ def phase_front(torch, device):
          "check_dims counts other shared memory than the launches take")
     del windows, pool, cases, out
     return row
+
+
+def front_bytes(dims, b, k, total):
+    """Bytes one front call must move.  Read: the parent rows, valid,
+    kspread in the dead slots and the salt tables; written: the three
+    [b, G] masks, (P, total), lane_id, kvalid and on each live lane its
+    row and six scalars (dead lanes are left unwritten by contract)."""
+    from raft_tla_tpu_torch.models.schema import state_width
+    sw, g = state_width(dims), dims.n_instances
+    salts = 4 * (2 + 2 * (7 * dims.n_servers + 2 * dims.n_servers
+                          * dims.max_log + 2 * dims.n_servers ** 2)
+                 + 2 * dims.msg_width)
+    return (b * sw + b + (k - total) * 4 + salts + 3 * b * g + 8
+            + k * 4 + k + total * (sw + 8 * 5 + 1))
 
 
 def mid_block_window(torch, pool, fanout):
@@ -874,16 +956,18 @@ def phase_other_dims(torch, device):
                                    seen_capacity=1 << 18, record_trace=False,
                                    check_deadlock=False, max_diameter=depth,
                                    pipeline=pipeline), device="cuda")
-            body = engine._body
+            body = engine._step.body
             if pipeline == "v3":
+                dispatch_eagerly(engine)
+
                 def capture(rows, valid, *args, body=body):
-                    windows.append((rows.clone(), valid.clone()))
+                    if bool(valid.any()):
+                        windows.append((rows.clone(), valid.clone()))
                     return body(rows, valid, *args)
-                engine._body = capture
+                engine._step.body = capture
             reset_counts()
             r = engine.run([init_state(dims)])
-            check_launches(pipeline, read_counts(), r.batches,
-                           f"dims {dims}")
+            check_launches(pipeline, read_counts(), r.steps, f"dims {dims}")
             res[pipeline] = (r.distinct, r.generated, r.levels,
                              r.action_counts)
         front = chunk_front_cuda.Front(
@@ -906,7 +990,13 @@ def device_ops(torch, fn, setup=None):
     """``[(kernel name, device microseconds)]`` of the device operations
     one call of ``fn`` issues, as torch.profiler sees them (empty when the
     profiler sees no device activity); ``setup`` runs before each call,
-    outside the profile."""
+    outside the profile.
+
+    The profiler drops device activity that it dates to before its own
+    start, and on some machines that was the first launch of the call.
+    So the profile opens with a marker launch (``torch.cuda._sleep``) and
+    a host pause, and only what starts after the marker ends is the
+    call's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if setup:
@@ -916,10 +1006,19 @@ def device_ops(torch, fn, setup=None):
         setup()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
         fn()
         torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    marks = [e.time_range.end for e in dev if "spin_kernel" in e.name]
+    after = max(marks, default=None)
     return [(short_name(e.name), e.time_range.end - e.time_range.start)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
+            for e in dev if "spin_kernel" not in e.name
+            and (after is None or e.time_range.start >= after)]
 
 
 def short_name(name):
@@ -946,26 +1045,31 @@ def read_counts():
     return {name: mod.launches for name, mod in counters().items()}
 
 
-def check_launches(pipeline, counts, batches, what, method="fused",
-                   inserts=None):
-    """Each path's kernels launched, once per batch where they run per
-    batch; the v4 path never runs the v3 compaction (nor so the plain
-    front), the v3 path never the front kernel.  The fused tail runs the
-    fused kernel each batch and the insert kernel only outside the batches
-    (root ingest, growth, a resume's rebuild); a split tail never runs the
-    fused kernel, runs the insert kernel each batch besides, and the
-    enqueue kernel each batch when that is its enqueue.  ``inserts``, where
-    given, is the exact number of insert launches outside the batches."""
+def check_launches(pipeline, counts, steps, what, method="fused",
+                   inserts=None, trace=False):
+    """Each path's kernels launched once per step, where they run per
+    batch (a step is dispatched whether or not its cond lets its batch
+    run: a graph replay, or an eager call; under a graph each replay
+    launches what the wrappers recorded at capture and is counted so);
+    the v4 path never runs the v3 compaction (nor so the plain front), the
+    v3 path never the front kernel.  The fused tail runs the fused kernel
+    each step and the insert kernel only outside the steps (root ingest,
+    growth, a resume's rebuild); a split tail never runs the fused kernel,
+    runs the insert kernel each step besides, and the enqueue kernel each
+    step when that is its enqueue.  With trace recording the enqueue
+    kernel also appends each step's trace records.  ``inserts``, where
+    given, is the exact number of insert launches outside the steps."""
     front, other = (("compact", "chunk_front") if pipeline == "v3"
                     else ("chunk_front", "compact"))
-    ok = counts[front] == batches > 0 and counts[other] == 0
-    per_batch = 0 if method == "fused" else batches
-    ok = ok and counts["fused_tail"] == batches - per_batch
-    ok = ok and counts["enqueue"] == (batches if method == "kernel" else 0)
-    outside = counts["fpset_insert"] - per_batch
+    ok = counts[front] == steps > 0 and counts[other] == 0
+    per_step = 0 if method == "fused" else steps
+    ok = ok and counts["fused_tail"] == steps - per_step
+    ok = ok and counts["enqueue"] == ((steps if method == "kernel" else 0)
+                                      + (steps if trace else 0))
+    outside = counts["fpset_insert"] - per_step
     ok = ok and (outside > 0 if inserts is None else outside == inserts)
     need(ok, f"{what} ({pipeline}, {method} tail): launches {counts} over "
-         f"{batches} batches")
+         f"{steps} steps")
 
 
 def bounded_config(pipeline, depth, **kw):
@@ -1008,23 +1112,25 @@ def phase_main_path(torch, pipeline, method="fused"):
          f"MCraft_bounded L9 ({what}) counts differ from the pinned "
          "oracle")
     need(not res.growth_stalls, "the main path's seen set grew")
-    check_launches(pipeline, counts, res.batches, "MCraft_bounded L9",
+    check_launches(pipeline, counts, res.steps, "MCraft_bounded L9",
                    method, inserts=1)
     return counts
 
 
-def phase_small_table(torch, pipeline):
+def phase_small_table(torch, pipeline, sync_every=32):
     """MCraft_bounded to L6 with a tiny seen-set and queue: the table
     grows by rehashing through the insert kernel, the next-level queue
-    spills to the host, and the counts still equal the pinned ones."""
+    spills to the host (both land inside chunks), and the counts still
+    equal the pinned ones."""
     from raft_tla_tpu_torch.engine.check import run_check
     cfg = bounded_config(pipeline, 6, batch=32, queue_capacity=1024,
-                         seen_capacity=256)
+                         seen_capacity=256, sync_every=sync_every)
     reset_counts()
     res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"), cfg,
                     device="cuda")
     counts = read_counts()
-    print(f"MCraft_bounded L6 {pipeline}, tiny seen-set and queue: "
+    print(f"MCraft_bounded L6 {pipeline} sync_every {sync_every}, tiny "
+          f"seen-set and queue: chunks={res.chunks} steps={res.steps} "
           f"distinct={res.distinct} generated={res.generated} "
           f"levels={res.levels} batches={res.batches} spills={res.spills} "
           f"growths (capacity, seconds)={res.growth_stalls} "
@@ -1038,14 +1144,15 @@ def phase_small_table(torch, pipeline):
          and res.levels == MCRAFT_L9_LEVELS[:7],
          f"MCraft_bounded L6 ({pipeline}) with growth and spill differs "
          "from the pinned oracle")
-    check_launches(pipeline, counts, res.batches, "MCraft_bounded L6")
+    check_launches(pipeline, counts, res.steps, "MCraft_bounded L6")
 
 
 def phase_dispatch_sync_free(torch, pipeline, method="fused"):
-    """MCraft_bounded to L8 at the main path's sizes with every batch's
-    dispatch under CUDA sync debug mode "error": a host wait for the
-    device inside a dispatch raises, so the engine's "sync" phase (the
-    one stats read per batch) holds every wait of the level loop."""
+    """MCraft_bounded to L8 at the main path's sizes and sync_every 32
+    with every chunk's dispatch (its queued steps, graph replays, and the
+    cond after them) under CUDA sync debug mode "error": a host wait for
+    the device inside a chunk raises, so the engine's "sync" phase (the
+    one stats read a chunk) holds every wait of the level loop."""
     from raft_tla_tpu_torch.engine.check import initial_states, make_engine
     from raft_tla_tpu_torch.utils.cfg import load_config
     setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
@@ -1053,18 +1160,18 @@ def phase_dispatch_sync_free(torch, pipeline, method="fused"):
                                                enqueue_method=method),
                          device="cuda")
     what = f"{pipeline} {method} tail"
-    body, checked = engine._body, []
+    dispatch, checked = engine._dispatch, []
 
     def strict(*args):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = body(*args)
+            out = dispatch(*args)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        checked.append(1)
+        checked.append(args[1])
         return out
 
-    engine._body = strict
+    engine._dispatch = strict
     try:
         res = engine.run(initial_states(setup))
     except RuntimeError as e:
@@ -1072,12 +1179,15 @@ def phase_dispatch_sync_free(torch, pipeline, method="fused"):
                 if "raft_tla_tpu_torch" in f.filename]
         where = (f"{os.path.relpath(site[-1].filename, HERE)}:"
                  f"{site[-1].lineno}" if site else "an unknown line")
-        raise PhaseFailed(f"a {what} batch dispatch waited for the "
+        raise PhaseFailed(f"a {what} chunk dispatch waited for the "
                           f"device at {where}: {e}")
-    print(f"dispatch sync check L8 {what}: {len(checked)} batch "
-          f"dispatches under sync debug mode 'error', none waited for the "
+    print(f"dispatch sync check L8 {what}, sync_every "
+          f"{engine.config.sync_every}: {len(checked)} dispatches of "
+          f"{sum(checked)} steps ({res.batches} batches, {res.chunks} "
+          f"chunks) under sync debug mode 'error', none waited for the "
           f"device; distinct={res.distinct}")
-    need(len(checked) == res.batches > 0, "no batch was dispatched")
+    need(len(checked) >= res.chunks > 0 and sum(checked) >= res.batches,
+         "no chunk was dispatched")
     need(res.distinct == MCRAFT_L8_DISTINCT
          and res.levels == MCRAFT_L9_LEVELS[:9],
          f"MCraft_bounded L8 ({what}) differs from the pinned oracle")
@@ -1105,24 +1215,29 @@ def phase_deep(torch, pipeline, method="fused"):
          and res.distinct == MCRAFT_L11_DISTINCT
          and res.generated == MCRAFT_L11_GENERATED,
          f"MCraft_bounded L11 ({what}) differs from the pinned oracle")
-    check_launches(pipeline, counts, res.batches, "MCraft_bounded L11",
+    check_launches(pipeline, counts, res.steps, "MCraft_bounded L11",
                    method, inserts=1)
     return res
 
 
-def phase_profile(torch, pipeline, method="fused"):
-    """Device busy share of a check to L8 under torch.profiler: the union
-    of the device-side intervals over the wall time of the run."""
+def phase_profile(torch, pipeline, method="fused", cfg_name=None,
+                  config=None):
+    """Device busy share of a check under torch.profiler (MCraft_bounded
+    to L8 at the main path's sizes, or ``cfg_name`` with ``config``): the
+    union of the device-side intervals over the wall time of the run,
+    device ops a step and a batch, and the ops by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from raft_tla_tpu_torch.engine.check import run_check
+    cfg_name = cfg_name or "MCraft_bounded.cfg"
+    config = config or bounded_config(pipeline, 8, enqueue_method=method)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
-                        bounded_config(pipeline, 8, enqueue_method=method),
+        res = run_check(os.path.join(HERE, "configs", cfg_name), config,
                         device="cuda")
         torch.cuda.synchronize()
-    what = f"{pipeline} {method} tail"
+    what = (f"{cfg_name[:-4]} L{config.max_diameter} {pipeline} {method} "
+            f"tail, sync_every {config.sync_every}")
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, end = 0, None
@@ -1134,46 +1249,54 @@ def phase_profile(torch, pipeline, method="fused"):
             busy += e - end
             end = e
     if not spans:
-        print(f"profile L8 {what}: the profiler saw no device time "
+        print(f"profile {what}: the profiler saw no device time "
               "(not measured)")
         return
     wall_us = res.wall_seconds * 1e6
-    print(f"profile L8 {what} (under torch.profiler): check "
-          f"{res.wall_seconds} s, {res.batches} batches, device busy "
-          f"{busy / 1e6} s = {busy / wall_us} of the check, idle "
-          f"{1 - busy / wall_us}, {len(spans) / res.batches} device ops per "
-          f"batch, host dispatch {res.phases['dispatch'] / res.batches} s "
-          f"per batch")
+    print(f"profile {what} (under torch.profiler): check "
+          f"{res.wall_seconds} s, {res.batches} batches, {res.steps} "
+          f"steps, {res.chunks} chunks, device busy {busy / 1e6} s = "
+          f"{busy / wall_us} of the check, idle {1 - busy / wall_us}, "
+          f"{len(spans) / res.steps} device ops a step, "
+          f"{len(spans) / res.batches} a batch, device time a batch "
+          f"{busy / res.batches} us, host dispatch "
+          f"{res.phases['dispatch'] / res.batches} s a batch, phases "
+          f"{res.phases}")
     by_name = collections.defaultdict(lambda: [0, 0])
     for e in dev:
         n = by_name[short_name(e.name)]
         n[0] += 1
         n[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    print(f"profile L8 {what}: device ops by total time, as (name, ops "
-          f"per batch, device microseconds per batch): " + ", ".join(
+    print(f"profile {what}: device ops by total time, as (name, ops "
+          f"a batch, device microseconds a batch): " + ", ".join(
               f"({n}, {c / res.batches}, {us / res.batches})"
               for n, (c, us) in top))
 
 
 def capture_enqueue_batch(torch):
     """``(krows, enq)`` of the fullest batch of a split-tail v4 check to
-    L8 at the main path's sizes: what the enqueue kernel is given there."""
+    L8 at the main path's sizes (its steps dispatched eagerly, so the hook
+    sees each call): what the enqueue kernel is given there."""
     from raft_tla_tpu_torch.engine import chunk as chunk_mod
-    from raft_tla_tpu_torch.engine.check import run_check
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.utils.cfg import load_config
     real, best = chunk_mod.enqueue, []
 
-    def capture(qnext, next_count, krows, enq):
+    def capture(qnext, next_count, krows, enq, max_count=None):
         n = int(enq.sum())
         if not best or n > best[0]:
             best[:] = [n, krows.clone(), enq.clone()]
-        return real(qnext, next_count, krows, enq)
+        return real(qnext, next_count, krows, enq, max_count)
 
+    setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
+    engine = make_engine(setup, bounded_config("v4", 8,
+                                               enqueue_method="kernel"),
+                         device="cuda")
+    dispatch_eagerly(engine)
     chunk_mod.enqueue = capture
     try:
-        res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
-                        bounded_config("v4", 8, enqueue_method="kernel"),
-                        device="cuda")
+        res = engine.run(initial_states(setup))
     finally:
         chunk_mod.enqueue = real
     need(res.distinct == MCRAFT_L8_DISTINCT and best,
@@ -1205,11 +1328,14 @@ def enqueue_traps(torch, gen, device, rand_rows):
 
 def held_enqueue(torch, name, qa, qb, next_count, rows, enq):
     """The enqueue kernel against ``enqueue_plain`` on the two queues ``qa``
-    / ``qb`` (equal before): the WHOLE queue and the count equal.  Returns
-    max_abs_err."""
+    / ``qb`` (equal before): the WHOLE queue and the count equal.  The
+    kernel reads ``next_count`` from the card, written by the launch just
+    before.  Returns max_abs_err."""
     from raft_tla_tpu_torch.ops import enqueue as enq_mod
     from raft_tla_tpu_torch.ops import enqueue_cuda
-    cnt_k = enqueue_cuda.enqueue(qa, next_count, rows, enq)
+    cnt_k = enqueue_cuda.enqueue(
+        qa, device_count(torch, next_count, rows.device), rows, enq,
+        next_count)
     cnt_p = enq_mod.enqueue_plain(qb, next_count, rows, enq)
     torch.cuda.synchronize()
     equal = bool(torch.equal(qa, qb))
@@ -1255,6 +1381,24 @@ def phase_enqueue(torch, device, gen):
     err = max(err, held_enqueue(
         torch, "all lanes, the last live row on the queue's last row", qa,
         qb, QUEUE, rand_rows, all_lanes))
+    # Two calls chained as in a chunk: the second reads, as its count,
+    # the count the first one's last launch wrote on the card.
+    lanes = torch.arange(K, device=device)
+    e1, e2 = lanes % 3 == 0, lanes % 5 == 1
+    c1 = enqueue_cuda.enqueue(qa, device_count(torch, next_count, device),
+                              rand_rows, e1, next_count)
+    c2 = enqueue_cuda.enqueue(qa, c1.view(1), rand_rows, e2, next_count + K)
+    p2 = enq_mod.enqueue_plain(qb, enq_mod.enqueue_plain(
+        qb, next_count, rand_rows, e1), rand_rows, e2)
+    torch.cuda.synchronize()
+    e = max_abs(torch, [(c2, p2)])
+    equal = bool(torch.equal(qa, qb))
+    print(f"enqueue chained (the count the launch before wrote): "
+          f"{int(c2) - next_count} rows, queue_equal={equal} "
+          f"max_abs_err={e}")
+    need(e == 0.0 and equal, "two chained enqueues differ from the plain "
+         "version")
+    err = max(err, e)
     del qb
     # Other widths: MCraft_noleader (403), raft5_bounded (679: 45 rows a
     # stage turn), TPUraft (951: 33 a turn), 30,704 and the widest (a turn
@@ -1280,17 +1424,19 @@ def phase_enqueue(torch, device, gen):
     n_enq = int(real.sum())
     need(n_enq > 0, "the captured batch enqueued nothing")
 
+    nc = device_count(torch, next_count, device)
+
     def kernel():
-        enqueue_cuda.enqueue(qa, next_count, krows, real)
+        enqueue_cuda.enqueue(qa, nc, krows, real, next_count)
 
     def kernel_full():
-        enqueue_cuda.enqueue(qa, next_count, rand_rows, all_lanes)
+        enqueue_cuda.enqueue(qa, nc, rand_rows, all_lanes, next_count)
 
     def scatter():
-        enq_mod.enqueue_scatter(qa, next_count, krows, real, QUEUE)
+        enq_mod.enqueue_scatter(qa, nc, krows, real, QUEUE)
 
     def window():
-        enq_mod.enqueue_window(qa, next_count, krows, real)
+        enq_mod.enqueue_window(qa, nc, krows, real)
 
     # One wrapper call between two events is mostly the host's launch path
     # at this size, so the kernel and the lowerings (none waits for the
@@ -1361,8 +1507,9 @@ __device__ __forceinline__ void copy_row(const uint8_t* __restrict__ src,
 __global__ void __launch_bounds__(kThreads)
 enqueue_kernel(const uint8_t* __restrict__ enq, int n,
                const uint8_t* __restrict__ krows, int sw,
-               uint8_t* __restrict__ qnext, long long next_count,
+               uint8_t* __restrict__ qnext, const int* next_count_p,
                int* __restrict__ count_out) {
+  const long long next_count = __ldcg(next_count_p);
   __shared__ int scratch[32];
   __shared__ int src_lane[kTile];
   const int t0 = blockIdx.x * kTile;
@@ -1391,13 +1538,13 @@ enqueue_kernel(const uint8_t* __restrict__ enq, int n,
 }
 }  // namespace
 extern "C" int enqueue_launch(const void* enq, int n, const void* krows,
-                              int sw, void* qnext, long long next_count,
+                              int sw, void* qnext, const void* next_count,
                               void* tile_count, void* count_out,
                               void* stream) {
   const int blocks = n > 0 ? (n + kTile - 1) / kTile : 1;
   enqueue_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)enq, n, (const uint8_t*)krows, sw, (uint8_t*)qnext,
-      next_count, (int*)count_out);
+      (const int*)next_count, (int*)count_out);
   return (int)cudaGetLastError();
 }
 """
@@ -1411,8 +1558,9 @@ enum : unsigned { kAgg = 1u << 30, kIncl = 2u << 30, kVal = kAgg - 1 };
 __global__ void __launch_bounds__(rtt::kCopyThreads)
 enqueue_lookback_kernel(const uint8_t* __restrict__ enq, int n,
                         const uint8_t* __restrict__ krows, int sw,
-                        uint8_t* __restrict__ qnext, long long next_count,
+                        uint8_t* __restrict__ qnext, const int* next_count_p,
                         unsigned* status, int* count_out) {
+  const long long next_count = __ldcg(next_count_p);
   __shared__ __align__(16) rtt::TileStage st;
   __shared__ int tile, before;
   if (threadIdx.x == 0) {
@@ -1466,7 +1614,7 @@ enqueue_lookback_kernel(const uint8_t* __restrict__ enq, int n,
 }
 }  // namespace
 extern "C" int enqueue_launch(const void* enq, int n, const void* krows,
-                              int sw, void* qnext, long long next_count,
+                              int sw, void* qnext, const void* next_count,
                               void* tile_count, void* count_out,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -1476,7 +1624,7 @@ extern "C" int enqueue_launch(const void* enq, int n, const void* krows,
   if (e != cudaSuccess) return (int)e;
   enqueue_lookback_kernel<<<tiles, rtt::kCopyThreads, 0, s>>>(
       (const uint8_t*)enq, n, (const uint8_t*)krows, sw, (uint8_t*)qnext,
-      next_count, (unsigned*)tile_count, (int*)count_out);
+      (const int*)next_count, (unsigned*)tile_count, (int*)count_out);
   return (int)cudaGetLastError();
 }
 """
@@ -1705,8 +1853,10 @@ def enqueue_variants(torch, device):
             times = {}
             for what, rows, enq in (("real L8 batch", krows, real),
                                     ("full mask", rand_rows, full)):
-                def call(rows=rows, enq=enq):
-                    enqueue_cuda.enqueue(qa, NEXT_COUNT, rows, enq)
+                nc = device_count(torch, NEXT_COUNT, device)
+
+                def call(rows=rows, enq=enq, nc=nc):
+                    enqueue_cuda.enqueue(qa, nc, rows, enq, NEXT_COUNT)
                 times[what] = (queued_ms(torch, call),
                                [us for _n, us in device_ops(torch, call)])
             qb.copy_(qa)
@@ -2050,9 +2200,10 @@ def tail_variants(torch, device):
 
                 ops_i = device_ops(torch, lambda: fpset_cuda.insert(
                     work, q, valid), setup=restore)
+                nc = device_count(torch, 12345, device)
                 ops_t = device_ops(torch, lambda: fused_tail_cuda
                                    .insert_enqueue(work, q, valid, krows,
-                                                   enq_ok, qa, 12345),
+                                                   enq_ok, qa, nc, 12345),
                                    setup=restore)
                 restore()
                 batches = iter(fresh_batches(torch, gen, device, present))
@@ -2061,7 +2212,7 @@ def tail_variants(torch, device):
                 restore()
                 batches = iter(fresh_batches(torch, gen, device, present))
                 qt = queued_ms(torch, lambda: fused_tail_cuda.insert_enqueue(
-                    work, *next(batches), krows, enq_ok, qa, 12345),
+                    work, *next(batches), krows, enq_ok, qa, nc, 12345),
                     QUEUED_REPS, QUEUED_SAMPLES)
                 qb.copy_(qa)
                 print(f"tail variant {name} at load {load}: insert queued "
@@ -2135,7 +2286,7 @@ def phase_resume(torch, pipeline):
          and res.distinct == MCRAFT_L11_DISTINCT
          and res.generated == MCRAFT_L11_GENERATED,
          f"the resumed run ({pipeline}) differs from the pinned oracle")
-    check_launches(pipeline, counts, res.batches, "resume L9 -> L11",
+    check_launches(pipeline, counts, res.steps, "resume L9 -> L11",
                    "kernel", inserts=rebuild_launches)
     del point, res, first
     torch.cuda.empty_cache()
@@ -2192,7 +2343,7 @@ def phase_por(torch):
                   f"{res.action_pruned} launches {counts}")
             need(res.por_instances == dims.n_msg_slots,
                  f"the table certified {res.por_instances} instances")
-            check_launches(pipeline, counts, res.batches, "POR L8")
+            check_launches(pipeline, counts, res.steps, "POR L8")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["check", cfg_path, "--por-table", path,
@@ -2242,7 +2393,318 @@ def phase_counterexample(torch, pipeline):
          and LEADER in steps[-1][1].role
          and all(LEADER not in st.role for _g, st in steps[:-1]),
          "replay does not end at the first leader")
-    check_launches(pipeline, counts, res.batches, "MCraft_noleader")
+    check_launches(pipeline, counts, res.steps, "MCraft_noleader",
+                   trace=True)
+
+
+def tpuraft_config(depth, **kw):
+    """configs/TPUraft.cfg's directives on v4, to ``depth``."""
+    import dataclasses
+    from raft_tla_tpu_torch.engine.check import engine_config_from_backend
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/TPUraft.cfg"))
+    return dataclasses.replace(engine_config_from_backend(setup),
+                               pipeline="v4", max_diameter=depth, **kw)
+
+
+def tpuraft_check(torch, cfg_name, depth, what, **kw):
+    """``configs/<cfg_name>`` with its own directives, overridden by
+    ``kw``, checked to ``depth`` on the card: the oracle's TPUraft levels
+    and counts held, the launches checked.  Returns (engine, result, peak
+    device bytes allocated)."""
+    import dataclasses
+    from raft_tla_tpu_torch.engine.check import (engine_config_from_backend,
+                                                 initial_states, make_engine)
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs", cfg_name))
+    cfg = dataclasses.replace(engine_config_from_backend(setup),
+                              max_diameter=depth, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.time()
+    engine = make_engine(setup, cfg, device="cuda")
+    res = engine.run(initial_states(setup))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what}: distinct={res.distinct} generated={res.generated} "
+          f"levels={res.levels} stop={res.stop_reason} "
+          f"batches={res.batches} steps={res.steps} chunks={res.chunks} "
+          f"spills={res.spills} growths={res.growth_stalls} "
+          f"degraded={res.degraded}")
+    print(f"{what}: check {res.wall_seconds} s, call {wall} s, "
+          f"{res.states_per_second} distinct/s, "
+          f"{res.generated / res.wall_seconds} generated/s, phases "
+          f"{res.phases}, batch {engine.config.batch} K={engine._K} "
+          f"Q={engine._Q} seen={engine._seen_cap} sync_every "
+          f"{engine.config.sync_every}, peak device memory allocated "
+          f"{peak} bytes, launches {counts}")
+    need(res.violation is None and res.deadlock is None,
+         f"{what} reported a violation or deadlock")
+    need(res.levels == TPURAFT_LEVELS[:depth + 1]
+         and res.distinct == TPURAFT_DISTINCT[depth]
+         and res.generated == TPURAFT_GENERATED[depth],
+         f"{what} differs from the oracle")
+    check_launches(engine.config.pipeline, counts, res.steps, what,
+                   engine.config.enqueue_method,
+                   trace=engine.config.record_trace)
+    return engine, res, peak
+
+
+def phase_tpuraft_kernels(torch, device, gen):
+    """The front (B4), the fused tail (B2) and the trace append (B5) at
+    the north-star model's shapes (configs/TPUraft.cfg: batch 8192, K
+    131,072, G 224, 951-byte rows) on a real window: the last full parent
+    window of a check to L7 (its steps dispatched eagerly, so a hook sees
+    each).  Each held exactly against its plain version, its launches'
+    device microseconds under the profiler beside its bound, the front's
+    shared memory and blocks an SM."""
+    from raft_tla_tpu_torch.engine import chunk as chunk_mod
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.ops import chunk_front_cuda, enqueue_cuda
+    from raft_tla_tpu_torch.ops import enqueue as enq_mod
+    from raft_tla_tpu_torch.ops import fused_tail_cuda
+    from raft_tla_tpu_torch.ops.fpset import pack
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/TPUraft.cfg"))
+    dims = setup.dims
+    engine = make_engine(setup, tpuraft_config(7, record_trace=False),
+                         device="cuda")
+    dispatch_eagerly(engine)
+    body, last = engine._step.body, []
+
+    def capture(rows, valid, *args):
+        if bool(valid.all()):
+            last[:] = [rows.clone(), valid.clone()]
+        return body(rows, valid, *args)
+
+    engine._step.body = capture
+    engine.run(initial_states(setup))
+    need(last, "the TPUraft L7 run dispatched no full window")
+    rows, valid = last
+    b, k, sw = engine._B, engine._K, engine._sw
+    front = chunk_front_cuda.Front(
+        dims=dims, v2=engine._v2, inv_fns=engine._inv_fns,
+        constraint=engine._constraint, B=b, K=k, device=device)
+    out = front(rows, valid)
+    err = front_err(torch, out, front.plain(rows, valid))
+    total = int(out.total)
+    need(err == 0.0, "chunk_front differs from front_plain at TPUraft")
+    us = [t for _n, t in device_ops(torch, lambda: front(rows, valid))]
+    queued = queued_ms(torch, lambda: front(rows, valid))
+    nbytes = front_bytes(dims, b, k, total)
+    print(f"TPUraft chunk_front [{b},{sw}] -> K={k}: P={int(out.P)} "
+          f"total={total} max_abs_err={err}; queued back to back {queued} "
+          f"ms, launches' device microseconds {us}; bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3} ms ({nbytes} bytes); "
+          f"launches {front.launch_info()}; blocks an SM "
+          f"{front.occupancy()}")
+    # The tail on this window's lanes, into a table at L7's load.
+    base, _present = prefilled_table(torch, gen, device,
+                                     TPURAFT_DISTINCT[7] / SEEN)
+    keys = pack(out.kh, out.kl)
+    qa = torch.randint(0, 256, ((1 << 20) + k, sw), generator=gen,
+                       device=device, dtype=torch.uint8)
+    qb = qa.clone()
+    e, n_enq = held_tail(torch, "TPUraft L7 window", base, keys,
+                         out.kvalid, out.krows, out.cons_ok, qa, qb,
+                         NEXT_COUNT)
+    err = max(err, e)
+    work = copy_table(torch, base)
+
+    def restore():
+        work.keys.copy_(base.keys)
+        work.size.copy_(base.size)
+
+    nc = device_count(torch, NEXT_COUNT, device)
+    restore()
+    new, _f, _c = fused_tail_cuda.insert_enqueue(
+        work, keys, out.kvalid, out.krows, out.cons_ok, qa, nc, NEXT_COUNT)
+    n_new = int(new.sum())
+    def tail():
+        fused_tail_cuda.insert_enqueue(work, keys, out.kvalid, out.krows,
+                                       out.cons_ok, qa, nc, NEXT_COUNT)
+
+    us = [t for _n, t in device_ops(torch, tail, setup=restore)]
+    ms = cuda_ms(torch, tail, 10, setup=restore)
+    nbytes = (insert_bytes(k, distinct_valid(torch, keys, out.kvalid), n_new)
+              + k + 4 + 2 * n_enq * sw)
+    print(f"TPUraft fused_tail K={k}: {n_new} new, {n_enq} enqueued; one "
+          f"call between two events {ms} ms, launches' device "
+          f"microseconds {us or 'not measured'}; bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3} ms ({nbytes} bytes)")
+    # The trace append of the same lanes: 20-byte records of the new ones.
+    trows = torch.stack([out.kh, out.kl, out.parent_hi, out.parent_lo,
+                         out.lane_id.to(torch.int64) % dims.n_instances], 1)
+    trows = trows.to(torch.int32).view(torch.uint8)
+    tq = torch.zeros((4 * k, chunk_mod.TRACE_ROW), dtype=torch.uint8,
+                     device=device)
+    tq2 = tq.clone()
+    tc = device_count(torch, 777, device)
+    cnt = enqueue_cuda.enqueue(tq, tc, trows, new, 3 * k)
+    want = enq_mod.enqueue_plain(tq2, 777, trows, new)
+    torch.cuda.synchronize()
+    e = max_abs(torch, [(cnt, want)])
+    need(e == 0.0 and bool(torch.equal(tq, tq2)),
+         "the trace append differs from its plain version at TPUraft")
+    err = max(err, e)
+    def append():
+        enqueue_cuda.enqueue(tq, tc, trows, new, 3 * k)
+
+    us = [t for _n, t in device_ops(torch, append)]
+    queued = queued_ms(torch, append)
+    nbytes = k + 2 * n_new * chunk_mod.TRACE_ROW + 4
+    print(f"TPUraft trace append K={k}: {n_new} records of 20 B; queued "
+          f"back to back {queued} ms, launches' device microseconds "
+          f"{us or 'not measured'}; bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3} ms ({nbytes} bytes)")
+    del qa, qb, base, work, tq, tq2, engine
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_north_star(torch):
+    """configs/TPUraft.cfg as written (batch 8192, queue 4,194,304 rows,
+    seen 2^25 slots) on v4 with the fused tail, trace on and sync_every 32,
+    to L9: the oracle's 24,753,442 distinct, 84,522,610 generated and ten
+    levels; the L9 frontier spills to the host.  Then a random L9 state is
+    replayed from the trace: a path of nine steps, each a successor of the
+    one before, ending on that state."""
+    import numpy as np
+    from raft_tla_tpu_torch.models.schema import encode_state, stack_states
+    engine, res, peak = tpuraft_check(
+        torch, "TPUraft.cfg", 9, "TPUraft L9 v4 fused tail, trace on",
+        pipeline="v4", enqueue_method="fused", record_trace=True,
+        sync_every=32)
+    need(res.spills >= 1, "the L9 frontier did not spill")
+    fps, _p, _a = engine.trace.export()
+    need(len(fps) == res.distinct, f"{len(fps)} trace records for "
+         f"{res.distinct} states")
+    i = np.random.RandomState(9).randint(TPURAFT_DISTINCT[8], len(fps))
+    fp = int(fps[i])
+    t = time.time()
+    path = engine.replay(fp)
+    replay_s = time.time() - t
+    hi, lo = engine._fingerprint(stack_states(
+        [encode_state(path[-1][1], engine.dims)], engine.device))
+    print(f"TPUraft L9 replay of trace record {i} (fp {fp:#018x}): "
+          f"{len(path) - 1} steps in {replay_s} s, actions "
+          f"{[engine.dims.describe_instance(g) for g, _s in path[1:]]}")
+    need(len(path) - 1 == 9 and path[0][0] == -1
+         and (int(hi[0]) << 32 | int(lo[0])) == fp,
+         f"the replay of an L9 state gave {len(path) - 1} steps")
+    del engine
+    return res, peak
+
+
+def phase_tpuraft_more(torch):
+    """The north-star model on the other paths: the split tail to L8, a
+    1,048,576-row queue spilling to files to L8, v3 to L6; and
+    configs/raft5_bounded.cfg (32 message slots: the same state space)
+    with its capacities from the card's memory to L8."""
+    from raft_tla_tpu_torch.engine.bfs import auto_capacities, device_memory
+    from raft_tla_tpu_torch.models.schema import state_width
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    tpuraft_check(torch, "TPUraft.cfg", 8, "TPUraft L8 v4 split tail",
+                  pipeline="v4", enqueue_method="kernel", record_trace=False)
+    spill = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    try:
+        _e, res, _p = tpuraft_check(
+            torch, "TPUraft.cfg", 8, "TPUraft L8 v4, queue 2^20 spilling to "
+            "files", pipeline="v4", record_trace=False,
+            queue_capacity=1 << 20, spill_dir=spill)
+        left = os.listdir(spill)
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    print(f"disk spill: {res.spills} spills, spill seconds "
+          f"{res.phases['spill']}, files left {left}")
+    need(res.spills >= 2 and not left, "the disk spill did not spill twice "
+         "or left files")
+    tpuraft_check(torch, "TPUraft.cfg", 6, "TPUraft L6 v3", pipeline="v3",
+                  record_trace=False)
+    dims = load_config(os.path.join(HERE, "configs/raft5_bounded.cfg")).dims
+    limit = device_memory("cuda")
+    q, s = auto_capacities(state_width(dims), 8192, False, limit)
+    engine, res, peak = tpuraft_check(
+        torch, "raft5_bounded.cfg", 8, "raft5_bounded L8 v4, capacities "
+        "from the card", pipeline="v4", batch=8192, record_trace=False,
+        queue_capacity=None, seen_capacity=None)
+    print(f"auto capacities from {limit} bytes: queue {q} rows, seen {s} "
+          f"slots; the engine took Q={engine._Q} seen={engine._seen_cap}")
+    need(engine._Q == -(-q // 8192) * 8192 and engine._seen_cap == s,
+         "the engine did not take the capacities from the card")
+
+
+def phase_sync_turns(torch):
+    """MCraft_bounded L9 and L11 on v4 with the fused tail at sync_every 1
+    and 32, in turns (1, 32, 32, 1): wall and host seconds a batch."""
+    from raft_tla_tpu_torch.engine.check import run_check
+    pins = {9: (MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED),
+            11: (MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED)}
+    for depth in (9, 11):
+        out = []
+        for se in (1, 32, 32, 1):
+            res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                            bounded_config("v4", depth, sync_every=se),
+                            device="cuda")
+            need((res.distinct, res.generated) == pins[depth],
+                 f"MCraft_bounded L{depth} at sync_every {se} differs from "
+                 "the pinned oracle")
+            ph, n = res.phases, res.batches
+            out.append(f"(sync_every {se}: check {res.wall_seconds} s, "
+                       f"{n} batches, {res.chunks} chunks, {res.steps} "
+                       f"steps; a batch: dispatch {ph['dispatch'] / n} s, "
+                       f"sync {ph['sync'] / n} s, host {ph['host'] / n} s, "
+                       f"capture {ph['capture']} s)")
+        print(f"MCraft_bounded L{depth} v4 fused, sync_every in turns: "
+              + ", ".join(out))
+
+
+def phase_oom(torch):
+    """OOM degradation on the card: TPUraft (queue 2^20 rows) at batch
+    4096 to L8 sets the memory that batch needs, batch 8192 to L5 the
+    memory it needs; the process's memory is capped between the two
+    (``torch.cuda.set_per_process_memory_fraction``) and batch 8192 run to
+    L8 with snapshots: it must degrade to 4096 and give the L8 counts.
+    (Batch 8192 to L5 sets its need: the batch's temporaries and the
+    graph's pool are all taken at the first chunks.)"""
+    import gc
+    total = torch.cuda.get_device_properties(0).total_memory
+    kw = dict(pipeline="v4", record_trace=False, queue_capacity=1 << 20)
+    peaks = {}
+    for batch, depth in ((4096, 8), (8192, 5)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _e, _r, _p = tpuraft_check(torch, "TPUraft.cfg", depth,
+                                   f"TPUraft L{depth} batch {batch}",
+                                   batch=batch, **kw)
+        peaks[batch] = torch.cuda.max_memory_reserved()
+        del _e, _r
+    print(f"OOM: peak device memory reserved at batch 4096 {peaks[4096]}, "
+          f"at 8192 {peaks[8192]} bytes")
+    if peaks[8192] <= peaks[4096]:
+        print("OOM degradation on the card: not measured (batch 8192 "
+              "reserved no more than 4096; no cap separates them)")
+        return None
+    cap = (peaks[4096] + peaks[8192]) // 2
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_oom_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        _e, res, _p = tpuraft_check(
+            torch, "TPUraft.cfg", 8, f"TPUraft L8 batch 8192 under a cap of "
+            f"{cap} bytes", batch=8192, checkpoint_dir=ckdir,
+            checkpoint_every=3, checkpoint_interval_seconds=0.0, **kw)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    need(res.degraded and res.degraded[-1][1] == 4096,
+         f"the capped run did not degrade to batch 4096: {res.degraded}")
+    return res.degraded
 
 
 def main() -> int:
@@ -2262,7 +2724,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else f"nvidia-smi failed: {smi.stderr.strip()}")
     from raft_tla_tpu_torch.utils import build
-    t = time.time()
+    t_smoke = t = time.time()
     took = build.build_all()
     print(f"build: {time.time() - t} s (per source {took})")
     device = torch.device("cuda")
@@ -2294,6 +2756,9 @@ def main() -> int:
                                       for r in rows]}))
         return 0
     phase_other_dims(torch, device)
+    # Before any whole-run profile: device-only profiles of one call taken
+    # after those have come back empty.
+    phase_tpuraft_kernels(torch, device, gen)
     torch.cuda.empty_cache()
     print(f"kernel phases: {time.time() - t} s")
     # The two paths in turns (v3, v4, then v4, v3 at L11): host times
@@ -2303,6 +2768,7 @@ def main() -> int:
     for pipeline in ("v3", "v4"):
         phase_counterexample(torch, pipeline)
         phase_small_table(torch, pipeline)
+        phase_small_table(torch, pipeline, sync_every=8)
         phase_dispatch_sync_free(torch, pipeline)
     for pipeline in ("v4", "v3"):
         phase_deep(torch, pipeline)
@@ -2325,10 +2791,18 @@ def main() -> int:
         phase_profile(torch, pipeline, "kernel")
     phase_resume(torch, "v4")
     phase_por(torch)
+    phase_sync_turns(torch)
+    print(f"MCraft phases done: {time.time() - t_smoke} s")
+    phase_north_star(torch)
+    phase_profile(torch, "v4", cfg_name="TPUraft.cfg",
+                  config=tpuraft_config(6, record_trace=True))
+    phase_tpuraft_more(torch)
+    phase_oom(torch)
     paths = {"compact": "v3", "fused_tail": "v4", "chunk_front": "v4",
              "fpset_insert": "v4 split", "enqueue": "v4 split"}
     for row in rows:
         row["launches"] = counts[paths[row["name"]]][row["name"]]
+    print(f"chip_smoke: {time.time() - t_smoke} s in all")
     print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

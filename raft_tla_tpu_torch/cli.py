@@ -2,10 +2,17 @@
 
 Runs the exhaustive check on the card (``--device cpu`` for the plain
 PyTorch versions) with the engine sizes and plan of the cfg's ``\\* TPU:``
-directives (a flag overrides its directive: ``--pipeline`` PIPELINE,
+directives (a flag overrides its directive: ``--batch`` BATCH,
+``--queue-capacity`` QUEUE_CAPACITY, ``--seen-capacity`` SEEN_CAPACITY,
+``--pipeline`` PIPELINE,
 ``--checkpoint-dir`` CHECKPOINT_DIR, ``--checkpoint-every``,
-``--checkpoint-interval``, ``--keep-checkpoints``, ``--por-table``
-POR_TABLE), prints the TLC-style result block and, for a violation with
+``--checkpoint-interval``, ``--keep-checkpoints``, ``--spill-dir``
+SPILL_DIR, ``--progress-interval`` PROGRESS_SECONDS, ``--por-table``
+POR_TABLE; ``--max-seconds`` over the cfg's StopAfter duration,
+``--no-degrade`` to fail on running out of device memory instead of
+halving the batch), prints the
+TLC-style progress line on stderr (every 60 s by default) and the
+result block and, for a violation with
 trace recording on, the replayed counterexample.  ``--resume PATH``
 continues from a level snapshot, ``--resume auto`` from the newest intact
 one in the checkpoint directory; ``--enqueue-method`` picks the chunk's
@@ -33,7 +40,14 @@ def main(argv=None) -> int:
     c = sub.add_parser("check", help="exhaustive BFS check of a TLC cfg")
     c.add_argument("cfg")
     c.add_argument("--device", default="cuda")
+    c.add_argument("--batch", type=int, help="parents expanded a batch")
+    c.add_argument("--queue-capacity", type=int,
+                   help="device rows of the next-level queue")
+    c.add_argument("--seen-capacity", type=int,
+                   help="initial seen-set slots")
     c.add_argument("--max-diameter", type=int)
+    c.add_argument("--max-seconds", type=float,
+                   help="duration budget (over the cfg's StopAfter)")
     c.add_argument("--no-trace", action="store_true")
     c.add_argument("--pipeline", choices=("v3", "v4"))
     c.add_argument("--enqueue-method", choices=ENQUEUE_METHODS,
@@ -52,6 +66,16 @@ def main(argv=None) -> int:
     c.add_argument("--resume",
                    help="snapshot .npz to resume from, or 'auto' for the "
                         "newest in the checkpoint directory")
+    c.add_argument("--spill-dir",
+                   help="memory-map spilled level segments here instead "
+                        "of host RAM")
+    c.add_argument("--no-degrade", action="store_true",
+                   help="fail on running out of device memory instead of "
+                        "halving the batch and resuming")
+    c.add_argument("--progress-interval", "--progress-seconds",
+                   dest="progress_interval", type=float,
+                   help="seconds between progress lines on stderr (0 = "
+                        "none; default 60)")
     c.add_argument("--por-table", metavar="FILE",
                    help="apply a certified POR table (the artifact of the "
                         "JAX package's `analyze --passes por "
@@ -66,6 +90,15 @@ def main(argv=None) -> int:
 
     cfg = dataclasses.replace(
         cfg, max_diameter=args.max_diameter,
+        max_seconds=args.max_seconds,
+        batch=resolve(args.batch, cfg.batch),
+        queue_capacity=resolve(args.queue_capacity, cfg.queue_capacity),
+        seen_capacity=resolve(args.seen_capacity, cfg.seen_capacity),
+        spill_dir=resolve(args.spill_dir, cfg.spill_dir),
+        degrade_on_oom=not args.no_degrade,
+        progress_interval_seconds=float(resolve(
+            args.progress_interval,
+            setup.backend.get("PROGRESS_SECONDS", 60.0))),
         record_trace=not args.no_trace,
         pipeline=resolve(args.pipeline, cfg.pipeline),
         enqueue_method=resolve(args.enqueue_method, cfg.enqueue_method),

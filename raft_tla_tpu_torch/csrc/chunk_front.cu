@@ -660,6 +660,26 @@ extern "C" int chunk_front_launch(
   return (int)cudaGetLastError();
 }
 
+// Blocks of the masks launch (out[0]) and of the lanes launch (out[1])
+// that one SM holds at these dims, as the occupancy calculator gives them
+// (their shared memory, registers and threads), for chip_smoke.py.
+extern "C" int chunk_front_occupancy(int N, int V, int L, int M, int* out) {
+  if (N < 1 || N > rtt::kMaxN || L < 1 || L > rtt::kMaxL || M < 1 ||
+      M > rtt::kMaxM || V < 1)
+    return (int)cudaErrorInvalidValue;
+  const Dims d = rtt::make_dims(N, V, L, M);
+  const size_t smem_a = (size_t)kWarps * masks_warp_bytes(d);
+  const size_t smem_c = lanes_smem(d).bytes;
+  int e;
+  if ((e = rtt::allow_smem(masks_kernel, smem_a))) return e;
+  if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           out, masks_kernel, kThreads, smem_a)))
+    return e;
+  if ((e = rtt::allow_smem(lanes_kernel, smem_c))) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 1, lanes_kernel, kThreads, smem_c);
+}
+
 // Launch `which` of one front call (0 masks, 1 compaction, 2 lanes) for
 // chip_smoke.py.
 extern "C" int chunk_front_kernel_info(int which, int N, int V, int L, int M,

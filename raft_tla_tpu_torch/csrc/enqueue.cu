@@ -73,7 +73,7 @@ int count_blocks(int tiles) {
 }  // namespace
 
 extern "C" int enqueue_launch(const void* enq, int n, const void* krows,
-                              int sw, void* qnext, long long next_count,
+                              int sw, void* qnext, const void* next_count,
                               void* tile_count, void* count_out,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -85,7 +85,7 @@ extern "C" int enqueue_launch(const void* enq, int n, const void* krows,
   return (int)rtt::launch(
       rtt::enqueue_tiles_kernel<true>, tiles, rtt::kCopyThreads, s, true,
       (const uint8_t*)enq, (const uint8_t*)nullptr, (const int*)tile_count,
-      n, (const uint8_t*)krows, sw, (uint8_t*)qnext, next_count,
+      n, (const uint8_t*)krows, sw, (uint8_t*)qnext, (const int*)next_count,
       (int*)count_out);
 }
 

@@ -302,14 +302,17 @@ __device__ __forceinline__ unsigned long long tile_flags(const uint8_t* a,
 // one, and enq_ok), or a[l] alone (split tail: enq, older than the count
 // launch this one follows).  tile_count[t] is the flags set in tile t;
 // the block of the last tile writes count_out.  Rows at and past the new
-// count are left as they were.
+// count are left as they were.  *next_count is read after the wait, from
+// L2: in the level loop it is written on the card just before the call
+// (or, chained, it is the count_out of the call before).  count_out must
+// not be next_count: other blocks may still read it.
 template <bool kSplit>
 __global__ void __launch_bounds__(kCopyThreads)
 enqueue_tiles_kernel(const uint8_t* a, const uint8_t* b,
                      const int* tile_count, int n,
                      const uint8_t* __restrict__ krows, int sw,
-                     uint8_t* __restrict__ qnext, long long next_count,
-                     int* __restrict__ count_out) {
+                     uint8_t* __restrict__ qnext, const int* next_count,
+                     int* count_out) {
   __shared__ __align__(16) TileStage st;
   if (threadIdx.x == 0) stage_init(st);
   if (!kSplit) grid_dependency_wait();
@@ -325,7 +328,7 @@ enqueue_tiles_kernel(const uint8_t* a, const uint8_t* b,
   stage_issue(krows, kend, sw, t0, f, 0, rows, st);
   if (kSplit) grid_dependency_wait();
   sum_before(tile_count, t, st.part);
-  long long first = next_count;
+  long long first = __ldcg(next_count);
   for (int r0 = 0, turn = 0;; ++turn) {
     stage_wait(st, turn);
     if (turn == 0)

@@ -46,7 +46,7 @@ extern "C" int fused_tail_launch(const void* q, const void* valid,
                                  long long capacity, void* owner, void* slot,
                                  void* is_new, void* size, void* fail,
                                  void* tile_count, const void* krows, int sw,
-                                 void* qnext, long long next_count,
+                                 void* qnext, const void* next_count,
                                  void* count_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = rtt::launch_insert(q, valid, n, table, capacity, owner,
@@ -57,7 +57,7 @@ extern "C" int fused_tail_launch(const void* q, const void* valid,
       rtt::enqueue_tiles_kernel<false>, rtt::copy_tiles(n),
       rtt::kCopyThreads, s, true, (const uint8_t*)is_new,
       (const uint8_t*)enq_ok, (const int*)tile_count, n,
-      (const uint8_t*)krows, sw, (uint8_t*)qnext, next_count,
+      (const uint8_t*)krows, sw, (uint8_t*)qnext, (const int*)next_count,
       (int*)count_out);
 }
 

@@ -1,50 +1,69 @@
 """Single-device exhaustive BFS checker (the v3 and v4 plans).
 
-The JAX package's ``engine/bfs.py`` ``BFSEngine`` trimmed to its level
-loop: roots are invariant-checked on their unpacked encoding, ingested
-through the seen-set insert, and each level is expanded batch by batch
-through ``engine/chunk.py``.  What it keeps of the JAX engine:
+The JAX package's ``engine/bfs.py`` ``BFSEngine`` and its level loop:
+roots are invariant-checked on their unpacked encoding and ingested
+through the seen-set insert, then each level is expanded in chunks of up
+to ``sync_every`` batches (``engine/chunk.py``) with one host round trip
+a chunk.  What it keeps of the JAX engine:
 
-- capacity rules: K compacted lanes (``ops/compact.py choose_k``), a
-  seen table floored at 8·K keys, a next-level queue of Q >= K rows
-  (rounded to a multiple of B) plus PAD = max(B, K) rows so the batch
-  slice never runs off the end;
+- capacity rules: K compacted lanes (``ops/compact.py choose_k``,
+  ``compact_lanes``), a seen table floored at 8·K keys, a next-level
+  queue of Q >= K rows (rounded to a multiple of B) plus PAD = max(B, K)
+  rows, so no count the card can reach lets a batch write past the end;
+  with ``queue_capacity`` or ``seen_capacity`` None, both sized from the
+  card's memory (``auto_capacities``);
+- the chunk: the JAX device ``while_loop`` becomes a step on device
+  counters (``engine/chunk.py ChunkStep``) whose ``cond`` is evaluated on
+  the card.  On the card the step is captured once as a CUDA graph for
+  each set of buffers it runs on (the two level queues, the async
+  spill's spare, the seen set; captured again after a growth) and
+  replayed up to ``sync_every`` times; the host reads the packed counters
+  once, drains the device trace buffer to the trace store and handles
+  spill, growth, violation, deadlock, budgets and progress, as the JAX
+  loop does after each chunk.  On the CPU the same step runs eagerly
+  while its cond holds.  Duration budgets shrink the chunk from the
+  measured seconds a batch, as the JAX loop does;
 - the spill watermark: when more than Q - K rows wait in the next-level
-  queue and the level has more to expand, the rows move to host memory
-  (TLC's disk queue) and the queue restarts empty, so a batch entering at
-  or below the watermark can never overflow;
+  queue and the level has more to expand, the queue's rows go to host
+  memory (TLC's disk queue; ``engine/spillpool.py``, in RAM or memory-
+  mapped files under ``spill_dir``).  On the card the drain is
+  asynchronous: a spare queue is swapped in while a copy stream moves the
+  rows into pinned memory, resolved at the next drain or the level's end;
 - seen-set growth: past half full the table doubles by rehashing on its
   device (off the duration clock, recorded in ``growth_stalls``);
+- graceful degradation: a ``torch.cuda.OutOfMemoryError`` rebuilds the
+  engine at half the batch (down to ``min_batch``) and resumes from this
+  run's newest snapshot in ``checkpoint_dir``, or from the roots;
+- the TLC-style progress line every ``progress_interval_seconds``;
 - ``replay``: walk the trace back to a root and re-run the successor
   function forward, matching each recorded child by fingerprint.
 
-The JAX loop runs up to ``sync_every`` batches per host round trip in a
-device ``while_loop``; this loop reads one packed stats tensor per batch.
 ``EngineResult.phases`` splits the wall time into the host's dispatch of
-each batch, its wait for the device (``sync``) and its own bookkeeping.
-``EngineConfig.pipeline`` picks the chunk's plan: "v3" (the default; the
-masks and lane stages in PyTorch around the compaction kernel) or "v4"
-(one front kernel, ``ops/chunk_front_cuda.py``).  ``enqueue_method`` picks
-the tail: the fused insert + enqueue kernel (the default) or the split
-tail, the insert kernel followed by the enqueue kernel or a PyTorch
-lowering.  Every combination gives equal results.
+each chunk, its waits for the device (``sync``), graph capture, trace
+drains, spills and its own bookkeeping.  ``EngineConfig.pipeline`` picks
+the chunk's plan: "v3" (the default; the masks and lane stages in
+PyTorch around the compaction kernel) or "v4" (one front kernel,
+``ops/chunk_front_cuda.py``).  ``enqueue_method`` picks the tail: the
+fused insert + enqueue kernel (the default) or the split tail, the
+insert kernel followed by the enqueue kernel or a PyTorch lowering.
+Every combination gives equal results.
 
 Also the JAX engine's, in the same terms: level-boundary checkpoints in
 its ``.npz`` format and ``run(resume=...)`` (``engine/checkpoint.py``; a
 snapshot of either package resumes in the other), the TLCGet exit
-budgets over distinct / generated / queue (checked after each batch,
-where the JAX loop checks after each ``sync_every`` chunk), and the
-partial-order reduction fed by a certified table (``analysis/por.py``;
-``por=True`` would certify in process through the jaxpr analyzer, which
-is not ported).  Progress lines, observability, OOM degradation, the
-asynchronous and disk-backed spill and the native trace store are not
-ported yet.
+budgets over distinct / generated / queue (checked after each chunk),
+and the partial-order reduction fed by a certified table
+(``analysis/por.py``; ``por=True`` would certify in process through the
+jaxpr analyzer, which is not ported).  Observability beyond ``phases``
+and the native trace store are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
+import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -60,8 +79,10 @@ from ..models.schema import (ROW_DTYPE, StateBatch, check_packable,
                              gather_states, stack_states, state_width,
                              unflatten_state)
 from ..analysis import por as por_mod
+from ..ops import chunk_front_cuda, compact_cuda, enqueue_cuda
 from ..ops import compact as compact_mod
-from ..ops import fpset, pipeline_v3, pipeline_v4
+from ..ops import fpset, fpset_cuda, fused_tail_cuda, pipeline_v3
+from ..ops import pipeline_v4
 from ..ops.chunk_front_cuda import Front
 from ..ops.fingerprint import build_fingerprint
 from ..ops.fpset import pack
@@ -69,9 +90,16 @@ from ..ops.fpset_cuda import insert
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt_mod
 from . import chunk as chunk_mod
+from .chunk import (ST_COUNT, ST_DEAD, ST_FAIL, ST_GEN, ST_NEW, ST_OFFSET,
+                    ST_OVF, ST_SEEN, ST_STEPS, ST_TCOUNT, ST_VIOL, ST_VINV)
+from .spillpool import SpillPool
 from .trace import PyTraceStore
 
 PLANS = {"v3": pipeline_v3, "v4": pipeline_v4}
+
+#: The kernel wrappers' modules, whose ``launches`` a graph replay adds to.
+KERNEL_MODULES = (compact_cuda, fpset_cuda, fused_tail_cuda,
+                  chunk_front_cuda, enqueue_cuda)
 
 
 def host_rows(rows: torch.Tensor) -> np.ndarray:
@@ -80,13 +108,58 @@ def host_rows(rows: torch.Tensor) -> np.ndarray:
     return rows.to("cpu", copy=True).numpy()
 
 
+def device_memory(device) -> Optional[int]:
+    """The card's memory in bytes as PyTorch reports it; None on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def auto_capacities(sw: int, batch: int, record_trace: bool,
+                    limit: Optional[int]) -> Tuple[int, int]:
+    """``(queue rows, seen keys)`` sized from ``limit`` bytes of device
+    memory: the JAX package's ``_auto_capacities``.  After 25% headroom
+    for temporaries, half to the three level queues (current, next, the
+    async spill's spare; plus a 20-byte trace row when tracing) and a
+    quarter to the seen table (8 bytes a slot).  These size only the
+    device-resident working set: the queue spills to the host and the
+    table grows.  No limit (the CPU) gives modest defaults."""
+    if limit is None:
+        return 1 << 20, 1 << 22
+    usable = int(limit * 0.75)
+    row_cost = 3 * sw + (chunk_mod.TRACE_ROW if record_trace else 0)
+    q = max(batch, min(usable // 2 // row_cost, 1 << 25))
+    s = max(1 << 18, min(usable // 4 // 8, 1 << 28))
+    return q, s
+
+
+def progress_line(res, t0: float, queue_rows: int, level_frontier: int,
+                  load: float) -> str:
+    """TLC's progress report (generated, distinct, queue) with the JAX
+    package's extras (rates, the level being expanded, the seen set's
+    load factor): the text of its ``_progress_line``."""
+    dt = max(time.time() - t0, 1e-9)
+    return (f"progress: {res.generated:,} generated "
+            f"({res.generated / dt:,.0f}/s), "
+            f"{res.distinct:,} distinct ({res.distinct / dt:,.0f}/s), "
+            f"diameter {res.diameter} (expanding {level_frontier:,}), queue "
+            f"{queue_rows:,}, fpset load {load:.2f}, elapsed {dt:,.0f}s")
+
+
 @dataclasses.dataclass
 class EngineConfig:
     batch: int = 256                 # parents expanded per batch
-    queue_capacity: int = 1 << 16    # device rows of the next-level queue
-    seen_capacity: int = 1 << 18     # initial seen-set slots (grows)
+    # Device rows of the next-level queue and initial seen-set slots (the
+    # table grows); None sizes both from the card (auto_capacities).
+    queue_capacity: Optional[int] = 1 << 16
+    seen_capacity: Optional[int] = 1 << 18
+    # Compacted lanes a batch (None = 16 per parent; ops/compact.py
+    # choose_k floors and rounds it).
+    compact_lanes: Optional[int] = None
     check_deadlock: Optional[bool] = None  # None = TLC's default (on)
     record_trace: bool = True
+    sync_every: int = 32             # batches per host round trip
     max_seconds: Optional[float] = None    # StopAfter duration budget
     max_diameter: Optional[int] = None     # StopAfter diameter budget
     pipeline: str = "v3"                   # chunk plan: "v3" or "v4"
@@ -99,9 +172,11 @@ class EngineConfig:
     # package has three: the port has one insert.
     enqueue_method: str = "fused"
     # Further TLCGet budgets as (counter, threshold) pairs over "distinct"
-    # / "generated" / "queue", checked after every batch; stop_reason
+    # / "generated" / "queue", checked after every chunk; stop_reason
     # "<counter>_budget".  Duration and diameter ride the fields above.
     exit_conditions: tuple = ()
+    # TLC-style progress line on stderr every so many seconds; 0 = off.
+    progress_interval_seconds: float = 0.0
     # Level-boundary snapshots (engine/checkpoint.py): every
     # checkpoint_every levels, at most once per
     # checkpoint_interval_seconds, keeping the newest keep_checkpoints
@@ -110,11 +185,18 @@ class EngineConfig:
     checkpoint_every: int = 1
     checkpoint_interval_seconds: float = 0.0
     keep_checkpoints: Optional[int] = None
+    # Spilled level segments: None keeps them in host RAM, a directory
+    # memory-maps them to files there (engine/spillpool.py).
+    spill_dir: Optional[str] = None
     # Partial-order reduction: a certified analysis/por.py PorTable or
     # the path of its artifact, admission-checked at engine build.
     # por=True (certify in process) needs the analyzer, not ported.
     por: bool = False
     por_table: Optional[object] = None
+    # On torch.cuda.OutOfMemoryError: rebuild at half the batch (not below
+    # min_batch) and resume from this run's newest snapshot, or restart.
+    degrade_on_oom: bool = True
+    min_batch: int = 32
 
 
 @dataclasses.dataclass
@@ -141,13 +223,21 @@ class EngineResult:
     wall_seconds: float = 0.0
     growth_stalls: List = dataclasses.field(default_factory=list)
     spills: int = 0
-    batches: int = 0
+    batches: int = 0     # batches that ran (the step's cond held)
+    # Steps dispatched: those whose cond failed too, and those of an
+    # attempt that ran out of device memory.
+    steps: int = 0
+    chunks: int = 0      # host round trips of the level loop
+    # (batch, new batch, snapshot resumed or None) per OOM degradation.
+    degraded: List = dataclasses.field(default_factory=list)
     pipeline: str = "v3"
     fused_stages: Dict[str, str] = dataclasses.field(default_factory=dict)
     device: str = ""
-    # Host wall seconds: "dispatch" (issuing a batch's work), "sync"
-    # (waiting for the device at the per-batch stats read), "host" (the
-    # loop's own bookkeeping: trace, spill, growth, uploads),
+    # Host wall seconds: "dispatch" (queueing a chunk's steps), "sync"
+    # (waiting for the device at the chunk's stats read), "capture" (CUDA
+    # graph capture, off the duration clock), "trace" (device trace
+    # buffer drains), "spill" (queue drains and uploads), "host" (the
+    # loop's other bookkeeping: root ingest, growth, budgets),
     # "checkpoint" (snapshot writes).
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
 
@@ -226,6 +316,8 @@ class BFSEngine:
                  constraint: Optional[Callable] = None,
                  config: Optional[EngineConfig] = None,
                  device="cuda"):
+        # Re-entered at a smaller batch by OOM degradation
+        # (_rebuild_at_batch): everything below is rebuilt.
         self.dims = dims
         self.config = cfg = config or EngineConfig()
         self.device = dev = resolve_device(device)
@@ -251,23 +343,40 @@ class BFSEngine:
                                 else cfg.check_deadlock)
         sw = state_width(dims)
         B, G = cfg.batch, dims.n_instances
-        K = compact_mod.choose_k(B, G)
-        self._seen_cap = max(cfg.seen_capacity, 8 * K)
-        Q = max(-(-cfg.queue_capacity // B) * B, K)
-        self._sw, self._B, self._G, self._Q = sw, B, G, Q
+        K = compact_mod.choose_k(B, G, cfg.compact_lanes)
+        qreq, sreq = cfg.queue_capacity, cfg.seen_capacity
+        if qreq is None or sreq is None:
+            auto_q, auto_s = auto_capacities(sw, B, cfg.record_trace,
+                                             device_memory(dev))
+            qreq = auto_q if qreq is None else qreq
+            sreq = auto_s if sreq is None else sreq
+        self._seen_cap = max(sreq, 8 * K)
+        Q = max(-(-qreq // B) * B, K)
+        self._sw, self._B, self._G, self._Q, self._K = sw, B, G, Q, K
         self._PAD = max(B, K)
         self._QTH = Q - K
+        # Trace buffer rows: room for a batch of records at any chunk
+        # start (the cond stops a chunk past TQ - K), K more so no count
+        # the card reaches lets a batch write past the end; a stub
+        # without trace recording.
+        self._TQ = Q + K if cfg.record_trace else 0
+        self._TA = self._TQ + K if cfg.record_trace else 1
+        self._CH = max(1, cfg.sync_every)
         front = None
         if cfg.pipeline == "v4":
             front = Front(dims=dims, v2=self._v2, inv_fns=self._inv_fns,
                           constraint=constraint, B=B, K=K, device=dev,
                           por_mask=por_mask, por_priority=por_priority)
-        self._body = chunk_mod.build_chunk_body(
-            dims=dims, v2=self._v2, inv_fns=self._inv_fns,
-            constraint=constraint, B=B, K=K,
-            record_trace=cfg.record_trace, device=dev, front=front,
-            enqueue_method=cfg.enqueue_method, Q=Q,
+        self._step = chunk_mod.ChunkStep(
+            dims=dims, B=B, K=K, Q=Q, QTH=self._QTH, TQ=self._TQ,
+            record_trace=cfg.record_trace,
+            check_deadlock=self._check_deadlock, device=dev,
+            v2=self._v2, inv_fns=self._inv_fns, constraint=constraint,
+            front=front, enqueue_method=cfg.enqueue_method,
             por_mask=por_mask, por_priority=por_priority)
+        self._graphs: Dict[tuple, tuple] = {}
+        self._pool = None
+        self._warm = False
         self.trace = PyTraceStore()
 
     # ------------------------------------------------------------------
@@ -292,28 +401,36 @@ class BFSEngine:
         return (int(new.sum()), next_count + idx.shape[0], bool(fail), new,
                 fph, fpl, inv)
 
-    def _record(self, new, kh, kl, phi, plo, actions):
+    def _record(self, new, kh, kl):
+        """Root records: parent 0, action -1."""
         if not self.config.record_trace:
             return
         idx = new.nonzero().squeeze(1)
-        if idx.numel() == 0:
-            return
-        cols = [x[idx].cpu().numpy() for x in (kh, kl, phi, plo, actions)]
-        fps = (cols[0].astype(np.uint64) << np.uint64(32)) \
-            | cols[1].astype(np.uint64)
-        parents = (cols[2].astype(np.uint64) << np.uint64(32)) \
-            | cols[3].astype(np.uint64)
-        self.trace.add_batch(fps, parents, cols[4].astype(np.int32))
+        hi, lo = (x[idx].cpu().numpy().astype(np.uint64) for x in (kh, kl))
+        fps = (hi << np.uint64(32)) | lo
+        self.trace.add_batch(fps, np.zeros_like(fps),
+                             np.full(fps.shape, -1, np.int32))
+
+    def _flush_trace(self, tbuf, tcount: int):
+        """Drain the device trace buffer: one copy of ``tcount`` records."""
+        rec = host_rows(tbuf[:tcount]).view(np.uint32).reshape(-1, 5)
+        cols = rec.astype(np.uint64)
+        self.trace.add_batch((cols[:, 0] << np.uint64(32)) | cols[:, 1],
+                             (cols[:, 2] << np.uint64(32)) | cols[:, 3],
+                             rec[:, 4].view(np.int32))
 
     def _decode_row(self, row: torch.Tensor) -> PyState:
         st = unflatten_state(row.reshape(1, -1).cpu(), self.dims)
         return decode_state(StateBatch(*(f[0] for f in st)), self.dims)
 
-    def _maybe_grow(self, seen, res, t0):
-        if int(seen.size[0]) <= seen.capacity // 2:
+    def _maybe_grow(self, seen, size: int, res, t0):
+        """Double the table past half full (off the duration clock); the
+        graphs captured on the old table go with it."""
+        if size <= seen.capacity // 2:
             return seen, t0
         t = time.time()
         seen = fpset.grow(seen, 2 * seen.capacity)
+        self._drop_graphs()
         stall = time.time() - t
         res.growth_stalls.append((seen.capacity, round(stall, 3)))
         return seen, t0 + stall
@@ -356,7 +473,8 @@ class BFSEngine:
         seen_hi, seen_lo = fpset.to_host_keys(seen)
         ck = ckpt_mod.Checkpoint(
             dims=self.dims,
-            frontier=np.concatenate([host_rows(qcur[:cur_count]), *pending]),
+            frontier=np.concatenate([host_rows(qcur[:cur_count]),
+                                     *pending.segments()]),
             seen_hi=seen_hi, seen_lo=seen_lo,
             distinct=res.distinct, generated=res.generated,
             diameter=res.diameter, levels=tuple(res.levels),
@@ -367,16 +485,234 @@ class BFSEngine:
         # Retention after the write: the newest snapshot lands first.
         ckpt_mod.gc(cfg.checkpoint_dir, cfg.keep_checkpoints)
 
+    # -- the chunk -----------------------------------------------------
+    def _capture(self, fn, res):
+        """``fn`` (one step) captured as a CUDA graph in the engine's pool,
+        on a side stream.  The engine's first capture follows one eager
+        step whose cond is false (it loads every kernel and changes
+        nothing).  The wrappers' launch counts the capture took are given
+        back, and returned as what each replay launches."""
+        dev = self.device
+        if not self._warm:
+            self._write_ctl(0, 0, 0, 0)
+            fn()
+            res.steps += 1
+            self._warm = True
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = [m.launches for m in KERNEL_MODULES]
+        # No garbage collection during the capture: freeing another
+        # engine's pinned or device memory there makes calls a capture
+        # forbids, which voids it.
+        torch.cuda.synchronize(dev)
+        collecting = gc.isenabled()
+        gc.disable()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(side):
+                g.capture_begin(pool=self._pool)
+                try:
+                    fn()
+                except BaseException:
+                    try:
+                        g.capture_end()
+                    except RuntimeError:
+                        pass    # the capture is void; the first error counts
+                    raise
+                g.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        delta = []
+        for m, b in zip(KERNEL_MODULES, before):
+            if m.launches != b:
+                delta.append((m, m.launches - b))
+                m.launches = b
+        return g, delta
+
+    def _drop_graphs(self):
+        """Release the captured graphs and their memory pool (a pool whose
+        graphs are all gone cannot take another capture)."""
+        self._graphs.clear()
+        self._pool = None
+
+    def _runner(self, qcur, qnext, seen, res):
+        """One step on these buffers: a graph replay on the card (captured
+        at first use; a capture that fails raises), the step itself on the
+        CPU."""
+        step, tbuf, cs = self._step, self._tbuf, self._cs
+
+        def eager():
+            step(qcur, seen, qnext, tbuf, cs)
+
+        if self.device.type != "cuda":
+            return eager
+        key = (qcur.data_ptr(), qnext.data_ptr(), seen.keys.data_ptr())
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(eager, res)
+        g, delta = self._graphs[key]
+
+        def replay():
+            g.replay()
+            for m, d in delta:
+                m.launches += d
+
+        return replay
+
+    def _write_ctl(self, offset: int, next_count: int, cur_count: int,
+                   max_steps: int):
+        """A chunk's start: every counter zero but these."""
+        h = self._ctl
+        h.zero_()
+        h[ST_OFFSET], h[ST_COUNT] = offset, next_count
+        h[self._step.CUR], h[self._step.CUR + 1] = cur_count, max_steps
+        self._cs.st.copy_(h, non_blocking=True)
+
+    def _dispatch(self, run, n: int, seen):
+        """Queue n steps and the cond after them (no host wait)."""
+        for _ in range(n):
+            run()
+        more = self._step.cond(seen, self._cs)
+        self._cs.st.narrow(0, self._step.CUR + 2, 1).copy_(more)
+
+    def _run_chunk(self, qcur, qnext, seen, cur_count: int, offset: int,
+                   next_count: int, allowed: int, res) -> Tuple[list, float]:
+        """Up to ``allowed`` batches of the level from ``offset``, as one
+        JAX chunk call: returns the state words read once, and the
+        seconds spent capturing (off the duration clock).  On the card
+        the steps go out in bursts of at most the batches the level has
+        left, so a burst wastes no step at a level's end unless progress
+        limiting held a batch back; then a short burst follows."""
+        phases = res.phases
+        t = time.time()
+        run = self._runner(qcur, qnext, seen, res)
+        captured = time.time() - t
+        phases["capture"] += captured
+        self._write_ctl(offset, next_count, cur_count, allowed)
+        if self.device.type != "cuda":
+            t = time.time()
+            while bool(self._step.cond(seen, self._cs)):
+                run()
+                res.steps += 1
+            phases["dispatch"] += time.time() - t
+            return self._cs.st.tolist(), captured
+        done, at = 0, offset
+        while True:
+            n = min(allowed - done, -(-(cur_count - at) // self._B))
+            t = time.time()
+            self._dispatch(run, n, seen)
+            res.steps += n
+            t_s = time.time()
+            st = self._cs.st.tolist()          # the chunk's device sync
+            phases["dispatch"] += t_s - t
+            phases["sync"] += time.time() - t_s
+            if not st[self._step.CUR + 2]:
+                return st, captured
+            done, at = st[ST_STEPS], st[ST_OFFSET]
+
+    def _spill(self, inflight, free_q, qnext, count: int):
+        """Start draining ``count`` rows of ``qnext`` to the host and
+        return the spare queue to go on with.  On the card the copy runs
+        on a copy stream into pinned memory, behind the next chunks."""
+        ev = None
+        if self.device.type == "cuda":
+            if self._pinned is None:
+                self._pinned = torch.empty(qnext.shape, dtype=qnext.dtype,
+                                           pin_memory=True)
+            cur = torch.cuda.current_stream(self.device)
+            self._copy_stream.wait_stream(cur)
+            with torch.cuda.stream(self._copy_stream):
+                self._pinned[:count].copy_(qnext[:count], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self._copy_stream)
+        inflight.append((qnext, count, ev))
+        return free_q.pop()
+
+    def _resolve_spill(self, inflight, free_q, spill_next):
+        """Land the drain in flight in the spill pool; its queue becomes
+        the spare."""
+        while inflight:
+            buf, count, ev = inflight.pop(0)
+            if ev is None:
+                spill_next.append(host_rows(buf[:count]))
+            else:
+                ev.synchronize()
+                spill_next.append(self._pinned[:count].numpy(), copy=True)
+            free_q.append(buf)
+
     # ------------------------------------------------------------------
     def run(self, init_states: Optional[List[PyState]] = None,
             resume: Union[None, str, ckpt_mod.Checkpoint,
                           ResumePoint] = None) -> EngineResult:
         """Check from ``init_states``, or continue from ``resume``: a
-        snapshot's path, a loaded ``Checkpoint`` or a ``ResumePoint``."""
-        dims, cfg, dev = self.dims, self.config, self.device
-        sw, B, Q = self._sw, self._B, self._Q
+        snapshot's path, a loaded ``Checkpoint`` or a ``ResumePoint``.
+
+        On ``torch.cuda.OutOfMemoryError`` (and only on that) with
+        ``degrade_on_oom``: rebuild at half the batch, down to
+        ``min_batch``, and go on from this run's newest snapshot in
+        ``checkpoint_dir`` or from the start.  A snapshot that was in the
+        directory before a fresh run belongs to another run and is never
+        taken."""
+        cfg = self.config
         if (init_states is None) == (resume is None):
             raise ValueError("need exactly one of init_states or resume")
+        user_resume = resume is not None
+        preexisting = (set(os.listdir(cfg.checkpoint_dir))
+                       if cfg.checkpoint_dir
+                       and os.path.isdir(cfg.checkpoint_dir) else set())
+        degraded, steps = [], 0
+        while True:
+            try:
+                res = self._run_impl(init_states, resume)
+                res.degraded = degraded
+                res.steps += steps
+                return res
+            except torch.cuda.OutOfMemoryError:
+                cfg = self.config
+                new_batch = cfg.batch // 2
+                if not cfg.degrade_on_oom \
+                        or new_batch < max(1, cfg.min_batch):
+                    raise
+            # Out of the handler: the failed run's tensors are released.
+            steps += self._result.steps
+            ck = (ckpt_mod.latest(cfg.checkpoint_dir)
+                  if cfg.checkpoint_dir else None)
+            if ck is not None and not user_resume \
+                    and os.path.basename(ck) in preexisting:
+                ck = None              # another run's snapshot: restart
+            if ck is not None:
+                init_states, resume = None, ck
+            degraded.append((cfg.batch, new_batch, ck))
+            print(f"degraded: out of device memory; retrying at batch "
+                  f"{new_batch}" + (f", resuming {ck}" if ck else ""),
+                  file=sys.stderr)
+            self._rebuild_at_batch(new_batch)
+
+    def _rebuild_at_batch(self, new_batch: int) -> None:
+        """The engine again at a smaller batch (re-entrant ``__init__``),
+        its graphs and buffers released first."""
+        self._drop_graphs()
+        for name in ("_cs", "_tbuf", "_ctl", "_pinned"):
+            self.__dict__.pop(name, None)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        BFSEngine.__init__(
+            self, self.dims,
+            invariants=dict(zip(self.inv_names, self._inv_fns)),
+            constraint=self._constraint,
+            config=dataclasses.replace(self.config, batch=new_batch),
+            device=self.device)
+
+    def _run_impl(self, init_states, resume) -> EngineResult:
+        dims, cfg, dev = self.dims, self.config, self.device
+        sw, B, Q = self._sw, self._B, self._Q
+        res = self._result = EngineResult(
+            pipeline=cfg.pipeline, fused_stages=dict(self._plan),
+            device=str(dev), por_instances=(self._por_table.certified
+                                            if self._por_table else 0))
         if isinstance(resume, str):
             resume = ckpt_mod.load(resume)
         if isinstance(resume, ckpt_mod.Checkpoint):
@@ -397,23 +733,31 @@ class BFSEngine:
                     "for any later trace-on resume; use a different "
                     "checkpoint_dir or keep tracing enabled")
             resume = self.resume_point(ck)
-        res = EngineResult(pipeline=cfg.pipeline,
-                           fused_stages=dict(self._plan), device=str(dev),
-                           por_instances=(self._por_table.certified
-                                          if self._por_table else 0))
         phases = res.phases
-        for k in ("dispatch", "sync", "host", "checkpoint"):
+        for k in ("dispatch", "sync", "capture", "trace", "spill", "host",
+                  "checkpoint"):
             phases[k] = 0.0
         trace = self.trace = PyTraceStore()
         t_enter = time.time()
         QA = Q + self._PAD
-        qcur = torch.zeros((QA, sw), dtype=ROW_DTYPE, device=dev)
-        qnext = torch.zeros((QA, sw), dtype=ROW_DTYPE, device=dev)
-        pending: List[np.ndarray] = []      # host segments of this level
-        spill_next: List[np.ndarray] = []   # host segments of the next
+        F = len(dims.family_sizes)
 
-        def spilled(segs):
-            return sum(len(s) for s in segs)
+        def queue():
+            return torch.zeros((QA, sw), dtype=ROW_DTYPE, device=dev)
+
+        qcur, qnext = queue(), queue()
+        free_q = [queue()]          # the async spill's spare
+        inflight: List = []         # drains not yet landed
+        self._tbuf = torch.zeros((self._TA, chunk_mod.TRACE_ROW),
+                                 dtype=torch.uint8, device=dev)
+        self._cs = chunk_mod.chunk_state(F, sw, dev)
+        self._ctl = torch.zeros(chunk_mod.state_words(F), dtype=torch.int32,
+                                pin_memory=dev.type == "cuda")
+        self._pinned = None
+        if dev.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(dev)
+        pending = SpillPool(cfg.spill_dir)      # host segments of this level
+        spill_next = SpillPool(cfg.spill_dir)   # host segments of the next
 
         t0 = time.time()
         if resume is not None:
@@ -472,11 +816,12 @@ class BFSEngine:
                     # and the roots not yet ingested.
                     hit = exit_condition_hit(
                         cfg.exit_conditions, res,
-                        next_count + spilled(spill_next)
+                        next_count + spill_next.total_rows()
                         + rows_all.shape[0] - base)
                     if hit:
                         res.stop_reason = hit
                         break
+                t_h = time.time()
                 rows = torch.zeros((B, sw), dtype=ROW_DTYPE, device=dev)
                 part = rows_all[base:base + B]
                 rows[:part.shape[0]] = part
@@ -484,17 +829,16 @@ class BFSEngine:
                 n_new, next_count, fail, new, fph, fpl, inv = self._absorb(
                     rows, valid, seen, qnext, next_count)
                 res.distinct += n_new
-                zeros = torch.zeros_like(fph)
-                self._record(new, fph, fpl, zeros, zeros,
-                             torch.full_like(fph, -1))
+                self._record(new, fph, fpl)
                 if fail:
                     raise RuntimeError("seen-set probe failure during "
                                        "ingest; raise seen_capacity")
-                seen, t0 = self._maybe_grow(seen, res, t0)
+                seen, t0 = self._maybe_grow(seen, int(seen.size[0]), res, t0)
                 if next_count > self._QTH:
                     spill_next.append(host_rows(qnext[:next_count]))
                     res.spills += 1
                     next_count = 0
+                phases["host"] += time.time() - t_h
                 viol = new & (inv >= 0)
                 if bool(viol.any()):
                     v = int(viol.to(torch.int32).argmax())
@@ -504,14 +848,14 @@ class BFSEngine:
                         (int(fph[v]) << 32) | int(fpl[v]))
                     res.stop_reason = "violation"
                     break
-            res.levels.append(next_count + spilled(spill_next))
+            res.levels.append(next_count + spill_next.total_rows())
             qcur, qnext = qnext, qcur
             cur_count = next_count
-            pending, spill_next = spill_next, []
+            pending, spill_next = spill_next, pending
 
-        arange_b = torch.arange(B, device=dev)
-        F = len(dims.family_sizes)
         S = chunk_mod.N_SCALARS
+        self._batch_ema = 0.0       # measured seconds a batch
+        last_progress = time.time()
         # A resumed run does not rewrite the snapshot it loaded (without
         # trace it would replace a trace-carrying file by an empty one),
         # and its interval clock starts at the restart.
@@ -534,92 +878,131 @@ class BFSEngine:
                 res.stop_reason = "diameter_budget"
                 break
             next_count = 0
+            # Budgeted runs start each level with a one- or two-batch
+            # probe and double the chunk from there (the JAX loop's ramp).
+            calls_in_level = 0
             while True:
                 offset = 0
                 while offset < cur_count:
-                    if cfg.max_seconds is not None \
-                            and time.time() - t0 > cfg.max_seconds:
-                        res.stop_reason = "duration_budget"
-                        break
-                    t_d = time.time()
-                    rows = qcur[offset:offset + B]
-                    valid = (offset + arange_b) < cur_count
-                    out = self._body(rows, valid, seen, qnext, next_count)
-                    t_s = time.time()
-                    st = out.stats.tolist()          # the one device sync
+                    allowed = self._CH
+                    if cfg.max_seconds is not None:
+                        remaining = cfg.max_seconds - (time.time() - t0)
+                        if remaining <= 0:
+                            res.stop_reason = "duration_budget"
+                            break
+                        allowed = (max(1, min(
+                            self._CH, int(remaining / (2 * self._batch_ema)),
+                            2 << min(calls_in_level, 9)))
+                            if self._batch_ema else 1)
+                    calls_in_level += 1
+                    t_call = time.time()
+                    st, captured = self._run_chunk(
+                        qcur, qnext, seen, cur_count, offset, next_count,
+                        allowed, res)
+                    t0 += captured
                     t_h = time.time()
-                    phases["dispatch"] += t_s - t_d
-                    phases["sync"] += t_h - t_s
-                    res.batches += 1
-                    offset += st[chunk_mod.STAT_P]
-                    next_count = st[chunk_mod.STAT_COUNT]
-                    res.distinct += st[chunk_mod.STAT_NEW]
-                    res.generated += st[chunk_mod.STAT_TOTAL]
+                    res.chunks += 1
+                    steps = st[ST_STEPS]
+                    if steps:
+                        per = (t_h - t_call - captured) / steps
+                        self._batch_ema = (per if not self._batch_ema else
+                                           max(per, 0.5 * self._batch_ema
+                                               + 0.5 * per))
+                    res.batches += steps
+                    offset, next_count = st[ST_OFFSET], st[ST_COUNT]
+                    res.distinct += st[ST_NEW]
+                    res.generated += st[ST_GEN]
                     for name, c, p in zip(dims.family_names, st[S:S + F],
                                           st[S + 2 * F:S + 3 * F]):
                         res.action_counts[name] = \
                             res.action_counts.get(name, 0) + c
                         res.action_pruned[name] = \
                             res.action_pruned.get(name, 0) + p
-                    if st[chunk_mod.STAT_NEW]:
-                        self._record(out.new, out.kh, out.kl, out.parent_hi,
-                                     out.parent_lo, out.actions)
-                    if st[chunk_mod.STAT_OVF]:
+                    inner = 0.0     # trace and spill, timed on their own
+                    if cfg.record_trace and st[ST_TCOUNT]:
+                        t_t = time.time()
+                        self._flush_trace(self._tbuf, st[ST_TCOUNT])
+                        inner = time.time() - t_t
+                        phases["trace"] += inner
+                    if st[ST_OVF]:
                         raise RuntimeError(
-                            f"{st[chunk_mod.STAT_OVF]} successors exceeded "
-                            f"fixed-width capacity (max_log={dims.max_log}, "
+                            f"{st[ST_OVF]} successors exceeded fixed-width "
+                            f"capacity (max_log={dims.max_log}, "
                             f"n_msg_slots={dims.n_msg_slots}) or wrapped "
                             "the uint8 row; rerun with larger capacities")
-                    if st[chunk_mod.STAT_FAIL]:
+                    if st[ST_FAIL]:
                         raise RuntimeError(
                             "seen-set probe failure (load spiked past the "
                             "growth threshold within one batch); raise "
                             "seen_capacity")
-                    seen, t0 = self._maybe_grow(seen, res, t0)
+                    seen, t0 = self._maybe_grow(seen, st[ST_SEEN], res, t0)
                     if next_count > self._QTH \
                             and (offset < cur_count or pending):
-                        spill_next.append(host_rows(qnext[:next_count]))
+                        # Drain to the host behind the next chunks.
+                        t_s = time.time()
+                        self._resolve_spill(inflight, free_q, spill_next)
+                        qnext = self._spill(inflight, free_q, qnext,
+                                            next_count)
                         res.spills += 1
                         next_count = 0
-                    if st[chunk_mod.STAT_VIOL]:
-                        v = st[chunk_mod.STAT_VPOS]
+                        phases["spill"] += time.time() - t_s
+                        inner += time.time() - t_s
+                    if st[ST_VIOL]:
+                        vfp = self._cs.vfp.tolist()
                         res.violation = Violation(
-                            self.inv_names[st[chunk_mod.STAT_VINV]],
-                            self._decode_row(out.krows[v]),
-                            (int(out.kh[v]) << 32) | int(out.kl[v]))
+                            self.inv_names[st[ST_VINV]],
+                            self._decode_row(self._cs.vrow),
+                            (vfp[0] << 32) | vfp[1])
                         res.stop_reason = "violation"
-                    elif st[chunk_mod.STAT_DEAD] and self._check_deadlock:
-                        res.deadlock = self._decode_row(
-                            rows[st[chunk_mod.STAT_DPOS]])
+                    elif st[ST_DEAD] and self._check_deadlock:
+                        res.deadlock = self._decode_row(self._cs.drow)
                         res.stop_reason = "deadlock"
-                    elif cfg.exit_conditions:
-                        # TLC's "queue" is the whole unexplored queue: the
-                        # rest of this level and everything enqueued for
-                        # the next.  A violation or deadlock in the same
-                        # batch outranks a budget stop.
-                        hit = exit_condition_hit(
-                            cfg.exit_conditions, res,
-                            max(0, cur_count - offset) + spilled(pending)
-                            + next_count + spilled(spill_next))
-                        if hit:
-                            res.stop_reason = hit
-                    phases["host"] += time.time() - t_h
+                    else:
+                        want_progress = bool(
+                            cfg.progress_interval_seconds
+                            and time.time() - last_progress
+                            >= cfg.progress_interval_seconds)
+                        if cfg.exit_conditions or want_progress:
+                            # TLC's "queue" is the whole unexplored queue:
+                            # the rest of this level and everything
+                            # enqueued for the next, drains in flight too.
+                            queue_rows = (
+                                max(0, cur_count - offset)
+                                + pending.total_rows() + next_count
+                                + spill_next.total_rows()
+                                + sum(c for _b, c, _e in inflight))
+                            if want_progress:
+                                print(progress_line(
+                                    res, t0, queue_rows, cur_count,
+                                    st[ST_SEEN] / seen.capacity),
+                                    file=sys.stderr)
+                                last_progress = time.time()
+                            # A violation or deadlock in the same chunk
+                            # outranks a budget stop.
+                            hit = exit_condition_hit(cfg.exit_conditions,
+                                                     res, queue_rows)
+                            if hit:
+                                res.stop_reason = hit
+                    phases["host"] += time.time() - t_h - inner
                     if res.stop_reason != "exhausted":
                         break
                 if res.stop_reason != "exhausted" or not pending:
                     break
-                t_h = time.time()
-                seg = pending.pop(0)
-                qcur[:len(seg)] = torch.as_tensor(seg).to(dev)
+                t_s = time.time()
+                seg = np.require(pending.pop(0), requirements=["C", "W"])
+                qcur[:len(seg)] = torch.from_numpy(seg).to(dev)
                 cur_count = len(seg)
-                phases["host"] += time.time() - t_h
+                phases["spill"] += time.time() - t_s
             if res.stop_reason != "exhausted":
                 break
+            t_s = time.time()
+            self._resolve_spill(inflight, free_q, spill_next)
+            phases["spill"] += time.time() - t_s
             res.diameter += 1
-            res.levels.append(next_count + spilled(spill_next))
+            res.levels.append(next_count + spill_next.total_rows())
             qcur, qnext = qnext, qcur
             cur_count = next_count
-            pending, spill_next = spill_next, []
+            pending, spill_next = spill_next, pending
         res.wall_seconds = time.time() - t0
         return res
 

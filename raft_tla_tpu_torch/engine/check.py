@@ -4,10 +4,11 @@ Invariant names resolve through ``models/invariants.py``'s registry, the
 ``BoundedSpace`` constraint reads MaxTerm/MaxLogLen/MaxMsgCount, and the
 cfg's StopAfter budgets and ``\\* TPU:`` directives (BATCH,
 QUEUE_CAPACITY, SEEN_CAPACITY, PIPELINE, CHECKPOINT_DIR, CHECKPOINT_EVERY,
-CHECKPOINT_INTERVAL, KEEP_CHECKPOINTS, POR_TABLE) seed the engine config.
-Precedence: caller > cfg directive > built-in default.  Every entry
-point takes ``device`` and runs on the card unless the caller passes
-``device="cpu"``.
+CHECKPOINT_INTERVAL, KEEP_CHECKPOINTS, SPILL_DIR, PROGRESS_SECONDS,
+POR_TABLE) seed the engine config.  Precedence: caller > cfg directive >
+built-in default.  ``path_to_state`` finds a shortest action path to a
+given state.  Every entry point takes ``device`` and runs on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -15,8 +16,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
+from ..models.dims import RaftDims
 from ..models.invariants import build_constraint, invariant_registry
 from ..models.pystate import PyState, init_state
+from ..models.schema import encode_state, stack_states
+from ..ops.fingerprint import build_fingerprint
 from ..utils.cfg import CheckSetup, load_config
 from .bfs import BFSEngine, EngineConfig, EngineResult
 
@@ -60,6 +64,10 @@ def engine_config_from_backend(setup: CheckSetup) -> EngineConfig:
             be.get("CHECKPOINT_INTERVAL",
                    EngineConfig.checkpoint_interval_seconds)),
         keep_checkpoints=be.get("KEEP_CHECKPOINTS"),
+        spill_dir=be.get("SPILL_DIR"),
+        progress_interval_seconds=float(
+            be.get("PROGRESS_SECONDS",
+                   EngineConfig.progress_interval_seconds)),
         por=bool(be.get("POR", False)),
         por_table=be.get("POR_TABLE"))
 
@@ -89,6 +97,44 @@ def initial_states(setup: CheckSetup) -> List[PyState]:
     if setup.smoke:
         raise NotImplementedError("Init <- SmokeInit is not ported yet")
     return [init_state(setup.dims)]
+
+
+def path_to_state(dims: RaftDims, target: PyState,
+                  constraint: Optional[Callable] = None,
+                  init_states: Optional[List[PyState]] = None,
+                  config: Optional[EngineConfig] = None, device="cuda"):
+    """A shortest action path from the roots to ``target``: a BFS whose
+    one invariant is "not ``target``" (by fingerprint), replayed from the
+    hit.  ``[(grid index, PyState)]`` root first (-1 for the root);
+    raises if ``target`` is out of reach within the constraint.  The
+    search runs the v3 plan: the invariant has no device code in the v4
+    front."""
+    fingerprint = build_fingerprint(dims, device)
+    thi, tlo = (int(x[0]) for x in fingerprint(
+        stack_states([encode_state(target, dims)], device)))
+    roots = init_states or [init_state(dims)]
+    if target in roots:
+        return [(-1, target)]
+
+    def not_target(st):
+        h, l = fingerprint(st)
+        return ~((h == thi) & (l == tlo))
+
+    # Its own trace whatever the caller's config, and reachability only:
+    # a dead end on the way must not stop the search.
+    cfg = dataclasses.replace(config or EngineConfig(), record_trace=True,
+                              check_deadlock=False, pipeline="v3")
+    eng = BFSEngine(dims, invariants={"__NotTarget": not_target},
+                    constraint=constraint, config=cfg, device=device)
+    res = eng.run(roots)
+    if res.violation is None:
+        raise ValueError(
+            f"target state unreachable within the explored space "
+            f"({res.distinct} states, stop: {res.stop_reason})")
+    if res.violation.state != target:
+        raise RuntimeError("fingerprint collision: the state found differs "
+                           "from the target")
+    return eng.replay(res.violation.fingerprint)
 
 
 def run_check(cfg_path: str, engine_config: Optional[EngineConfig] = None,

@@ -1,13 +1,13 @@
-"""The per-batch BFS pipeline body (v3 and v4 plans, one device).
+"""The BFS chunk (v3 and v4 plans, one device): one batch, and the step
+that runs it on device-resident counters.
 
 One batch: B rows off the level queue -> guards-only masks over the B*G
 lanes (``models/actions2.py``) -> compaction of the enabled lanes to K
 slots (kernel) -> delta fingerprints and sparse successors on the K lanes
--> constraint, invariant id and packed rows -> the tail -> the counters
-the host reads, packed into ONE int64 tensor so a batch costs one
-device-to-host copy.  On the v4 plan everything before the tail is one
-front call (``ops/chunk_front_cuda.py``).  With a POR table the masks are
-reduced before compaction (one certified lane kept per state,
+-> constraint, invariant id and packed rows -> the tail -> the batch's
+counters.  On the v4 plan everything before the tail is one front call
+(``ops/chunk_front_cuda.py``).  With a POR table the masks are reduced
+before compaction (one certified lane kept per state,
 ``ops/chunk_front.py por_keep``; inside the front kernel on v4).
 
 The tail is either the fused insert + enqueue kernel
@@ -16,11 +16,32 @@ The tail is either the fused insert + enqueue kernel
 kernel (``ops/enqueue_cuda.py``) or one of the PyTorch lowerings of
 ``ops/enqueue.py``.  Both give the same ``new``, queue rows and count.
 
+``ChunkStep`` runs one batch on a ``ChunkState``, a few device tensors
+that hold what the JAX package's device ``while_loop`` carries
+(``engine/bfs.py`` ``chunk``): the queue offset, the step and queue
+counts, the trace count and the chunk's accumulated counters, in the
+JAX package's packed-stats layout (``ST_*``, then per family the
+generated, the novel and the POR-pruned counts), followed by control
+words: two the host writes before a chunk, the level's row count and the
+step limit, and the cond after the chunk's last step.  The step first evaluates the loop's ``cond`` on the card; a
+batch whose cond is false is still dispatched but changes nothing.  So
+the host can queue up to ``sync_every`` steps (``engine/bfs.py``
+captures one as a CUDA graph and replays it) and read the state once.
+The batch's rows are gathered from the level queue at the device offset
+by one ``index_select`` launch rather than read by the front at that
+offset: the gather serves the v3 plan's PyTorch front and the v4 front
+kernel alike and leaves the kernel's [B, sw] input as it was, for B rows
+(7.8 MB at TPUraft's batch, a few microseconds of a ~1.5 ms batch).  The
+tails take the queue count by device pointer.  The trace records of the
+batch's new states (child and parent fingerprint halves, action: five
+int32, a 20-byte row) are appended in lane order to a device trace
+buffer through the enqueue kernel, which already appends rows of any
+width exactly (a scatter would need K trash rows and a scan of its
+own); the host drains the buffer once a chunk.
+
 The same body as the JAX package's ``engine/chunk.py`` on its v2 and
 fused-front branches with either tail, so every counter, the queue rows
-and the trace links are equal to the JAX engines'.  Stats layout:
-``STAT_*`` offsets, then per family the generated, the novel and the
-POR-pruned counts.
+and the trace links are equal to the JAX engines'.
 """
 
 from __future__ import annotations
@@ -42,14 +63,25 @@ from ..ops.fpset_cuda import insert
 from ..ops.fused_tail_cuda import insert_enqueue
 from ..ops.pipeline_v3 import ENQUEUE_METHODS
 
-(STAT_P, STAT_TOTAL, STAT_NEW, STAT_COUNT, STAT_OVF, STAT_DEAD, STAT_VIOL,
- STAT_VINV, STAT_VPOS, STAT_DPOS, STAT_FAIL, STAT_EXPANDED,
- STAT_SEEN) = range(13)
+# The chunk state's int32 words: the JAX package's packed chunk stats
+# (engine/bfs.py ``chunk``), then 3F family counts, then three control
+# words: the level's rows and the step limit, which the host writes, and
+# the cond after the chunk's last step (``ChunkStep.CUR`` + 0, 1, 2).
+(ST_OFFSET, ST_STEPS, ST_COUNT, ST_SEEN, ST_TCOUNT, ST_GEN, ST_NEW, ST_OVF,
+ ST_DEAD, ST_VIOL, ST_VINV, ST_FAIL, ST_EXPANDED) = range(13)
 N_SCALARS = 13
+
+#: Bytes of one trace record: child hi, lo, parent hi, lo, action (int32).
+TRACE_ROW = 20
+
+
+def state_words(n_families: int) -> int:
+    """Length of ``ChunkState.st``."""
+    return N_SCALARS + 3 * n_families + 3
 
 
 class BatchOut(NamedTuple):
-    stats: torch.Tensor          # [13 + 3F] int64 (see STAT_*)
+    delta: torch.Tensor          # [13 + 3F] int64, the ST_* increments
     new: torch.Tensor            # [K] bool novel lanes
     kh: torch.Tensor             # [K] fingerprint lanes
     kl: torch.Tensor
@@ -57,16 +89,22 @@ class BatchOut(NamedTuple):
     parent_hi: Optional[torch.Tensor]   # [K], with trace recording only
     parent_lo: Optional[torch.Tensor]
     actions: torch.Tensor        # [K] int64 grid instance per lane
+    count: torch.Tensor          # [] int32 queue count after the tail
+    inv: torch.Tensor            # [K] int64 violated invariant or -1
+    viol: torch.Tensor           # [K] bool new & violating
+    dead: torch.Tensor           # [B] bool deadlocked parents
 
 
 def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
                      record_trace: bool, device, front=None,
                      enqueue_method: str = "fused", Q: int = 0,
                      por_mask=None, por_priority=None):
-    """Returns ``body(rows, valid, seen, qnext, next_count) -> BatchOut``.
+    """Returns ``body(rows, valid, seen, qnext, next_count, max_count) ->
+    BatchOut``.
 
     ``rows`` [B, sw] uint8 parents, ``valid`` [B] bool; the tail writes
-    the enqueued successors into ``qnext`` from row ``next_count`` on and
+    the enqueued successors into ``qnext`` from row ``next_count`` on (a
+    host int, or an int32 device tensor holding at most ``max_count``) and
     grows ``seen`` in place.  ``front`` (the v4 plan's
     ``ops/chunk_front_cuda.py`` ``Front``, built for the same predicates
     and POR arrays) replaces the masks, compaction and lane stages with
@@ -99,6 +137,8 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
     F = len(dims.family_sizes)
     arange_b = torch.arange(B, device=device)
     no_pruned = torch.zeros(F, dtype=torch.int64, device=device)
+    zero = torch.zeros(1, dtype=torch.int64, device=device)
+    one = torch.ones(1, dtype=torch.int64, device=device)
 
     def split_front(rows, valid):
         states = unflatten_state(rows, dims)
@@ -149,7 +189,8 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
 
     run_front = front or split_front
 
-    def body(rows, valid, seen, qnext, next_count: int) -> BatchOut:
+    def body(rows, valid, seen, qnext, next_count, max_count=None) \
+            -> BatchOut:
         # en/ovf arrive progress-limited; P and total stay on the device.
         # pruned is the front's before the progress limit.
         (en, ovf, pruned, P, total, lane_id, kvalid, kh, kl, krows,
@@ -164,23 +205,20 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
         keys = pack(kh, kl)
         if enqueue_method == "fused":
             new, fail, count = insert_enqueue(seen, keys, kvalid, krows,
-                                              cons_ok, qnext, next_count)
+                                              cons_ok, qnext, next_count,
+                                              max_count)
         else:
             # The constraint and the rows depend only on the candidates,
             # so every value below equals the fused branch's.
             new, fail = insert(seen, keys, kvalid)
             enq = new & cons_ok
             if enqueue_method == "kernel":
-                count = enqueue(qnext, next_count, krows, enq)
+                count = enqueue(qnext, next_count, krows, enq, max_count)
             elif enqueue_method == "scatter":
                 count = enqueue_scatter(qnext, next_count, krows, enq, Q)
             else:
                 count = enqueue_window(qnext, next_count, krows, enq)
         viol = new & (inv >= 0)
-        vpos = viol.to(torch.int32).argmax()
-        # Indexing with a 0-dim device tensor reads it on the host; a
-        # one-element index keeps the dispatch free of device waits.
-        vinv = inv.index_select(0, vpos.view(1))[0]
 
         fam_counts = torch.zeros(F, dtype=torch.int64, device=device)
         fam_counts.index_add_(0, fam_of_g, en.sum(0))
@@ -192,15 +230,120 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
             fam_pruned = torch.zeros(F, dtype=torch.int64, device=device)
             fam_pruned.index_add_(0, fam_of_g,
                                   (pruned & ptaken[:, None]).sum(0))
-        scalars = torch.stack([
-            P, total.to(torch.int64), new.sum(), count.to(torch.int64),
-            ovf.sum(), dead_b.any().to(torch.int64),
-            viol.any().to(torch.int64), vinv, vpos,
-            dead_b.to(torch.int32).argmax(), fail.to(torch.int64),
-            (valid & ptaken).sum(), seen.size[0]])
-        stats = torch.cat([scalars, fam_counts, fam_new, fam_pruned])
-        return BatchOut(stats=stats, new=new, kh=kh, kl=kl, krows=krows,
+        # The ST_* increments: ST_COUNT, ST_SEEN, ST_TCOUNT and ST_VINV
+        # are set, not added, by the step.
+        delta = torch.cat([
+            P.view(1), one, zero, zero, zero,
+            total.to(torch.int64).view(1), new.sum().view(1),
+            ovf.sum().view(1), dead_b.any().to(torch.int64).view(1),
+            viol.any().to(torch.int64).view(1), zero,
+            fail.to(torch.int64).view(1),
+            (valid & ptaken).sum().view(1), fam_counts, fam_new,
+            fam_pruned])
+        return BatchOut(delta=delta, new=new, kh=kh, kl=kl, krows=krows,
                         parent_hi=parent_hi, parent_lo=parent_lo,
-                        actions=act)
+                        actions=act, count=count, inv=inv, viol=viol,
+                        dead=dead_b)
 
     return body
+
+
+class ChunkState(NamedTuple):
+    """The device state a chunk of steps runs on (see the module doc)."""
+
+    st: torch.Tensor             # [state_words(F)] int32
+    vrow: torch.Tensor           # [sw] uint8 first violating row
+    vfp: torch.Tensor            # [2] int64 its fingerprint (hi, lo)
+    drow: torch.Tensor           # [sw] uint8 first deadlocked parent
+
+
+def chunk_state(n_families: int, sw: int, device) -> ChunkState:
+    def z(n, dtype):
+        return torch.zeros(n, dtype=dtype, device=device)
+    return ChunkState(st=z(state_words(n_families), torch.int32),
+                      vrow=z(sw, torch.uint8), vfp=z(2, torch.int64),
+                      drow=z(sw, torch.uint8))
+
+
+class ChunkStep:
+    """One batch on a ``ChunkState``: ``step(qcur, seen, qnext, tbuf, cs)``.
+
+    ``qcur`` holds the level's rows (``ST_CUR`` of them, the batch starts
+    at ``ST_OFFSET``), ``qnext`` the next level's (``ST_COUNT``), ``tbuf``
+    [TQ + K, 20] uint8 the trace records (``ST_TCOUNT``; a stub without
+    trace recording).  The step runs only while ``cond`` holds, the JAX
+    loop's: parents and steps left (``ST_MAX``), the queue at most ``QTH``
+    rows, the seen set at most half full, no violation, overflow, probe
+    failure or (when checked) deadlock yet, and room in the trace buffer
+    for a batch.  Otherwise it leaves every tensor as it was.  The step
+    makes no host wait.  ``body`` is the per-batch function of
+    ``build_chunk_body``; the step looks it up on each call."""
+
+    def __init__(self, *, dims, B: int, K: int, Q: int, QTH: int, TQ: int,
+                 record_trace: bool, check_deadlock: bool, device, **body):
+        self.body = build_chunk_body(dims=dims, B=B, K=K, Q=Q,
+                                     record_trace=record_trace,
+                                     device=device, **body)
+        self.Q, self.TQ = Q, TQ
+        self.record_trace = record_trace
+        F = len(dims.family_sizes)
+        self.N = N_SCALARS + 3 * F
+        self.CUR = self.N
+        # cond as lhs <= rhs over these words (the first two against the
+        # control words less one).
+        idx = [ST_OFFSET, ST_STEPS, ST_COUNT, ST_VIOL, ST_OVF, ST_FAIL]
+        lim = [QTH, 0, 0, 0]
+        if check_deadlock:
+            idx.append(ST_DEAD)
+            lim.append(0)
+        if record_trace:
+            idx.append(ST_TCOUNT)
+            lim.append(TQ - K)
+        self._idx = torch.tensor(idx, dtype=torch.int64, device=device)
+        self._lim = torch.tensor(lim, dtype=torch.int32, device=device)
+        self._arange_b = torch.arange(B, device=device)
+
+    def cond(self, seen, cs: ChunkState) -> torch.Tensor:
+        """[1] bool: whether the next step runs a batch."""
+        st = cs.st
+        lhs = st.index_select(0, self._idx)
+        rhs = torch.cat([st.narrow(0, self.CUR, 2) - 1, self._lim])
+        return ((lhs <= rhs).all()
+                & (seen.size <= seen.capacity // 2)[0]).view(1)
+
+    def __call__(self, qcur, seen, qnext, tbuf, cs: ChunkState) -> None:
+        st = cs.st
+        a = self.cond(seen, cs)
+        off = st.narrow(0, ST_OFFSET, 1).to(torch.int64)
+        at = off + self._arange_b
+        rows = qcur.index_select(0, at.clamp(max=qcur.shape[0] - 1))
+        valid = a & (at < st.narrow(0, self.CUR, 1))
+        out = self.body(rows, valid, seen, qnext,
+                        st.narrow(0, ST_COUNT, 1), self.Q)
+        N = self.N
+        # First violation and first deadlock of the chunk win.
+        vpos = out.viol.to(torch.int32).argmax().view(1)
+        take_v = a & (st.narrow(0, ST_VIOL, 1) == 0) & out.viol.any()
+        dpos = out.dead.to(torch.int32).argmax().view(1)
+        take_d = a & (st.narrow(0, ST_DEAD, 1) == 0) & out.dead.any()
+        st_vinv = st.narrow(0, ST_VINV, 1)
+        st_vinv.copy_(torch.where(take_v, out.inv.index_select(0, vpos),
+                                  st_vinv))
+        cs.vrow.copy_(torch.where(take_v, out.krows.index_select(0, vpos)[0],
+                                  cs.vrow))
+        vfp = torch.cat([out.kh.index_select(0, vpos),
+                         out.kl.index_select(0, vpos)])
+        cs.vfp.copy_(torch.where(take_v, vfp, cs.vfp))
+        cs.drow.copy_(torch.where(take_d, rows.index_select(0, dpos)[0],
+                                  cs.drow))
+        if self.record_trace:
+            trows = torch.stack([out.kh, out.kl, out.parent_hi,
+                                 out.parent_lo, out.actions], 1)
+            trows = trows.to(torch.int32).view(torch.uint8)
+            tc = enqueue(tbuf, st.narrow(0, ST_TCOUNT, 1), trows, out.new,
+                         self.TQ)
+            st.narrow(0, ST_TCOUNT, 1).copy_(tc.view(1))
+        head = st.narrow(0, 0, N)
+        head.add_((out.delta * a).to(torch.int32))
+        st.narrow(0, ST_COUNT, 1).copy_(out.count.view(1))
+        st.narrow(0, ST_SEEN, 1).copy_(seen.size)

@@ -190,6 +190,20 @@ class Front:
                     d.n_msg_slots, self.B, self.K)
                 for i, name in enumerate(KERNELS)}
 
+    def occupancy(self):
+        """``{"masks_kernel": n, "lanes_kernel": n}``: blocks of each
+        launch that one SM holds at this front's dims (the CUDA occupancy
+        calculator)."""
+        d = self.dims
+        lib = _lib()
+        fn = lib.chunk_front_occupancy
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        out = (ctypes.c_int * 2)()
+        build.check(fn(d.n_servers, d.n_values, d.max_log, d.n_msg_slots,
+                       out), "chunk_front_occupancy")
+        return {"masks_kernel": out[0], "lanes_kernel": out[1]}
+
     def __call__(self, rows, valid) -> FrontOut:
         global launches
         if rows.device.type == "cpu":

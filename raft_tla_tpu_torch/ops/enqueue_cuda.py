@@ -5,9 +5,11 @@ entry ``enqueue``).  ``enqueue(qnext, next_count, krows, enq) -> count``
 follows the contract of ``ops/enqueue.py``: the rows of the ``enq`` lanes
 land in lane order at ``qnext[next_count:]`` in place, ``count`` is a []
 int32 device tensor, rows at and past it are unspecified.  ``next_count``
-is a host int (the level loop holds it from the last stats read), so the
-call makes no host wait.  ``enqueue`` launches the kernel for CUDA tensors
-and takes ``enqueue_plain`` only for CPU tensors.
+is a host int or, as the level loop passes it, an int32 device tensor of
+one element with ``max_count`` the largest value it can hold (the bound
+check of ``ops/enqueue.py count_arg``); the kernel reads it on the card,
+so the call makes no host wait.  ``enqueue`` launches the kernel for
+CUDA tensors and takes ``enqueue_plain`` only for CPU tensors.
 
 On the card a call is two launches and no other device operation: a count
 of the flags of each 64-lane tile, then the tile launch the fused tail
@@ -22,7 +24,7 @@ import functools
 import torch
 
 from ..utils import build
-from .enqueue import enqueue_plain
+from .enqueue import count_arg, enqueue_plain
 from .fused_tail_cuda import tiles
 
 #: Kernel launches since the last reset (chip_smoke reads it).
@@ -61,20 +63,18 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, ctypes.c_longlong, p, p, p]
+        fn.argtypes = [p, i, p, i, p, p, p, p, p]
         lib.enqueue_geometry.restype = None
         lib.enqueue_geometry.argtypes = [p]
     return lib
 
 
-def enqueue(qnext: torch.Tensor, next_count: int, krows: torch.Tensor,
-            enq: torch.Tensor) -> torch.Tensor:
+def enqueue(qnext: torch.Tensor, next_count, krows: torch.Tensor,
+            enq: torch.Tensor, max_count=None) -> torch.Tensor:
     """``count``; see the module contract."""
     global launches
     n, sw = krows.shape
-    if next_count < 0 or next_count + n > qnext.shape[0]:
-        raise ValueError(f"enqueue: {n} rows at {next_count} overrun the "
-                         f"{qnext.shape[0]}-row queue")
+    nc = count_arg(next_count, n, qnext.shape[0], krows.device, max_count)
     if krows.device.type == "cpu":
         return enqueue_plain(qnext, next_count, krows, enq)
     if krows.device.type != "cuda":
@@ -99,7 +99,7 @@ def enqueue(qnext: torch.Tensor, next_count: int, krows: torch.Tensor,
     count = torch.empty(1, dtype=torch.int32, device=dev)
     err = _lib().enqueue_launch(
         enq.data_ptr(), n, krows.data_ptr(), sw, qnext.data_ptr(),
-        next_count, tile_count.data_ptr(), count.data_ptr(),
+        nc.data_ptr(), tile_count.data_ptr(), count.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "enqueue_launch")
     launches += 1

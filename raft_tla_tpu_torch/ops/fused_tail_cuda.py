@@ -3,7 +3,10 @@ plain version.
 
 Replaces the JAX package's ``ops/fused_tail_pallas.py`` (``_tail_padded``).
 Contract of ``insert_enqueue(seen, keys, valid, krows, enq_ok, qnext,
-next_count) -> (is_new, fail, count)``:
+next_count, max_count=None) -> (is_new, fail, count)``, where
+``next_count`` is a host int or an int32 device tensor of one element
+holding at most ``max_count`` (``ops/enqueue.py count_arg``), read on the
+card by the kernel:
 
 - ``is_new`` and ``fail``, and the table update, are ``fpset_cuda.insert``'s
   (so equal to the plain version's when no query fails);
@@ -26,6 +29,7 @@ import functools
 import torch
 
 from ..utils import build
+from .enqueue import count_arg
 from .fpset import FPSet
 from .fpset_cuda import check_queries, insert_plain
 
@@ -34,13 +38,14 @@ launches = 0
 
 
 def insert_enqueue_plain(seen: FPSet, keys, valid, krows, enq_ok, qnext,
-                         next_count: int):
+                         next_count):
     """Plain version: the sequential insert, then the enqueued rows copied
     in lane order."""
     is_new, fail = insert_plain(seen, keys, valid)
+    nc = int(next_count)
     enq = (is_new & enq_ok).nonzero().squeeze(1)
-    qnext[next_count:next_count + enq.shape[0]] = krows[enq]
-    count = torch.tensor(next_count + enq.shape[0], dtype=torch.int32,
+    qnext[nc:nc + enq.shape[0]] = krows[enq]
+    count = torch.tensor(nc + enq.shape[0], dtype=torch.int32,
                          device=krows.device)
     return is_new, fail, count
 
@@ -80,22 +85,21 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, i, p, ll, p, p, p, p, p, p, p, i, p, ll, p,
-                       p]
+        fn.argtypes = [p, p, p, i, p, ll, p, p, p, p, p, p, p, i, p, p, p, p]
         lib.fused_tail_geometry.restype = None
         lib.fused_tail_geometry.argtypes = [p]
     return lib
 
 
-def check_tail(seen: FPSet, keys, valid, krows, enq_ok, qnext,
-               next_count: int):
-    """Raise on arguments the fused tail does not take (on any device)."""
+def check_tail(seen: FPSet, keys, valid, krows, enq_ok, qnext, next_count,
+               max_count=None) -> torch.Tensor:
+    """Raise on arguments the fused tail does not take (on any device);
+    ``next_count`` as an int32 [1] tensor otherwise."""
     if krows.dim() != 2 or qnext.dim() != 2:
         raise ValueError("insert_enqueue: rows must be [n, sw] / [Q, sw]")
     n, sw = krows.shape
-    if next_count < 0 or next_count + n > qnext.shape[0]:
-        raise ValueError(f"insert_enqueue: {n} rows at {next_count} overrun "
-                         f"the {qnext.shape[0]}-row queue")
+    nc = count_arg(next_count, n, qnext.shape[0], keys.device, max_count,
+                   "insert_enqueue")
     check_queries(seen, keys, valid)
     if (krows.dtype != torch.uint8 or qnext.dtype != torch.uint8
             or qnext.shape[1] != sw or not krows.is_contiguous()
@@ -108,15 +112,17 @@ def check_tail(seen: FPSet, keys, valid, krows, enq_ok, qnext,
         raise ValueError("insert_enqueue: arguments on different devices")
     if qnext.shape[0] >= 1 << 31:
         raise ValueError("insert_enqueue: at most 2^31 - 1 queue rows")
+    return nc
 
 
 def insert_enqueue(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor,
                    krows: torch.Tensor, enq_ok: torch.Tensor,
-                   qnext: torch.Tensor, next_count: int):
+                   qnext: torch.Tensor, next_count, max_count=None):
     """``(is_new, fail, count)``; see the module contract.  On the card:
     four launches, and no other device operation."""
     global launches
-    check_tail(seen, keys, valid, krows, enq_ok, qnext, next_count)
+    nc = check_tail(seen, keys, valid, krows, enq_ok, qnext, next_count,
+                    max_count)
     if krows.device.type == "cpu":
         return insert_enqueue_plain(seen, keys, valid, krows, enq_ok, qnext,
                                     next_count)
@@ -140,7 +146,7 @@ def insert_enqueue(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor,
         seen.keys.data_ptr(), seen.capacity, seen.owner.data_ptr(),
         slot.data_ptr(), is_new.data_ptr(), seen.size.data_ptr(),
         fail.data_ptr(), tile_count.data_ptr(), krows.data_ptr(), sw,
-        qnext.data_ptr(), next_count, count.data_ptr(),
+        qnext.data_ptr(), nc.data_ptr(), count.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "fused_tail_launch")
     launches += 1

@@ -14,6 +14,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from raft_tla_tpu.engine import checkpoint as jckpt
 from raft_tla_tpu.engine.bfs import BFSEngine as JEngine
@@ -35,6 +36,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOUNDED = os.path.join(REPO, "configs/MCraft_bounded.cfg")
 NOLEADER = os.path.join(REPO, "configs/MCraft_noleader.cfg")
 L6 = (9457, 24429, [1, 3, 18, 79, 318, 1218, 4433])     # PERF.md §4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One PyTorch thread for these runs of many small operations: the
+    suite runs in several worker processes at once, and a thread a core
+    in each oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port_config(**kw):
@@ -387,10 +399,9 @@ def jax_budget_engine():
     ("distinct", 1000), ("generated", 3000), ("queue", 700)])
 def test_exit_budget_stop_reason_equals_jax(jax_budget_engine, counter,
                                             threshold):
-    """The JAX loop checks its budgets after each ``sync_every`` chunk of
-    batches and the port after each batch, so the two stop at different
-    counts: the stop REASON is held against JAX, the counter only to have
-    passed its threshold (and, in the port, by less than one level)."""
+    """Both loops check their budgets after each chunk of ``sync_every``
+    batches (32 here, at batch 64), so they stop after the same chunk:
+    the stop reason and every counter equal the JAX engine's."""
     conds = ((counter, threshold),)
     jeng, jdims = jax_budget_engine
     jeng.config = dataclasses.replace(jeng.config, exit_conditions=conds)
@@ -399,11 +410,15 @@ def test_exit_budget_stop_reason_equals_jax(jax_budget_engine, counter,
                                          max_diameter=8,
                                          exit_conditions=conds),
                     device="cpu")
+    assert res.engine.config.sync_every == jeng.config.sync_every == 32
     assert res.stop_reason == jres.stop_reason == f"{counter}_budget"
+    assert (res.distinct, res.generated, res.diameter, res.levels,
+            res.action_counts) == (jres.distinct, jres.generated,
+                                   jres.diameter, jres.levels,
+                                   jres.action_counts)
     if counter != "queue":
         assert getattr(res, counter) > threshold
-        assert getattr(jres, counter) > threshold
-    assert res.diameter <= jres.diameter < 8
+    assert res.diameter < 8
     assert res.violation is None and res.deadlock is None
 
 
