@@ -48,6 +48,18 @@ L8, a 2^20-row queue spilling to files to L8, v3 to L6,
 ``configs/raft5_bounded.cfg`` with capacities from the card to L8; and a
 run capped (``set_per_process_memory_fraction``) between what batch 4096
 and batch 8192 need, which must degrade to 4096 and give the L8 counts.
+The safety suite (``models/safety.py``, device code in the front's
+lanes launch): the front with it held exactly against ``front_plain`` at
+MCraft_bounded's and TPUraft's shapes on a real window (where it holds),
+random states and the nine crafted violating states, with
+MCraft_safety.cfg's ten in order and each of the nine alone (each must be
+the first failing id on a crafted lane), and its lanes launch timed
+against the TypeOK-only build; ``configs/MCraft_safety.cfg`` as written
+to L11 on v4 with both tails and to L9 on v3 (MCraft_bounded's pinned
+counts); an ``Init <- SmokeInit`` check equal to its JAX pin
+(``tests/test_torch_safety_engine.py``); and TPUraft.cfg with the suite
+in place of TypeOK to L8 (the oracle's counts), in turns with TypeOK
+alone.
 
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
@@ -2407,16 +2419,19 @@ def tpuraft_config(depth, **kw):
                                pipeline="v4", max_diameter=depth, **kw)
 
 
-def tpuraft_check(torch, cfg_name, depth, what, **kw):
+def tpuraft_check(torch, cfg_name, depth, what, invariants=None, **kw):
     """``configs/<cfg_name>`` with its own directives, overridden by
-    ``kw``, checked to ``depth`` on the card: the oracle's TPUraft levels
-    and counts held, the launches checked.  Returns (engine, result, peak
-    device bytes allocated)."""
+    ``kw`` (and its invariant list by ``invariants``), checked to
+    ``depth`` on the card: the oracle's TPUraft levels and counts held, the
+    launches checked.  Returns (engine, result, peak device bytes
+    allocated)."""
     import dataclasses
     from raft_tla_tpu_torch.engine.check import (engine_config_from_backend,
                                                  initial_states, make_engine)
     from raft_tla_tpu_torch.utils.cfg import load_config
     setup = load_config(os.path.join(HERE, "configs", cfg_name))
+    if invariants is not None:
+        setup = dataclasses.replace(setup, invariants=list(invariants))
     cfg = dataclasses.replace(engine_config_from_backend(setup),
                               max_diameter=depth, **kw)
     torch.cuda.synchronize()
@@ -2707,6 +2722,312 @@ def phase_oom(torch):
     return res.degraded
 
 
+# -- the safety suite (models/safety.py) and the SmokeInit roots -------------
+
+SAFETY_SUITE = ("MessagesInv", "LeaderVotesQuorum", "CandidateTermNotInLog",
+                "ElectionSafety", "LogMatching", "VotesGrantedInv",
+                "QuorumLogInv", "MoreUpToDateCorrect", "LeaderCompleteness")
+# The SmokeInit check of tests/test_torch_safety_engine.py: MCraft_safety's
+# dims with Init <- SmokeInit (k = 2), the seed, the suite's invariants that
+# hold on all 512 roots, the engine's sizes, and the JAX engine's result:
+# (invariant, depth, distinct, generated, levels, violating fingerprint)
+# and the replayed path as (action, state fingerprint).
+SMOKE_SEED = 24
+SMOKE_INVARIANTS = ("TypeOK", "LeaderVotesQuorum", "CandidateTermNotInLog",
+                    "ElectionSafety", "LogMatching", "LeaderCompleteness")
+SMOKE_CONFIG = dict(batch=128, queue_capacity=1 << 14,
+                    seen_capacity=1 << 16, record_trace=True,
+                    check_deadlock=False, max_diameter=8)
+SMOKE_PIN = ("CandidateTermNotInLog", 1, 2432, 2040, [256],
+             0x737AF3816ACBA33D)
+SMOKE_PATH = [(-1, 0xD0333C6874937F7D), (4, 0x737AF3816ACBA33D)]
+
+
+def crafted_violations(dims):
+    """``[(name, state)]``: for each predicate of the suite a state that
+    violates it and, in MCraft_safety.cfg's order, no predicate before it.
+    The violations are those of the JAX package's safety tests (a leader
+    without an entry of its term that another log holds; one index and
+    term with two values; a leader without votes; an electable candidate
+    whose term is in a log; a vote granted by a server whose committed
+    entry the grantee lacks; a committed entry in no other log; a more
+    up-to-date log without another's committed entry; a leader without a
+    committed entry; a vote request with a wrong last index), widened to
+    ``dims.n_servers`` (3 or more) by servers as Init has them, or as
+    given, so that the earlier predicates of the list hold."""
+    import dataclasses
+    from raft_tla_tpu_torch.models.dims import CANDIDATE, LEADER, RVQ
+    from raft_tla_tpu_torch.models.pystate import init_state
+    n = dims.n_servers
+    init = init_state(dims)
+
+    def state(pad=None, **fields):
+        out = {}
+        for f, v in fields.items():
+            if f == "messages":
+                out[f] = v
+                continue
+            fill = (pad or {}).get(f, getattr(init, f)[-1])
+            out[f] = tuple(v) + (fill,) * (n - len(v))
+        return dataclasses.replace(init, **out)
+
+    e1, e2 = ((1, 1),), ((2, 1),)
+    return [
+        ("MessagesInv", state(
+            role=(CANDIDATE,), current_term=(2,),
+            messages=frozenset({((RVQ, 0, 1, 2, 0, 5), 1)}))),
+        ("LeaderVotesQuorum", state(role=(LEADER,), current_term=(2,))),
+        ("CandidateTermNotInLog", state(
+            {"current_term": 2}, role=(CANDIDATE,), current_term=(2,),
+            log=((), e2))),
+        ("ElectionSafety", state(
+            {"current_term": 2, "voted_for": 1}, role=(LEADER,),
+            current_term=(2,), voted_for=(1,), log=((), e2))),
+        ("LogMatching", state(log=(e1, ((1, 2),)))),
+        ("VotesGrantedInv", state(votes_granted=(0b10,), log=((), e1),
+                                  commit_index=(0, 1))),
+        ("QuorumLogInv", state(log=(e1, ()), commit_index=(1,))),
+        ("MoreUpToDateCorrect", state(
+            {"log": e1}, log=(e2, e1), commit_index=(0, 1, 0))),
+        ("LeaderCompleteness", state(
+            {"current_term": 2, "voted_for": 1, "log": e1}, role=(LEADER,),
+            current_term=(2,), voted_for=(1,), log=((), e1),
+            commit_index=(0, 1, 0))),
+    ]
+
+
+def state_window(torch, dims, states, b, device):
+    """A b-row window of ``states`` (valid), the rows after them invalid."""
+    from raft_tla_tpu_torch.models.schema import (encode_state,
+                                                  flatten_state, stack_states)
+    rows = flatten_state(stack_states([encode_state(s, dims)
+                                       for s in states], device))
+    w = torch.zeros((b, rows.shape[1]), dtype=torch.uint8, device=device)
+    w[:rows.shape[0]] = rows
+    valid = torch.arange(b, device=device) < rows.shape[0]
+    return w, valid
+
+
+def lanes_us(torch, front, rows, valid):
+    """Device microseconds of the front's lanes launch, under the
+    profiler (None when it sees no device time)."""
+    ops = device_ops(torch, lambda: front(rows, valid))
+    us = [t for n, t in ops if n == "lanes_kernel"]
+    return us[0] if us else None
+
+
+def phase_safety_front(torch, device, shape):
+    """The front kernel with the safety suite against ``front_plain``,
+    exactly, at one of two shapes: "MCraft" (MCraft_safety.cfg: 3 servers,
+    473-byte rows, batch 2048, K 32,768) or "TPUraft" (configs/TPUraft.cfg:
+    5 servers, 48 slots, 951-byte rows, batch 8192, K 131,072).  Three
+    kinds of parent windows: a real one (a full window of a check, where
+    every predicate holds on every successor), random states over the
+    smoke domains (models/smoke.py) and the nine crafted violating states.
+    Eleven lists: MCraft_safety.cfg's ten in its order and each of the
+    nine alone; each of the nine must be the first failing id on some lane
+    of the crafted window in both.  Then the lanes launch with the suite
+    and with TypeOK alone on the real window: its device microseconds, its
+    registers and spill bytes, and blocks an SM."""
+    import dataclasses
+    from raft_tla_tpu_torch.engine.check import (initial_states,
+                                                 make_engine,
+                                                 resolve_constraint,
+                                                 resolve_invariants)
+    from raft_tla_tpu_torch.models import smoke
+    from raft_tla_tpu_torch.models.actions2 import build_v2
+    from raft_tla_tpu_torch.ops import chunk_front_cuda
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    if shape == "MCraft":
+        setup = load_config(os.path.join(HERE, "configs/MCraft_safety.cfg"))
+        _s, _v2, _kw, windows = front_rig(torch, device)
+        real = [w for w in windows if bool(w[1].all())][-1]
+        b, k = B, K
+        del windows
+    else:
+        setup = load_config(os.path.join(HERE, "configs/TPUraft.cfg"))
+        engine = make_engine(setup, tpuraft_config(6, record_trace=False),
+                             device="cuda")
+        dispatch_eagerly(engine)
+        body, last = engine._step.body, []
+
+        def capture(rows, valid, *args):
+            if bool(valid.all()):
+                last[:] = [rows.clone(), valid.clone()]
+            return body(rows, valid, *args)
+
+        engine._step.body = capture
+        engine.run(initial_states(setup))
+        need(last, "the TPUraft L6 run dispatched no full window")
+        real, b, k = tuple(last), engine._B, engine._K
+        del engine
+    dims = setup.dims
+    suite = dataclasses.replace(setup, invariants=["TypeOK",
+                                                   *SAFETY_SUITE])
+    invs = resolve_invariants(suite)
+    lists = [("cfg order", list(invs))] + [(n, [n]) for n in SAFETY_SUITE]
+    v2 = build_v2(dims, device)
+    cons = resolve_constraint(setup)
+
+    def front(names):
+        return chunk_front_cuda.Front(
+            dims=dims, v2=v2, inv_fns=[invs[n] for n in names],
+            constraint=cons, B=b, K=k, device=device)
+
+    t = time.time()
+    kinds = {"real": real,
+             "random": state_window(torch, dims, smoke.random_states(
+                 dims, b, seed=7), b, device),
+             "crafted": state_window(torch, dims, [
+                 s for _n, s in crafted_violations(dims)], b, device)}
+    print(f"safety front {shape}: windows built in {time.time() - t} s")
+    err, first = 0.0, {}
+    for lname, names in lists:
+        fr = front(names)
+        need(fr.suite, f"the front for {lname} is not the suite's build")
+        for kind, (rows, valid) in kinds.items():
+            got = fr(rows, valid)
+            e = front_err(torch, got, fr.plain(rows, valid))
+            total = int(got.total)
+            ids = torch.bincount(got.inv[:total] + 1,
+                                 minlength=len(names) + 1).tolist()
+            print(f"safety front {shape} [{b},{fr.sw}] {lname}, {kind} "
+                  f"window: P={int(got.P)} total={total} lanes by first "
+                  f"failing id (none, then the list's) {ids} "
+                  f"max_abs_err={e}")
+            need(e == 0.0, f"chunk_front with the suite ({lname}) differs "
+                 f"from front_plain on the {shape} {kind} window")
+            if kind == "real":
+                need(ids[0] == total, f"a reachable successor fails "
+                     f"{lname} at {shape}")
+            if kind == "crafted":
+                first[lname] = {names[i - 1] for i, c in enumerate(ids)
+                                if i and c}
+            err = max(err, e)
+    for name in SAFETY_SUITE:
+        need(name in first["cfg order"] and name in first[name],
+             f"no crafted lane at {shape} has {name} as its first failing "
+             f"predicate ({first['cfg order']}, alone: {first[name]})")
+    rows, valid = real
+    plain, full = front(["TypeOK"]), front(list(invs))
+    need(not plain.suite, "the TypeOK front runs the suite's build")
+    for what, fr in (("TypeOK", plain), ("the suite", full),
+                     ("the suite", full), ("TypeOK", plain)):
+        print(f"safety front {shape} real window, {what}: lanes launch "
+              f"{lanes_us(torch, fr, rows, valid)} us under the profiler, "
+              f"queued front {queued_ms(torch, lambda: fr(rows, valid))} "
+              f"ms a call")
+    for what, fr in (("TypeOK", plain), ("the suite", full)):
+        print(f"safety front {shape}, {what}: lanes launch "
+              f"{fr.launch_info()['lanes_kernel']}, blocks an SM "
+              f"{fr.occupancy()}")
+    del kinds, real
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_safety_cfg(torch, turns):
+    """configs/MCraft_safety.cfg as written (TypeOK and the nine),
+    cut only in depth: L11 on v4 with the fused and the split tail and L9
+    on v3, each with MCraft_bounded's pinned counts and levels (the suite
+    holds on every reachable state) and its launches checked; the wall
+    time beside MCraft_bounded's L11 of the same tail in ``turns``."""
+    from raft_tla_tpu_torch.engine.check import run_check
+    bounded = {m: [r.wall_seconds for mm, r in turns if mm == m]
+               for m in ("fused", "kernel")}
+    for pipeline, method, depth in (("v4", "fused", 11),
+                                    ("v4", "kernel", 11),
+                                    ("v3", "fused", 9)):
+        reset_counts()
+        res = run_check(os.path.join(HERE, "configs/MCraft_safety.cfg"),
+                        bounded_config(pipeline, depth,
+                                       enqueue_method=method),
+                        device="cuda")
+        counts = read_counts()
+        what = f"MCraft_safety L{depth} {pipeline} {method} tail"
+        print(f"{what}: invariants {res.engine.inv_names} "
+              f"distinct={res.distinct} generated={res.generated} "
+              f"levels={res.levels} batches={res.batches} check "
+              f"{res.wall_seconds} s (MCraft_bounded, TypeOK alone, L11 "
+              f"in this run: {bounded.get(method) if depth == 11 else '-'}"
+              f" s), phases {res.phases}, launches {counts}")
+        need(len(res.engine.inv_names) == 10, f"{what}: the cfg resolved "
+             f"to {res.engine.inv_names}")
+        need(res.violation is None and res.deadlock is None,
+             f"{what} reported a violation or deadlock")
+        pins = ((MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED,
+                 MCRAFT_L11_LEVELS) if depth == 11 else
+                (MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED, MCRAFT_L9_LEVELS))
+        need((res.distinct, res.generated, res.levels) == pins,
+             f"{what} differs from the pinned counts")
+        check_launches(pipeline, counts, res.steps, what, method,
+                       inserts=1)
+
+
+def phase_safety_tpuraft(torch):
+    """configs/TPUraft.cfg with its TypeOK replaced by TypeOK and the
+    nine, at the cfg's sizes on v4 with the fused tail, to L8: no
+    violation and the oracle's counts (the suite holds).  In turns with
+    TypeOK alone (TypeOK, the suite, the suite, TypeOK): the wall times
+    of the two lists within one call."""
+    walls = []
+    for label, invs in (("TypeOK", ["TypeOK"]),
+                        ("the suite", ["TypeOK", *SAFETY_SUITE]),
+                        ("the suite", ["TypeOK", *SAFETY_SUITE]),
+                        ("TypeOK", ["TypeOK"])):
+        engine, res, _peak = tpuraft_check(
+            torch, "TPUraft.cfg", 8, f"TPUraft L8 v4 fused tail, {label}",
+            invariants=invs, pipeline="v4", enqueue_method="fused",
+            record_trace=False)
+        need(engine.inv_names == invs, f"the list resolved to "
+             f"{engine.inv_names}")
+        walls.append(f"({label}, {res.wall_seconds} s)")
+        del engine
+    print("TPUraft L8 v4 fused, TypeOK and the suite in turns, as (list, "
+          "check seconds): " + ", ".join(walls))
+
+
+def phase_smoke_init(torch):
+    """The SmokeInit check of tests/test_torch_safety_engine.py on v4 with
+    the fused tail: 512 roots of seed SMOKE_SEED, the SMOKE_INVARIANTS;
+    the verdict, the invariant, the depth, the counts and the replayed
+    trace equal the JAX engine's (SMOKE_PIN, SMOKE_PATH).  The violation
+    lies at depth 1, so the front kernel finds it."""
+    import dataclasses
+    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.models.schema import encode_state, stack_states
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = dataclasses.replace(
+        load_config(os.path.join(HERE, "configs/MCraft_safety.cfg")),
+        smoke=True, smoke_k=2, invariants=list(SMOKE_INVARIANTS))
+    roots = initial_states(setup, seed=SMOKE_SEED)
+    engine = make_engine(setup, EngineConfig(**SMOKE_CONFIG, pipeline="v4"),
+                         device="cuda")
+    reset_counts()
+    res = engine.run(roots)
+    counts = read_counts()
+    need(res.violation is not None, "the SmokeInit check found no "
+         "violation")
+    path = engine.replay(res.violation.fingerprint)
+    fps = []
+    for g, st in path:
+        hi, lo = engine._fingerprint(stack_states(
+            [encode_state(st, setup.dims)], engine.device))
+        fps.append((g, int(hi[0]) << 32 | int(lo[0])))
+    got = (res.violation.invariant, len(path) - 1, res.distinct,
+           res.generated, res.levels, res.violation.fingerprint)
+    print(f"SmokeInit check (seed {SMOKE_SEED}, {len(roots)} roots, "
+          f"{list(SMOKE_INVARIANTS)}) v4: {got[0]} at depth {got[1]}, "
+          f"distinct={got[2]} generated={got[3]} levels={got[4]} fp "
+          f"{got[5]:#018x}, path {[(g, hex(f)) for g, f in fps]}, "
+          f"launches {counts}")
+    need(got == SMOKE_PIN and fps == SMOKE_PATH,
+         f"the SmokeInit check differs from its JAX pin {SMOKE_PIN} "
+         f"{SMOKE_PATH}")
+    check_launches("v4", counts, res.steps, "SmokeInit check", trace=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2760,6 +3081,10 @@ def main() -> int:
     # after those have come back empty.
     phase_tpuraft_kernels(torch, device, gen)
     torch.cuda.empty_cache()
+    front_row = next(r for r in rows if r["name"] == "chunk_front")
+    for shape in ("MCraft", "TPUraft"):
+        front_row["max_abs_err"] = max(
+            front_row["max_abs_err"], phase_safety_front(torch, device, shape))
     print(f"kernel phases: {time.time() - t} s")
     # The two paths in turns (v3, v4, then v4, v3 at L11): host times
     # spread between calls, so they are compared within this one.
@@ -2792,8 +3117,11 @@ def main() -> int:
     phase_resume(torch, "v4")
     phase_por(torch)
     phase_sync_turns(torch)
+    phase_safety_cfg(torch, turns)
+    phase_smoke_init(torch)
     print(f"MCraft phases done: {time.time() - t_smoke} s")
     phase_north_star(torch)
+    phase_safety_tpuraft(torch)
     phase_profile(torch, "v4", cfg_name="TPUraft.cfg",
                   config=tpuraft_config(6, record_trace=True))
     phase_tpuraft_more(torch)

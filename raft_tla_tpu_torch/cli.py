@@ -10,7 +10,8 @@ directives (a flag overrides its directive: ``--batch`` BATCH,
 SPILL_DIR, ``--progress-interval`` PROGRESS_SECONDS, ``--por-table``
 POR_TABLE; ``--max-seconds`` over the cfg's StopAfter duration,
 ``--no-degrade`` to fail on running out of device memory instead of
-halving the batch), prints the
+halving the batch; ``--seed`` for the smoke roots of a cfg with
+``Init <- SmokeInit``), prints the
 TLC-style progress line on stderr (every 60 s by default) and the
 result block and, for a violation with
 trace recording on, the replayed counterexample.  ``--resume PATH``
@@ -76,6 +77,8 @@ def main(argv=None) -> int:
                    dest="progress_interval", type=float,
                    help="seconds between progress lines on stderr (0 = "
                         "none; default 60)")
+    c.add_argument("--seed", type=int, default=0,
+                   help="seed of the smoke roots (Init <- SmokeInit)")
     c.add_argument("--por-table", metavar="FILE",
                    help="apply a certified POR table (the artifact of the "
                         "JAX package's `analyze --passes por "
@@ -123,7 +126,7 @@ def main(argv=None) -> int:
                      f"{cfg.checkpoint_dir!r}")
         print(f"resuming from {resume}")
     if resume is None:
-        res = engine.run(initial_states(setup))
+        res = engine.run(initial_states(setup, seed=args.seed))
     else:
         res = engine.run(resume=resume)
     print(format_result(res))

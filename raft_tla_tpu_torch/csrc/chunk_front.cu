@@ -33,7 +33,12 @@
 //      the edits overlaid (the last edit of a position wins, which is the
 //      in-order result), the constraint and the invariants on those ints,
 //      and the row as bytes (ints wrap mod 256 only here), stored as
-//      16-byte words with the unaligned head and tail as bytes.
+//      16-byte words with the unaligned head and tail as bytes.  The
+//      invariants are the run's list of predicate codes, evaluated in
+//      order until one fails (raft_model.cuh `first_failing_warp`); a
+//      list that names one of the nine safety predicates takes the
+//      launch's second build (kSuite), so the TypeOK-only build carries
+//      none of their code.
 //
 // Dead compacted lanes (lane >= total) are left unwritten in kh, kl, krows,
 // cons_ok, inv, parent_hi and parent_lo: nothing downstream reads them (the
@@ -425,13 +430,13 @@ __device__ void lane_edits(const Dims& d, const rtt::Salts& k,
 
 // Compacted lane q's successor, by one warp: the parent's ints `pv` with
 // the lane's edits `ed` applied into `sv`, the constraint and the
-// invariants on them, and the row as bytes through the warp's staging row
-// `bs`.
+// invariants (`n_inv` codes of 4 bits in `inv_list`) on them, and the row
+// as bytes through the warp's staging row `bs`.
+template <bool kSuite>
 __device__ __forceinline__ void successor(
     const Dims& d, const int* pv, const Edits& ed, int* sv, uint8_t* bs,
-    int row_ints, const rtt::Bounds& bounds,
-    const int32_t* __restrict__ inv_codes, int n_inv, const LaneOut& out,
-    int q, int lane) {
+    int row_ints, const rtt::Bounds& bounds, unsigned long long inv_list,
+    int n_inv, const LaneOut& out, int q, int lane) {
   // Row q sits at any byte offset: its bytes are staged in `bs` at the
   // same offset mod 16, beside the ints (copied 16 bytes a lane).
   uint8_t* row = out.krows + (size_t)q * d.sw;
@@ -474,14 +479,7 @@ __device__ __forceinline__ void successor(
   __syncwarp();
   const St st{d, sv};
   const bool cons = rtt::bounded_space_warp(st, bounds, lane);
-  int inv = -1;
-  for (int p = 0; p < n_inv && inv < 0; ++p) {
-    const int code = inv_codes[p];
-    const bool holds = code == rtt::PRED_TYPE_OK
-                           ? rtt::type_ok_warp(st, lane)
-                           : rtt::no_leader_warp(st, lane);
-    if (!holds) inv = p;
-  }
+  const int inv = rtt::first_failing_warp<kSuite>(st, inv_list, n_inv, lane);
   // The whole 16-byte words of the destination as uint4, its head and
   // tail as bytes.
   uint8_t* base = row - off;
@@ -502,14 +500,18 @@ __device__ __forceinline__ void successor(
 }
 
 // At least 4 blocks an SM (64 registers a thread): the scalar and the
-// successor phases of one block overlap those of the others.
+// successor phases of one block overlap those of the others.  kSuite
+// builds the safety suite's predicates in (raft_model.cuh
+// `first_failing_warp`); the launcher takes that build only for a list
+// that names one of them.
+template <bool kSuite>
 __global__ void __launch_bounds__(kThreads, 4)
 lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
              const int32_t* __restrict__ pt,
              const int32_t* __restrict__ lane_id,
              const uint32_t* __restrict__ scratch,
              const uint32_t* __restrict__ salts, rtt::Bounds bounds,
-             const int32_t* __restrict__ inv_codes, int n_inv, LaneOut out) {
+             unsigned long long inv_list, int n_inv, LaneOut out) {
   extern __shared__ __align__(16) uint8_t smem[];
   const LanesSmem S = lanes_smem(d);
   int* par = reinterpret_cast<int*>(smem);
@@ -599,9 +601,9 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
       const int* pv = par + (ps[r] - p0) * S.row_ints;
       const Edits ed{pv, ed_pos + r * S.E, ed_val + r * S.E,
                      ed_msg + r * d.W, n_ed[r], clr[r], wr[r]};
-      successor(d, pv, ed, stg + warp * S.row_ints,
-                bst + warp * S.stage_bytes, S.row_ints, bounds, inv_codes,
-                n_inv, out, q0 + r, lane);
+      successor<kSuite>(d, pv, ed, stg + warp * S.row_ints,
+                        bst + warp * S.stage_bytes, S.row_ints, bounds,
+                        inv_list, n_inv, out, q0 + r, lane);
     }
     __syncthreads();
   }
@@ -610,25 +612,48 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
 int masks_blocks(int B) { return (B + kWarps - 1) / kWarps; }
 int lanes_blocks(int K) { return (K + kRun - 1) / kRun; }
 
+// The invariant list as the lanes launch takes it: the codes 4 bits each,
+// the first in the low bits, and whether one of them is the suite's.
+// cudaErrorInvalidValue for a list longer than kMaxInv or a code the
+// kernel has no device code for.
+int pack_invariants(const int* codes, int n, unsigned long long* list,
+                    bool* suite) {
+  if (n < 0 || n > rtt::kMaxInv || (n > 0 && codes == nullptr))
+    return (int)cudaErrorInvalidValue;
+  *list = 0;
+  *suite = false;
+  for (int p = 0; p < n; ++p) {
+    if (codes[p] < 1 || codes[p] > rtt::kNumPred)
+      return (int)cudaErrorInvalidValue;
+    *list |= (unsigned long long)codes[p] << (4 * p);
+    *suite |= codes[p] > rtt::PRED_NO_LEADER;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// One front call: three launches on `stream`.  Returns a cudaError_t
-// (cudaErrorInvalidValue for dims or predicates this kernel does not take).
+// One front call: three launches on `stream`.  `inv_codes` is a host
+// array of `n_inv` predicate codes in the run's order.  Returns a
+// cudaError_t (cudaErrorInvalidValue for dims or predicates this kernel
+// does not take).
 extern "C" int chunk_front_launch(
     int N, int V, int L, int M, const void* rows, const void* valid, int B,
     int K, const void* kspread, const void* por_mask, const void* por_pri,
-    const void* salts, const void* inv_codes, int n_inv, int max_term,
+    const void* salts, const int* inv_codes, int n_inv, int max_term,
     int max_log_len, int max_msg_count, int max_in_flight, void* scratch,
     void* counts, void* en, void* ovf, void* pruned, void* pt, void* lane_id,
     void* kvalid, void* kh, void* kl, void* krows, void* cons, void* inv,
     void* phi, void* plo, void* stream) {
   if (N < 1 || N > rtt::kMaxN || L < 1 || L > rtt::kMaxL || M < 1 ||
-      M > rtt::kMaxM || V < 1 || n_inv < 0 || n_inv > rtt::kMaxInv ||
-      B < 1)
+      M > rtt::kMaxM || V < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
+  unsigned long long inv_list;
+  bool suite;
+  int e;
+  if ((e = pack_invariants(inv_codes, n_inv, &inv_list, &suite))) return e;
   const Dims d = rtt::make_dims(N, V, L, M);
   cudaStream_t st = (cudaStream_t)stream;
-  int e;
 
   const size_t smem_a = (size_t)kWarps * masks_warp_bytes(d);
   if ((e = rtt::allow_smem(masks_kernel, smem_a))) return e;
@@ -647,22 +672,24 @@ extern "C" int chunk_front_launch(
   if ((e = (int)cudaGetLastError())) return e;
 
   const size_t smem_c = lanes_smem(d).bytes;
-  if ((e = rtt::allow_smem(lanes_kernel, smem_c))) return e;
+  auto lanes = suite ? lanes_kernel<true> : lanes_kernel<false>;
+  if ((e = rtt::allow_smem(lanes, smem_c))) return e;
   const rtt::Bounds bounds{max_term, max_log_len, max_msg_count,
                            max_in_flight};
   const LaneOut out{(int64_t*)kh,  (int64_t*)kl,  (uint8_t*)krows,
                     (uint8_t*)cons, (int64_t*)inv, (int64_t*)phi,
                     (int64_t*)plo};
-  lanes_kernel<<<lanes_blocks(K), kThreads, smem_c, st>>>(
+  lanes<<<lanes_blocks(K), kThreads, smem_c, st>>>(
       d, (const uint8_t*)rows, (const int32_t*)pt, (const int32_t*)lane_id,
-      (const uint32_t*)scratch, (const uint32_t*)salts, bounds,
-      (const int32_t*)inv_codes, n_inv, out);
+      (const uint32_t*)scratch, (const uint32_t*)salts, bounds, inv_list,
+      n_inv, out);
   return (int)cudaGetLastError();
 }
 
-// Blocks of the masks launch (out[0]) and of the lanes launch (out[1])
-// that one SM holds at these dims, as the occupancy calculator gives them
-// (their shared memory, registers and threads), for chip_smoke.py.
+// Blocks of the masks launch (out[0]), of the lanes launch (out[1]) and of
+// its build with the safety suite (out[2]) that one SM holds at these
+// dims, as the occupancy calculator gives them (their shared memory,
+// registers and threads), for chip_smoke.py.
 extern "C" int chunk_front_occupancy(int N, int V, int L, int M, int* out) {
   if (N < 1 || N > rtt::kMaxN || L < 1 || L > rtt::kMaxL || M < 1 ||
       M > rtt::kMaxM || V < 1)
@@ -675,13 +702,17 @@ extern "C" int chunk_front_occupancy(int N, int V, int L, int M, int* out) {
   if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            out, masks_kernel, kThreads, smem_a)))
     return e;
-  if ((e = rtt::allow_smem(lanes_kernel, smem_c))) return e;
+  if ((e = rtt::allow_smem(lanes_kernel<false>, smem_c))) return e;
+  if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           out + 1, lanes_kernel<false>, kThreads, smem_c)))
+    return e;
+  if ((e = rtt::allow_smem(lanes_kernel<true>, smem_c))) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out + 1, lanes_kernel, kThreads, smem_c);
+      out + 2, lanes_kernel<true>, kThreads, smem_c);
 }
 
-// Launch `which` of one front call (0 masks, 1 compaction, 2 lanes) for
-// chip_smoke.py.
+// Launch `which` of one front call (0 masks, 1 compaction, 2 lanes, 3
+// lanes with the safety suite) for chip_smoke.py.
 extern "C" int chunk_front_kernel_info(int which, int N, int V, int L, int M,
                                        int B, int K, int* out) {
   const Dims d = rtt::make_dims(N, V, L, M);
@@ -691,8 +722,10 @@ extern "C" int chunk_front_kernel_info(int which, int N, int V, int L, int M,
   if (which == 1)
     return rtt::kernel_info(rtt::compact_scan_kernel, rtt::scan_blocks(B),
                             rtt::kScanThreads, 0, out);
-  if (which == 2)
-    return rtt::kernel_info(lanes_kernel, lanes_blocks(K), kThreads,
-                            lanes_smem(d).bytes, out);
+  if (which == 2 || which == 3)
+    return rtt::kernel_info(which == 3 ? lanes_kernel<true>
+                                       : lanes_kernel<false>,
+                            lanes_blocks(K), kThreads, lanes_smem(d).bytes,
+                            out);
   return (int)cudaErrorInvalidValue;
 }

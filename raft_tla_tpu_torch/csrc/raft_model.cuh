@@ -9,7 +9,8 @@
 //   - the fingerprint pieces of ops/fingerprint.py: per-position
 //     contributions, slot hashes, `finalize`, the sentinel remap;
 //   - the registry predicates TypeOK, NoLeaderElected and BoundedSpace
-//     (models/invariants.py).
+//     (models/invariants.py) and the nine of the safety suite
+//     (models/safety.py), each on one state by a whole warp.
 // Values are ints, as the PyTorch version's int64 fields are: a successor
 // value that does not fit its uint8 lane is kept whole for the hash and the
 // predicates and wraps only when the row is written, as flatten_state does.
@@ -26,14 +27,21 @@ constexpr int kMaxN = 8;                  // models/dims.py (bitmask lanes)
 constexpr int kMaxL = 16;                 // max_log this kernel supports
 constexpr int kMaxW = 4 + 2 + 2 * kMaxL;  // msg_width at kMaxL
 constexpr int kMaxM = 256;                // message slots
-constexpr int kMaxInv = 8;                // invariants per run
+constexpr int kMaxInv = 16;               // invariants per run, 4 bits each
+                                          // in a 64-bit list
 constexpr int kNFam = 10;
 
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, NIL = 0;
 constexpr int RVQ = 0, RVR = 1, AEQ = 2, AER = 3;
 
-// Predicate codes (ops/chunk_front_cuda.py PREDICATES).
-constexpr int PRED_TYPE_OK = 1, PRED_NO_LEADER = 2;
+// Predicate codes (ops/chunk_front_cuda.py PREDICATES): TypeOK and the
+// canary, then the safety suite in models/safety.py's order.
+constexpr int PRED_TYPE_OK = 1, PRED_NO_LEADER = 2, PRED_MESSAGES = 3,
+              PRED_LEADER_VOTES_QUORUM = 4, PRED_CANDIDATE_TERM_NOT_IN_LOG = 5,
+              PRED_ELECTION_SAFETY = 6, PRED_LOG_MATCHING = 7,
+              PRED_VOTES_GRANTED = 8, PRED_QUORUM_LOG = 9,
+              PRED_MORE_UP_TO_DATE = 10, PRED_LEADER_COMPLETENESS = 11;
+constexpr int kNumPred = 11;
 
 struct Dims {
   int N, V, L, M, W, G, D, sw;
@@ -506,6 +514,225 @@ __device__ __forceinline__ bool no_leader_warp(const St& st, int lane) {
   bool ok = true;
   for (int i = lane; i < st.d.N; i += 32) ok &= st.role(i) != LEADER;
   return __all_sync(0xffffffffu, ok);
+}
+
+// -- the safety suite (models/safety.py), on one state by a whole warp ------
+//
+// Server pairs (i, j) sit on lanes, p = i * N + j (N <= 8: at most 64
+// pairs, two passes); message slots sit on lanes for MessagesInv.  Every
+// read clamps where the PyTorch version's gathers clamp.
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// The greatest index (1-based) in log[j] whose term is t; 0 for none.
+__device__ __forceinline__ int last_index_of_term(const St& st, int j,
+                                                  int t) {
+  const int n = min(st.ll(j), st.d.L);
+  int a = 0;
+  for (int l = 0; l < n; ++l)
+    if (st.lt(j, l) == t) a = l + 1;
+  return a;
+}
+
+// IsPrefix(Committed(a), log[b]); Committed(a) with commitIndex > Len is
+// a prefix of nothing.
+__device__ __forceinline__ bool committed_prefix_pair(const St& st, int a,
+                                                      int b) {
+  const int c = st.ci(a);
+  if (c > st.ll(a) || c > st.ll(b)) return false;
+  for (int l = 0; l < st.d.L && l < c; ++l)
+    if (st.lt(a, l) != st.lt(b, l) || st.lv(a, l) != st.lv(b, l))
+      return false;
+  return true;
+}
+
+// P as a bitmask, bit a * N + b = IsPrefix(Committed(a), log[b]); the same
+// on every lane.
+__device__ __forceinline__ unsigned long long committed_prefix_warp(
+    const St& st, int lane) {
+  const int N = st.d.N;
+  unsigned long long P = 0;
+  for (int base = 0; base < N * N; base += 32) {
+    const int p = base + lane;
+    const bool v = p < N * N && committed_prefix_pair(st, p / N, p % N);
+    P |= (unsigned long long)__ballot_sync(kFull, v) << base;
+  }
+  return P;
+}
+
+__device__ __forceinline__ bool prefix_bit(unsigned long long P, int N,
+                                           int a, int b) {
+  return (P >> (a * N + b)) & 1ull;
+}
+
+// MessagesInv: the four per-message invariants on every in-flight message.
+__device__ __forceinline__ bool messages_inv_warp(const St& st, int lane) {
+  const Dims& d = st.d;
+  bool ok = true;
+  for (int s = lane; s < d.M; s += 32) {
+    if (st.cnt(s) <= 0) continue;
+    const int mt = st.msg(s, 0) - 1, mterm = st.msg(s, 3);
+    const int src = clampi(st.msg(s, 1) - 1, 0, d.N - 1);
+    const int dst = clampi(st.msg(s, 2) - 1, 0, d.N - 1);
+    const int t_src = st.term(src), t_dst = st.term(dst);
+    const int len_src = st.ll(src), len_dst = st.ll(dst);
+    const int lt_src = st.last_term(src), lt_dst = st.last_term(dst);
+    const int m4 = st.msg(s, 4), m5 = st.msg(s, 5);
+    ok &= mterm <= t_src;  // MessageTermsLtCurrentTerm
+    if (mt == RVR && m4 > 0 && t_src == t_dst && t_src == mterm)
+      ok &= lt_dst > lt_src || (lt_dst == lt_src && len_dst >= len_src);
+    if (mt == RVQ && st.role(src) == CANDIDATE && t_src == mterm)
+      ok &= m5 == len_src && m4 == lt_src;
+    if (mt == AEQ && st.msg(s, 6) > 0 && mterm == t_src) {
+      // The first conjunct is unguarded: out of the log is a violation.
+      const int at1 = clampi(m4, 0, d.L - 1);
+      ok &= m4 + 1 >= 1 && m4 + 1 <= len_src &&
+            st.lt(src, at1) == st.msg(s, 7) && st.lv(src, at1) == st.msg(s, 8);
+      if (m4 > 0 && m4 <= len_src)
+        ok &= st.lt(src, clampi(m4 - 1, 0, d.L - 1)) == m5;
+    }
+  }
+  return __all_sync(kFull, ok);
+}
+
+__device__ __forceinline__ bool leader_votes_quorum_warp(const St& st,
+                                                         int lane) {
+  const int N = st.d.N;
+  bool ok = true;
+  for (int i = lane; i < N; i += 32) {
+    if (st.role(i) != LEADER) continue;
+    int cnt = 0;
+    for (int j = 0; j < N; ++j)
+      cnt += st.term(j) > st.term(i) ||
+             (st.term(j) == st.term(i) && st.voted(j) == i + 1);
+    ok &= 2 * cnt > N;
+  }
+  return __all_sync(kFull, ok);
+}
+
+__device__ __forceinline__ bool candidate_term_not_in_log_warp(const St& st,
+                                                               int lane) {
+  const int N = st.d.N;
+  bool ok = true;
+  for (int i = lane; i < N; i += 32) {
+    if (st.role(i) != CANDIDATE) continue;
+    int cnt = 0;
+    for (int j = 0; j < N; ++j)
+      cnt += st.term(j) == st.term(i) &&
+             (st.voted(j) == i + 1 || st.voted(j) == NIL);
+    if (2 * cnt > N)
+      for (int j = 0; j < N; ++j)
+        ok &= last_index_of_term(st, j, st.term(i)) == 0;
+  }
+  return __all_sync(kFull, ok);
+}
+
+// The pairwise predicates, one (i, j) a lane; P is read only by the last
+// four.
+__device__ __forceinline__ bool pair_ok(const St& st, int code, int i, int j,
+                                        unsigned long long P) {
+  const int N = st.d.N;
+  switch (code) {
+    case PRED_ELECTION_SAFETY:  // an empty Max is 0
+      return st.role(i) != LEADER ||
+             last_index_of_term(st, i, st.term(i)) >=
+                 last_index_of_term(st, j, st.term(i));
+    case PRED_LOG_MATCHING: {
+      const int n = min(min(st.ll(i), st.ll(j)), st.d.L);
+      bool prefix = true;
+      for (int l = 0; l < n; ++l) {
+        const bool te = st.lt(i, l) == st.lt(j, l);
+        prefix &= te && st.lv(i, l) == st.lv(j, l);
+        if (te && !prefix) return false;
+      }
+      return true;
+    }
+    case PRED_VOTES_GRANTED:  // P[j][i]: i and j swap against QuorumLogInv
+      return !(((st.vg(i) >> j) & 1) && st.term(i) == st.term(j)) ||
+             prefix_bit(P, N, j, i);
+    case PRED_MORE_UP_TO_DATE: {
+      const int lti = st.last_term(i), ltj = st.last_term(j);
+      const bool newer = lti > ltj || (lti == ltj && st.ll(i) >= st.ll(j));
+      return !newer || prefix_bit(P, N, j, i);
+    }
+    case PRED_LEADER_COMPLETENESS:
+      return st.role(i) != LEADER || prefix_bit(P, N, j, i);
+    default:
+      return false;
+  }
+}
+
+// One predicate of the suite (codes 3..11) on one state; `P` and `have_p`
+// cache the committed-prefix relation across the run's list.  A code
+// outside the suite fails: chunk_front_launch admits none.
+__device__ __forceinline__ bool safety_warp(const St& st, int code,
+                                            unsigned long long& P,
+                                            bool& have_p, int lane) {
+  const int N = st.d.N;
+  switch (code) {
+    case PRED_MESSAGES:
+      return messages_inv_warp(st, lane);
+    case PRED_LEADER_VOTES_QUORUM:
+      return leader_votes_quorum_warp(st, lane);
+    case PRED_CANDIDATE_TERM_NOT_IN_LOG:
+      return candidate_term_not_in_log_warp(st, lane);
+    case PRED_ELECTION_SAFETY:
+    case PRED_LOG_MATCHING:
+    case PRED_VOTES_GRANTED:
+    case PRED_QUORUM_LOG:
+    case PRED_MORE_UP_TO_DATE:
+    case PRED_LEADER_COMPLETENESS:
+      break;
+    default:
+      return false;
+  }
+  if (code >= PRED_VOTES_GRANTED && !have_p) {
+    P = committed_prefix_warp(st, lane);
+    have_p = true;
+  }
+  if (code == PRED_QUORUM_LOG) {  // 2 * |bad| <= N for every i
+    const unsigned long long row = (1ull << N) - 1;
+    bool ok = true;
+    for (int i = 0; i < N; ++i)
+      ok &= 2 * (N - __popcll((P >> (i * N)) & row)) <= N;
+    return ok;
+  }
+  bool ok = true;
+  for (int p = lane; p < N * N; p += 32)
+    ok &= pair_ok(st, code, p / N, p % N, P);
+  return __all_sync(kFull, ok);
+}
+
+// The index in the run's list of the first predicate that fails on one
+// state, -1 where all hold, by a whole warp.  `list` holds `n` codes of 4
+// bits, the first in the low bits.  kSuite = false is the build for lists
+// of TypeOK and NoLeaderElected only (chunk_front_launch picks it), which
+// keeps the suite's code out of that build.
+template <bool kSuite>
+__device__ __forceinline__ int first_failing_warp(const St& st,
+                                                  unsigned long long list,
+                                                  int n, int lane) {
+  unsigned long long P = 0;
+  bool have_p = false;
+  for (int p = 0; p < n; ++p) {
+    const int code = (int)((list >> (4 * p)) & 15ull);
+    bool holds;
+    switch (code) {
+      case PRED_TYPE_OK:
+        holds = type_ok_warp(st, lane);
+        break;
+      case PRED_NO_LEADER:
+        holds = no_leader_warp(st, lane);
+        break;
+      default:
+        if constexpr (kSuite)
+          holds = safety_warp(st, code, P, have_p, lane);
+        else
+          holds = false;
+    }
+    if (!holds) return p;
+  }
+  return -1;
 }
 
 // BoundedSpace: each bound is INT_MAX when the cfg does not set it.

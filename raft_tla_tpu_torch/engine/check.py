@@ -1,6 +1,7 @@
 """Front end: a resolved cfg -> an engine run (the ``tlc <cfg>`` path).
 
-Invariant names resolve through ``models/invariants.py``'s registry, the
+Invariant names resolve through ``models/invariants.py``'s registry
+(TypeOK, NoLeaderElected and the safety suite of ``models/safety.py``), the
 ``BoundedSpace`` constraint reads MaxTerm/MaxLogLen/MaxMsgCount, and the
 cfg's StopAfter budgets and ``\\* TPU:`` directives (BATCH,
 QUEUE_CAPACITY, SEEN_CAPACITY, PIPELINE, CHECKPOINT_DIR, CHECKPOINT_EVERY,
@@ -16,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
+from ..models import smoke
 from ..models.dims import RaftDims
 from ..models.invariants import build_constraint, invariant_registry
 from ..models.pystate import PyState, init_state
@@ -93,9 +95,12 @@ def make_engine(setup: CheckSetup,
                      device=device)
 
 
-def initial_states(setup: CheckSetup) -> List[PyState]:
+def initial_states(setup: CheckSetup, seed: int = 0) -> List[PyState]:
+    """The roots: ``Init``'s one state, or under ``Init <- SmokeInit`` the
+    ``k^9`` smoke roots drawn from ``seed`` (``models/smoke.py``)."""
     if setup.smoke:
-        raise NotImplementedError("Init <- SmokeInit is not ported yet")
+        return smoke.smoke_init_states(setup.dims, k=setup.smoke_k,
+                                       seed=seed)
     return [init_state(setup.dims)]
 
 
@@ -138,14 +143,15 @@ def path_to_state(dims: RaftDims, target: PyState,
 
 
 def run_check(cfg_path: str, engine_config: Optional[EngineConfig] = None,
-              device="cuda", resume=None) -> EngineResult:
+              device="cuda", resume=None, seed: int = 0) -> EngineResult:
     """Parse the cfg, build the engine, run it (from the cfg's initial
-    states, or from ``resume``: a snapshot's path or a ``Checkpoint``);
-    the engine rides on the result as ``res.engine`` (for ``replay``)."""
+    states, the smoke roots drawn from ``seed``, or from ``resume``: a
+    snapshot's path or a ``Checkpoint``); the engine rides on the result
+    as ``res.engine`` (for ``replay``)."""
     setup = load_config(cfg_path)
     engine = make_engine(setup, engine_config, device=device)
     if resume is None:
-        res = engine.run(initial_states(setup))
+        res = engine.run(initial_states(setup, seed=seed))
     else:
         res = engine.run(resume=resume)
     res.engine = engine

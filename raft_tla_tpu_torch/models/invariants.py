@@ -3,8 +3,9 @@
 ``type_ok`` is the residual content of TypeOK that the fixed-width
 encoding does not force (roles, votedFor, log lanes, bitmasks, message
 rows); ``no_leader`` is the deliberately falsifiable ``NoLeaderElected``
-canary.  ``build_constraint`` is ``BoundedSpace`` over the cfg bounds: a
-state that fails it is counted and checked but never expanded.  Each
+canary; the safety suite lives in ``models/safety.py``.
+``build_constraint`` is ``BoundedSpace`` over the cfg bounds: a state
+that fails it is counted and checked but never expanded.  Each
 predicate maps ``StateBatch [X] -> [X] bool``; the JAX package's
 ``models/invariants.py`` defines the same predicates per state.
 
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 
 from .dims import LEADER, RaftDims
+from .safety import SAFETY_INVARIANTS
 from .schema import StateBatch
 
 
@@ -111,5 +113,8 @@ def build_constraint(dims: RaftDims, bounds: Bounds):
 
 
 def invariant_registry():
-    """Name -> builder of the invariants this port can check."""
-    return {"TypeOK": build_type_ok, "NoLeaderElected": build_no_leader}
+    """Name -> builder of every invariant a cfg can name: TypeOK, the
+    NoLeaderElected canary and the safety suite (``models/safety.py``), in
+    the JAX package's order."""
+    return {"TypeOK": build_type_ok, "NoLeaderElected": build_no_leader,
+            **SAFETY_INVARIANTS}

@@ -14,8 +14,11 @@ out mid-run that its kernel cannot run it:
 
 - dims up to ``n_servers`` 8, ``max_log`` 16, ``n_msg_slots`` 256 whose
   masks and lanes launches fit a block's shared memory (``check_dims``);
-- invariants by registry name (``PREDICATES``, at most 8), each built by
-  ``models/invariants.py`` (which tags it with ``.predicate``);
+- invariants by registry name (``PREDICATES``: TypeOK, NoLeaderElected
+  and the nine of the safety suite; at most 16), each built by
+  ``models/invariants.py`` or ``models/safety.py`` (which tag it with
+  ``.predicate``); a list that names one of the suite's runs the lanes
+  launch's build with the suite's device code;
 - the ``BoundedSpace`` constraint or none.
 
 The fingerprint salt tables (``ops/fingerprint.py`` ``constants_np``) and
@@ -42,9 +45,14 @@ launches = 0
 #: The CUDA launches of one front call, in order.
 KERNELS = ("masks_kernel", "compact_scan_kernel", "lanes_kernel")
 
-#: Invariants with device code, by registry name -> the kernel's code.
-PREDICATES = {"TypeOK": 1, "NoLeaderElected": 2}
-MAX_SERVERS, MAX_LOG, MAX_SLOTS, MAX_INVARIANTS = 8, 16, 256, 8
+#: Invariants with device code, by registry name -> the kernel's code
+#: (``csrc/raft_model.cuh`` ``PRED_*``).
+PREDICATES = {"TypeOK": 1, "NoLeaderElected": 2, "MessagesInv": 3,
+              "LeaderVotesQuorum": 4, "CandidateTermNotInLog": 5,
+              "ElectionSafety": 6, "LogMatching": 7, "VotesGrantedInv": 8,
+              "QuorumLogInv": 9, "MoreUpToDateCorrect": 10,
+              "LeaderCompleteness": 11}
+MAX_SERVERS, MAX_LOG, MAX_SLOTS, MAX_INVARIANTS = 8, 16, 256, 16
 MAX_SMEM = 232448
 INT_MAX = 2**31 - 1
 
@@ -136,7 +144,8 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] * 4 + [p, p, i, i] + [p] * 5 + [i] * 5 + [p, p]
+        fn.argtypes = ([i] * 4 + [p, p, i, i] + [p] * 4
+                       + [ctypes.POINTER(i), i] + [i] * 4 + [p, p]
                        + [p] * 13 + [p])
     return lib
 
@@ -172,8 +181,13 @@ class Front:
                                  f"[{G}]")
             self._por = (pm, pp)
         self._salts = salts(dims, dev) if dev.type == "cuda" else None
-        self._inv_codes = torch.tensor(self._codes or [0], dtype=torch.int32,
-                                       device=dev)
+        # A host array: the launcher packs it into the lanes launch's
+        # arguments (and refuses a code it has no device code for).
+        self._inv_codes = (ctypes.c_int * max(1, len(self._codes)))(
+            *self._codes)
+        #: Whether the lanes launch runs its build with the safety suite.
+        self.suite = any(c > PREDICATES["NoLeaderElected"]
+                         for c in self._codes)
 
     def plain(self, rows, valid) -> FrontOut:
         pm, pp = self._por or (None, None)
@@ -183,26 +197,30 @@ class Front:
                            por_mask=pm, por_priority=pp)
 
     def launch_info(self):
-        """``{kernel: build.kernel_info}`` of each launch of one call."""
+        """``{kernel: build.kernel_info}`` of each launch of one call (the
+        lanes launch's build with the suite where this front runs it)."""
         d = self.dims
+        which = (0, 1, 3 if self.suite else 2)
         return {name: build.kernel_info(
-                    "chunk_front", i, d.n_servers, d.n_values, d.max_log,
+                    "chunk_front", w, d.n_servers, d.n_values, d.max_log,
                     d.n_msg_slots, self.B, self.K)
-                for i, name in enumerate(KERNELS)}
+                for w, name in zip(which, KERNELS)}
 
     def occupancy(self):
         """``{"masks_kernel": n, "lanes_kernel": n}``: blocks of each
         launch that one SM holds at this front's dims (the CUDA occupancy
-        calculator)."""
+        calculator; the lanes launch's build with the suite where this
+        front runs it)."""
         d = self.dims
         lib = _lib()
         fn = lib.chunk_front_occupancy
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        out = (ctypes.c_int * 2)()
+        out = (ctypes.c_int * 3)()
         build.check(fn(d.n_servers, d.n_values, d.max_log, d.n_msg_slots,
                        out), "chunk_front_occupancy")
-        return {"masks_kernel": out[0], "lanes_kernel": out[1]}
+        return {"masks_kernel": out[0],
+                "lanes_kernel": out[2] if self.suite else out[1]}
 
     def __call__(self, rows, valid) -> FrontOut:
         global launches
@@ -243,8 +261,8 @@ class Front:
             self._kspread.data_ptr(),
             pm.data_ptr() if pm is not None else None,
             pp.data_ptr() if pp is not None else None,
-            self._salts.data_ptr(), self._inv_codes.data_ptr(),
-            len(self._codes), *self._bounds, scratch.data_ptr(),
+            self._salts.data_ptr(), self._inv_codes, len(self._codes),
+            *self._bounds, scratch.data_ptr(),
             counts.data_ptr(), out.en.data_ptr(), out.ovf.data_ptr(),
             out.pruned.data_ptr(), pt.data_ptr(), out.lane_id.data_ptr(),
             out.kvalid.data_ptr(),

@@ -12,8 +12,9 @@ directives, so an annotated cfg still runs under stock TLC.  Precedence:
 caller > cfg directive > built-in default.
 
 This is the JAX package's ``utils/cfg.py`` for the base spec, kept as the
-port's own copy; the reconfiguration variant (``TargetConfigs``) and the
-smoke roots (``Init <- SmokeInit``) are parsed but not yet runnable here.
+port's own copy; the reconfiguration variant (``TargetConfigs``) is parsed
+but not yet runnable here.  ``Init <- SmokeInit`` sets ``smoke`` (roots
+from ``models/smoke.py``).
 """
 
 from __future__ import annotations
