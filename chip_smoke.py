@@ -7,6 +7,7 @@
     python3 chip_smoke.py --enqueue-variants  (a tuning table, no smoke run)
     python3 chip_smoke.py --front-variants    (a tuning table, no smoke run)
     python3 chip_smoke.py --tail-variants     (a tuning table, no smoke run)
+    python3 chip_smoke.py --walks             (the walk tier's phases only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -60,6 +61,20 @@ counts); an ``Init <- SmokeInit`` check equal to its JAX pin
 (``tests/test_torch_safety_engine.py``); and TPUraft.cfg with the suite
 in place of TypeOK to L8 (the oracle's counts), in turns with TypeOK
 alone.
+The walk tier (``engine/swarm.py``, ``engine/simulate.py``; no kernel of
+its own, a chunk of walk steps is a CUDA graph): the swarm canary
+(``CANARY``, the CI canary's configuration) with its JAX pin
+(``CANARY_PIN``) and its time to the violation beside the exhaustive
+check's; a seeded violation equal to the CPU run; the visited-fingerprint
+multiset of one MCraft_bounded run (4,096 walks x 128 steps) identical at
+batch 4,096 / 1,024 / 1,000, chunk 8 / 32, graph and eager, and card and
+CPU (256 walks x 64 steps); each replayed trace checked step by step;
+swarm throughput at 1,024, 16,384 and 65,536 walks of MCraft_bounded and
+16,384 of TPUraft (steps/s, device ops and time a step, peak memory);
+the BASELINE simulate workload through the CLI cut to 2^21 steps, a
+seeded violation, two graph replays drawing differently and a seed
+repeating its run.  ``--walks`` runs these phases alone, without the
+kernel build.
 
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
@@ -133,6 +148,14 @@ TPURAFT_DISTINCT = {5: 17852, 6: 114187, 7: 706142, 8: 4237772,
                     9: 24753442}
 TPURAFT_GENERATED = {5: 50900, 6: 348800, 7: 2265410, 8: 14090975,
                      9: 84522610}
+# The swarm canary (the CI canary's configuration, hunt off) and what the
+# JAX package's swarm gives for it: the invariant, the latched
+# fingerprint, the trace's action ids, and steps / visited / traces /
+# diameter (tests/test_torch_swarm.py holds both packages to it).
+CANARY = dict(cfg="configs/MCraft_noleader.cfg", walks=256, max_depth=16,
+              chunk=8, ring=16, seed=3)
+CANARY_PIN = ("NoLeaderElected", 0xD6467EE051491C1D,
+              [-1, 3, 8, 36, 36, 36, 6, 36, 36, 15], 4096, 2802, 1550, 12)
 
 
 #: The keys of each kernel's entry in the JSON line: `ms` is one wrapper
@@ -3028,6 +3051,357 @@ def phase_smoke_init(torch):
     check_launches("v4", counts, res.steps, "SmokeInit check", trace=True)
 
 
+# -- the swarm and simulate tier (engine/swarm.py, engine/simulate.py) ----
+
+SWARM_DIMS = dict(n_servers=3, n_values=2, max_log=4, n_msg_slots=32)
+SWARM_BOUNDS = dict(max_term=2, max_log_len=1, max_msg_count=1)
+
+
+def near_election_root(dims):
+    """A candidate one vote short of quorum: NoLeaderElected falls two
+    steps away (the JAX package's swarm and simulate tests use it)."""
+    import dataclasses
+    from raft_tla_tpu_torch.models.pystate import init_state
+    return dataclasses.replace(
+        init_state(dims), role=(1, 0, 0), current_term=(2, 2, 2),
+        voted_for=(1, 1, 1), votes_responded=(0b001, 0, 0),
+        votes_granted=(0b001, 0, 0),
+        messages=frozenset({((1, 1, 0, 2, 1, ()), 1)}))
+
+
+def check_walk_trace(torch, dims, trace, what, fp=None):
+    """A replayed trace, step by step on the card: each recorded action is
+    enabled on the threaded (never re-encoded) successor of the one
+    before, and that successor's fingerprint is the next state's (the
+    fingerprint does not depend on message-slot order); the last one is
+    ``fp`` where given."""
+    from raft_tla_tpu_torch.models.actions2 import build_v2
+    from raft_tla_tpu_torch.models.schema import encode_state, stack_states
+    from raft_tla_tpu_torch.ops.fingerprint import build_fingerprint
+    dev = torch.device("cuda")
+    v2, fpf = build_v2(dims, dev), build_fingerprint(dims, dev)
+    st = stack_states([encode_state(trace[0][1], dims)], dev)
+    need(trace[0][0] == -1, f"{what}: the trace does not start at a root")
+    for depth, (g, state) in enumerate(trace[1:], 1):
+        en, _ovf = v2.masks(st)
+        need(0 <= g < en.shape[1] and bool(en[0, g]),
+             f"{what}: action {g} at depth {depth} is not enabled")
+        hi, lo, st = v2.lane_out(st, v2.parent_hash(st),
+                                 torch.tensor([g], device=dev))
+        whi, wlo = fpf(stack_states([encode_state(state, dims)], dev))
+        need(int(hi[0]) == int(whi[0]) and int(lo[0]) == int(wlo[0]),
+             f"{what}: the state at depth {depth} is not action {g}'s "
+             "successor")
+    if fp is not None:
+        need((int(hi[0]) << 32 | int(lo[0])) == fp,
+             f"{what}: the trace does not end on the latched fingerprint")
+    print(f"{what}: trace of depth {len(trace) - 1} checked step by step "
+          "(each action enabled, each successor's fingerprint the next)")
+
+
+def swarm_eager(engine):
+    """Run ``engine``'s chunks eagerly on the card (no graph)."""
+    def runner(s, outs, res):
+        ys = engine._ys(len(s.walk_ids))
+        engine._chunk(s.carry, s.walk_ids, engine._roots, engine._ctl,
+                      outs[s.index], ys)
+        return ys
+    engine._runner = runner
+    return engine
+
+
+def swarm_of(cfg_name, device="cuda", **kw):
+    """A swarm of ``configs/<cfg_name>`` with its roots."""
+    from raft_tla_tpu_torch.engine.check import initial_states, make_swarm
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs", cfg_name))
+    return make_swarm(setup, device=device, **kw), initial_states(setup)
+
+
+def phase_swarm_parity(torch):
+    """The swarm on the card against its pins: the canary (graph), a
+    seeded violation equal to the CPU run, and the visited-fingerprint
+    multiset of one MCraft_bounded run across batch and chunk sizes,
+    graph and eager, card and CPU."""
+    import dataclasses
+    import numpy as np
+    from raft_tla_tpu_torch.engine.check import (engine_config_from_backend,
+                                                 initial_states, make_engine)
+    from raft_tla_tpu_torch.engine.swarm import SwarmEngine
+    from raft_tla_tpu_torch.models.dims import LEADER, RaftDims
+    from raft_tla_tpu_torch.models.invariants import (Bounds,
+                                                      build_constraint,
+                                                      build_type_ok)
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    t_phase = time.time()
+    c = dict(CANARY)
+    eng, roots = swarm_of(os.path.basename(c.pop("cfg")),
+                          walks=c["walks"], max_depth=c["max_depth"],
+                          chunk=c["chunk"], ring=c["ring"])
+    # A warm run first (another seed), as the CI canary times its swarm:
+    # the timed run then loads no kernel for the first time.
+    need(eng.run(roots, seed=2, max_seconds=120).violation is not None,
+         "swarm canary: the warm run found no violation")
+    res = eng.run(roots, seed=c["seed"], max_seconds=120)
+    got = (res.violation.invariant if res.violation else None,
+           res.violation.fingerprint if res.violation else None,
+           [g for g, _ in res.violation_trace or []], res.steps,
+           res.visited, res.traces, res.diameter)
+    print(f"swarm canary on the card (graph): {got}, violation at "
+          f"{res.violation_at_seconds} s, wall {res.wall_seconds} s, "
+          f"phases {res.phases}")
+    need(got == CANARY_PIN, f"swarm canary {got} != the pin {CANARY_PIN}")
+    check_walk_trace(torch, eng.dims, res.violation_trace, "swarm canary",
+                     res.violation.fingerprint)
+    canary_at = res.violation_at_seconds
+    # The exhaustive check of the same cfg on the card, for the time to
+    # the violation beside the swarm's (reported, not gated).
+    setup = load_config(os.path.join(HERE, CANARY["cfg"]))
+    for pipeline in ("v3", "v4"):
+        bfs = make_engine(setup, dataclasses.replace(
+            engine_config_from_backend(setup), pipeline=pipeline),
+            device="cuda").run(initial_states(setup))
+        need(bfs.violation is not None, "MCraft_noleader: no violation")
+        print(f"time to NoLeaderElected on the card: swarm {canary_at} s "
+              f"(256 walks, seed 3) beside the exhaustive check's "
+              f"{bfs.wall_seconds} s ({bfs.distinct} distinct, {pipeline}, "
+              "the cfg's sizes)")
+
+    dims = RaftDims(**SWARM_DIMS)
+    root = near_election_root(dims)
+
+    def seeded(device):
+        e = SwarmEngine(
+            dims, invariants={"TypeOK": build_type_ok(dims),
+                              "NoLeader": lambda st: (st.role != LEADER)
+                              .all(1)},
+            constraint=build_constraint(dims, Bounds(**SWARM_BOUNDS)),
+            walks=32, max_depth=8, chunk=8, ring=8, device=device)
+        r = e.run([root], seed=1, num_steps=64)
+        return r, (r.violation.invariant if r.violation else None,
+                   r.violation.fingerprint if r.violation else None,
+                   r.violation_step, r.violation_walk, r.steps, r.visited,
+                   r.traces, r.diameter, r.violation_trace)
+
+    r_card, card = seeded("cuda")
+    _r, cpu = seeded("cpu")
+    print(f"swarm seeded violation: card {card[:8]}, trace "
+          f"{[g for g, _ in card[8]]}")
+    need(card[0] == "NoLeader", "the seeded swarm run did not latch")
+    need(card == cpu, f"the seeded swarm run differs on the card "
+         f"{card[:8]} and the CPU {cpu[:8]}")
+    check_walk_trace(torch, dims, r_card.violation_trace,
+                     "swarm seeded violation", r_card.violation.fingerprint)
+
+    def multiset(device="cuda", eager=False, walks=4096, steps=128, **kw):
+        e, rts = swarm_of("MCraft_bounded.cfg", device=device, walks=walks,
+                          max_depth=64, collect_fingerprints=True, **kw)
+        if eager:
+            swarm_eager(e)
+        r = e.run(rts, seed=7, num_steps=steps)
+        f = r.visited_fingerprints
+        return r, f[np.lexsort((f[:, 1], f[:, 0]))]
+
+    base, want = multiset(batch=4096, chunk=32)
+    print(f"swarm multiset MCraft_bounded 4096 walks x 128 steps: visited "
+          f"{base.visited} traces {base.traces} deepest {base.diameter}")
+    for what, kw in (("batch 1024", dict(batch=1024, chunk=32)),
+                     ("batch 1000 (a 96-walk remainder slice)",
+                      dict(batch=1000, chunk=32)),
+                     ("chunk 8", dict(batch=4096, chunk=8)),
+                     ("eager on the card", dict(batch=4096, chunk=32,
+                                                eager=True))):
+        r, f = multiset(**kw)
+        need(np.array_equal(f, want) and r.visited == base.visited
+             and r.traces == base.traces, f"swarm multiset at {what} "
+             "differs from batch 4096 chunk 32 (graph)")
+        print(f"swarm multiset at {what}: identical ({f.shape[0]} visits)")
+    # The card, sliced with a remainder, against the CPU in one dispatch,
+    # on a run the CPU finishes in seconds (4,096 x 128 would take 8x).
+    rc, fc = multiset(walks=1024, steps=64, batch=1000, chunk=32)
+    t_cpu = time.time()
+    rp, fp_ = multiset(device="cpu", walks=1024, steps=64, batch=1024,
+                       chunk=32)
+    t_cpu = time.time() - t_cpu
+    need(np.array_equal(fc, fp_) and rc.traces == rp.traces,
+         "swarm multiset differs on the card and the CPU")
+    print(f"swarm multiset 1024 walks x 64 steps: the card at batch 1000 "
+          f"(a 24-walk remainder slice) and the CPU at 1024 identical "
+          f"({fc.shape[0]} visits; the CPU run {t_cpu} s); phase "
+          f"{time.time() - t_phase} s")
+
+
+#: The throughput runs: (cfg, walks, lanes a dispatch, profiled), None for
+#: the CLI's own default (the BATCH directive, else the walks up to
+#: 65,536; so one dispatch at MCraft_bounded and two of 8,192 at TPUraft),
+#: and 1,024 a dispatch, the JAX CLI's default (16 dispatches, whose
+#: profile would hold ~700k launches: their device ops are 16 times the
+#: 1,024-walk run's).
+SWARM_RUNS = (("MCraft_bounded.cfg", 1024, None, True),
+              ("MCraft_bounded.cfg", 16384, None, True),
+              ("MCraft_bounded.cfg", 65536, None, True),
+              ("TPUraft.cfg", 16384, None, True),
+              ("TPUraft.cfg", 16384, 16384, True),
+              ("MCraft_bounded.cfg", 16384, 1024, False))
+
+
+def timed_swarm(torch, eng):
+    """Time each slice's chunk on the device: CUDA events around every
+    dispatch (staging and graph replay; the graph captured before the
+    first event); returns the list of each chunk's device milliseconds,
+    read after the run."""
+    pairs = []
+    run_slice = eng._runner
+
+    def runner(s, outs, res):
+        if s.index == 0:
+            pairs.append([])
+        eng._graph(len(s.walk_ids), res)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        ys = run_slice(s, outs, res)
+        b.record()
+        pairs[-1].append((a, b))
+        return ys
+    eng._runner = runner
+
+    def chunk_ms():
+        torch.cuda.synchronize()
+        return [sum(a.elapsed_time(b) for a, b in p) for p in pairs]
+    return chunk_ms
+
+
+def swarm_throughput(torch, cfg_name, walks, batch, profile=True,
+                     steps=128, turn=""):
+    """One throughput run (``batch`` lanes a dispatch, the CLI's default
+    where None): steps/s, visited/s, traces, host seconds a chunk, each
+    chunk's device milliseconds between CUDA events, peak device memory,
+    then (``profile``) device ops and device time a step of one more
+    chunk under the profiler."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = {} if batch is None else dict(batch=batch)
+    eng, roots = swarm_of(cfg_name, walks=walks, max_depth=128, ring=16,
+                          chunk=32, **kw)
+    chunk_ms = timed_swarm(torch, eng)
+    res = eng.run(roots, seed=11, num_steps=steps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = chunk_ms()
+    what = (f"swarm {cfg_name[:-4]} {walks} walks, {eng.batch} a dispatch"
+            f"{' (the CLI default)' if batch is None else ''}{turn}")
+    need(res.stop_reason == "steps" and res.steps == walks * steps,
+         f"{what}: stop {res.stop_reason} after {res.steps} steps")
+    print(f"{what}: {res.steps} steps in {res.wall_seconds} s = "
+          f"{res.steps_per_second} steps/s, {res.states_per_second} "
+          f"visited/s, visited {res.visited}, traces {res.traces}, deepest "
+          f"{res.diameter}, host seconds a chunk "
+          f"{res.wall_seconds / res.chunks} (phases {res.phases}, "
+          f"{res.chunks} chunks), device ms a step between events "
+          f"{sum(ms) / steps} (each chunk's ms {ms}; events over wall "
+          f"{sum(ms) / 1e3 / res.wall_seconds}), peak device memory "
+          f"allocated {peak} B")
+    if not profile:
+        return
+    ops = device_ops(torch, lambda: eng.run(roots, seed=12,
+                                            num_steps=eng.chunk))
+    if not ops:
+        print(f"{what}: the profiler saw no device time (not measured)")
+        return
+    print(f"{what}: {len(ops) / eng.chunk} device ops a step, device time "
+          f"a step {sum(us for _n, us in ops) / eng.chunk} us (profiler, "
+          f"one chunk of {eng.chunk} steps)")
+
+
+def phase_swarm_throughput(torch, turns=False):
+    """The throughput runs, each profiled after its timed run; with
+    ``turns`` all of them timed once before any profile of this phase and
+    once more after the last."""
+    t = time.time()
+    if turns:
+        for run in SWARM_RUNS:
+            swarm_throughput(torch, *run[:3], profile=False,
+                             turn=", before the profiles")
+    for run in SWARM_RUNS:
+        swarm_throughput(torch, *run)
+    if turns:
+        for run in SWARM_RUNS:
+            swarm_throughput(torch, *run[:3], profile=False,
+                             turn=", after the profiles")
+    print(f"swarm throughput phase: {time.time() - t} s")
+
+
+def phase_simulate(torch, num_steps=1 << 21):
+    """The BASELINE simulate workload through the CLI's code (cut to
+    ``num_steps``), a seeded violation replayed and checked, two replays
+    of the graph from one state drawing differently, and a seed repeating
+    its run."""
+    from raft_tla_tpu_torch import cli
+    from raft_tla_tpu_torch.engine.simulate import Simulator
+    from raft_tla_tpu_torch.models.dims import LEADER, RaftDims
+    from raft_tla_tpu_torch.models.invariants import Bounds, build_constraint
+    t_phase = time.time()
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["simulate", os.path.join(HERE,
+                                                "configs/MCraft_bounded.cfg"),
+                       "--batch", "1024", "--depth", "100", "--num-steps",
+                       str(num_steps)])
+    out = buf.getvalue()
+    print(f"simulate MCraft_bounded --batch 1024 --depth 100 --num-steps "
+          f"{num_steps} (the CLI, call {time.time() - t} s): "
+          + " | ".join(out.splitlines()[:4]))
+    need(rc == 0 and "VIOLATION" not in out,
+         "simulate MCraft_bounded: TypeOK failed or the run failed")
+    need(out.startswith(f"steps visited      "
+                        f"{-(-num_steps // (1024 * 128)) * 1024 * 128}\n"),
+         "simulate MCraft_bounded: steps differ from the budget")
+
+    dims = RaftDims(**dict(SWARM_DIMS, n_msg_slots=24))
+    root = near_election_root(dims)
+
+    def near_election():
+        return Simulator(
+            dims, invariants={"NoLeader": lambda st: (st.role != LEADER)
+                              .all(1)},
+            constraint=build_constraint(
+                dims, Bounds(max_term=3, max_log_len=1, max_msg_count=1)),
+            batch=32, depth=16, chunk=64, device="cuda")
+
+    sim = near_election()
+    runs = [sim.run([root], num_steps=32 * 64 * 8, seed=0)
+            for _ in range(2)]
+    runs.append(near_election().run([root], num_steps=32 * 64 * 8, seed=0))
+    r = runs[0]
+    need(r.violation_invariant == "NoLeader" and
+         LEADER in r.violation_state.role,
+         "simulate: the seeded run found no leader")
+    check_walk_trace(torch, dims, r.violation_trace,
+                     "simulate seeded violation")
+    keys = [(x.steps, x.traces, x.violation_trace) for x in runs]
+    need(keys[0] == keys[1] == keys[2],
+         "simulate: a seed does not repeat its run")
+    print(f"simulate seeded violation: steps {r.steps} traces {r.traces} "
+          f"trace {[g for g, _ in r.violation_trace]}, repeated by the "
+          "same simulator and a fresh one")
+    # Two replays of the graph from the same walker state must draw anew.
+    g, _n = sim._graph
+    start = {k: v.clone() for k, v in sim._w.items()}
+    ends = []
+    for _ in range(2):
+        for k, v in start.items():
+            sim._w[k].copy_(v)
+        sim._acc.copy_(sim._acc0)
+        g.replay()
+        ends.append(sim._w["abuf"].clone())
+    need(not torch.equal(ends[0], ends[1]),
+         "simulate: two graph replays from one state drew the same actions")
+    print(f"simulate: two graph replays from one state drew differently; "
+          f"phase {time.time() - t_phase} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3044,6 +3418,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else f"nvidia-smi failed: {smi.stderr.strip()}")
+    if sys.argv[1:] == ["--walks"]:
+        t = time.time()
+        phase_swarm_parity(torch)
+        phase_swarm_throughput(torch, turns=True)
+        phase_simulate(torch)
+        print(f"walk tier phases: {time.time() - t} s")
+        return 0
     from raft_tla_tpu_torch.utils import build
     t_smoke = t = time.time()
     took = build.build_all()
@@ -3120,6 +3501,12 @@ def main() -> int:
     phase_safety_cfg(torch, turns)
     phase_smoke_init(torch)
     print(f"MCraft phases done: {time.time() - t_smoke} s")
+    t = time.time()
+    phase_swarm_parity(torch)
+    phase_swarm_throughput(torch)
+    phase_simulate(torch)
+    torch.cuda.empty_cache()
+    print(f"walk tier phases: {time.time() - t} s")
     phase_north_star(torch)
     phase_safety_tpuraft(torch)
     phase_profile(torch, "v4", cfg_name="TPUraft.cfg",

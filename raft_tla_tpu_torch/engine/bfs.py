@@ -61,7 +61,6 @@ and the native trace store are not ported.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import os
 import sys
 import time
@@ -87,7 +86,7 @@ from ..ops.chunk_front_cuda import Front
 from ..ops.fingerprint import build_fingerprint
 from ..ops.fpset import pack
 from ..ops.fpset_cuda import insert
-from ..utils.device import resolve_device
+from ..utils.device import capture_graph, resolve_device
 from . import checkpoint as ckpt_mod
 from . import chunk as chunk_mod
 from .chunk import (ST_COUNT, ST_DEAD, ST_FAIL, ST_GEN, ST_NEW, ST_OFFSET,
@@ -501,31 +500,7 @@ class BFSEngine:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = [m.launches for m in KERNEL_MODULES]
-        # No garbage collection during the capture: freeing another
-        # engine's pinned or device memory there makes calls a capture
-        # forbids, which voids it.
-        torch.cuda.synchronize(dev)
-        collecting = gc.isenabled()
-        gc.disable()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        g = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.stream(side):
-                g.capture_begin(pool=self._pool)
-                try:
-                    fn()
-                except BaseException:
-                    try:
-                        g.capture_end()
-                    except RuntimeError:
-                        pass    # the capture is void; the first error counts
-                    raise
-                g.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        g = capture_graph(fn, dev, self._pool)
         delta = []
         for m, b in zip(KERNEL_MODULES, before):
             if m.launches != b:

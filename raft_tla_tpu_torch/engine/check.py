@@ -7,9 +7,12 @@ cfg's StopAfter budgets and ``\\* TPU:`` directives (BATCH,
 QUEUE_CAPACITY, SEEN_CAPACITY, PIPELINE, CHECKPOINT_DIR, CHECKPOINT_EVERY,
 CHECKPOINT_INTERVAL, KEEP_CHECKPOINTS, SPILL_DIR, PROGRESS_SECONDS,
 POR_TABLE) seed the engine config.  Precedence: caller > cfg directive >
-built-in default.  ``path_to_state`` finds a shortest action path to a
-given state.  Every entry point takes ``device`` and runs on the card
-unless the caller passes ``device="cpu"``.
+built-in default.  MODE picks the checking tier (``exhaustive``, or the
+``swarm`` of ``engine/swarm.py`` with WALKS walks); ``make_swarm`` and
+``make_simulator`` build the walk tiers with the JAX CLI's defaults.
+``path_to_state`` finds a shortest action path to a given state.  Every
+entry point takes ``device`` and runs on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ from ..models.schema import encode_state, stack_states
 from ..ops.fingerprint import build_fingerprint
 from ..utils.cfg import CheckSetup, load_config
 from .bfs import BFSEngine, EngineConfig, EngineResult
+from .simulate import Simulator
+from .swarm import SwarmEngine, SwarmResult
+
+MODES = ("exhaustive", "swarm")
 
 CONSTRAINT_REGISTRY = {"BoundedSpace": build_constraint}
 
@@ -93,6 +100,63 @@ def make_engine(setup: CheckSetup,
     return BFSEngine(setup.dims, invariants=resolve_invariants(setup),
                      constraint=resolve_constraint(setup), config=cfg,
                      device=device)
+
+
+def resolve_mode(setup: CheckSetup, mode: Optional[str] = None) -> str:
+    """The checking tier: the caller's, else the MODE directive, else
+    ``exhaustive``."""
+    mode = mode if mode is not None else setup.backend.get("MODE",
+                                                           "exhaustive")
+    if mode not in MODES:
+        raise ValueError(f"MODE must be exhaustive or swarm, got {mode!r}")
+    return mode
+
+
+#: The swarm's default lanes a dispatch.  A walk step is ~1,400 small
+#: device ops whatever the lanes, so a dispatch of 1,024 (the JAX CLI's
+#: default) is launch-bound; results do not depend on the slicing, and
+#: 65,536 lanes take ~3.8 GB of device memory at MCraft_bounded.
+SWARM_BATCH = 65536
+
+
+def make_swarm(setup: CheckSetup, walks: Optional[int] = None,
+               max_depth: Optional[int] = None,
+               batch: Optional[int] = None, device="cuda",
+               **kw) -> SwarmEngine:
+    """The swarm of a cfg: walks from the caller, WALKS or 1024; the depth
+    bound from the caller, the cfg's diameter budget or 128; lanes a
+    dispatch from the caller, BATCH or ``SWARM_BATCH`` (at most the
+    walks)."""
+    be = setup.backend
+    walks = int(walks if walks is not None else be.get("WALKS", 1024))
+    batch = int(batch if batch is not None
+                else be.get("BATCH", SWARM_BATCH))
+    return SwarmEngine(
+        setup.dims, invariants=resolve_invariants(setup),
+        constraint=resolve_constraint(setup), walks=walks,
+        max_depth=max_depth or setup.max_diameter or 128,
+        batch=min(batch, walks), device=device, **kw)
+
+
+def make_simulator(setup: CheckSetup, batch: Optional[int] = None,
+                   depth: int = 100, device="cuda") -> Simulator:
+    """The simulator of a cfg: walkers from the caller, BATCH or 1024."""
+    be = setup.backend
+    return Simulator(
+        setup.dims, invariants=resolve_invariants(setup),
+        constraint=resolve_constraint(setup),
+        batch=int(batch if batch is not None else be.get("BATCH", 1024)),
+        depth=depth, device=device)
+
+
+def format_swarm(res: SwarmResult, max_depth: int) -> str:
+    """The JAX CLI's swarm summary line."""
+    return (f"swarm: {res.walks} walks x depth {max_depth} | "
+            f"{res.steps} steps ({res.steps_per_second:,.0f} steps/s, "
+            f"{res.walks_per_second:,.0f} walks/s) | visited "
+            f"{res.visited} | traces {res.traces} | deepest "
+            f"{res.diameter} | stop: {res.stop_reason} | "
+            f"{res.wall_seconds:.2f}s")
 
 
 def initial_states(setup: CheckSetup, seed: int = 0) -> List[PyState]:

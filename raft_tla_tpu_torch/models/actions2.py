@@ -394,9 +394,13 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
     idxs = torch.arange(1, L + 1, device=device)
     ar_n = torch.arange(N, device=device)
 
-    def lane_out(st: StateBatch, ph: ParentHash, g: torch.Tensor):
+    def lane_out(st: StateBatch, ph: ParentHash, g: torch.Tensor,
+                 hashes: bool = True):
         """Delta fingerprint + sparse successor for grid instance ``g[x]``
-        of parent row x.  Only meaningful on enabled lanes."""
+        of parent row x.  Only meaningful on enabled lanes.  With
+        ``hashes=False`` the fingerprint is not computed (``ph`` may be
+        None) and ``hi``, ``lo`` are None: the walk tiers hash the one
+        successor they take in full, as the JAX package's do."""
         g = g.unsqueeze(1)                                   # [X, 1]
         fam = fam_t[g]
         # Reads clamp, as JAX gathers do: a slot family's p1 is a slot
@@ -501,61 +505,67 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
         sctx = send_ctx(st, send_row, skip_slot=s,
                         skip_gate=reply_fire & (rc["cnt_s"] == 1))
 
-        # ---- delta fingerprint ----
-        def keep(wr, new, old):
-            return torch.where(wr, new, old)
+        # ---- delta fingerprint (skipped where the caller hashes the
+        # successor itself) ----
+        hi = lo = None
+        if hashes:
+            def keep(wr, new, old):
+                return torch.where(wr, new, old)
 
-        old = _t1(st.term, term_tgt)
-        d = [dpos(O_TERM + term_tgt, old, keep(term_wr, term_new, old))]
-        old = _t1(st.role, role_tgt)
-        d.append(dpos(O_ROLE + role_tgt, old, keep(role_wr, role_new, old)))
-        old = _t1(st.voted_for, voted_tgt)
-        d.append(dpos(O_VOTED + voted_tgt, old,
-                      keep(voted_wr, voted_new, old)))
-        old = _t2(st.log_term, log_tgt_i, log_k)
-        d.append(dpos(O_LT + log_tgt_i * L + log_k, old,
-                      keep(log_wr, log_t_new, old)))
-        old = _t2(st.log_val, log_tgt_i, log_k)
-        d.append(dpos(O_LV + log_tgt_i * L + log_k, old,
-                      keep(log_wr, log_v_new, old)))
-        old = _t1(st.log_len, log_tgt_i)
-        d.append(dpos(O_LL + log_tgt_i, old, keep(log_wr, ll_new, old)))
-        old = _t1(st.commit, commit_tgt)
-        d.append(dpos(O_CI + commit_tgt, old,
-                      keep(commit_wr, commit_new, old)))
-        old = _t1(st.votes_resp, vr_tgt)
-        d.append(dpos(O_VR + vr_tgt, old, keep(votes_wr, vr_new, old)))
-        old = _t1(st.votes_gran, vr_tgt)
-        d.append(dpos(O_VG + vr_tgt, old, keep(votes_wr, vg_new, old)))
-        ni_row = _row(st.next_idx, i)
-        row_pos = i.unsqueeze(-1) * N + ar_n
-        d.append(dvec(O_NI + row_pos, ni_row,
-                      _w(rows_wr, ni_row_new, ni_row)))
-        d.append(dvec(O_MI + row_pos, mi_row,
-                      _w(rows_wr, mi_row_new, mi_row)))
-        d.append(dpos(O_NI + ri * N + rj, ni_rr,
-                      keep(aer_fire, ni_cell_new, ni_rr)))
-        d.append(dpos(O_MI + ri * N + rj, mi_rr,
-                      keep(aer_fire, mi_cell_new, mi_rr)))
-        db0 = sum(a for a, _b in d) & MASK32
-        db1 = sum(b for _a, b in d) & MASK32
+            old = _t1(st.term, term_tgt)
+            d = [dpos(O_TERM + term_tgt, old, keep(term_wr, term_new, old))]
+            old = _t1(st.role, role_tgt)
+            d.append(dpos(O_ROLE + role_tgt, old,
+                          keep(role_wr, role_new, old)))
+            old = _t1(st.voted_for, voted_tgt)
+            d.append(dpos(O_VOTED + voted_tgt, old,
+                          keep(voted_wr, voted_new, old)))
+            old = _t2(st.log_term, log_tgt_i, log_k)
+            d.append(dpos(O_LT + log_tgt_i * L + log_k, old,
+                          keep(log_wr, log_t_new, old)))
+            old = _t2(st.log_val, log_tgt_i, log_k)
+            d.append(dpos(O_LV + log_tgt_i * L + log_k, old,
+                          keep(log_wr, log_v_new, old)))
+            old = _t1(st.log_len, log_tgt_i)
+            d.append(dpos(O_LL + log_tgt_i, old, keep(log_wr, ll_new, old)))
+            old = _t1(st.commit, commit_tgt)
+            d.append(dpos(O_CI + commit_tgt, old,
+                          keep(commit_wr, commit_new, old)))
+            old = _t1(st.votes_resp, vr_tgt)
+            d.append(dpos(O_VR + vr_tgt, old, keep(votes_wr, vr_new, old)))
+            old = _t1(st.votes_gran, vr_tgt)
+            d.append(dpos(O_VG + vr_tgt, old, keep(votes_wr, vg_new, old)))
+            ni_row = _row(st.next_idx, i)
+            row_pos = i.unsqueeze(-1) * N + ar_n
+            d.append(dvec(O_NI + row_pos, ni_row,
+                          _w(rows_wr, ni_row_new, ni_row)))
+            d.append(dvec(O_MI + row_pos, mi_row,
+                          _w(rows_wr, mi_row_new, mi_row)))
+            d.append(dpos(O_NI + ri * N + rj, ni_rr,
+                          keep(aer_fire, ni_cell_new, ni_rr)))
+            d.append(dpos(O_MI + ri * N + rj, mi_rr,
+                          keep(aer_fire, mi_cell_new, mi_rr)))
+            db0 = sum(a for a, _b in d) & MASK32
+            db1 = sum(b for _a, b in d) & MASK32
 
-        sh_s = (_t1(ph.sh0, s_rd), _t1(ph.sh1, s_rd))
-        sh_eq = (_t1(ph.sh0, sctx["idx"]), _t1(ph.sh1, sctx["idx"]))
-        dm = []
-        for ln in (0, 1):
-            d_send = torch.where(sctx["has_eq"], sh_eq[ln],
-                                 row_hash(send_row, ln))
-            zero = torch.zeros_like(d_send)
-            dm.append((torch.where(do_discard, -sh_s[ln], zero)
-                       + torch.where(do_send & sctx["ok"], d_send, zero)
-                       + torch.where(is_dup, sh_s[ln], zero)) & MASK32)
+            sh_s = (_t1(ph.sh0, s_rd), _t1(ph.sh1, s_rd))
+            sh_eq = (_t1(ph.sh0, sctx["idx"]), _t1(ph.sh1, sctx["idx"]))
+            dm = []
+            for ln in (0, 1):
+                d_send = torch.where(sctx["has_eq"], sh_eq[ln],
+                                     row_hash(send_row, ln))
+                zero = torch.zeros_like(d_send)
+                dm.append((torch.where(do_discard, -sh_s[ln], zero)
+                           + torch.where(do_send & sctx["ok"], d_send, zero)
+                           + torch.where(is_dup, sh_s[ln], zero)) & MASK32)
 
-        hi = finalize((ph.base0.unsqueeze(1) + db0) & MASK32,
-                      (ph.msum0.unsqueeze(1) + dm[0]) & MASK32, consts[0][2])
-        lo = finalize((ph.base1.unsqueeze(1) + db1) & MASK32,
-                      (ph.msum1.unsqueeze(1) + dm[1]) & MASK32, consts[1][2])
-        lo = remap_sentinel(hi, lo)
+            hi = finalize((ph.base0.unsqueeze(1) + db0) & MASK32,
+                          (ph.msum0.unsqueeze(1) + dm[0]) & MASK32,
+                          consts[0][2])
+            lo = finalize((ph.base1.unsqueeze(1) + db1) & MASK32,
+                          (ph.msum1.unsqueeze(1) + dm[1]) & MASK32,
+                          consts[1][2])
+            lo = remap_sentinel(hi, lo)
 
         # ---- sparse successor construction ----
         term_o = _w(term_wr, _set1(st.term, term_tgt, term_new), st.term)
@@ -600,6 +610,8 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
                           commit=ci_o, votes_resp=vr_o, votes_gran=vg_o,
                           next_idx=ni_o, match_idx=mi_o,
                           msg=msg_o, msg_cnt=cnt_o)
+        if not hashes:
+            return None, None, succ
         return hi.squeeze(1), lo.squeeze(1), succ
 
     return V2Pipeline(masks=masks, parent_hash=parent_hash,
