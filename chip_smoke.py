@@ -8,6 +8,8 @@
     python3 chip_smoke.py --front-variants    (a tuning table, no smoke run)
     python3 chip_smoke.py --tail-variants     (a tuning table, no smoke run)
     python3 chip_smoke.py --walks             (the walk tier's phases only)
+    python3 chip_smoke.py --reconfig          (the reconfiguration
+                                               variant's phases only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -61,6 +63,18 @@ counts); an ``Init <- SmokeInit`` check equal to its JAX pin
 (``tests/test_torch_safety_engine.py``); and TPUraft.cfg with the suite
 in place of TypeOK to L8 (the oracle's counts), in turns with TypeOK
 alone.
+The joint-consensus reconfiguration variant (``models/reconfig.py``,
+``configs/reconfig3.cfg``: 474-byte rows with value high-byte planes, 12
+families; the front's ``kReconfig`` builds): the front held exactly
+against ``front_plain`` on a full window of the L11 frontier, on leader
+states at depth 6-8 with InitiateReconfig and FinalizeReconfig lanes and
+on those states with their config values aliased to a client value's low
+byte, timed, with its launches' registers, spills and blocks an SM beside
+the spec's builds'; the cfg to L12 on v4 (the JAX pins: 13 levels,
+distinct, generated and every family), to L11 on v3 and on the split
+tail, a level-10 snapshot resumed to L12, an L10 profile; and the three
+leader roots (built here, ``leader_roots``) to D10 on v4 and D8 on v3
+against the JAX engine's counts.
 The walk tier (``engine/swarm.py``, ``engine/simulate.py``; no kernel of
 its own, a chunk of walk steps is a CUDA graph): the swarm canary
 (``CANARY``, the CI canary's configuration) with its JAX pin
@@ -106,8 +120,10 @@ seconds, then a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
 (compact on the fused v3 run, the fused tail and the front on the fused
 v4 run, the insert and the enqueue on the split v4 run, all to depth 9),
-its error against the plain version and its times beside its bound, and
-last ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
+its error against the plain version and its times beside its bound (the
+front's entry also holds its reconfiguration builds' under
+``"reconfig"``: launches on the reconfig3 L12 run, error, times,
+bound), and last ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 before those two lines.
 Imports nothing of JAX or the JAX package.
 """
@@ -116,6 +132,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -1923,16 +1940,14 @@ FRONT_VARIANTS = [
     ("no predicates (timing only)", [
         ("const bool cons = rtt::bounded_space_warp(st, bounds, lane);",
          "const bool cons = true;"),
-        ("for (int p = 0; p < n_inv && inv < 0; ++p) {\n    const int code",
-         "for (int p = 0; p < 0 && inv < 0; ++p) {\n    const int code")]),
-    ("no TypeOK (timing only)", [(
-        "? rtt::type_ok_warp(st, lane)", "? true")]),
+        ("rtt::first_failing_warp<kSuite, kReconfig>(st, inv_list, n_inv, "
+         "lane);", "-1;")]),
     ("no row stores (timing only)", [(
         "for (int c = c_lo + lane; c < c_hi; c += 32)",
         "for (int c = c_lo + lane; c < 0; c += 32)")]),
     ("no scalars (timing only)", [(
-        "      lane_edits(d, k, St{d, pv}, lg[l],",
-        "      if (false) lane_edits(d, k, St{d, pv}, lg[l],")]),
+        "      lane_edits<kReconfig>(d, k, St{d, pv}, lg[l],",
+        "      if (false) lane_edits<kReconfig>(d, k, St{d, pv}, lg[l],")]),
 ]
 
 
@@ -1981,11 +1996,11 @@ def front_variants(torch, device):
             info = lib.chunk_front_kernel_info
             out = (ctypes.c_int * len(build.INFO_KEYS))()
             info.restype = ctypes.c_int
-            info.argtypes = [ctypes.c_int] * 7 + [
+            info.argtypes = [ctypes.c_int] * 8 + [
                 ctypes.POINTER(ctypes.c_int)]
             d = kw["dims"]
             build.check(info(2, d.n_servers, d.n_values, d.max_log,
-                             d.n_msg_slots, B, K, out), "kernel_info")
+                             d.n_msg_slots, 0, B, K, out), "kernel_info")
             print(f"front variant {name}: lanes launch "
                   f"{dict(zip(build.INFO_KEYS, out))}")
             print(f"front variant {name}: max_abs_err {err}, queued "
@@ -2402,7 +2417,6 @@ def phase_por(torch):
 def phase_counterexample(torch, pipeline):
     """configs/MCraft_noleader.cfg at its own engine sizes: the violation
     and its replay to the first leader at depth 9."""
-    import dataclasses
     from raft_tla_tpu_torch.engine.check import (engine_config_from_backend,
                                                  initial_states, make_engine)
     from raft_tla_tpu_torch.models.dims import LEADER
@@ -2434,7 +2448,6 @@ def phase_counterexample(torch, pipeline):
 
 def tpuraft_config(depth, **kw):
     """configs/TPUraft.cfg's directives on v4, to ``depth``."""
-    import dataclasses
     from raft_tla_tpu_torch.engine.check import engine_config_from_backend
     from raft_tla_tpu_torch.utils.cfg import load_config
     setup = load_config(os.path.join(HERE, "configs/TPUraft.cfg"))
@@ -2448,7 +2461,6 @@ def tpuraft_check(torch, cfg_name, depth, what, invariants=None, **kw):
     ``depth`` on the card: the oracle's TPUraft levels and counts held, the
     launches checked.  Returns (engine, result, peak device bytes
     allocated)."""
-    import dataclasses
     from raft_tla_tpu_torch.engine.check import (engine_config_from_backend,
                                                  initial_states, make_engine)
     from raft_tla_tpu_torch.utils.cfg import load_config
@@ -2778,7 +2790,6 @@ def crafted_violations(dims):
     committed entry; a vote request with a wrong last index), widened to
     ``dims.n_servers`` (3 or more) by servers as Init has them, or as
     given, so that the earlier predicates of the list hold."""
-    import dataclasses
     from raft_tla_tpu_torch.models.dims import CANDIDATE, LEADER, RVQ
     from raft_tla_tpu_torch.models.pystate import init_state
     n = dims.n_servers
@@ -2824,7 +2835,7 @@ def state_window(torch, dims, states, b, device):
     from raft_tla_tpu_torch.models.schema import (encode_state,
                                                   flatten_state, stack_states)
     rows = flatten_state(stack_states([encode_state(s, dims)
-                                       for s in states], device))
+                                       for s in states], device), dims)
     w = torch.zeros((b, rows.shape[1]), dtype=torch.uint8, device=device)
     w[:rows.shape[0]] = rows
     valid = torch.arange(b, device=device) < rows.shape[0]
@@ -2852,7 +2863,6 @@ def phase_safety_front(torch, device, shape):
     of the crafted window in both.  Then the lanes launch with the suite
     and with TypeOK alone on the real window: its device microseconds, its
     registers and spill bytes, and blocks an SM."""
-    import dataclasses
     from raft_tla_tpu_torch.engine.check import (initial_states,
                                                  make_engine,
                                                  resolve_constraint,
@@ -3016,7 +3026,6 @@ def phase_smoke_init(torch):
     the verdict, the invariant, the depth, the counts and the replayed
     trace equal the JAX engine's (SMOKE_PIN, SMOKE_PATH).  The violation
     lies at depth 1, so the front kernel finds it."""
-    import dataclasses
     from raft_tla_tpu_torch.engine.bfs import EngineConfig
     from raft_tla_tpu_torch.engine.check import initial_states, make_engine
     from raft_tla_tpu_torch.models.schema import encode_state, stack_states
@@ -3051,6 +3060,357 @@ def phase_smoke_init(torch):
     check_launches("v4", counts, res.steps, "SmokeInit check", trace=True)
 
 
+# -- the reconfiguration variant (models/reconfig.py, configs/reconfig3.cfg) --
+
+# The JAX package's pins of configs/reconfig3.cfg (BASELINE.md §b,
+# artifacts/reconfig3_L1{1,2}_engine.txt): enqueued states a level, and
+# cumulative distinct / generated; the L12 generated counts a family.
+RECONFIG_LEVELS = [1, 3, 18, 79, 318, 1218, 4433, 15510, 52467, 172129,
+                   548904, 1703691, 5151718]
+RECONFIG_DISTINCT = {11: 6005270, 12: 19780533}
+RECONFIG_GENERATED = {11: 17354943, 12: 57713052}
+RECONFIG_L12_FAMILIES = {
+    "Restart": 7496313, "Timeout": 7495146, "RequestVote": 13861020,
+    "BecomeLeader": 2883, "ClientRequest": 1167, "AdvanceCommitIndex": 1167,
+    "AppendEntries": 2334, "Receive": 9617343, "DuplicateMessage": 9617343,
+    "DropMessage": 9617343, "InitiateReconfig": 993, "FinalizeReconfig": 0}
+# The three leader roots (leader_roots below) of reconfig3's dims, checked
+# to depth D with no deadlock check and TypeOK off, by the JAX BFSEngine
+# on the CPU: levels, distinct, generated and the families named.
+LEADER_LEVELS = [3, 21, 114, 507, 1981, 7059, 23339, 72611, 214306, 604216,
+                 1637190]
+LEADER_PINS = {
+    8: (710057, 1938892, {"InitiateReconfig": 31577,
+                          "FinalizeReconfig": 22, "BecomeLeader": 0}),
+    10: (6702113, 18921667, {
+        "Restart": 2772471, "Timeout": 2388597, "RequestVote": 3509091,
+        "BecomeLeader": 204, "ClientRequest": 383874,
+        "AdvanceCommitIndex": 383874, "AppendEntries": 767748,
+        "Receive": 2835330, "DuplicateMessage": 2835970,
+        "DropMessage": 2835970, "InitiateReconfig": 207836,
+        "FinalizeReconfig": 702})}
+# reconfig3.cfg sets no engine sizes: the main path's batch, and tables
+# that hold its L12 (5,151,718 rows in the last level, 19.8M keys).
+RECONFIG_SIZES = dict(batch=B, queue_capacity=1 << 23, seen_capacity=1 << 26)
+
+
+def leader_roots(dims):
+    """scripts/leader_bench.py ``leader_states(dims, bounds, 0)``, built
+    directly: for each server, the state its canonical election leaves
+    (term 1 -> 2 by Timeout, every other server's vote granted and home,
+    the bag emptied, BecomeLeader)."""
+    from raft_tla_tpu_torch.models.dims import FOLLOWER, LEADER
+    from raft_tla_tpu_torch.models.pystate import init_state
+    n = dims.n_servers
+    full = (1 << n) - 1
+    s0 = init_state(dims)
+    out = []
+    for lead in range(n):
+        out.append(dataclasses.replace(
+            s0, current_term=(2,) * n,
+            role=tuple(LEADER if j == lead else FOLLOWER for j in range(n)),
+            voted_for=tuple(0 if j == lead else lead + 1 for j in range(n)),
+            votes_responded=tuple(full & ~(1 << lead) if j == lead else 0
+                                  for j in range(n)),
+            votes_granted=tuple(full & ~(1 << lead) if j == lead else 0
+                                for j in range(n)),
+            next_index=((1,) * n,) * n, match_index=((0,) * n,) * n))
+    return out
+
+
+def reconfig_config(pipeline, depth, **kw):
+    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    base = dict(RECONFIG_SIZES, record_trace=False, max_diameter=depth,
+                pipeline=pipeline)
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+def family_lanes(dims, out):
+    """``{family: live lanes}`` of one front call's output."""
+    total = int(out.total)
+    fam = [dims.family_names[dims.instance_info(g)[0]]
+           for g in range(dims.n_instances)]
+    acts = (out.lane_id[:total].long() % dims.n_instances).cpu().tolist()
+    return dict(collections.Counter(fam[a] for a in acts))
+
+
+def captured_windows(torch, setup, roots, depth, last_full=False):
+    """The parent windows a v4 check of ``setup`` from ``roots`` to
+    ``depth`` dispatched (steps dispatched eagerly so a hook sees each):
+    every window with a valid row, or only the last full one.  Returns
+    (windows, result)."""
+    from raft_tla_tpu_torch.engine.check import make_engine
+    engine = make_engine(setup, reconfig_config("v4", depth),
+                         device="cuda")
+    dispatch_eagerly(engine)
+    body, windows = engine._step.body, []
+
+    def capture(rows, valid, *args):
+        if bool(valid.all() if last_full else valid.any()):
+            if last_full:
+                windows.clear()
+            windows.append((rows.clone(), valid.clone()))
+        return body(rows, valid, *args)
+
+    engine._step.body = capture
+    res = engine.run(roots)
+    del engine
+    return windows, res
+
+
+def phase_reconfig_front(torch, device):
+    """B4's reconfig build (the masks and lanes launches' kReconfig
+    builds) held exactly against ``front_plain`` at reconfig3's shapes
+    (474-byte rows, G 114, batch 2048, K 32,768) on three windows: a full
+    window of the L11 frontier (the last a check to L12 dispatched); a
+    window of the leader roots' depth-6..8 states holding the parents of
+    every FinalizeReconfig lane to D8, InitiateReconfig parents and
+    states with config entries; and those states with every config value
+    replaced by one whose low byte is client value 1 (joint_value(7, 1),
+    final_value(1): with TargetConfigs {3, 7} no reachable one has it),
+    the alias a row without the high planes would read.  Then the build
+    timed on the L11 window (one call, queued, plain, bound in bytes) and
+    its launches' registers, spills, shared memory and blocks an SM, with
+    the spec's builds' beside them."""
+    from raft_tla_tpu_torch.engine.check import (initial_states,
+                                                 resolve_constraint,
+                                                 resolve_invariants)
+    from raft_tla_tpu_torch.models.actions2 import build_v2
+    from raft_tla_tpu_torch.models.reconfig import (CFG_BASE, final_value,
+                                                    joint_value)
+    from raft_tla_tpu_torch.models.schema import (flatten_state,
+                                                  state_width,
+                                                  unflatten_state)
+    from raft_tla_tpu_torch.ops import chunk_front_cuda
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/reconfig3.cfg"))
+    dims = setup.dims
+    t = time.time()
+    wins, res = captured_windows(torch, setup, initial_states(setup), 12,
+                                 last_full=True)
+    need(res.distinct == RECONFIG_DISTINCT[12] and wins,
+         f"the capture run to L12 gave {res.distinct} distinct")
+    l11 = wins[-1]
+    del wins
+    fin_g = dims.family_offsets[11]
+    ini_g = dims.family_offsets[10]
+    v2 = build_v2(dims, device)
+    pool, _res = captured_windows(torch, setup, leader_roots(dims), 8)
+    rows = torch.cat([r[v] for r, v in pool])
+    en = torch.cat([v2.masks(unflatten_state(rows[i:i + B], dims))[0]
+                    for i in range(0, rows.shape[0], B)])
+    fin = en[:, fin_g:].any(1)
+    ini = en[:, ini_g:fin_g].any(1)
+    st = unflatten_state(rows, dims)
+    has_cfg = ((st.log_val >= CFG_BASE).flatten(1).any(1)
+               | (st.msg >= CFG_BASE).flatten(1).any(1))
+    pick = torch.cat([fin.nonzero()[:, 0], ini.nonzero()[:, 0][:B // 4],
+                      has_cfg.nonzero()[:, 0]])
+    pick = pick[:B]
+    need(int(fin.sum()) > 0 and pick.shape[0] == B, "the leader pool has "
+         f"{int(fin.sum())} FinalizeReconfig parents, {pick.shape[0]} picks")
+    leader = (rows[pick].contiguous(),
+              torch.ones(B, dtype=torch.bool, device=device))
+    # The wrap trap: config values with a client value's low byte.
+    alias = {joint_value(7, 3): joint_value(7, 1),
+             joint_value(3, 7): joint_value(1, 7),
+             final_value(3): final_value(1), final_value(7): joint_value(3, 1)}
+    lst = unflatten_state(leader[0], dims)
+    lv, msg = lst.log_val.clone(), lst.msg.clone()
+    for a, b in alias.items():
+        lv[lv == a] = b
+        msg[msg == a] = b
+    trap = (flatten_state(lst._replace(log_val=lv, msg=msg), dims),
+            leader[1])
+    need(bool(((lv & 0xFF) == 1).logical_and(lv >= CFG_BASE).any()),
+         "the trap window holds no aliasing config value")
+    print(f"reconfig front: windows built in {time.time() - t} s "
+          f"(pool {rows.shape[0]} rows, {int(fin.sum())} FinalizeReconfig "
+          f"and {int(ini.sum())} InitiateReconfig parents)")
+    front = chunk_front_cuda.Front(
+        dims=dims, v2=v2, inv_fns=list(resolve_invariants(setup).values()),
+        constraint=resolve_constraint(setup), B=B, K=K, device=device)
+    need(front.reconfig and not front.suite, "the front for reconfig3 is "
+         "not the variant's build")
+    err = 0.0
+    for name, (r, v) in (("L11 frontier", l11), ("leader roots D6-8",
+                                                 leader),
+                         ("low-byte alias", trap)):
+        got = front(r, v)
+        want = front.plain(r, v)
+        e = front_err(torch, got, want)
+        total = int(got.total)
+        fams = family_lanes(dims, got)
+        print(f"reconfig front {name} window [{B},{front.sw}]: P="
+              f"{int(got.P)} total={total} lanes by family {fams} "
+              f"TypeOK fails={int((got.inv[:total] >= 0).sum())} "
+              f"constraint fails={int((~got.cons_ok[:total]).sum())} "
+              f"max_abs_err={e}")
+        need(e == 0.0, f"the reconfig front differs from front_plain on the "
+             f"{name} window")
+        if name == "leader roots D6-8":
+            need(fams.get("FinalizeReconfig", 0) > 0
+                 and fams.get("InitiateReconfig", 0) > 0,
+                 "the leader window has no lanes of the extra families")
+        err = max(err, e)
+    rows, valid = l11
+    out = front(rows, valid)
+    total = int(out.total)
+    nbytes = front_bytes(dims, B, K, total)
+    row = dict(
+        launches=None, max_abs_err=err,
+        ms=cuda_ms(torch, lambda: front(rows, valid), 50),
+        queued_ms=queued_ms(torch, lambda: front(rows, valid)),
+        plain_ms=cuda_ms(torch, lambda: front.plain(rows, valid), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None)
+    print(f"reconfig front [{B},{state_width(dims)}] -> K={K} (total "
+          f"{total}), L11 window: one call {row['ms']} ms, queued "
+          f"{row['queued_ms']} ms, plain {row['plain_ms']} ms, bound "
+          f"{row['bound_ms']} ms ({nbytes} bytes); device microseconds "
+          f"{device_ops(torch, lambda: front(rows, valid))}")
+    print(f"reconfig front launches: {front.launch_info()}; blocks an SM "
+          f"{front.occupancy()}")
+    base = load_config(os.path.join(HERE, "configs/MCraft_safety.cfg"))
+    binv = resolve_invariants(base)
+    for what, names in (("TypeOK", ["TypeOK"]), ("the suite", list(binv))):
+        fr = chunk_front_cuda.Front(
+            dims=base.dims, v2=build_v2(base.dims, device),
+            inv_fns=[binv[n] for n in names],
+            constraint=resolve_constraint(base), B=B, K=K, device=device)
+        print(f"spec front, {what}: launches {fr.launch_info()}; blocks an "
+              f"SM {fr.occupancy()}")
+    del l11, pool, rows, en, st, leader, trap
+    torch.cuda.empty_cache()
+    return row
+
+
+def reconfig_check(torch, roots_of, depth, what, pipeline, method="fused",
+                   **kw):
+    """reconfig3.cfg as written (its invariants, constraint, dims) on the
+    card from ``roots_of(setup)`` to ``depth`` through ``make_engine``:
+    result, launches, wall and peak device memory printed."""
+    from raft_tla_tpu_torch.engine.check import make_engine
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/reconfig3.cfg"))
+    if kw.pop("leader", False):
+        setup = dataclasses.replace(setup, invariants=[],
+                                    check_deadlock=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.time()
+    engine = make_engine(setup, reconfig_config(
+        pipeline, depth, enqueue_method=method, **kw), device="cuda")
+    res = engine.run(roots_of(setup))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what}: distinct={res.distinct} generated={res.generated} "
+          f"levels={res.levels} stop={res.stop_reason} batches="
+          f"{res.batches} steps={res.steps} growths={res.growth_stalls} "
+          f"families {res.action_counts}")
+    print(f"{what}: check {res.wall_seconds} s, call {wall} s, "
+          f"{res.states_per_second} distinct/s, phases {res.phases}, peak "
+          f"device memory allocated {peak} bytes, launches {counts}")
+    need(res.violation is None and res.deadlock is None,
+         f"{what} reported a violation or deadlock")
+    check_launches(pipeline, counts, res.steps, what, method,
+                   trace=engine.config.record_trace)
+    return engine, res, counts
+
+
+def phase_reconfig_cfg(torch):
+    """configs/reconfig3.cfg (TypeOK, BoundedSpace, 12 families) at
+    RECONFIG_SIZES: to L12 on v4 with the fused tail against the JAX
+    pins (distinct, generated, the 13 levels, every family's count), to
+    L11 on v3 and on v4 with the split tail (6,005,270 / 17,354,943), and
+    a level-10 snapshot resumed to L12 with the L12 pins.  Then the v4
+    L10 profile (device time a batch).  Returns the launches of the L12
+    run."""
+    from raft_tla_tpu_torch.engine import checkpoint as ckpt
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    _e, res, counts = reconfig_check(torch, initial_states, 12,
+                                     "reconfig3 L12 v4 fused tail", "v4")
+    need((res.distinct, res.generated, res.levels, res.action_counts)
+         == (RECONFIG_DISTINCT[12], RECONFIG_GENERATED[12], RECONFIG_LEVELS,
+             RECONFIG_L12_FAMILIES), "reconfig3 L12 differs from its pins")
+    for pipeline, method in (("v3", "fused"), ("v4", "kernel")):
+        _e, r11, _c = reconfig_check(
+            torch, initial_states, 11,
+            f"reconfig3 L11 {pipeline} {method} tail", pipeline, method)
+        need((r11.distinct, r11.generated, r11.levels)
+             == (RECONFIG_DISTINCT[11], RECONFIG_GENERATED[11],
+                 RECONFIG_LEVELS[:12]), "reconfig3 L11 differs from its pins")
+    setup = load_config(os.path.join(HERE, "configs/reconfig3.cfg"))
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_reconfig_")
+    try:
+        make_engine(setup, reconfig_config(
+            "v4", 10, checkpoint_dir=ckdir, checkpoint_every=10),
+            device="cuda").run(initial_states(setup))
+        path = ckpt.latest(ckdir)
+        need(path is not None and path.endswith("level_00010.npz"),
+             f"no level-10 snapshot in {sorted(os.listdir(ckdir))}")
+        ck = ckpt.load(path)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    need(type(ck.dims).__name__ == "ReconfigDims"
+         and ck.frontier.shape == (RECONFIG_LEVELS[10], 474),
+         f"the level-10 snapshot holds {ck.dims} {ck.frontier.shape}")
+    reset_counts()
+    rr = make_engine(setup, reconfig_config("v4", 12), device="cuda").run(
+        resume=ck)
+    print(f"reconfig3 resume L10 -> L12 v4: distinct={rr.distinct} "
+          f"generated={rr.generated} levels={rr.levels} check "
+          f"{rr.wall_seconds} s, launches {read_counts()}")
+    need((rr.distinct, rr.generated, rr.levels, rr.action_counts)
+         == (RECONFIG_DISTINCT[12], RECONFIG_GENERATED[12], RECONFIG_LEVELS,
+             RECONFIG_L12_FAMILIES), "the resumed reconfig3 run differs "
+         "from the L12 pins")
+    phase_profile(torch, "v4", cfg_name="reconfig3.cfg",
+                  config=reconfig_config("v4", 10))
+    return counts
+
+
+def phase_reconfig_leader(torch):
+    """The three leader roots (``leader_roots``) of reconfig3's dims, with
+    BoundedSpace and neither TypeOK nor the deadlock check, to D10 on v4
+    (trace on) and D8 on v3 against LEADER_PINS (FinalizeReconfig 702 and
+    22); a state a FinalizeReconfig lane made at D10 replayed from the
+    trace to its root."""
+    from raft_tla_tpu_torch.models.reconfig import CFG_BASE
+    for pipeline, depth in (("v4", 10), ("v3", 8)):
+        engine, res, _c = reconfig_check(
+            torch, lambda setup: leader_roots(setup.dims), depth,
+            f"reconfig3 leader roots D{depth} {pipeline}", pipeline,
+            leader=True, record_trace=depth == 10)
+        distinct, generated, fams = LEADER_PINS[depth]
+        need(res.distinct == distinct and res.generated == generated
+             and res.levels == LEADER_LEVELS[:depth + 1]
+             and all(res.action_counts[f] == c for f, c in fams.items()),
+             f"the leader roots to D{depth} ({pipeline}) differ from the "
+             "JAX engine's pins")
+        if depth == 10:
+            dims = engine.dims
+            fin = dims.family_offsets[dims.family_names.index(
+                "FinalizeReconfig")]
+            tf, _tp, ta = engine.trace.export()
+            at = [i for i, a in enumerate(ta.tolist()) if a >= fin]
+            need(at, "the D10 trace holds no FinalizeReconfig record")
+            path = engine.replay(int(tf[at[-1]]))
+            g, last = path[-1]
+            print(f"reconfig3 D10 replay of a FinalizeReconfig successor: "
+                  f"{len(path) - 1} steps, last {dims.describe_instance(g)}"
+                  f", logs {last.log}")
+            need(g >= fin and len(path) - 1 <= depth
+                 and any(v >= CFG_BASE for log in last.log
+                         for _t, v in log), "the replayed FinalizeReconfig "
+                 "path is wrong")
+
+
 # -- the swarm and simulate tier (engine/swarm.py, engine/simulate.py) ----
 
 SWARM_DIMS = dict(n_servers=3, n_values=2, max_log=4, n_msg_slots=32)
@@ -3060,7 +3420,6 @@ SWARM_BOUNDS = dict(max_term=2, max_log_len=1, max_msg_count=1)
 def near_election_root(dims):
     """A candidate one vote short of quorum: NoLeaderElected falls two
     steps away (the JAX package's swarm and simulate tests use it)."""
-    import dataclasses
     from raft_tla_tpu_torch.models.pystate import init_state
     return dataclasses.replace(
         init_state(dims), role=(1, 0, 0), current_term=(2, 2, 2),
@@ -3123,7 +3482,6 @@ def phase_swarm_parity(torch):
     seeded violation equal to the CPU run, and the visited-fingerprint
     multiset of one MCraft_bounded run across batch and chunk sizes,
     graph and eager, card and CPU."""
-    import dataclasses
     import numpy as np
     from raft_tla_tpu_torch.engine.check import (engine_config_from_backend,
                                                  initial_states, make_engine)
@@ -3439,6 +3797,13 @@ def main() -> int:
     if sys.argv[1:] == ["--tail-variants"]:
         tail_variants(torch, device)
         return 0
+    if sys.argv[1:] == ["--reconfig"]:
+        t = time.time()
+        print(f"reconfig front: {phase_reconfig_front(torch, device)}")
+        phase_reconfig_cfg(torch)
+        phase_reconfig_leader(torch)
+        print(f"reconfig phases: {time.time() - t} s")
+        return 0
     gen = torch.Generator(device=device)
     gen.manual_seed(20261016)
     t = time.time()
@@ -3466,6 +3831,9 @@ def main() -> int:
     for shape in ("MCraft", "TPUraft"):
         front_row["max_abs_err"] = max(
             front_row["max_abs_err"], phase_safety_front(torch, device, shape))
+    front_row["reconfig"] = phase_reconfig_front(torch, device)
+    front_row["max_abs_err"] = max(front_row["max_abs_err"],
+                                   front_row["reconfig"]["max_abs_err"])
     print(f"kernel phases: {time.time() - t} s")
     # The two paths in turns (v3, v4, then v4, v3 at L11): host times
     # spread between calls, so they are compared within this one.
@@ -3500,6 +3868,11 @@ def main() -> int:
     phase_sync_turns(torch)
     phase_safety_cfg(torch, turns)
     phase_smoke_init(torch)
+    t = time.time()
+    front_row["reconfig"]["launches"] = \
+        phase_reconfig_cfg(torch)["chunk_front"]
+    phase_reconfig_leader(torch)
+    print(f"reconfig phases: {time.time() - t} s")
     print(f"MCraft phases done: {time.time() - t_smoke} s")
     t = time.time()
     phase_swarm_parity(torch)
@@ -3518,8 +3891,9 @@ def main() -> int:
     for row in rows:
         row["launches"] = counts[paths[row["name"]]][row["name"]]
     print(f"chip_smoke: {time.time() - t_smoke} s in all")
-    print(json.dumps({"kernels": [{k: r[k] for k in ROW_KEYS}
-                                  for r in rows]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in ROW_KEYS + (("reconfig",) if "reconfig" in r
+                                      else ())} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,6 +40,15 @@
 //      launch's second build (kSuite), so the TypeOK-only build carries
 //      none of their code.
 //
+// The joint-consensus reconfiguration variant (models/reconfig.py) has
+// builds of its own of the masks and lanes launches (kReconfig): 12
+// families (the targets ride in Dims), the config scan and the joint
+// quorum, the two appends (three ordered positions each), rows with the
+// value high-byte planes, the widened TypeOK.  Those builds take TypeOK,
+// NoLeaderElected and BoundedSpace; a list with a safety predicate is
+// refused for the variant (cudaErrorInvalidValue, and ValueError in the
+// wrapper when the front is built).
+//
 // Dead compacted lanes (lane >= total) are left unwritten in kh, kl, krows,
 // cons_ok, inv, parent_hi and parent_lo: nothing downstream reads them (the
 // fused tail reads only enqueued lanes; violations and trace links go
@@ -74,6 +83,7 @@ __host__ __device__ inline int masks_warp_bytes(const Dims& d) {
   return align16(d.sw * 4) + align16(2 * d.G);
 }
 
+template <bool kReconfig>
 __global__ void __launch_bounds__(kThreads)
 masks_kernel(Dims d, const uint8_t* __restrict__ rows,
              const uint8_t* __restrict__ valid, int B,
@@ -90,7 +100,7 @@ masks_kernel(Dims d, const uint8_t* __restrict__ rows,
   int* sv = reinterpret_cast<int*>(mine);
   uint8_t* en_s = mine + align16(d.sw * 4);
   uint8_t* ovf_s = en_s + d.G;
-  rtt::decode_row(d, rows + (size_t)b * d.sw, sv, lane);
+  rtt::decode_row<kReconfig>(d, rows + (size_t)b * d.sw, sv, lane);
   __syncwarp();
   const St st{d, sv};
   const bool ok_row = valid[b] != 0;
@@ -101,7 +111,7 @@ masks_kernel(Dims d, const uint8_t* __restrict__ rows,
   bool any_amp = false;
   for (int g = lane; g < d.G; g += 32) {
     bool en, ovf;
-    rtt::guard(st, g, &en, &ovf);
+    rtt::guard<kReconfig>(st, g, &en, &ovf);
     en &= ok_row;
     ovf &= ok_row;
     en_s[g] = en;
@@ -255,14 +265,41 @@ struct Edits {
 // lane_out's scalars for compacted lane q (instance g of the parent `st`),
 // by one thread: the edit list into `ed`, the fingerprints and the parent
 // fingerprint into `out`.
+template <bool kReconfig>
 __device__ void lane_edits(const Dims& d, const rtt::Salts& k,
-                                        const St& st, int g,
-                                        const uint32_t* __restrict__ scr,
-                                        Edits& ed, const LaneOut& out,
-                                        int q) {
+                           const St& st, int g,
+                           const uint32_t* __restrict__ scr, Edits& ed,
+                           const LaneOut& out, int q) {
   const int N = d.N, L = d.L, M = d.M;
-  const rtt::Inst in = rtt::decode_instance(d, g);
+  const rtt::Inst in = rtt::decode_instance<kReconfig>(d, g);
   const int fam = in.fam;
+  if constexpr (kReconfig) {
+    if (fam >= rtt::kNFam) {
+      // InitiateReconfig / FinalizeReconfig: (term[i], val) appended at
+      // (i, Len(log[i])), three ordered positions; the bag is untouched.
+      const int i = in.p1, ln = st.ll(i);
+      const int kp = rtt::clampi(ln, 0, L - 1);
+      int val;
+      rtt::reconfig_guard(st, in, &val);
+      uint32_t db0 = 0, db1 = 0;
+      auto put = [&](int pos, int v) {
+        const int old = ed.cur(pos);
+        db0 += rtt::contrib(k, 0, pos, v) - rtt::contrib(k, 0, pos, old);
+        db1 += rtt::contrib(k, 1, pos, v) - rtt::contrib(k, 1, pos, old);
+        ed.set(pos, v);
+      };
+      put(d.o_lt + i * L + kp, st.term(i));
+      put(d.o_lv + i * L + kp, val);
+      put(d.o_ll + i, ln + 1);
+      const uint32_t hi = rtt::finalize(scr[0] + db0, scr[2], k.seed(0));
+      const uint32_t lo = rtt::finalize(scr[1] + db1, scr[3], k.seed(1));
+      out.kh[q] = hi;
+      out.kl[q] = rtt::remap_sentinel(hi, lo);
+      out.phi[q] = scr[4];
+      out.plo[q] = scr[5];
+      return;
+    }
+  }
   // Reads clamp, as JAX gathers do: a slot family's p1 is a slot index,
   // read as a server only under gates that are off for it.
   const int i = rtt::clampi(in.p1, 0, N - 1);
@@ -313,9 +350,16 @@ __device__ void lane_edits(const Dims& d, const rtt::Salts& k,
   if (is_ac) {
     int max_agree = 0;
     for (int idx = 1; idx <= L; ++idx) {
-      int member = 0;
-      for (int n = 0; n < N; ++n) member += st.mi(i, n) >= idx || n == i;
-      if (2 * member > N && idx <= ln_i) max_agree = idx;
+      if constexpr (kReconfig) {
+        int member = 0;
+        for (int n = 0; n < N; ++n)
+          member |= (st.mi(i, n) >= idx || n == i) << n;
+        if (rtt::quorum<true>(st, i, member) && idx <= ln_i) max_agree = idx;
+      } else {
+        int member = 0;
+        for (int n = 0; n < N; ++n) member += st.mi(i, n) >= idx || n == i;
+        if (2 * member > N && idx <= ln_i) max_agree = idx;
+      }
     }
     const bool own_term =
         st.lt(i, rtt::clampi(max_agree - 1, 0, L - 1)) == term_i;
@@ -428,11 +472,23 @@ __device__ void lane_edits(const Dims& d, const rtt::Salts& k,
   out.plo[q] = scr[5];
 }
 
+// The high byte of value `v` written at base position p into its plane
+// (the decoded ints and the staged bytes), where p holds a value.
+__device__ __forceinline__ void put_hi(const Dims& d, int* sv, uint8_t* bo,
+                                       int p, int v) {
+  const int h = rtt::value_hi(d, p);
+  if (h >= 0) {
+    sv[h] = (v >> 8) & 0xFF;
+    bo[h] = (uint8_t)(v >> 8);
+  }
+}
+
 // Compacted lane q's successor, by one warp: the parent's ints `pv` with
 // the lane's edits `ed` applied into `sv`, the constraint and the
 // invariants (`n_inv` codes of 4 bits in `inv_list`) on them, and the row
-// as bytes through the warp's staging row `bs`.
-template <bool kSuite>
+// as bytes through the warp's staging row `bs`.  kReconfig writes each
+// value's high byte into its plane beside it.
+template <bool kSuite, bool kReconfig>
 __device__ __forceinline__ void successor(
     const Dims& d, const int* pv, const Edits& ed, int* sv, uint8_t* bs,
     int row_ints, const rtt::Bounds& bounds, unsigned long long inv_list,
@@ -460,6 +516,7 @@ __device__ __forceinline__ void successor(
     if (last) {
       sv[p] = ed.val[e];
       bo[p] = (uint8_t)(ed.val[e] & 0xFF);
+      if constexpr (kReconfig) put_hi(d, sv, bo, p, ed.val[e]);
     }
   }
   // The bag's rows: the clear, then the new row.
@@ -468,6 +525,7 @@ __device__ __forceinline__ void successor(
       const int p = d.o_msg + ed.clr * d.W + c;
       sv[p] = 0;
       bo[p] = 0;
+      if constexpr (kReconfig) put_hi(d, sv, bo, p, 0);
     }
   __syncwarp();
   if (ed.wr >= 0)
@@ -475,11 +533,13 @@ __device__ __forceinline__ void successor(
       const int p = d.o_msg + ed.wr * d.W + c;
       sv[p] = ed.m[c];
       bo[p] = (uint8_t)(ed.m[c] & 0xFF);
+      if constexpr (kReconfig) put_hi(d, sv, bo, p, ed.m[c]);
     }
   __syncwarp();
   const St st{d, sv};
   const bool cons = rtt::bounded_space_warp(st, bounds, lane);
-  const int inv = rtt::first_failing_warp<kSuite>(st, inv_list, n_inv, lane);
+  const int inv =
+      rtt::first_failing_warp<kSuite, kReconfig>(st, inv_list, n_inv, lane);
   // The whole 16-byte words of the destination as uint4, its head and
   // tail as bytes.
   uint8_t* base = row - off;
@@ -504,7 +564,7 @@ __device__ __forceinline__ void successor(
 // builds the safety suite's predicates in (raft_model.cuh
 // `first_failing_warp`); the launcher takes that build only for a list
 // that names one of them.
-template <bool kSuite>
+template <bool kSuite, bool kReconfig>
 __global__ void __launch_bounds__(kThreads, 4)
 lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
              const int32_t* __restrict__ pt,
@@ -547,7 +607,7 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
     const int b = lid / d.G;
     lb[t] = b;
     lg[t] = lid - b * d.G;
-    fam = rtt::decode_instance(d, lg[t]).fam;
+    fam = rtt::decode_instance<kReconfig>(d, lg[t]).fam;
   }
   if (t < 16) fam_n[t] = 0;
   __syncthreads();
@@ -565,7 +625,8 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
   }
   __syncthreads();
   if (t == 0)
-    for (int f = 0, acc = 0; f < rtt::kNFam; ++f) {
+    for (int f = 0, acc = 0; f < (kReconfig ? rtt::kMaxFam : rtt::kNFam);
+         ++f) {
       const int c = fam_n[f];
       fam_n[f] = acc;
       acc += c;
@@ -580,8 +641,8 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
   for (int p0 = 0; p0 < np; p0 += kCap) {
     const int pn = min(kCap, np - p0);
     for (int w = warp; w < pn; w += kWarps)
-      rtt::decode_row(d, rows + (size_t)pb[p0 + w] * d.sw,
-                      par + w * S.row_ints, lane);
+      rtt::decode_row<kReconfig>(d, rows + (size_t)pb[p0 + w] * d.sw,
+                                 par + w * S.row_ints, lane);
     __syncthreads();
     const int t_lo = pf[p0], t_hi = p0 + pn < np ? pf[p0 + pn] : nl;
     const int l = t < nl ? order[t] : -1;
@@ -589,7 +650,7 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
       const int* pv = par + (ps[l] - p0) * S.row_ints;
       Edits ed{pv, ed_pos + l * S.E, ed_val + l * S.E, ed_msg + l * d.W,
                0, -1, -1};
-      lane_edits(d, k, St{d, pv}, lg[l],
+      lane_edits<kReconfig>(d, k, St{d, pv}, lg[l],
                  scratch + (size_t)lb[l] * (kScr + 2 * d.M), ed, out,
                  q0 + l);
       n_ed[l] = ed.n;
@@ -601,7 +662,7 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
       const int* pv = par + (ps[r] - p0) * S.row_ints;
       const Edits ed{pv, ed_pos + r * S.E, ed_val + r * S.E,
                      ed_msg + r * d.W, n_ed[r], clr[r], wr[r]};
-      successor<kSuite>(d, pv, ed, stg + warp * S.row_ints,
+      successor<kSuite, kReconfig>(d, pv, ed, stg + warp * S.row_ints,
                         bst + warp * S.stage_bytes, S.row_ints, bounds,
                         inv_list, n_inv, out, q0 + r, lane);
     }
@@ -631,33 +692,46 @@ int pack_invariants(const int* codes, int n, unsigned long long* list,
   return 0;
 }
 
+// Dims this kernel takes: the static maxima, and for the reconfig variant
+// (T > 0) at most 7 servers and kMaxTargets targets.
+bool dims_ok(int N, int V, int L, int M, int T) {
+  return N >= 1 && N <= rtt::kMaxN && L >= 1 && L <= rtt::kMaxL && M >= 1 &&
+         M <= rtt::kMaxM && V >= 1 && T >= 0 && T <= rtt::kMaxTargets &&
+         (T == 0 || N <= 7);
+}
+
 }  // namespace
 
 // One front call: three launches on `stream`.  `inv_codes` is a host
-// array of `n_inv` predicate codes in the run's order.  Returns a
-// cudaError_t (cudaErrorInvalidValue for dims or predicates this kernel
-// does not take).
+// array of `n_inv` predicate codes in the run's order; `targets` a host
+// array of the reconfig variant's `n_targets` target configs (0 for the
+// spec).  Returns a cudaError_t (cudaErrorInvalidValue for dims or
+// predicates this kernel does not take).
 extern "C" int chunk_front_launch(
-    int N, int V, int L, int M, const void* rows, const void* valid, int B,
-    int K, const void* kspread, const void* por_mask, const void* por_pri,
-    const void* salts, const int* inv_codes, int n_inv, int max_term,
-    int max_log_len, int max_msg_count, int max_in_flight, void* scratch,
-    void* counts, void* en, void* ovf, void* pruned, void* pt, void* lane_id,
-    void* kvalid, void* kh, void* kl, void* krows, void* cons, void* inv,
-    void* phi, void* plo, void* stream) {
-  if (N < 1 || N > rtt::kMaxN || L < 1 || L > rtt::kMaxL || M < 1 ||
-      M > rtt::kMaxM || V < 1 || B < 1)
+    int N, int V, int L, int M, const int* targets, int n_targets,
+    const void* rows, const void* valid, int B, int K, const void* kspread,
+    const void* por_mask, const void* por_pri, const void* salts,
+    const int* inv_codes, int n_inv, int max_term, int max_log_len,
+    int max_msg_count, int max_in_flight, void* scratch, void* counts,
+    void* en, void* ovf, void* pruned, void* pt, void* lane_id, void* kvalid,
+    void* kh, void* kl, void* krows, void* cons, void* inv, void* phi,
+    void* plo, void* stream) {
+  if (!dims_ok(N, V, L, M, n_targets) || B < 1 ||
+      (n_targets > 0 && targets == nullptr))
     return (int)cudaErrorInvalidValue;
   unsigned long long inv_list;
   bool suite;
   int e;
   if ((e = pack_invariants(inv_codes, n_inv, &inv_list, &suite))) return e;
-  const Dims d = rtt::make_dims(N, V, L, M);
+  const bool reconfig = n_targets > 0;
+  if (reconfig && suite) return (int)cudaErrorInvalidValue;
+  const Dims d = rtt::make_dims(N, V, L, M, n_targets, targets);
   cudaStream_t st = (cudaStream_t)stream;
 
   const size_t smem_a = (size_t)kWarps * masks_warp_bytes(d);
-  if ((e = rtt::allow_smem(masks_kernel, smem_a))) return e;
-  masks_kernel<<<masks_blocks(B), kThreads, smem_a, st>>>(
+  auto masks = reconfig ? masks_kernel<true> : masks_kernel<false>;
+  if ((e = rtt::allow_smem(masks, smem_a))) return e;
+  masks<<<masks_blocks(B), kThreads, smem_a, st>>>(
       d, (const uint8_t*)rows, (const uint8_t*)valid, B,
       (const uint8_t*)por_mask, (const int32_t*)por_pri,
       (const uint32_t*)salts, (uint8_t*)en, (uint8_t*)ovf, (uint8_t*)pruned,
@@ -672,7 +746,9 @@ extern "C" int chunk_front_launch(
   if ((e = (int)cudaGetLastError())) return e;
 
   const size_t smem_c = lanes_smem(d).bytes;
-  auto lanes = suite ? lanes_kernel<true> : lanes_kernel<false>;
+  auto lanes = reconfig ? lanes_kernel<false, true>
+               : suite  ? lanes_kernel<true, false>
+                        : lanes_kernel<false, false>;
   if ((e = rtt::allow_smem(lanes, smem_c))) return e;
   const rtt::Bounds bounds{max_term, max_log_len, max_msg_count,
                            max_in_flight};
@@ -686,46 +762,58 @@ extern "C" int chunk_front_launch(
   return (int)cudaGetLastError();
 }
 
-// Blocks of the masks launch (out[0]), of the lanes launch (out[1]) and of
-// its build with the safety suite (out[2]) that one SM holds at these
-// dims, as the occupancy calculator gives them (their shared memory,
-// registers and threads), for chip_smoke.py.
-extern "C" int chunk_front_occupancy(int N, int V, int L, int M, int* out) {
-  if (N < 1 || N > rtt::kMaxN || L < 1 || L > rtt::kMaxL || M < 1 ||
-      M > rtt::kMaxM || V < 1)
-    return (int)cudaErrorInvalidValue;
-  const Dims d = rtt::make_dims(N, V, L, M);
-  const size_t smem_a = (size_t)kWarps * masks_warp_bytes(d);
-  const size_t smem_c = lanes_smem(d).bytes;
-  int e;
-  if ((e = rtt::allow_smem(masks_kernel, smem_a))) return e;
-  if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           out, masks_kernel, kThreads, smem_a)))
-    return e;
-  if ((e = rtt::allow_smem(lanes_kernel<false>, smem_c))) return e;
-  if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           out + 1, lanes_kernel<false>, kThreads, smem_c)))
-    return e;
-  if ((e = rtt::allow_smem(lanes_kernel<true>, smem_c))) return e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out + 2, lanes_kernel<true>, kThreads, smem_c);
+namespace {
+
+// The builds of one call, for chip_smoke.py: 0 masks, 1 compaction, 2
+// lanes, 3 lanes with the safety suite, 4 masks of the reconfig variant,
+// 5 lanes of the reconfig variant.
+template <typename F>
+int with_build(int which, F f) {
+  switch (which) {
+    case 0: return f(masks_kernel<false>);
+    case 2: return f(lanes_kernel<false, false>);
+    case 3: return f(lanes_kernel<true, false>);
+    case 4: return f(masks_kernel<true>);
+    case 5: return f(lanes_kernel<false, true>);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Launch `which` of one front call (0 masks, 1 compaction, 2 lanes, 3
-// lanes with the safety suite) for chip_smoke.py.
+}  // namespace
+
+// Blocks of build `which` (with_build's codes, but the compaction) that
+// one SM holds at these dims (`n_targets` of the reconfig variant, 0 for
+// the spec), as the occupancy calculator gives them (its shared memory,
+// registers and threads), into *out, for chip_smoke.py.
+extern "C" int chunk_front_occupancy(int which, int N, int V, int L, int M,
+                                     int n_targets, int* out) {
+  if (!dims_ok(N, V, L, M, n_targets)) return (int)cudaErrorInvalidValue;
+  const Dims d = rtt::make_dims(N, V, L, M, n_targets);
+  const size_t smem = which == 0 || which == 4
+                          ? (size_t)kWarps * masks_warp_bytes(d)
+                          : lanes_smem(d).bytes;
+  return with_build(which, [&](auto kernel) {
+    int e;
+    if ((e = rtt::allow_smem(kernel, smem))) return e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, kThreads, smem);
+  });
+}
+
+// Launch `which` of one front call (with_build's codes) for chip_smoke.py.
 extern "C" int chunk_front_kernel_info(int which, int N, int V, int L, int M,
-                                       int B, int K, int* out) {
-  const Dims d = rtt::make_dims(N, V, L, M);
-  if (which == 0)
-    return rtt::kernel_info(masks_kernel, masks_blocks(B), kThreads,
-                            (size_t)kWarps * masks_warp_bytes(d), out);
+                                       int n_targets, int B, int K,
+                                       int* out) {
+  if (!dims_ok(N, V, L, M, n_targets)) return (int)cudaErrorInvalidValue;
+  const Dims d = rtt::make_dims(N, V, L, M, n_targets);
   if (which == 1)
     return rtt::kernel_info(rtt::compact_scan_kernel, rtt::scan_blocks(B),
                             rtt::kScanThreads, 0, out);
-  if (which == 2 || which == 3)
-    return rtt::kernel_info(which == 3 ? lanes_kernel<true>
-                                       : lanes_kernel<false>,
-                            lanes_blocks(K), kThreads, lanes_smem(d).bytes,
-                            out);
-  return (int)cudaErrorInvalidValue;
+  const bool masks = which == 0 || which == 4;
+  return with_build(which, [&](auto kernel) {
+    return masks ? rtt::kernel_info(kernel, masks_blocks(B), kThreads,
+                                    (size_t)kWarps * masks_warp_bytes(d), out)
+                 : rtt::kernel_info(kernel, lanes_blocks(K), kThreads,
+                                    lanes_smem(d).bytes, out);
+  });
 }

@@ -10,7 +10,16 @@
 //     contributions, slot hashes, `finalize`, the sentinel remap;
 //   - the registry predicates TypeOK, NoLeaderElected and BoundedSpace
 //     (models/invariants.py) and the nine of the safety suite
-//     (models/safety.py), each on one state by a whole warp.
+//     (models/safety.py), each on one state by a whole warp;
+//   - the joint-consensus reconfiguration variant (models/reconfig.py) in
+//     the builds with kReconfig: two more families (InitiateReconfig over
+//     N x targets, FinalizeReconfig over N), the config scan of a
+//     server's own log, the joint quorum in BecomeLeader and
+//     AdvanceCommitIndex, TypeOK's widened value domain, and 2-byte log
+//     values: the row's high-byte planes are added on decode, so a value
+//     position of the decoded ints holds the whole value (a plane position
+//     holds its raw byte), and a write of a value position writes its
+//     plane too.
 // Values are ints, as the PyTorch version's int64 fields are: a successor
 // value that does not fit its uint8 lane is kept whole for the hash and the
 // predicates and wraps only when the row is written, as flatten_state does.
@@ -29,7 +38,10 @@ constexpr int kMaxW = 4 + 2 + 2 * kMaxL;  // msg_width at kMaxL
 constexpr int kMaxM = 256;                // message slots
 constexpr int kMaxInv = 16;               // invariants per run, 4 bits each
                                           // in a 64-bit list
-constexpr int kNFam = 10;
+constexpr int kNFam = 10;                 // the spec's families
+constexpr int kMaxFam = 12;               // with the reconfig variant's two
+constexpr int kMaxTargets = 32;           // TargetConfigs the kernel takes
+constexpr int CFG_BASE = 1 << 12;         // models/reconfig.py
 
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, NIL = 0;
 constexpr int RVQ = 0, RVR = 1, AEQ = 2, AER = 3;
@@ -48,10 +60,17 @@ struct Dims {
   // byte offsets of the row's fields (models/schema.py order)
   int o_term, o_role, o_voted, o_lt, o_lv, o_ll, o_ci, o_vr, o_vg, o_ni,
       o_mi, o_msg, o_cnt;
-  int f_off[kNFam + 1];  // family offsets in the instance grid, then G
+  int f_off[kMaxFam + 1];  // family offsets in the instance grid, then G
+  // The reconfig variant (T > 0): its targets, and the high-byte planes
+  // of the log values (o_lvh, [N, L]) and of the message value columns
+  // (o_mvh, [M, n_vc]: column 8 and [6 + L, 6 + 2L), in column order).
+  int T, tg[kMaxTargets];
+  int o_lvh, o_mvh, n_vc;
 };
 
-inline Dims make_dims(int N, int V, int L, int M) {
+// T = 0: the spec; T > 0: the reconfig variant over targets[0..T).
+inline Dims make_dims(int N, int V, int L, int M, int T = 0,
+                      const int* targets = nullptr) {
   Dims d;
   d.N = N;
   d.V = V;
@@ -73,13 +92,23 @@ inline Dims make_dims(int N, int V, int L, int M) {
   d.o_msg = d.D;
   d.o_cnt = d.D + M * d.W;
   d.sw = d.o_cnt + M;
-  const int sizes[kNFam] = {N, N, N * N, N, N * V, N, N * N, M, M, M};
+  d.T = T;
+  for (int t = 0; t < kMaxTargets; ++t)
+    d.tg[t] = t < T && targets ? targets[t] : 0;
+  const bool col8_apart = 8 < 6 + L || 8 >= 6 + 2 * L;
+  d.n_vc = L + (col8_apart ? 1 : 0);
+  d.o_lvh = d.sw;
+  d.o_mvh = d.o_lvh + N * L;
+  if (T > 0) d.sw = d.o_mvh + M * d.n_vc;
+  const int sizes[kMaxFam] = {N, N, N * N, N, N * V, N, N * N, M, M, M,
+                              N * T, N};
+  const int nfam = T > 0 ? kMaxFam : kNFam;
   int acc = 0;
-  for (int f = 0; f < kNFam; ++f) {
+  for (int f = 0; f < nfam; ++f) {
     d.f_off[f] = acc;
     acc += sizes[f];
   }
-  d.f_off[kNFam] = acc;
+  for (int f = nfam; f <= kMaxFam; ++f) d.f_off[f] = acc;
   d.G = acc;
   return d;
 }
@@ -88,14 +117,43 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// The index of message column c among the value columns (its place in a
+// slot's high-byte plane), -1 for another column (schema.py
+// `_msg_value_cols`: column 8 and [6 + L, 6 + 2L), sorted).
+__host__ __device__ __forceinline__ int value_col(const Dims& d, int c) {
+  const int lo = 6 + d.L, hi = 6 + 2 * d.L;
+  if (c >= lo && c < hi) return c - lo + (8 < lo ? 1 : 0);
+  if (c == 8) return 8 < lo ? 0 : hi - lo;
+  return -1;
+}
+
+// The high-byte position of base position p, -1 where p holds no value
+// (the reconfig variant's rows).
+__device__ __forceinline__ int value_hi(const Dims& d, int p) {
+  if (p >= d.o_lv && p < d.o_lv + d.N * d.L) return d.o_lvh + (p - d.o_lv);
+  if (p >= d.o_msg && p < d.o_cnt) {
+    const int s = (p - d.o_msg) / d.W;
+    const int v = value_col(d, p - d.o_msg - s * d.W);
+    if (v >= 0) return d.o_mvh + s * d.n_vc + v;
+  }
+  return -1;
+}
+
 // Decode one packed row into ints (a warp's share: lanes stride the row).
+// kReconfig adds each value's high-byte plane << 8 to its low byte.
+template <bool kReconfig = false>
 __device__ __forceinline__ void decode_row(const Dims& d,
                                            const uint8_t* __restrict__ row,
                                            int* sv, int lane) {
   for (int p = lane; p < d.sw; p += 32) {
     const int b = row[p];
     const bool col4 = p >= d.o_msg && p < d.o_cnt && (p - d.o_msg) % d.W == 4;
-    sv[p] = col4 ? (int)(int8_t)b : b;
+    int v = col4 ? (int)(int8_t)b : b;
+    if constexpr (kReconfig) {
+      const int h = value_hi(d, p);
+      if (h >= 0) v += (int)row[h] << 8;
+    }
+    sv[p] = v;
   }
 }
 
@@ -320,10 +378,14 @@ struct Inst {
   int fam, k, p1, p2;  // family, index in it, decoded parameters
 };
 
+// kReconfig: InitiateReconfig(i, c) (p1 = i, p2 = the target c, in
+// ReconfigDims.instance_info's order) and FinalizeReconfig(i) (p1 = i).
+template <bool kReconfig = false>
 __device__ __forceinline__ Inst decode_instance(const Dims& d, int g) {
+  constexpr int nfam = kReconfig ? kMaxFam : kNFam;
   Inst r;
   r.fam = 0;
-  while (r.fam + 1 < kNFam && g >= d.f_off[r.fam + 1]) ++r.fam;
+  while (r.fam + 1 < nfam && g >= d.f_off[r.fam + 1]) ++r.fam;
   r.k = g - d.f_off[r.fam];
   r.p1 = r.k;
   r.p2 = 0;
@@ -333,16 +395,97 @@ __device__ __forceinline__ Inst decode_instance(const Dims& d, int g) {
   } else if (r.fam == 4) {
     r.p1 = r.k / d.V;
     r.p2 = r.k % d.V + 1;
+  } else if (kReconfig && r.fam == kNFam) {
+    r.p1 = r.k / d.T;
+    r.p2 = d.tg[r.k % d.T];
   }
   return r;
 }
 
+// -- the reconfig variant (models/reconfig.py) -------------------------------
+
+// The latest config entry of server i's own log (committed or not):
+// (old mask, new mask, 1-based index); (0, full, 0) when it holds none.
+struct Config {
+  int old_m, new_m, idx;
+};
+
+__device__ __forceinline__ Config config_scan(const St& st, int i) {
+  const int L = st.d.L, ln = st.ll(i);
+  int kk = -1;
+  for (int k = 0; k < L; ++k)
+    if (k < ln && st.lv(i, k) >= CFG_BASE) kk = k;
+  if (kk < 0) return Config{0, (1 << st.d.N) - 1, 0};
+  const int enc = st.lv(i, kk) - CFG_BASE;
+  return Config{(enc >> 8) & 0xFF, enc & 0xFF, kk + 1};
+}
+
+// Is the server bitmask `member` a quorum from server i's view: the
+// spec's simple majority, or under kReconfig the joint rule (majorities
+// of C_old and of C_new under a joint entry, of C_new under a final one).
+template <bool kReconfig = false>
+__device__ __forceinline__ bool quorum(const St& st, int i, int member) {
+  const int N = st.d.N;
+  if constexpr (!kReconfig) {
+    return 2 * __popc(member) > N;
+  } else {
+    const int full = (1 << N) - 1;
+    const Config c = config_scan(st, i);
+    auto maj = [&](int cfg) {
+      return 2 * __popc(member & cfg & full) > __popc(cfg & full);
+    };
+    return c.old_m > 0 ? maj(c.old_m) && maj(c.new_m) : maj(c.new_m);
+  }
+}
+
+// The value InitiateReconfig(i, c) (fam 10) or FinalizeReconfig(i) appends,
+// and whether its guard holds (the one-at-a-time rule; the joint entry
+// committed).
+__device__ __forceinline__ bool reconfig_guard(const St& st, const Inst& in,
+                                               int* val) {
+  const int i = in.p1;
+  const Config c = config_scan(st, i);
+  const bool lead = st.role(i) == LEADER;
+  if (in.fam == kNFam) {
+    *val = CFG_BASE + (c.new_m << 8) + in.p2;
+    return lead && c.old_m == 0 && in.p2 != c.new_m;
+  }
+  *val = CFG_BASE + c.new_m;
+  return lead && c.old_m > 0 && st.ci(i) >= c.idx;
+}
+
+// TypeOK's value domain: a client value, or a config entry whose masks
+// are nonempty (new) subsets of the servers (ReconfigDims.build_value_ok).
+__device__ __forceinline__ bool reconfig_value_ok(const Dims& d, int v) {
+  const int full = (1 << d.N) - 1;
+  const int enc = v - CFG_BASE;
+  const int old_m = (enc >> 8) & 0xFF, new_m = enc & 0xFF;
+  return (v >= 1 && v <= d.V) ||
+         (v >= CFG_BASE && enc <= (full << 8) + full && new_m >= 1 &&
+          new_m <= full && old_m <= full);
+}
+
 // The guard of instance g with its pack guard: (enabled, overflow), as
 // actions2.py `masks` computes them lane by lane.
+template <bool kReconfig = false>
 __device__ __forceinline__ void guard(const St& st, int g, bool* en_out,
                                       bool* ovf_out) {
   const Dims& d = st.d;
-  const Inst in = decode_instance(d, g);
+  const Inst in = decode_instance<kReconfig>(d, g);
+  if constexpr (kReconfig) {
+    if (in.fam >= kNFam) {
+      // One entry appended at (i, Len(log[i])).  The pack guard of the
+      // successor equals the parent's (the value fits its 2-byte lane, the
+      // term is term[i]), and that holds on every row decoded from bytes:
+      // so overflow is only a full log.
+      int val;
+      const bool want = reconfig_guard(st, in, &val);
+      const bool fits = st.ll(in.p1) < d.L;
+      *en_out = want && fits;
+      *ovf_out = want && !fits;
+      return;
+    }
+  }
   bool en = false, ovf = false;
   int m[kMaxW];
   switch (in.fam) {
@@ -370,8 +513,8 @@ __device__ __forceinline__ void guard(const St& st, int g, bool* en_out,
     }
     case 3: {  // BecomeLeader
       const int i = in.k;
-      const int votes = __popc(st.vg(i) & ((1 << d.N) - 1));
-      en = st.role(i) == CANDIDATE && 2 * votes > d.N;
+      en = st.role(i) == CANDIDATE &&
+           quorum<kReconfig>(st, i, st.vg(i) & ((1 << d.N) - 1));
       break;
     }
     case 4: {  // ClientRequest(i, v)
@@ -479,6 +622,7 @@ __device__ __forceinline__ uint32_t remap_sentinel(uint32_t hi, uint32_t lo) {
 
 // -- predicates on one state, by a whole warp --------------------------------
 
+template <bool kReconfig = false>
 __device__ __forceinline__ bool type_ok_warp(const St& st, int lane) {
   const Dims& d = st.d;
   bool ok = true;
@@ -491,8 +635,9 @@ __device__ __forceinline__ bool type_ok_warp(const St& st, int lane) {
     ok &= st.vg(i) >= 0 && st.vg(i) < (1 << d.N);
     for (int k = 0; k < d.L; ++k) {
       const int t = st.lt(i, k), v = st.lv(i, k);
-      ok &= k < st.ll(i) ? (t >= 0 && v >= 1 && v <= d.V)
-                         : (t == 0 && v == 0);
+      const bool v_ok =
+          kReconfig ? reconfig_value_ok(d, v) : v >= 1 && v <= d.V;
+      ok &= k < st.ll(i) ? (t >= 0 && v_ok) : (t == 0 && v == 0);
     }
     for (int j = 0; j < d.N; ++j)
       ok &= st.ni(i, j) >= 1 && st.mi(i, j) >= 0;
@@ -707,8 +852,8 @@ __device__ __forceinline__ bool safety_warp(const St& st, int code,
 // state, -1 where all hold, by a whole warp.  `list` holds `n` codes of 4
 // bits, the first in the low bits.  kSuite = false is the build for lists
 // of TypeOK and NoLeaderElected only (chunk_front_launch picks it), which
-// keeps the suite's code out of that build.
-template <bool kSuite>
+// keeps the suite's code out of that build; kReconfig widens TypeOK.
+template <bool kSuite, bool kReconfig = false>
 __device__ __forceinline__ int first_failing_warp(const St& st,
                                                   unsigned long long list,
                                                   int n, int lane) {
@@ -719,7 +864,7 @@ __device__ __forceinline__ int first_failing_warp(const St& st,
     bool holds;
     switch (code) {
       case PRED_TYPE_OK:
-        holds = type_ok_warp(st, lane);
+        holds = type_ok_warp<kReconfig>(st, lane);
         break;
       case PRED_NO_LEADER:
         holds = no_leader_warp(st, lane);

@@ -773,7 +773,7 @@ class BFSEngine:
                     return res
             for e in encoded:
                 check_packable(e, dims)
-            rows_all = flatten_state(roots)
+            rows_all = flatten_state(roots, dims)
             if cfg.record_trace:
                 rhi, rlo = self._fingerprint(unflatten_state(rows_all, dims))
                 for i, (h, l) in enumerate(zip(rhi.tolist(), rlo.tolist())):

@@ -13,12 +13,12 @@ snapshot.
 This is the JAX package's ``engine/checkpoint.py`` format, version 4,
 array for array and key for key (seen keys lex-sorted ``(hi, lo)`` uint32
 pairs as ``ops/fpset.py to_host_keys`` gives them), so a snapshot written
-by either package is read by the other.  What the port leaves out: the
-fault-injection hooks, and every dims class but ``RaftDims`` (a
-``ReconfigDims`` snapshot is refused: that variant is ROADMAP A7).  The
-piece files a multi-controller mesh run writes
-(``level_00012.p0of2.npz``, ...) load and merge here, so such a run
-resumes on one card; the port never writes them.
+by either package is read by the other, ``RaftDims`` and ``ReconfigDims``
+snapshots alike (the metadata names the dims class).  What the port
+leaves out: the fault-injection hooks.  The piece files a
+multi-controller mesh run writes (``level_00012.p0of2.npz``, ...) load
+and merge here, so such a run resumes on one card; the port never writes
+them.
 
 ``roots`` is a pickle, as in the JAX package: load only snapshots that
 this program or the JAX package wrote.
@@ -38,6 +38,7 @@ import numpy as np
 
 from ..models.dims import RaftDims
 from ..models.pystate import PyState
+from ..models.reconfig import ReconfigDims
 from ..models.schema import state_width
 
 FORMAT_VERSION = 4
@@ -67,14 +68,19 @@ class Checkpoint:
     roots: Dict[int, PyState]
 
 
+# The dims classes a snapshot may name: an allowlist, not pickle, since the
+# class name comes from the snapshot's JSON metadata.
+DIMS_CLASSES = {"RaftDims": RaftDims, "ReconfigDims": ReconfigDims}
+
+
 def check_dims_checkpointable(dims) -> None:
     """Raise when the engine is built, not at the first snapshot, if
     ``dims`` could not be saved and restored."""
-    if type(dims) is not RaftDims:
+    name = type(dims).__name__
+    if DIMS_CLASSES.get(name) is not type(dims):
         raise TypeError(
-            f"dims class {type(dims).__name__!r} is not checkpoint-"
-            "restorable here (only RaftDims; ROADMAP A7); run without "
-            "checkpoint_dir")
+            f"dims class {name!r} is not checkpoint-restorable; add it to "
+            "engine/checkpoint.DIMS_CLASSES or run without checkpoint_dir")
 
 
 class _RootsPickler(pickle._Pickler):
@@ -116,7 +122,7 @@ def save(path: str, ckpt: Checkpoint) -> None:
     check_dims_checkpointable(ckpt.dims)
     meta = {
         "version": FORMAT_VERSION,
-        "dims_class": "RaftDims",
+        "dims_class": type(ckpt.dims).__name__,
         "state_width": state_width(ckpt.dims),
         "dims": dataclasses.asdict(ckpt.dims),
         "distinct": ckpt.distinct,
@@ -212,17 +218,18 @@ def _load_one(path: str) -> Checkpoint:
                     f"(unexpected dims keys {sorted(extra)}); re-run the "
                     "variant from scratch to produce a v4 snapshot")
             cls_name = "RaftDims"
-        if cls_name != "RaftDims":
+        if cls_name not in DIMS_CLASSES:
             raise ValueError(
-                f"checkpoint dims class {cls_name!r} cannot be restored "
-                "here: only RaftDims is ported (the reconfiguration "
-                "variant is ROADMAP A7)")
-        dims = RaftDims(**{k: tuple(v) if isinstance(v, list) else v
-                           for k, v in meta["dims"].items()})
+                f"checkpoint dims class {cls_name!r} is not in this "
+                f"build's registry ({sorted(DIMS_CLASSES)}); it was written "
+                "by a build with more dims variants")
+        cls = DIMS_CLASSES[cls_name]
+        dims = cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in meta["dims"].items()})
         if "state_width" in meta and state_width(dims) != meta["state_width"]:
             raise ValueError(
                 f"checkpoint row width {meta['state_width']} != "
-                f"{state_width(dims)} for RaftDims: the packed layout "
+                f"{state_width(dims)} for {cls_name}: the packed layout "
                 "changed since this snapshot was written")
         return Checkpoint(
             dims=dims,

@@ -173,7 +173,7 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
             cons_ok = constraint(kstates)
         else:
             cons_ok = torch.ones(K, dtype=torch.bool, device=device)
-        krows = flatten_state(kstates)
+        krows = flatten_state(kstates, dims)
         if inv_id is not None:
             inv = inv_id(kstates)
         else:

@@ -101,7 +101,7 @@ def build_sim_steps(dims: RaftDims, inv_fns, constraint, D: int, device):
             choice = masked_choice(bits, en)
             can_step = en.any(1)
             _h, _l, nxt = v2.lane_out(st, None, choice, hashes=False)
-            nrows = flatten_state(nxt)
+            nrows = flatten_state(nxt, dims)
             if inv_fns:
                 inv = inv_id(nxt)
             else:

@@ -212,7 +212,7 @@ def build_swarm_chunk(dims: RaftDims, inv_fns, constraint, D: int,
             choice = preferred_choice(bits, en, family_subset(mbits, fam))
             can_step = en.any(1) & act
             _h, _l, nxt = v2.lane_out(st, None, choice, hashes=False)
-            nrows = flatten_state(nxt)
+            nrows = flatten_state(nxt, dims)
             fp_hi, fp_lo = fingerprint(nxt)
             if inv_fns:
                 inv = inv_id(nxt)
@@ -280,7 +280,7 @@ def root_rows(dims: RaftDims, encoded, device):
     to survive the uint8 row)."""
     for e in encoded:
         check_packable(e, dims)
-    return flatten_state(stack_states(encoded, device))
+    return flatten_state(stack_states(encoded, device), dims)
 
 
 def replay_actions(v2, dims: RaftDims, root: PyState, actions, device):

@@ -28,6 +28,7 @@ discard gated by ``reply_fire`` (an ungated discard is the plain send).
 
 from __future__ import annotations
 
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -37,7 +38,13 @@ from ..ops.fingerprint import (MASK32, constants, finalize, flat_ordered,
                                fmix32, mul32, remap_sentinel, slot_hash, u32)
 from .dims import (AEQ, AER, CANDIDATE, FOLLOWER, LEADER, NIL, RVQ, RVR,
                    RaftDims)
-from .schema import StateBatch
+from .schema import StateBatch, pack_ok
+
+
+class V2Unavailable(NotImplementedError):
+    """This dims variant has no v2 kernels (no or partial
+    ``build_extra_v2``): a type of its own, so that only this condition,
+    and no other ``NotImplementedError``, says so."""
 
 
 class ParentHash(NamedTuple):
@@ -131,8 +138,7 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
     O_NI = 7 * N + 2 * N * L
     O_MI = 7 * N + 2 * N * L + N * N
 
-    def quorum_count(cnt):
-        return 2 * cnt > N
+    quorum = dims.build_quorum()
 
     # -- fingerprint deltas -------------------------------------------------
     def contrib(pos, val, lane):
@@ -151,6 +157,28 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
     def row_hash(mvec, lane):
         _, c_msg, seed = consts[lane]
         return slot_hash(mvec.unsqueeze(-2), c_msg, seed).squeeze(-1)
+
+    def dsum(*deltas):
+        return tuple(sum(d[ln] for d in deltas) & MASK32 for ln in (0, 1))
+
+    # The delta toolkit a variant's extra families get (dims.build_extra_v2)
+    # for their fingerprint deltas.
+    fp_helpers = types.SimpleNamespace(
+        dpos=dpos, dvec=dvec, dsum=dsum, ZD=(0, 0), L=L,
+        O_TERM=O_TERM, O_ROLE=O_ROLE, O_VOTED=O_VOTED, O_LT=O_LT,
+        O_LV=O_LV, O_LL=O_LL, O_CI=O_CI, O_VR=O_VR, O_VG=O_VG,
+        O_NI=O_NI, O_MI=O_MI)
+    extra_v2 = dims.build_extra_v2(fp_helpers)
+    if extra_v2 is None or len(extra_v2) != len(dims.extra_families):
+        raise V2Unavailable(
+            f"dims {type(dims).__name__} does not provide v2 kernels for "
+            "its extra families (build_extra_v2)")
+    extra_v1 = dims.build_extra_kernels(device)
+    extra_masks = dims.build_extra_masks_v2()
+    if extra_masks is not None and len(extra_masks) != len(extra_v1):
+        raise ValueError(
+            f"{type(dims).__name__}.build_extra_masks_v2 returned "
+            f"{len(extra_masks)} kernels for {len(extra_v1)} extra families")
 
     # -- shared guard/value helpers -----------------------------------------
     def last_term(st, i):
@@ -264,6 +292,7 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
     ii_t = torch.arange(N, device=device).repeat_interleave(N)
     jj_t = torch.arange(N, device=device).repeat(N)
     slot_t = torch.arange(M, device=device)
+    ar_n = torch.arange(N, device=device)
 
     def lanes(x, table):
         return table.unsqueeze(0).expand(x, -1)
@@ -314,8 +343,9 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
         en_parts.append(en & ctx["ok"])
         ovf_parts.append((en & ~ctx["ok"]) | (en & ctx["ok"] & pack))
         member = ((st.votes_gran.unsqueeze(-1)                # BecomeLeader
-                   >> torch.arange(N, device=device)) & 1).sum(-1)
-        en_parts.append((st.role == CANDIDATE) & quorum_count(member))
+                   >> torch.arange(N, device=device)) & 1)
+        en_parts.append((st.role == CANDIDATE)
+                        & quorum(st, lanes(x, ar_n), member))
         ovf_parts.append(zN)
         is_l = st.role == LEADER                             # ClientRequest
         fits = st.log_len < L
@@ -347,6 +377,24 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
         ovf_parts.append(occ & (st.msg_cnt + 1 > 255))
         en_parts.append(occ)                                 # Drop
         ovf_parts.append(torch.zeros_like(occ))
+        # Extra families: the variant's guards-only masks, with one
+        # pack_ok of the parent; without them, its kernels' successors
+        # and their pack guard, lane by lane.
+        if extra_masks is not None and extra_v1:
+            pk_parent = pack_ok(st, dims)
+            for (params, _kern), mask_fn in zip(extra_v1, extra_masks):
+                en_e, ovf_e = mask_fn(st, pk_parent,
+                                      *(lanes(x, p) for p in params))
+                en_parts.append(en_e)
+                ovf_parts.append(ovf_e)
+        else:
+            for params, kern in extra_v1:
+                for c in range(params[0].shape[0]):
+                    en_e, ovf_e, succ_e = kern(
+                        st, *(lanes(x, p[c:c + 1]) for p in params))
+                    pk = pack_ok(succ_e, dims).unsqueeze(1)
+                    en_parts.append(en_e)
+                    ovf_parts.append(ovf_e | (en_e & ~pk))
         return torch.cat(en_parts, 1), torch.cat(ovf_parts, 1)
 
     # -- fingerprint internals of the parents -------------------------------
@@ -392,7 +440,6 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
     p1_t = torch.as_tensor(p1_np, device=device)
     p2_t = torch.as_tensor(p2_np, device=device)
     idxs = torch.arange(1, L + 1, device=device)
-    ar_n = torch.arange(N, device=device)
 
     def lane_out(st: StateBatch, ph: ParentHash, g: torch.Tensor,
                  hashes: bool = True):
@@ -454,7 +501,7 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
         mi_row = _row(st.match_idx, i)                      # [X, 1, N]
         member = ((mi_row.unsqueeze(2) >= idxs[None, None, :, None])
                   | (ar_n[None, None, None, :] == i[..., None, None]))
-        agree_ok = (quorum_count(member.sum(-1))
+        agree_ok = (quorum(st, i, member)
                     & (idxs[None, None, :] <= ln_i.unsqueeze(-1)))
         any_ok = agree_ok.any(-1)
         max_agree = torch.where(agree_ok, idxs, 0).max(-1).values
@@ -505,6 +552,18 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
         sctx = send_ctx(st, send_row, skip_slot=s,
                         skip_gate=reply_fire & (rc["cnt_s"] == 1))
 
+        # Extra-family lanes: every base *_wr gate above is off on them,
+        # so the base deltas are zero and the base successor is the
+        # parent; the variant's deltas and successors fold in by family.
+        extra_out = []
+        for e, ((params_e, _kern), lane_fn) in enumerate(
+                zip(extra_v1, extra_v2)):
+            f = 10 + e
+            local = (g - dims.family_offsets[f]).clamp(
+                0, dims.family_sizes[f] - 1)
+            extra_out.append((fam == f, lane_fn(
+                st, *(p[local] for p in params_e))))
+
         # ---- delta fingerprint (skipped where the caller hashes the
         # successor itself) ----
         hi = lo = None
@@ -545,6 +604,8 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
                           keep(aer_fire, ni_cell_new, ni_rr)))
             d.append(dpos(O_MI + ri * N + rj, mi_rr,
                           keep(aer_fire, mi_cell_new, mi_rr)))
+            for is_e, (dbe, _dm, _succ) in extra_out:
+                d.append(tuple(torch.where(is_e, x, 0) for x in dbe))
             db0 = sum(a for a, _b in d) & MASK32
             db1 = sum(b for _a, b in d) & MASK32
 
@@ -555,9 +616,12 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
                 d_send = torch.where(sctx["has_eq"], sh_eq[ln],
                                      row_hash(send_row, ln))
                 zero = torch.zeros_like(d_send)
-                dm.append((torch.where(do_discard, -sh_s[ln], zero)
-                           + torch.where(do_send & sctx["ok"], d_send, zero)
-                           + torch.where(is_dup, sh_s[ln], zero)) & MASK32)
+                dm_ln = (torch.where(do_discard, -sh_s[ln], zero)
+                         + torch.where(do_send & sctx["ok"], d_send, zero)
+                         + torch.where(is_dup, sh_s[ln], zero))
+                for is_e, (_db, dme, _succ) in extra_out:
+                    dm_ln = dm_ln + torch.where(is_e, dme[ln], zero)
+                dm.append(dm_ln & MASK32)
 
             hi = finalize((ph.base0.unsqueeze(1) + db0) & MASK32,
                           (ph.msum0.unsqueeze(1) + dm[0]) & MASK32,
@@ -610,6 +674,8 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
                           commit=ci_o, votes_resp=vr_o, votes_gran=vg_o,
                           next_idx=ni_o, match_idx=mi_o,
                           msg=msg_o, msg_cnt=cnt_o)
+        for is_e, (_db, _dm, succ_e) in extra_out:
+            succ = StateBatch(*(_w(is_e, a, b) for a, b in zip(succ_e, succ)))
         if not hashes:
             return None, None, succ
         return hi.squeeze(1), lo.squeeze(1), succ

@@ -28,13 +28,20 @@ free slot):
            [9]=mcommitIndex
   AEResp:  [4]=msuccess  [5]=mmatchIndex
 
-This is a copy of the JAX package's ``models/dims.py`` for the base spec
-(no variant families): the port imports nothing of that package.
+This is a copy of the JAX package's ``models/dims.py``, the variant hooks
+included: a spec variant (``models/reconfig.py``'s joint-consensus
+extension) subclasses ``RaftDims`` and overrides them, and the v2
+pipeline (``models/actions2.py``), the invariants and the row format
+dispatch through them.  The hooks here take and give batched tensors
+(a leading row axis, per-lane index tensors ``[X, R]``) where the JAX
+ones take one state.  The port imports nothing of that package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
 NIL = 0
@@ -79,6 +86,21 @@ class RaftDims:
         _audit_lane_widths(self)
 
     @property
+    def max_log_value(self) -> int:
+        """The largest value a log-entry value lane (and the message
+        columns that carry values) can hold: client values 1..V here;
+        variants with encoded values override it, and the lane audit
+        checks it against ``256 ** value_bytes - 1``."""
+        return self.n_values
+
+    @property
+    def value_bytes(self) -> int:
+        """Bytes a log-entry value takes in the packed row: 1 here; 2
+        appends high-byte planes for the value lanes (``models/schema.py``
+        ``state_width``)."""
+        return 1
+
+    @property
     def payload_width(self) -> int:
         return max(6, 2 + 2 * self.max_log)
 
@@ -89,11 +111,68 @@ class RaftDims:
     @property
     def family_sizes(self) -> tuple:
         n, v, m = self.n_servers, self.n_values, self.n_msg_slots
-        return (n, n, n * n, n, n * v, n, n * n, m, m, m)
+        base = (n, n, n * n, n, n * v, n, n * n, m, m, m)
+        return base + tuple(sz for _name, sz in self.extra_families)
 
     @property
     def family_names(self) -> tuple:
-        return FAMILY_NAMES
+        return FAMILY_NAMES + tuple(nm for nm, _sz in self.extra_families)
+
+    # -- model-variant hooks ------------------------------------------------
+
+    @property
+    def extra_families(self) -> tuple:
+        """Action families past the spec's ten: ``(name, instances)``."""
+        return ()
+
+    def build_quorum(self):
+        """``quorum(st, i, member) -> bool``: is ``member`` a quorum from
+        server i's view.  ``i`` is ``[X, R]``, ``member`` ``[X, R, ...,
+        N]`` of 0/1 or bool; the result drops the last axis.  Here the
+        spec's simple majority of Server."""
+        n = self.n_servers
+
+        def quorum(st, i, member):
+            return 2 * member.sum(-1) > n
+
+        return quorum
+
+    def quorum_py(self, s, i: int, mask: int) -> bool:
+        """Quorum on a membership bitmask, for one ``PyState``."""
+        return 2 * bin(mask).count("1") > self.n_servers
+
+    def build_extra_kernels(self, device):
+        """Per extra family ``(param_tables, kernel)``: the tables are
+        ``[C]`` tensors (the family's instances in grid order) and
+        ``kernel(st, *params) -> (enabled, overflow, successor)`` with
+        params ``[X, 1]``.  None here."""
+        return []
+
+    def build_extra_v2(self, fp_helpers):
+        """Per extra family ``lane_fn(st, *params) -> ((d_base0,
+        d_base1), (d_msum0, d_msum1), successor)`` for one lane a row
+        (params ``[X, 1]``, from ``build_extra_kernels``' tables), or None
+        when the variant has no v2 kernels.  None needed here."""
+        return []
+
+    def build_extra_masks_v2(self):
+        """Per extra family ``mask_fn(st, pack_ok_parent, *params) ->
+        (enabled, overflow)`` (params ``[X, C]``), equal to the
+        extra kernel's ``(en, ovf | (en & ~pack_ok(successor)))``; None
+        has the masks take that from the kernels."""
+        return None
+
+    def build_value_ok(self):
+        """Elementwise: is a log-entry value well-typed (in Value)."""
+        v = self.n_values
+
+        def value_ok(vals: torch.Tensor) -> torch.Tensor:
+            return (vals >= 1) & (vals <= v)
+
+        return value_ok
+
+    def value_ok_py(self, val: int) -> bool:
+        return 1 <= val <= self.n_values
 
     @property
     def family_offsets(self) -> tuple:
@@ -131,15 +210,17 @@ class RaftDims:
 
 
 def _audit_lane_widths(dims: RaftDims) -> None:
-    """Every packed field whose largest value is static must fit its uint8
-    lane; a too-narrow lane is a construction error, never a silent wrap."""
+    """Every packed field whose largest value is static must fit its lane
+    (uint8, or ``value_bytes`` bytes for values); a too-narrow lane is a
+    construction error, never a silent wrap."""
     n, L = dims.n_servers, dims.max_log
     checks = (
         ("votes_resp/votes_gran bitmask", (1 << n) - 1, 255),
         ("voted_for", n, 255),
         ("log_len / commit / match_idx", L, 255),
         ("next_idx", L + 1, 255),
-        ("log_val / msg value columns", dims.n_values, 255),
+        ("log_val / msg value columns", dims.max_log_value,
+         256 ** dims.value_bytes - 1),
         ("msg columns 1-2 (src+1, dst+1)", n, 255),
         ("msg column 4 index uses (mprevLogIndex)", L, 127),
         ("msg index/count columns", L + 1, 255),

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from .dims import LEADER, RaftDims
+from .pystate import PyState
 from .safety import SAFETY_INVARIANTS
 from .schema import StateBatch
 
@@ -37,14 +38,16 @@ class Bounds:
 
 
 def build_type_ok(dims: RaftDims):
-    N, L, V = dims.n_servers, dims.max_log, dims.n_values
+    N, L = dims.n_servers, dims.max_log
+    value_ok = dims.build_value_ok()     # entries in Value, as a variant
+                                         # widens it
 
     def type_ok(st: StateBatch):
         lane = torch.arange(L, device=st.term.device)
         in_log = lane[None, None, :] < st.log_len[:, :, None]
         occ = st.msg_cnt > 0
         mt, src, dst = st.msg[:, :, 0], st.msg[:, :, 1], st.msg[:, :, 2]
-        val_ok = (st.log_val >= 1) & (st.log_val <= V)
+        val_ok = value_ok(st.log_val)
         checks = [
             ((st.role >= 0) & (st.role <= 2)).all(1),
             ((st.voted_for >= 0) & (st.voted_for <= N)).all(1),
@@ -69,6 +72,24 @@ def build_type_ok(dims: RaftDims):
 
     type_ok.predicate = "TypeOK"
     return type_ok
+
+
+def type_ok_py(s: PyState, dims: RaftDims) -> bool:
+    """TypeOK on one ``PyState``: the content checks of ``build_type_ok``
+    that a PyState can fail."""
+    n = dims.n_servers
+    ok = all(0 <= r <= 2 for r in s.role)
+    ok &= all(0 <= vf <= n for vf in s.voted_for)
+    ok &= all(t >= 0 and dims.value_ok_py(val)
+              for log in s.log for (t, val) in log)
+    ok &= all(t >= 0 for t in s.current_term)
+    ok &= all(c >= 0 for c in s.commit_index)
+    ok &= all(0 <= m < (1 << n)
+              for m in s.votes_responded + s.votes_granted)
+    ok &= all(x >= 1 for row in s.next_index for x in row)
+    ok &= all(x >= 0 for row in s.match_index for x in row)
+    ok &= all(c >= 1 for _m, c in s.messages)
+    return ok
 
 
 def build_no_leader(dims: RaftDims):

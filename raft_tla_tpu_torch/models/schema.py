@@ -3,7 +3,9 @@
 ``StateBatch`` holds the spec's variables as int64 tensors with one leading
 batch axis.  The BFS queues store states as ``[state_width]`` uint8 rows,
 the JAX package's row format byte for byte (field order below; message
-column 4, ``mprevLogIndex``, is two's complement because it can be -1).
+column 4, ``mprevLogIndex``, is two's complement because it can be -1;
+a variant with ``dims.value_bytes == 2`` appends the value lanes' high
+bytes after the base layout).
 
 ``encode_state``/``decode_state`` convert one ``PyState`` to and from a
 numpy ``StateBatch`` on the host; ``stack_states`` batches them into
@@ -149,19 +151,25 @@ def decode_state(st: StateBatch, dims: RaftDims) -> PyState:
 
 
 def check_packable(st: StateBatch, dims: RaftDims) -> None:
-    """Raise if a root's field cannot round-trip the uint8 row: message
-    column 4 admits [-128, 127], every other value [0, 255]."""
+    """Raise if a root's field cannot round-trip the packed row: message
+    column 4 admits [-128, 127], value lanes (log values, the message
+    value columns) [0, 65535] when ``dims.value_bytes == 2``, every other
+    value [0, 255]."""
+    vhi = 256 ** dims.value_bytes - 1
     for name, arr in zip(StateBatch._fields, st):
         a = np.asarray(arr)
         lo = np.zeros(a.shape, np.int64)
         hi = np.full(a.shape, 255, np.int64)
+        if name == "log_val":
+            hi[...] = vhi
         if name == "msg":
+            hi[..., list(_msg_value_cols(dims))] = vhi
             lo[..., 4], hi[..., 4] = -128, 127
         bad = (a < lo) | (a > hi)
         if bad.any():
             idx = tuple(int(i) for i in np.argwhere(bad)[0])
             raise ValueError(f"value {int(a[idx])} at {name}{list(idx)} is "
-                             "outside the packable range of the uint8 row")
+                             "outside the packable range of the row")
 
 
 # -- the packed row ---------------------------------------------------------
@@ -169,31 +177,73 @@ def check_packable(st: StateBatch, dims: RaftDims) -> None:
 ROW_DTYPE = torch.uint8
 
 
+def _msg_value_cols(dims: RaftDims) -> tuple:
+    """Message-row columns that carry log values: the AEReq entry value at
+    8 and the RVResp mlog values at [6+L, 6+2L), without repeats (at L 2
+    column 8 is both)."""
+    L = dims.max_log
+    return tuple(sorted({8, *range(6 + L, 6 + 2 * L)}))
+
+
+def _value_runs(dims: RaftDims) -> list:
+    """``_msg_value_cols`` as slices of consecutive columns (one or two):
+    tensors are cut by slices, since an index list would be a host tensor,
+    which a CUDA graph capture refuses."""
+    runs = []
+    for c in _msg_value_cols(dims):
+        if runs and runs[-1].stop == c:
+            runs[-1] = slice(runs[-1].start, c + 1)
+        else:
+            runs.append(slice(c, c + 1))
+    return runs
+
+
+def _value_columns(msg: torch.Tensor, dims: RaftDims) -> torch.Tensor:
+    """[X, M, len(cols)]: the value columns of message rows [X, M, W]."""
+    return torch.cat([msg[:, :, r] for r in _value_runs(dims)], 2)
+
+
 def state_width(dims: RaftDims) -> int:
     n, L, M, W = (dims.n_servers, dims.max_log, dims.n_msg_slots,
                   dims.msg_width)
-    return n * 7 + 2 * n * L + 2 * n * n + M * W + M
+    base = n * 7 + 2 * n * L + 2 * n * n + M * W + M
+    if dims.value_bytes == 2:
+        # High-byte planes of the log values [N, L] and of the message
+        # value columns [M, columns], after the base layout.
+        base += n * L + M * len(_msg_value_cols(dims))
+    return base
 
 
-def pack_ok(st: StateBatch) -> torch.Tensor:
-    """[X] bool: every unbounded-growth field still fits the uint8 row
-    (terms, bag counts, message terms; column 4 is signed, so <= 127)."""
-    return ((st.term <= 255).all(1) & (st.msg_cnt <= 255).all(1)
-            & (st.msg[:, :, 3] <= 255).all(1)
-            & (st.msg[:, :, 4] <= 127).all(1))
+def pack_ok(st: StateBatch, dims: RaftDims) -> torch.Tensor:
+    """[X] bool: every unbounded-growth field still fits the packed row
+    (terms, bag counts, message terms; column 4 is signed, so <= 127; with
+    ``dims.value_bytes == 2`` the value lanes <= 65535)."""
+    ok = ((st.term <= 255).all(1) & (st.msg_cnt <= 255).all(1)
+          & (st.msg[:, :, 3] <= 255).all(1)
+          & (st.msg[:, :, 4] <= 127).all(1))
+    if dims.value_bytes == 2:
+        ok = (ok & (st.log_val <= 65535).all(2).all(1)
+              & (_value_columns(st.msg, dims) <= 65535).all(2).all(1))
+    return ok
 
 
-def flatten_state(st: StateBatch) -> torch.Tensor:
+def flatten_state(st: StateBatch, dims: RaftDims) -> torch.Tensor:
     """StateBatch [X] -> [X, state_width] uint8 rows (values wrap mod 256,
-    so column 4's -1 is stored as 255)."""
+    so column 4's -1 is stored as 255).  With ``dims.value_bytes == 2``
+    the row ends with the value lanes' high bytes (log values, then the
+    message value columns), so values up to 65535 survive."""
     x = st.term.shape[0]
     parts = [f.reshape(x, -1) for f in st]
+    if dims.value_bytes == 2:
+        parts.append(st.log_val.reshape(x, -1) >> 8)
+        parts.append((_value_columns(st.msg, dims) >> 8).reshape(x, -1))
     return (torch.cat(parts, 1) & 0xFF).to(ROW_DTYPE)
 
 
 def unflatten_state(rows: torch.Tensor, dims: RaftDims) -> StateBatch:
     """[X, state_width] uint8 rows -> int64 StateBatch (column 4 of each
-    message row sign-extended)."""
+    message row sign-extended; value lanes reassembled from their low
+    byte and high plane when ``dims.value_bytes == 2``)."""
     n, L, M, W = (dims.n_servers, dims.max_log, dims.n_msg_slots,
                   dims.msg_width)
     r = rows.to(torch.int64)
@@ -208,5 +258,17 @@ def unflatten_state(rows: torch.Tensor, dims: RaftDims) -> StateBatch:
     msg = out[11].clone()
     col4 = msg[:, :, 4]
     msg[:, :, 4] = torch.where(col4 >= 128, col4 - 256, col4)
+    if dims.value_bytes == 2:
+        nc = len(_msg_value_cols(dims))
+        lv_hi = r[:, off:off + n * L].reshape(x, n, L)
+        off += n * L
+        mv_hi = r[:, off:off + M * nc].reshape(x, M, nc)
+        out[4] = (out[4] & 0xFF) + (lv_hi << 8)
+        k = 0
+        for run in _value_runs(dims):
+            w = run.stop - run.start
+            msg[:, :, run] = ((msg[:, :, run] & 0xFF)
+                              + (mv_hi[:, :, k:k + w] << 8))
+            k += w
     out[11] = msg
     return StateBatch(*out)

@@ -112,5 +112,6 @@ def front_plain(rows, valid, *, dims, v2, K, kspread, constraint=None,
     php, plp = v2.parent_fp(ph)
     return FrontOut(en=en, ovf=ovf, pruned=pruned, P=pt[0], total=pt[1],
                     lane_id=lane_id, kvalid=kvalid, kh=kh, kl=kl,
-                    krows=flatten_state(kstates), cons_ok=cons_ok, inv=inv,
+                    krows=flatten_state(kstates, dims), cons_ok=cons_ok,
+                    inv=inv,
                     parent_hi=php[pidx], parent_lo=plp[pidx])

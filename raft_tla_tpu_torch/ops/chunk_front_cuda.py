@@ -13,12 +13,15 @@ raises ``ValueError`` there, on either device, so a v4 engine never finds
 out mid-run that its kernel cannot run it:
 
 - dims up to ``n_servers`` 8, ``max_log`` 16, ``n_msg_slots`` 256 whose
-  masks and lanes launches fit a block's shared memory (``check_dims``);
+  masks and lanes launches fit a block's shared memory (``check_dims``),
+  of the spec or of the reconfiguration variant (``ReconfigDims``, up to
+  32 targets; its own builds of the masks and lanes launches), and of no
+  other variant;
 - invariants by registry name (``PREDICATES``: TypeOK, NoLeaderElected
   and the nine of the safety suite; at most 16), each built by
   ``models/invariants.py`` or ``models/safety.py`` (which tag it with
   ``.predicate``); a list that names one of the suite's runs the lanes
-  launch's build with the suite's device code;
+  launch's build with the suite's device code (not for the variant);
 - the ``BoundedSpace`` constraint or none.
 
 The fingerprint salt tables (``ops/fingerprint.py`` ``constants_np``) and
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..models.invariants import build_inv_id
+from ..models.reconfig import ReconfigDims
 from ..models.schema import state_width
 from ..utils import build
 from .chunk_front import FrontOut, front_plain
@@ -53,13 +57,15 @@ PREDICATES = {"TypeOK": 1, "NoLeaderElected": 2, "MessagesInv": 3,
               "QuorumLogInv": 9, "MoreUpToDateCorrect": 10,
               "LeaderCompleteness": 11}
 MAX_SERVERS, MAX_LOG, MAX_SLOTS, MAX_INVARIANTS = 8, 16, 256, 16
+MAX_TARGETS = 32
 MAX_SMEM = 232448
 INT_MAX = 2**31 - 1
 
 
-def predicate_codes(inv_fns):
+def predicate_codes(inv_fns, reconfig=False):
     """Kernel codes of ``inv_fns`` in order; ``ValueError`` for a predicate
-    the kernel has no device code for."""
+    the kernel has no device code for (the safety suite's, for the
+    reconfiguration variant)."""
     fns = list(inv_fns or [])
     if len(fns) > MAX_INVARIANTS:
         raise ValueError(f"chunk front: {len(fns)} invariants, the kernel "
@@ -71,6 +77,11 @@ def predicate_codes(inv_fns):
             raise ValueError(
                 f"chunk front: no device code for invariant "
                 f"{name or fn!r}; the kernel has {sorted(PREDICATES)}")
+        if reconfig and PREDICATES[name] > PREDICATES["NoLeaderElected"]:
+            raise ValueError(
+                f"chunk front: no device code for invariant {name} with "
+                "the reconfiguration variant; its builds take TypeOK and "
+                "NoLeaderElected (use the v3 plan)")
         codes.append(PREDICATES[name])
     return codes
 
@@ -115,9 +126,16 @@ def lanes_smem(dims):
 
 
 def check_dims(dims):
-    """``ValueError`` unless the kernel takes ``dims``: the static maxima,
-    and the masks and lanes launches' shared memory within the H100's 227
-    KB a block."""
+    """``ValueError`` unless the kernel takes ``dims``: the spec or the
+    reconfiguration variant (at most ``MAX_TARGETS`` targets), the static
+    maxima, and the masks and lanes launches' shared memory within the
+    H100's 227 KB a block."""
+    if dims.extra_families and not isinstance(dims, ReconfigDims):
+        raise ValueError(f"chunk front: no device code for the variant "
+                         f"{type(dims).__name__}")
+    if isinstance(dims, ReconfigDims) and len(dims.targets) > MAX_TARGETS:
+        raise ValueError(f"chunk front: {len(dims.targets)} target configs, "
+                         f"the kernel takes at most {MAX_TARGETS}")
     smem = max(masks_smem(dims), lanes_smem(dims))
     if (dims.n_servers > MAX_SERVERS or dims.max_log > MAX_LOG
             or dims.n_msg_slots > MAX_SLOTS or smem > MAX_SMEM):
@@ -144,7 +162,8 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] * 4 + [p, p, i, i] + [p] * 4
+        fn.argtypes = ([i] * 4 + [ctypes.POINTER(i), i] + [p, p, i, i]
+                       + [p] * 4
                        + [ctypes.POINTER(i), i] + [i] * 4 + [p, p]
                        + [p] * 13 + [p])
     return lib
@@ -156,7 +175,10 @@ class Front:
     def __init__(self, *, dims, v2, inv_fns, constraint, B: int, K: int,
                  device, por_mask=None, por_priority=None):
         check_dims(dims)
-        self._codes = predicate_codes(inv_fns)
+        #: Whether the masks and lanes launches run the reconfiguration
+        #: variant's builds.
+        self.reconfig = isinstance(dims, ReconfigDims)
+        self._codes = predicate_codes(inv_fns, self.reconfig)
         self._bounds = constraint_bounds(constraint)
         if (por_mask is None) != (por_priority is None):
             raise ValueError("por_mask and por_priority must be given "
@@ -185,6 +207,9 @@ class Front:
         # arguments (and refuses a code it has no device code for).
         self._inv_codes = (ctypes.c_int * max(1, len(self._codes)))(
             *self._codes)
+        targets = dims.targets if self.reconfig else ()
+        self._targets = (ctypes.c_int * max(1, len(targets)))(*targets)
+        self._n_targets = len(targets)
         #: Whether the lanes launch runs its build with the safety suite.
         self.suite = any(c > PREDICATES["NoLeaderElected"]
                          for c in self._codes)
@@ -196,31 +221,40 @@ class Front:
                            constraint=self._constraint, inv_id=self._inv_id,
                            por_mask=pm, por_priority=pp)
 
+    def _builds(self):
+        """The codes (``csrc/chunk_front.cu`` ``with_build``) of the
+        builds one call of this front launches, in ``KERNELS`` order."""
+        if self.reconfig:
+            return (4, 1, 5)
+        return (0, 1, 3 if self.suite else 2)
+
     def launch_info(self):
-        """``{kernel: build.kernel_info}`` of each launch of one call (the
-        lanes launch's build with the suite where this front runs it)."""
+        """``{kernel: build.kernel_info}`` of each launch of one call, of
+        the builds this front runs."""
         d = self.dims
-        which = (0, 1, 3 if self.suite else 2)
         return {name: build.kernel_info(
                     "chunk_front", w, d.n_servers, d.n_values, d.max_log,
-                    d.n_msg_slots, self.B, self.K)
-                for w, name in zip(which, KERNELS)}
+                    d.n_msg_slots, self._n_targets, self.B, self.K)
+                for w, name in zip(self._builds(), KERNELS)}
 
     def occupancy(self):
         """``{"masks_kernel": n, "lanes_kernel": n}``: blocks of each
         launch that one SM holds at this front's dims (the CUDA occupancy
-        calculator; the lanes launch's build with the suite where this
-        front runs it)."""
+        calculator), of the builds this front runs."""
         d = self.dims
-        lib = _lib()
-        fn = lib.chunk_front_occupancy
+        fn = _lib().chunk_front_occupancy
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        out = (ctypes.c_int * 3)()
-        build.check(fn(d.n_servers, d.n_values, d.max_log, d.n_msg_slots,
-                       out), "chunk_front_occupancy")
-        return {"masks_kernel": out[0],
-                "lanes_kernel": out[2] if self.suite else out[1]}
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        got = {}
+        for w, name in zip(self._builds(), KERNELS):
+            if name == "compact_scan_kernel":
+                continue
+            out = (ctypes.c_int * 1)()
+            build.check(fn(w, d.n_servers, d.n_values, d.max_log,
+                           d.n_msg_slots, self._n_targets, out),
+                        "chunk_front_occupancy")
+            got[name] = out[0]
+        return got
 
     def __call__(self, rows, valid) -> FrontOut:
         global launches
@@ -257,7 +291,8 @@ class Front:
         pm, pp = self._por or (None, None)
         err = _lib().chunk_front_launch(
             d.n_servers, d.n_values, d.max_log, d.n_msg_slots,
-            rows.data_ptr(), valid.data_ptr(), B, K,
+            self._targets, self._n_targets, rows.data_ptr(),
+            valid.data_ptr(), B, K,
             self._kspread.data_ptr(),
             pm.data_ptr() if pm is not None else None,
             pp.data_ptr() if pp is not None else None,

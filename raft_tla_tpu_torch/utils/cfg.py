@@ -11,10 +11,10 @@ Engine parameters ride in the cfg as ``\\* TPU: KEY = VALUE`` comment
 directives, so an annotated cfg still runs under stock TLC.  Precedence:
 caller > cfg directive > built-in default.
 
-This is the JAX package's ``utils/cfg.py`` for the base spec, kept as the
-port's own copy; the reconfiguration variant (``TargetConfigs``) is parsed
-but not yet runnable here.  ``Init <- SmokeInit`` sets ``smoke`` (roots
-from ``models/smoke.py``).
+This is the JAX package's ``utils/cfg.py``, kept as the port's own copy:
+``TargetConfigs`` selects the reconfiguration variant
+(``models/reconfig.py`` ``ReconfigDims``), and ``Init <- SmokeInit`` sets
+``smoke`` (roots from ``models/smoke.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..models.dims import RaftDims
 from ..models.invariants import Bounds
+from ..models.reconfig import ReconfigDims
 
 _KEYWORDS = {
     "CONSTANT", "CONSTANTS", "SPECIFICATION", "INVARIANT", "INVARIANTS",
@@ -284,10 +285,6 @@ def load_config(cfg_path: str, max_log: Optional[int] = None,
         raise NotImplementedError(
             f"PROPERTY {cfg.properties} not supported: only INVARIANT "
             "(safety) properties are checked")
-    if "TargetConfigs" in cfg.assignments:
-        raise NotImplementedError(
-            "the reconfiguration variant (TargetConfigs) is not ported yet")
-
     smoke = (cfg.substitutions.get("Init") == "SmokeInit"
              or cfg.init == "SmokeInit")
     smoke_k = moddefs.get("k", 2) if smoke else 2
@@ -323,8 +320,19 @@ def load_config(cfg_path: str, max_log: Optional[int] = None,
             else:
                 exit_conditions.append((counter, threshold))
 
-    dims = RaftDims(n_servers=len(servers), n_values=len(values),
-                    max_log=max_log, n_msg_slots=n_msg_slots)
+    # TargetConfigs (membership bitmasks over the interned server order)
+    # selects the joint-consensus reconfiguration variant.
+    if "TargetConfigs" in cfg.assignments:
+        raw = cfg.assignments["TargetConfigs"]
+        if not isinstance(raw, tuple):
+            raw = (raw,)
+        targets = tuple(sorted(int(x) for x in raw))
+        dims = ReconfigDims(n_servers=len(servers), n_values=len(values),
+                            max_log=max_log, n_msg_slots=n_msg_slots,
+                            targets=targets)
+    else:
+        dims = RaftDims(n_servers=len(servers), n_values=len(values),
+                        max_log=max_log, n_msg_slots=n_msg_slots)
     return CheckSetup(
         dims=dims, bounds=bounds, invariants=list(cfg.invariants),
         constraints=[c for c in cfg.constraints if c not in budget_names],

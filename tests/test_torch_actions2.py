@@ -120,4 +120,5 @@ def test_lane_out_equal_on_every_enabled_lane(rig):
     xs, gs = x.numpy(), g.numpy()
     assert (kh.numpy() == want[3][xs, gs].astype(np.int64)).all()
     assert (kl.numpy() == want[4][xs, gs].astype(np.int64)).all()
-    assert (tschema.flatten_state(succ).numpy() == want[5][xs, gs]).all()
+    assert (tschema.flatten_state(succ, tdims).numpy()
+            == want[5][xs, gs]).all()

@@ -30,6 +30,8 @@ from raft_tla_tpu_torch.engine.check import (engine_config_from_backend,
                                              run_check)
 from raft_tla_tpu_torch.interop import checkpoint_from_numpy
 from raft_tla_tpu_torch.models.dims import LEADER, RaftDims
+from raft_tla_tpu_torch.models.reconfig import ReconfigDims
+from raft_tla_tpu_torch.models.schema import state_width
 from raft_tla_tpu_torch.utils.cfg import load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -252,8 +254,16 @@ def test_variant_and_old_snapshots_are_refused(port_l3, tmp_path):
             np.savez_compressed(f, **arrays)
         return path
 
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        ckpt.load(write("variant.npz", dims_class="ReconfigDims"))
+    # A variant snapshot's metadata rebuilds its dims class, targets and
+    # all (the frontier's rows are not read by the load).
+    rdims = dict(meta["dims"], targets=[3, 7], n_values=1)
+    got = ckpt.load(write("variant.npz", dims_class="ReconfigDims",
+                          dims=rdims,
+                          state_width=state_width(ReconfigDims(**dict(
+                              rdims, targets=(3, 7))))))
+    assert type(got.dims) is ReconfigDims and got.dims.targets == (3, 7)
+    with pytest.raises(ValueError, match="not in this build's registry"):
+        ckpt.load(write("unknown.npz", dims_class="FutureDims"))
     with pytest.raises(ValueError, match="not in"):
         ckpt.load(write("old.npz", version=2))
     with pytest.raises(ValueError, match="row width"):
@@ -263,7 +273,7 @@ def test_variant_and_old_snapshots_are_refused(port_l3, tmp_path):
     class OtherDims(RaftDims):
         pass
 
-    with pytest.raises(TypeError, match="ROADMAP A7"):
+    with pytest.raises(TypeError, match="not checkpoint-restorable"):
         ckpt.check_dims_checkpointable(OtherDims(**meta["dims"]))
 
 

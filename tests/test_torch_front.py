@@ -50,7 +50,7 @@ def rig():
     states = _states(jsetup.dims, jsetup.bounds)
     st = tschema.stack_states(
         [tschema.encode_state(to_port(s), dims) for s in states], "cpu")
-    rows = tschema.flatten_state(st)
+    rows = tschema.flatten_state(st, dims)
     fanout = build_v2(dims, "cpu").masks(st)[0].sum(1)
     return jsetup, setup, rows, fanout
 

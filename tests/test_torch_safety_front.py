@@ -46,7 +46,7 @@ def windows(dims, states):
     """B-row windows of ``states``, every fourth row marked invalid."""
     st = tschema.stack_states([tschema.encode_state(s, dims)
                                for s in states], "cpu")
-    rows = tschema.flatten_state(st)
+    rows = tschema.flatten_state(st, dims)
     out = []
     for base in range(0, rows.shape[0], B):
         w = torch.zeros((B, rows.shape[1]), dtype=torch.uint8)

@@ -69,7 +69,7 @@ def test_dims_copy_matches():
 def test_flatten_rows_byte_equal_and_round_trip(states):
     want = _jax_rows(states)
     st = _port_batch(states)
-    got = tschema.flatten_state(st).numpy()
+    got = tschema.flatten_state(st, TD).numpy()
     assert got.dtype == np.uint8 and (got == want).all()
     back = tschema.unflatten_state(torch.as_tensor(want), TD)
     for x, s in enumerate(states):
@@ -89,7 +89,7 @@ def test_pack_guard_matches(states):
     guard = jax.jit(jax.vmap(jschema.build_pack_guard(JD)))
     want = np.asarray(guard(jax.tree.map(jnp.asarray, jschema.stack_states(
         [jschema.encode_state(s, JD) for s in allst]))))
-    got = tschema.pack_ok(_port_batch(allst)).numpy()
+    got = tschema.pack_ok(_port_batch(allst), TD).numpy()
     assert (got == want).all() and not want.all() and want.any()
 
 
@@ -143,14 +143,16 @@ def test_fingerprint_constants_shared():
     os.path.join(REPO, "configs", "*.cfg"))), ids=os.path.basename)
 def test_cfg_copy_matches(path):
     want = j_load_config(path)
-    if "TargetConfigs" in want.cfg.assignments:
-        with pytest.raises(NotImplementedError):
-            t_load_config(path)
-        return
     got = t_load_config(path)
     wd, gd = want.dims, got.dims
     assert (wd.n_servers, wd.n_values, wd.max_log, wd.n_msg_slots) == \
         (gd.n_servers, gd.n_values, gd.max_log, gd.n_msg_slots)
+    # The dims class (the reconfiguration variant for TargetConfigs) and
+    # its targets.
+    assert type(wd).__name__ == type(gd).__name__
+    assert getattr(wd, "targets", None) == getattr(gd, "targets", None)
+    assert wd.family_sizes == gd.family_sizes
+    assert jschema.state_width(wd) == tschema.state_width(gd)
     assert dataclasses.astuple(want.bounds) == dataclasses.astuple(got.bounds)
     for f in ("invariants", "constraints", "check_deadlock", "max_seconds",
               "max_diameter", "exit_conditions", "server_names",
