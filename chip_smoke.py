@@ -10,6 +10,8 @@
     python3 chip_smoke.py --walks             (the walk tier's phases only)
     python3 chip_smoke.py --reconfig          (the reconfiguration
                                                variant's phases only)
+    python3 chip_smoke.py --outputs           (what check prints and
+                                               writes, and its cost only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -89,6 +91,21 @@ the BASELINE simulate workload through the CLI cut to 2^21 steps, a
 seeded violation, two graph replays drawing differently and a seed
 repeating its run.  ``--walks`` runs these phases alone, without the
 kernel build.
+
+What ``check`` prints and writes (``obs/``, ``engine/explain.py``, the
+CLI): ``python3 -m raft_tla_tpu_torch`` in subprocesses started together,
+``check configs/MCraft_noleader.cfg`` on v3 and on v4 with
+``--counterexample-dir``, ``--events-out`` and ``--metrics-out``
+(``counterexample.txt`` with the sha256 the CPU test pins, depth 9, its
+text in the printout, the events file valid with the run's levels in its
+statespace report), under ``--no-trace`` (the violating state printed),
+``explain`` as JSON and HTML and a one-server model's graph as DOT; a
+model with one more guard in its masks deadlocks through the chunk on
+the card and prints its state; MCraft_bounded L11 on v4 with the report
+and events off and on in turns (off, on, on, off: counts identical, each
+wall printed) and the sync check with events on; TPUraft L9's report
+printed, its level table the pinned one.  ``--outputs`` runs these phases
+(but the TPUraft one) alone, after the kernel build.
 
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
@@ -1199,19 +1216,22 @@ def phase_small_table(torch, pipeline, sync_every=32):
     check_launches(pipeline, counts, res.steps, "MCraft_bounded L6")
 
 
-def phase_dispatch_sync_free(torch, pipeline, method="fused"):
+def phase_dispatch_sync_free(torch, pipeline, method="fused", events=False):
     """MCraft_bounded to L8 at the main path's sizes and sync_every 32
     with every chunk's dispatch (its queued steps, graph replays, and the
     cond after them) under CUDA sync debug mode "error": a host wait for
     the device inside a chunk raises, so the engine's "sync" phase (the
-    one stats read a chunk) holds every wait of the level loop."""
+    one stats read a chunk) holds every wait of the level loop.  With
+    ``events`` the run writes its events file as well."""
     from raft_tla_tpu_torch.engine.check import initial_states, make_engine
     from raft_tla_tpu_torch.utils.cfg import load_config
     setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
-    engine = make_engine(setup, bounded_config(pipeline, 8,
-                                               enqueue_method=method),
-                         device="cuda")
-    what = f"{pipeline} {method} tail"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sync_") if events else None
+    engine = make_engine(setup, bounded_config(
+        pipeline, 8, enqueue_method=method,
+        events_out=os.path.join(tmp, "ev.jsonl") if events else None),
+        device="cuda")
+    what = f"{pipeline} {method} tail" + (", events on" if events else "")
     dispatch, checked = engine._dispatch, []
 
     def strict(*args):
@@ -1226,6 +1246,12 @@ def phase_dispatch_sync_free(torch, pipeline, method="fused"):
     engine._dispatch = strict
     try:
         res = engine.run(initial_states(setup))
+        if events:
+            from raft_tla_tpu_torch.obs.events import validate_run_events
+            n_events = len(validate_run_events(os.path.join(tmp,
+                                                            "ev.jsonl")))
+            shutil.rmtree(tmp, ignore_errors=True)
+            print(f"dispatch sync check with events on: {n_events} events")
     except RuntimeError as e:
         site = [f for f in traceback.extract_tb(e.__traceback__)
                 if "raft_tla_tpu_torch" in f.filename]
@@ -2446,6 +2472,234 @@ def phase_counterexample(torch, pipeline):
                    trace=True)
 
 
+# -- what check prints and writes (engine/explain.py, obs/) -------------------
+
+#: sha256 of configs/MCraft_noleader.cfg's counterexample.txt
+#: (tests/test_torch_explain.py pins the same digest on the CPU).
+NOLEADER_TXT_SHA256 = (
+    "98db3fbba10678ad7587b788b726986898941c397c5753de0ec772d496061c31")
+
+#: A one-server model whose leader appears within a few steps: a reached
+#: graph under the export cap.
+ONE_SERVER_CFG = """CONSTANTS
+    Server = {r1}
+    Value = {v1}
+    Follower = Follower
+    Candidate = Candidate
+    Leader = Leader
+    Nil = Nil
+    RequestVoteRequest = RequestVoteRequest
+    RequestVoteResponse = RequestVoteResponse
+    AppendEntriesRequest = AppendEntriesRequest
+    AppendEntriesResponse = AppendEntriesResponse
+    MaxTerm = 2
+    MaxLogLen = 1
+    MaxMsgCount = 1
+SPECIFICATION Spec
+INVARIANT NoLeaderElected
+CONSTRAINT BoundedSpace
+CHECK_DEADLOCK FALSE
+"""
+
+
+def port_cli(args):
+    """``python3 -m raft_tla_tpu_torch <args>`` from the checkout, started
+    (not waited for)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE
+    return subprocess.Popen([sys.executable, "-m", "raft_tla_tpu_torch"]
+                            + args, cwd=HERE, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def deadlocking():
+    """A context in which the engine's v2 masks carry one more guard: no
+    action is enabled in a state where a term reached 3.  Raft's Restart
+    is always enabled, so no model of the spec deadlocks; this one does,
+    at the first such state, through the real chunk on the card."""
+    from raft_tla_tpu_torch.engine import bfs as tbfs
+    build = tbfs.build_v2
+
+    def build_v2(dims, device):
+        v2 = build(dims, device)
+
+        def guarded(st, masks=v2.masks):
+            en, ovf = masks(st)
+            live = (st.term.max(1).values < 3)[:, None]
+            return en & live, ovf & live
+
+        return v2._replace(masks=guarded)
+
+    @contextlib.contextmanager
+    def patched():
+        tbfs.build_v2 = build_v2
+        try:
+            yield
+        finally:
+            tbfs.build_v2 = build
+    return patched()
+
+
+def phase_check_outputs(torch):
+    """What ``check`` prints and writes, through the CLI on the card
+    (subprocesses, started together): MCraft_noleader on v3 and on v4 with
+    ``--counterexample-dir``, ``--events-out`` and ``--metrics-out`` (exit
+    1, the pinned counterexample.txt on both plans, its text in the
+    printout, depth 9 in the JSON, the events file valid, its statespace
+    levels the run's levels); ``--no-trace`` (the violating state
+    printed); ``explain`` as JSON and as HTML to a file; the graph of a
+    one-server model as DOT.  Then, in process, a deadlocking model
+    prints its deadlocked state.  Returns the seconds it took."""
+    import hashlib
+    from raft_tla_tpu_torch import cli
+    from raft_tla_tpu_torch.engine.check import (initial_states,
+                                                 make_engine)
+    from raft_tla_tpu_torch.models.pystate import format_state
+    from raft_tla_tpu_torch.obs.events import validate_run_events
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_outputs_")
+    try:
+        noleader = os.path.join(HERE, "configs/MCraft_noleader.cfg")
+        one = os.path.join(tmp, "MCraft_one.cfg")
+        with open(one, "w") as f:
+            f.write(ONE_SERVER_CFG)
+        runs = {}
+        for p in ("v3", "v4"):
+            d = os.path.join(tmp, p)
+            runs[p] = port_cli(
+                ["check", noleader, "--pipeline", p, "--counterexample-dir",
+                 d, "--events-out", os.path.join(d, "ev.jsonl"),
+                 "--metrics-out", os.path.join(d, "m.json")])
+        runs["no-trace"] = port_cli(["check", noleader, "--no-trace",
+                                     "--pipeline", "v4"])
+        for fmt in ("json", "html"):
+            runs[fmt] = port_cli(["explain", noleader, "--format", fmt,
+                                  "--pipeline", "v4", "--out",
+                                  os.path.join(tmp, f"ce.{fmt}")])
+        runs["graph"] = port_cli(["explain", one, "--graph",
+                                  os.path.join(tmp, "one.dot")])
+        out = {}
+        for name, proc in runs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            out[name] = (proc.returncode, stdout, stderr)
+            need(proc.returncode == 1, f"CLI run {name} exited "
+                 f"{proc.returncode}: {stderr[-2000:]}")
+        levels = None
+        for p in ("v3", "v4"):
+            _rc, stdout, _err = out[p]
+            d = os.path.join(tmp, p)
+            with open(os.path.join(d, "counterexample.txt"), "rb") as f:
+                txt = f.read()
+            digest = hashlib.sha256(txt).hexdigest()
+            with open(os.path.join(d, "counterexample.json")) as f:
+                doc = json.load(f)
+            events = validate_run_events(os.path.join(d, "ev.jsonl"))
+            end = events[-1]
+            space, = [e["report"] for e in events
+                      if e["event"] == "statespace"]
+            with open(os.path.join(d, "m.json")) as f:
+                snap = json.load(f)
+            print(f"check MCraft_noleader {p} (CLI): counterexample.txt "
+                  f"sha256 {digest}, depth {doc['depth']}, {len(events)} "
+                  f"events {sorted({e['event'] for e in events})}, levels "
+                  f"{end['levels']}, check {end['wall_seconds']} s, "
+                  f"{len(snap['counters'])} counters, "
+                  f"{len(snap['gauges'])} gauges")
+            need(digest == NOLEADER_TXT_SHA256,
+                 f"{p}: counterexample.txt differs from the pinned one")
+            need(doc["depth"] == 9 and doc["invariant"] == "NoLeaderElected",
+                 f"{p}: counterexample.json {doc.get('depth')}")
+            need("\n\n" + txt.decode() + "\ncounterexample written: "
+                 in stdout, f"{p}: the printout lacks the file's text")
+            need([r["frontier"] for r in space["levels"]] == end["levels"]
+                 and end["counterexample_path"].endswith(
+                     "counterexample.txt"),
+                 f"{p}: statespace levels {space['levels']} vs "
+                 f"{end['levels']}")
+            need(levels is None or end["levels"] == levels,
+                 "the two plans' levels differ")
+            levels = end["levels"]
+        stdout = out["no-trace"][1]
+        need("\nviolating state (trace recording disabled):\n  r1: "
+             in stdout and "counterexample written" not in stdout,
+             "--no-trace did not print the violating state")
+        with open(os.path.join(tmp, "ce.json")) as f:
+            need(json.load(f)["depth"] == 9, "explain --format json")
+        with open(os.path.join(tmp, "ce.html")) as f:
+            html = f.read()
+        need(html.startswith("<!doctype html>") and "State 10: " in html,
+             "explain --format html")
+        with open(os.path.join(tmp, "one.dot")) as f:
+            dot = f.read()
+        need(dot.startswith("digraph statespace {") and " -> " in dot,
+             "explain --graph")
+        print(f"explain (CLI): json and html of the depth-9 trace, "
+              f"{len(html)} bytes of html; one-server graph "
+              f"{dot.count(' -> ')} edges; {out['graph'][1].strip()}")
+        # The deadlock printout, through the chunk on the card.
+        cfg = os.path.join(tmp, "dead.cfg")
+        with open(os.path.join(HERE, "configs/MCraft_bounded.cfg")) as f:
+            text = f.read().replace("CHECK_DEADLOCK FALSE", "")
+        with open(cfg, "w") as f:
+            f.write(text + "\nCHECK_DEADLOCK TRUE\n")
+        buf = io.StringIO()
+        with deadlocking(), contextlib.redirect_stdout(buf):
+            rc = cli.main(["check", cfg, "--progress-interval", "0"])
+            setup = load_config(cfg)
+            res = make_engine(setup).run(initial_states(setup))
+        printed = buf.getvalue().split("\ndeadlock state:\n")
+        need(rc == 1 and len(printed) == 2
+             and "DEADLOCK reached" in printed[0]
+             and printed[1] == format_state(res.deadlock, setup.dims) + "\n"
+             and max(res.deadlock.current_term) == 3,
+             "the deadlock printout differs: " + buf.getvalue()[-800:])
+        print(f"deadlock (CLI, in process, on the card): stop "
+              f"{res.stop_reason} at diameter {res.diameter}, the state "
+              f"printed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return time.time() - t0
+
+
+def phase_observation_cost(torch):
+    """MCraft_bounded L11 on v4 with the statespace report and the run
+    events off, then on, in turns (off, on, on, off): distinct, generated,
+    levels and family counts identical in all four, each wall printed.
+    Then the sync check with events on."""
+    from raft_tla_tpu_torch.engine.check import run_check
+    from raft_tla_tpu_torch.obs.events import validate_run_events
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_events_")
+    try:
+        runs = []
+        for i, on in enumerate((False, True, True, False)):
+            ev = os.path.join(tmp, f"ev{i}.jsonl") if on else None
+            res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                            bounded_config("v4", 11, statespace_report=on,
+                                           events_out=ev), device="cuda")
+            if on:
+                events = validate_run_events(ev)
+                need(sum(e["event"] == "level_complete" for e in events)
+                     == len(res.levels) and res.report
+                     and res.coverage["Timeout"]["distinct"] > 0,
+                     "the L11 run's events or report are incomplete")
+            runs.append((on, res))
+        for on, res in runs:
+            need((res.distinct, res.generated, res.levels,
+                  res.action_counts)
+                 == (runs[0][1].distinct, runs[0][1].generated,
+                     runs[0][1].levels, runs[0][1].action_counts)
+                 and res.levels == MCRAFT_L11_LEVELS,
+                 "the report or events changed a count")
+        print("MCraft_bounded L11 v4, report and events off/on in turns "
+              "(on, check seconds, chunks, host seconds): " + ", ".join(
+                  f"({'on' if on else 'off'}, {r.wall_seconds}, {r.chunks}, "
+                  f"{r.phases['host']})" for on, r in runs))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_dispatch_sync_free(torch, "v4", events=True)
+
+
 def tpuraft_config(depth, **kw):
     """configs/TPUraft.cfg's directives on v4, to ``depth``."""
     from raft_tla_tpu_torch.engine.check import engine_config_from_backend
@@ -2639,6 +2893,11 @@ def phase_north_star(torch):
     replay_s = time.time() - t
     hi, lo = engine._fingerprint(stack_states(
         [encode_state(path[-1][1], engine.dims)], engine.device))
+    from raft_tla_tpu_torch.obs.report import render_report
+    print(render_report(res.report))
+    need([r["frontier"] for r in res.report["levels"]] == TPURAFT_LEVELS
+         and res.report["distinct"] == TPURAFT_DISTINCT[9],
+         "the TPUraft L9 report's level table differs from the pinned one")
     print(f"TPUraft L9 replay of trace record {i} (fp {fp:#018x}): "
           f"{len(path) - 1} steps in {replay_s} s, actions "
           f"{[engine.dims.describe_instance(g) for g, _s in path[1:]]}")
@@ -3797,6 +4056,10 @@ def main() -> int:
     if sys.argv[1:] == ["--tail-variants"]:
         tail_variants(torch, device)
         return 0
+    if sys.argv[1:] == ["--outputs"]:
+        print(f"check outputs: {phase_check_outputs(torch)} s")
+        phase_observation_cost(torch)
+        return 0
     if sys.argv[1:] == ["--reconfig"]:
         t = time.time()
         print(f"reconfig front: {phase_reconfig_front(torch, device)}")
@@ -3865,6 +4128,8 @@ def main() -> int:
         phase_profile(torch, pipeline, "kernel")
     phase_resume(torch, "v4")
     phase_por(torch)
+    print(f"check outputs: {phase_check_outputs(torch)} s")
+    phase_observation_cost(torch)
     phase_sync_turns(torch)
     phase_safety_cfg(torch, turns)
     phase_smoke_init(torch)

@@ -1,70 +1,101 @@
-"""Command line: ``python3 -m raft_tla_tpu_torch check <cfg>`` and
-``python3 -m raft_tla_tpu_torch simulate <cfg>``.
+"""Command line: ``python3 -m raft_tla_tpu_torch check|explain|simulate
+<cfg>``.
 
-Runs the exhaustive check on the card (``--device cpu`` for the plain
-PyTorch versions) with the engine sizes and plan of the cfg's ``\\* TPU:``
-directives (a flag overrides its directive: ``--batch`` BATCH,
-``--queue-capacity`` QUEUE_CAPACITY, ``--seen-capacity`` SEEN_CAPACITY,
-``--pipeline`` PIPELINE,
-``--checkpoint-dir`` CHECKPOINT_DIR, ``--checkpoint-every``,
-``--checkpoint-interval``, ``--keep-checkpoints``, ``--spill-dir``
-SPILL_DIR, ``--progress-interval`` PROGRESS_SECONDS, ``--por-table``
-POR_TABLE; ``--max-seconds`` over the cfg's StopAfter duration,
-``--no-degrade`` to fail on running out of device memory instead of
-halving the batch; ``--seed`` for the smoke roots of a cfg with
-``Init <- SmokeInit``), prints the
-TLC-style progress line on stderr (every 60 s by default) and the
-result block and, for a violation with
-trace recording on, the replayed counterexample.  ``--resume PATH``
-continues from a level snapshot, ``--resume auto`` from the newest intact
-one in the checkpoint directory; ``--enqueue-method`` picks the chunk's
-tail.  Exit code 0 when the run exhausts or stops on a budget, 1 on a
-violation or deadlock.
+``check`` runs the exhaustive check on the card (``--device cpu`` for the
+plain PyTorch versions; the cfg's PLATFORM directive when no flag is
+given) with the engine sizes and plan of the cfg's ``\\* TPU:`` directives
+(a flag overrides its directive: ``--batch`` BATCH, ``--queue-capacity``
+QUEUE_CAPACITY, ``--seen-capacity`` SEEN_CAPACITY, ``--pipeline``
+PIPELINE (``auto`` and ``v2`` run the v3 plan), ``--checkpoint-dir``
+CHECKPOINT_DIR, ``--checkpoint-every``, ``--checkpoint-interval``,
+``--keep-checkpoints``, ``--spill-dir`` SPILL_DIR,
+``--progress-interval`` PROGRESS_SECONDS, ``--por-table`` POR_TABLE,
+``--events-out`` EVENTS_OUT, ``--counterexample-dir``
+COUNTEREXAMPLE_DIR, ``--no-report`` REPORT, ``--max-log`` MAX_LOG,
+``--n-msg-slots`` N_MSG_SLOTS; ``--max-seconds`` over the cfg's
+StopAfter duration, ``--no-degrade`` to fail on running out of device
+memory instead of halving the batch; ``--seed`` for the smoke roots of a
+cfg with ``Init <- SmokeInit``).  It prints the TLC-style progress line
+on stderr (every 60 s by default; at the end, the coverage table and the
+statespace report there too) and the result block, then on a violation
+the JAX CLI's printout: the TLC-style numbered error trace
+(``engine/explain.py``), read back from ``counterexample.txt`` when a
+workdir resolved (``--counterexample-dir``, else the directive, else the
+checkpoint directory, else the current directory under
+``--render-trace``), or the violating state under ``--no-trace``; on a
+deadlock the deadlocked state.  ``--metrics-out`` writes the engine's
+metrics registry as JSON.  ``--resume PATH`` continues from a level
+snapshot, ``--resume auto`` from the newest intact one in the checkpoint
+directory; ``--enqueue-method`` picks the chunk's tail.  Exit code 0
+when the run exhausts or stops on a budget, 1 on a violation or
+deadlock.
 
 ``check --mode swarm`` (or the cfg's ``\\* TPU: MODE = swarm``) runs the
 randomized-walk swarm instead (``engine/swarm.py``; ``--walks`` over
 WALKS over 1024, ``--max-depth`` over the cfg's diameter budget over 128,
 ``--batch`` lanes a dispatch over BATCH over the walks, at most 65,536;
-``--seed`` its seed),
-prints the JAX CLI's summary line and, on a violation, the replayed
-trace (exit 1).  ``simulate`` runs TLC-style random traces
-(``engine/simulate.py``: ``--num-steps`` walker-steps, ``--depth``,
-``--batch`` walkers, ``--max-seconds`` over the cfg's StopAfter,
-``--seed``) and prints the JAX CLI's result block.
+``--seed`` its seed), prints the JAX CLI's summary line and, on a
+violation, the rendered counterexample (exit 1).  ``explain`` runs the
+check with trace recording on and renders its counterexample as text,
+JSON or HTML (``--format``, ``--out``), and with ``--graph`` writes the
+reached state graph as DOT or GraphML.  ``simulate`` runs TLC-style
+random traces (``engine/simulate.py``: ``--num-steps`` walker-steps,
+``--depth``, ``--batch`` walkers, ``--max-seconds`` over the cfg's
+StopAfter, ``--seed``) and prints the JAX CLI's result block.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import sys
 
 from .engine import checkpoint as ckpt_mod
+from .engine import explain as explain_mod
+from .engine.bfs import PLAN_NAMES, EngineConfig
 from .engine.check import (MODES, engine_config_from_backend,
                            format_result, format_swarm, initial_states,
                            make_engine, make_simulator, make_swarm,
                            resolve_mode)
-from .ops.pipeline_v3 import ENQUEUE_METHODS
 from .models.pystate import format_state
+from .ops.pipeline_v3 import ENQUEUE_METHODS
 from .utils.cfg import load_config
+
+PIPELINES = tuple(sorted(PLAN_NAMES))
+
+
+def _common(sp):
+    """The arguments ``check`` and ``explain`` share."""
+    sp.add_argument("cfg")
+    sp.add_argument("--device",
+                    help="cuda (the card) or cpu (flag > cfg PLATFORM "
+                         "directive > cuda)")
+    sp.add_argument("--batch", type=int, help="parents expanded a batch")
+    sp.add_argument("--queue-capacity", type=int,
+                    help="device rows of the next-level queue")
+    sp.add_argument("--seen-capacity", type=int,
+                    help="initial seen-set slots")
+    sp.add_argument("--max-diameter", type=int)
+    sp.add_argument("--max-seconds", type=float,
+                    help="duration budget (over the cfg's StopAfter)")
+    sp.add_argument("--pipeline", choices=PIPELINES,
+                    help="the chunk's plan (auto and v2 run v3)")
+    sp.add_argument("--max-log", type=int,
+                    help="log capacity (over the cfg's MAX_LOG)")
+    sp.add_argument("--n-msg-slots", type=int,
+                    help="message slots (over the cfg's N_MSG_SLOTS)")
+    sp.add_argument("--seed", type=int, default=0,
+                    help="seed of the smoke roots (Init <- SmokeInit)")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="raft_tla_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("check", help="exhaustive BFS check of a TLC cfg")
-    c.add_argument("cfg")
-    c.add_argument("--device", default="cuda")
-    c.add_argument("--batch", type=int, help="parents expanded a batch")
-    c.add_argument("--queue-capacity", type=int,
-                   help="device rows of the next-level queue")
-    c.add_argument("--seen-capacity", type=int,
-                   help="initial seen-set slots")
-    c.add_argument("--max-diameter", type=int)
-    c.add_argument("--max-seconds", type=float,
-                   help="duration budget (over the cfg's StopAfter)")
+    _common(c)
     c.add_argument("--no-trace", action="store_true")
-    c.add_argument("--pipeline", choices=("v3", "v4"))
     c.add_argument("--enqueue-method", choices=ENQUEUE_METHODS,
                    help="the chunk's tail: fused insert+enqueue kernel "
                         "(default), or the insert kernel and then the "
@@ -91,12 +122,25 @@ def main(argv=None) -> int:
                    dest="progress_interval", type=float,
                    help="seconds between progress lines on stderr (0 = "
                         "none; default 60)")
-    c.add_argument("--seed", type=int, default=0,
-                   help="seed of the smoke roots (Init <- SmokeInit)")
     c.add_argument("--por-table", metavar="FILE",
                    help="apply a certified POR table (the artifact of the "
                         "JAX package's `analyze --passes por "
                         "--por-artifact FILE`)")
+    c.add_argument("--events-out",
+                   help="JSONL run events (flag > cfg EVENTS_OUT > "
+                        "events.jsonl next to the checkpoint directory)")
+    c.add_argument("--metrics-out",
+                   help="write the metrics registry's snapshot (JSON) "
+                        "here after the run")
+    c.add_argument("--counterexample-dir", metavar="DIR",
+                   help="where a traced violation's counterexample."
+                        "{txt,json} land (flag > cfg COUNTEREXAMPLE_DIR > "
+                        "the checkpoint directory)")
+    c.add_argument("--render-trace", action="store_true",
+                   help="write counterexample.{txt,json} into the current "
+                        "directory when no other directory resolves")
+    c.add_argument("--no-report", action="store_true",
+                   help="no statespace report (flag > cfg REPORT > on)")
     c.add_argument("--mode", choices=MODES,
                    help="checking tier: exhaustive BFS or the randomized-"
                         "walk swarm (flag > cfg MODE directive > "
@@ -107,9 +151,28 @@ def main(argv=None) -> int:
     c.add_argument("--max-depth", type=int,
                    help="swarm: depth bound before a walk restarts "
                         "(default: the cfg's diameter budget, else 128)")
+    e = sub.add_parser(
+        "explain", help="run a check and render its counterexample the "
+                        "TLC way, and/or write the reached state graph")
+    _common(e)
+    e.add_argument("--format", choices=tuple(explain_mod.RENDERERS),
+                   default="text", help="the rendering (default text)")
+    e.add_argument("--out", metavar="FILE",
+                   help="write the rendering here instead of stdout")
+    e.add_argument("--graph", metavar="FILE",
+                   help="also write the reached state graph (small "
+                        "spaces: see --graph-cap)")
+    e.add_argument("--graph-format", choices=("dot", "graphml"),
+                   help="default: GraphML for a .graphml/.xml file, else "
+                        "DOT")
+    e.add_argument("--graph-cap", type=int,
+                   help="refuse graphs of more states than this "
+                        f"(default {explain_mod.GRAPH_CAP_DEFAULT})")
     s = sub.add_parser("simulate", help="random-trace simulation")
     s.add_argument("cfg")
-    s.add_argument("--device", default="cuda")
+    s.add_argument("--device",
+                   help="cuda (the card) or cpu (flag > cfg PLATFORM "
+                        "directive > cuda)")
     s.add_argument("--batch", type=int,
                    help="walkers (flag > cfg BATCH directive > 1024)")
     s.add_argument("--num-steps", type=int, default=1 << 27,
@@ -121,9 +184,12 @@ def main(argv=None) -> int:
     s.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    setup = load_config(args.cfg)
     if args.cmd == "simulate":
-        return _simulate(args, setup)
+        return _simulate(args, load_config(args.cfg))
+    setup = load_config(args.cfg, max_log=args.max_log,
+                        n_msg_slots=args.n_msg_slots)
+    if args.cmd == "explain":
+        return _explain(args, setup)
     try:
         mode = resolve_mode(setup, args.mode)
     except ValueError as e:
@@ -135,6 +201,7 @@ def main(argv=None) -> int:
     def resolve(flag, current):
         return current if flag is None else flag
 
+    ckpt_dir = resolve(args.checkpoint_dir, cfg.checkpoint_dir)
     cfg = dataclasses.replace(
         cfg, max_diameter=args.max_diameter,
         max_seconds=args.max_seconds,
@@ -149,7 +216,7 @@ def main(argv=None) -> int:
         record_trace=not args.no_trace,
         pipeline=resolve(args.pipeline, cfg.pipeline),
         enqueue_method=resolve(args.enqueue_method, cfg.enqueue_method),
-        checkpoint_dir=resolve(args.checkpoint_dir, cfg.checkpoint_dir),
+        checkpoint_dir=ckpt_dir,
         checkpoint_every=resolve(args.checkpoint_every,
                                  cfg.checkpoint_every),
         checkpoint_interval_seconds=float(resolve(
@@ -157,7 +224,11 @@ def main(argv=None) -> int:
             setup.backend.get("CHECKPOINT_INTERVAL", 60.0))),
         keep_checkpoints=resolve(args.keep_checkpoints,
                                  cfg.keep_checkpoints),
-        por_table=resolve(args.por_table, cfg.por_table))
+        por_table=resolve(args.por_table, cfg.por_table),
+        events_out=resolve(args.events_out, cfg.events_out),
+        statespace_report=cfg.statespace_report and not args.no_report,
+        counterexample_dir=_counterexample_dir(args, cfg.counterexample_dir,
+                                               ckpt_dir))
     engine = make_engine(setup, cfg, device=args.device)
     resume = args.resume
     if resume == "auto":
@@ -174,32 +245,151 @@ def main(argv=None) -> int:
     else:
         res = engine.run(resume=resume)
     print(format_result(res))
-    if res.violation is not None and not args.no_trace:
-        _print_trace(engine.replay(res.violation.fingerprint), setup.dims)
-    return 1 if (res.violation or res.deadlock) else 0
+    if args.metrics_out:
+        _write_metrics(args.metrics_out, engine.metrics)
+    if res.violation is not None:
+        if args.no_trace:
+            print("\nviolating state (trace recording disabled):")
+            print(format_state(res.violation.state, setup.dims))
+        else:
+            print()
+            _print_counterexample(engine, res, setup.dims)
+        return 1
+    if res.deadlock is not None:
+        print("\ndeadlock state:")
+        print(format_state(res.deadlock, setup.dims))
+        return 1
+    return 0
 
 
-def _print_trace(steps, dims):
-    for depth, (g, st) in enumerate(steps):
-        what = "Init" if g < 0 else dims.describe_instance(g)
-        print(f"{depth}: {what}\n{format_state(st, dims)}")
+def _counterexample_dir(args, directive, ckpt_dir):
+    """Flag > directive > (the engine's fallback, the checkpoint
+    directory); with none of them, ``--render-trace`` names the current
+    directory."""
+    d = args.counterexample_dir or directive
+    if d is None and args.render_trace and not ckpt_dir:
+        d = "."
+    return d
+
+
+def _print_counterexample(engine, res, dims):
+    """The rendered trace: the text of ``counterexample.txt`` where the
+    run wrote one, else rendered from a replay."""
+    if res.counterexample:
+        with open(res.counterexample["txt"], encoding="utf-8") as f:
+            print(f.read(), end="")
+        print(f"\ncounterexample written: {res.counterexample['txt']} "
+              "(+ .json)")
+    else:
+        print(explain_mod.render_text(
+            engine.replay(res.violation.fingerprint), dims,
+            violation=res.violation), end="")
+
+
+def _write_metrics(path: str, registry) -> None:
+    """``--metrics-out``: the registry's snapshot as sorted JSON, written
+    atomically."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(registry.snapshot(), f, indent=2, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, path)
+
+
+def _explain(args, setup) -> int:
+    """``explain``: the check with trace recording on at the JAX CLI's
+    sizes (flag > directive > 1024 / 2^20 / 2^22), its counterexample
+    rendered; exit 1 on a rendered violation, 2 when only the graph
+    export failed."""
+    be = setup.backend
+
+    def resolve(flag, key, default):
+        return flag if flag is not None else be.get(key, default)
+
+    cfg = EngineConfig(
+        batch=resolve(args.batch, "BATCH", 1024),
+        queue_capacity=resolve(args.queue_capacity, "QUEUE_CAPACITY",
+                               1 << 20),
+        seen_capacity=resolve(args.seen_capacity, "SEEN_CAPACITY",
+                              1 << 22),
+        max_diameter=args.max_diameter, max_seconds=args.max_seconds,
+        record_trace=True,
+        pipeline=resolve(args.pipeline, "PIPELINE", "auto"))
+    engine = make_engine(setup, cfg, device=args.device)
+    res = engine.run(initial_states(setup, seed=args.seed))
+    rc = 0
+    if res.violation is not None:
+        steps = engine.replay(res.violation.fingerprint)
+        if args.format == "text":
+            doc = explain_mod.render_text(steps, setup.dims,
+                                          violation=res.violation)
+        elif args.format == "json":
+            doc = json.dumps(
+                explain_mod.render_json(steps, setup.dims,
+                                        violation=res.violation),
+                indent=2, sort_keys=True) + "\n"
+        else:
+            doc = explain_mod.render_html(
+                steps, setup.dims, violation=res.violation,
+                title=f"counterexample: {res.violation.invariant}")
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                f.write(doc)
+            print(f"counterexample ({args.format}, {len(steps)} states) "
+                  f"-> {args.out}")
+        else:
+            print(doc, end="")
+        rc = 1
+    else:
+        print(format_result(res))
+        print("no violation found; nothing to explain"
+              + (" (graph still exported)" if args.graph else ""))
+    if args.graph:
+        fmt = args.graph_format or (
+            "graphml" if args.graph.endswith((".graphml", ".xml"))
+            else "dot")
+        try:
+            text = explain_mod.export_graph(
+                engine.trace, setup.dims, fmt=fmt,
+                cap=(args.graph_cap if args.graph_cap is not None
+                     else explain_mod.GRAPH_CAP_DEFAULT))
+        except ValueError as exc:
+            print(f"explain: {exc}", file=sys.stderr)
+            return rc or 2
+        with open(args.graph, "w", encoding="utf-8") as f:
+            f.write(text)
+        print(f"state graph ({fmt}, {len(engine.trace)} recorded states) "
+              f"-> {args.graph}")
+    return rc
 
 
 def _swarm(args, setup) -> int:
     """``check --mode swarm``: the summary line, and on a violation the
-    replayed trace and exit 1."""
-    engine = make_swarm(setup, walks=args.walks, max_depth=args.max_depth,
-                        batch=args.batch, device=args.device)
+    rendered counterexample and exit 1."""
+    be = setup.backend
+    ckpt_dir = args.checkpoint_dir or be.get("CHECKPOINT_DIR")
+    engine = make_swarm(
+        setup, walks=args.walks, max_depth=args.max_depth,
+        batch=args.batch, device=args.device,
+        events_out=args.events_out, checkpoint_dir=ckpt_dir,
+        counterexample_dir=_counterexample_dir(
+            args, be.get("COUNTEREXAMPLE_DIR"), ckpt_dir),
+        progress_seconds=float(
+            args.progress_interval if args.progress_interval is not None
+            else be.get("PROGRESS_SECONDS", 5.0)))
     max_seconds = (args.max_seconds if args.max_seconds is not None
                    else setup.max_seconds)
     res = engine.run(initial_states(setup, seed=args.seed), seed=args.seed,
                      max_seconds=max_seconds)
     print(format_swarm(res, engine.max_depth))
+    if args.metrics_out:
+        _write_metrics(args.metrics_out, engine.metrics)
     if res.violation is None:
         return 0
-    print(f"VIOLATION          {res.violation.invariant} "
-          f"(fp {res.violation.fingerprint:#018x})")
-    _print_trace(engine.replay(res.violation.fingerprint), setup.dims)
+    print()
+    _print_counterexample(engine, res, setup.dims)
     return 1
 
 

@@ -42,8 +42,9 @@ a chunk.  What it keeps of the JAX engine:
 each chunk, its waits for the device (``sync``), graph capture, trace
 drains, spills and its own bookkeeping.  ``EngineConfig.pipeline`` picks
 the chunk's plan: "v3" (the default; the masks and lane stages in
-PyTorch around the compaction kernel) or "v4" (one front kernel,
-``ops/chunk_front_cuda.py``).  ``enqueue_method`` picks the tail: the
+PyTorch around the compaction kernel; "auto" and "v2", the JAX
+package's names of its delta pipeline, run it too) or "v4" (one front
+kernel, ``ops/chunk_front_cuda.py``).  ``enqueue_method`` picks the tail: the
 fused insert + enqueue kernel (the default) or the split tail, the
 insert kernel followed by the enqueue kernel or a PyTorch lowering.
 Every combination gives equal results.
@@ -54,8 +55,19 @@ snapshot of either package resumes in the other), the TLCGet exit
 budgets over distinct / generated / queue (checked after each chunk),
 and the partial-order reduction fed by a certified table
 (``analysis/por.py``; ``por=True`` would certify in process through the
-jaxpr analyzer, which is not ported).  Observability beyond ``phases``
-and the native trace store are not ported.
+jaxpr analyzer, which is not ported).
+
+Observability, the JAX engine's (``obs/``): a ``MetricsRegistry`` on the
+engine (``engine.metrics``; the phase seconds mirrored from
+``EngineResult.phases``, the live counters and gauges), the JSONL run
+events (``events_out``), the per-family action coverage read from the
+counters the chunk already keeps, a ``level_stats`` row at each level
+boundary, the statespace report at run end (``statespace_report``) and,
+on a traced violation, ``counterexample.{txt,json}``
+(``counterexample_dir``, else ``checkpoint_dir``).  All of it reads
+values the level loop has already brought to the host: it adds no wait
+for the device, and no count depends on it.  The native trace store, the
+span tracer, the flight recorder and the postmortem dump are not ported.
 """
 
 from __future__ import annotations
@@ -78,6 +90,12 @@ from ..models.schema import (ROW_DTYPE, StateBatch, check_packable,
                              gather_states, stack_states, state_width,
                              unflatten_state)
 from ..analysis import por as por_mod
+from ..obs import report as report_mod
+from ..obs.coverage import ActionCoverage
+from ..obs.events import (RunEventLog, all_device_memory_stats,
+                          device_memory_stats, events_path,
+                          peak_host_rss_bytes)
+from ..obs.metrics import PHASE_PREFIX, MetricsRegistry, phase_delta
 from ..ops import chunk_front_cuda, compact_cuda, enqueue_cuda
 from ..ops import compact as compact_mod
 from ..ops import fpset, fpset_cuda, fused_tail_cuda, pipeline_v3
@@ -89,12 +107,22 @@ from ..ops.fpset_cuda import insert
 from ..utils.device import capture_graph, resolve_device
 from . import checkpoint as ckpt_mod
 from . import chunk as chunk_mod
-from .chunk import (ST_COUNT, ST_DEAD, ST_FAIL, ST_GEN, ST_NEW, ST_OFFSET,
-                    ST_OVF, ST_SEEN, ST_STEPS, ST_TCOUNT, ST_VIOL, ST_VINV)
+from .chunk import (ST_COUNT, ST_DEAD, ST_EXPANDED, ST_FAIL, ST_GEN, ST_NEW,
+                    ST_OFFSET, ST_OVF, ST_SEEN, ST_STEPS, ST_TCOUNT, ST_VIOL,
+                    ST_VINV)
 from .spillpool import SpillPool
 from .trace import PyTraceStore
 
 PLANS = {"v3": pipeline_v3, "v4": pipeline_v4}
+
+#: ``EngineConfig.pipeline`` -> plan.  The JAX package's "auto" (its
+#: default) and "v2" (its delta pipeline) are the v3 plan's semantics
+#: with the same counts; "v1" (the classical expand) is not ported.
+PLAN_NAMES = {"v3": "v3", "v4": "v4", "auto": "v3", "v2": "v3"}
+
+#: The phases of ``EngineResult.phases``.
+PHASES = ("dispatch", "sync", "capture", "trace", "spill", "host",
+          "checkpoint")
 
 #: The kernel wrappers' modules, whose ``launches`` a graph replay adds to.
 KERNEL_MODULES = (compact_cuda, fpset_cuda, fused_tail_cuda,
@@ -134,11 +162,17 @@ def auto_capacities(sw: int, batch: int, record_trace: bool,
 
 
 def progress_line(res, t0: float, queue_rows: int, level_frontier: int,
-                  load: float) -> str:
+                  load: float, metrics=None) -> str:
     """TLC's progress report (generated, distinct, queue) with the JAX
     package's extras (rates, the level being expanded, the seen set's
-    load factor): the text of its ``_progress_line``."""
+    load factor): the text of its ``_progress_line``, whose gauges it
+    also sets in ``metrics``."""
     dt = max(time.time() - t0, 1e-9)
+    if metrics is not None:
+        metrics.gauge("engine/queue_rows", queue_rows)
+        metrics.gauge("engine/level_frontier", level_frontier)
+        metrics.gauge("engine/states_per_sec", res.distinct / dt)
+        metrics.gauge("engine/generated_per_sec", res.generated / dt)
     return (f"progress: {res.generated:,} generated "
             f"({res.generated / dt:,.0f}/s), "
             f"{res.distinct:,} distinct ({res.distinct / dt:,.0f}/s), "
@@ -161,7 +195,7 @@ class EngineConfig:
     sync_every: int = 32             # batches per host round trip
     max_seconds: Optional[float] = None    # StopAfter duration budget
     max_diameter: Optional[int] = None     # StopAfter diameter budget
-    pipeline: str = "v3"                   # chunk plan: "v3" or "v4"
+    pipeline: str = "v3"     # chunk plan: "v3" or "v4" (PLAN_NAMES)
     # The chunk's tail.  "fused": one insert + enqueue kernel (the JAX
     # plans' fused tail).  Split, the insert kernel and then: "kernel",
     # the enqueue kernel (JAX: enqueue_method="pallas" with
@@ -196,6 +230,15 @@ class EngineConfig:
     # min_batch) and resume from this run's newest snapshot, or restart.
     degrade_on_oom: bool = True
     min_batch: int = 32
+    # Observability (obs/): the statespace report at run end (on by
+    # default, as in the JAX package); the JSONL run events (None puts
+    # them in events.jsonl next to checkpoint_dir; with neither, no file);
+    # where a traced violation's counterexample.{txt,json} land (None
+    # means checkpoint_dir; with neither, no files).  No count depends
+    # on any of them.
+    statespace_report: bool = True
+    events_out: Optional[str] = None
+    counterexample_dir: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -239,6 +282,19 @@ class EngineResult:
     # loop's other bookkeeping: root ingest, growth, budgets),
     # "checkpoint" (snapshot writes).
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # Per family {generated, distinct, disabled, pruned} (obs/coverage.py).
+    coverage: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+    # The base families grouped by parameter grid, for the report.
+    family_groups: List = dataclasses.field(default_factory=list)
+    # The statespace report (obs/report.py build_report); {} when
+    # EngineConfig.statespace_report is off.
+    report: Dict = dataclasses.field(default_factory=dict)
+    # One row a level boundary: level, frontier, distinct, generated, the
+    # seen set's size and capacity, the card's memory.
+    level_stats: List = dataclasses.field(default_factory=list)
+    # {"txt", "json", "depth"} of the written counterexample, else {}.
+    counterexample: Dict = dataclasses.field(default_factory=dict)
 
     @property
     def states_per_second(self) -> float:
@@ -316,23 +372,29 @@ class BFSEngine:
                  config: Optional[EngineConfig] = None,
                  device="cuda"):
         # Re-entered at a smaller batch by OOM degradation
-        # (_rebuild_at_batch): everything below is rebuilt.
+        # (_rebuild_at_batch): everything below is rebuilt but the
+        # registry and the open event log.
         self.dims = dims
         self.config = cfg = config or EngineConfig()
         self.device = dev = resolve_device(device)
+        if not hasattr(self, "metrics"):
+            self.metrics = MetricsRegistry()
+            self._evlog = RunEventLog(None)
         self.inv_names = list((invariants or {}).keys())
         self._inv_fns = list((invariants or {}).values())
         self._inv_id = (build_inv_id(self._inv_fns) if self._inv_fns
                         else None)
         self._constraint = constraint
-        if cfg.pipeline not in PLANS:
+        if cfg.pipeline not in PLAN_NAMES:
             raise ValueError(
-                f"pipeline must be 'v3' or 'v4', got {cfg.pipeline!r}: the "
-                "JAX package's 'auto', 'v1' and 'v2' plans are not ported "
-                "(ROADMAP.md A2)")
+                f"pipeline must be 'v3', 'v4', 'auto' or 'v2', got "
+                f"{cfg.pipeline!r}: the JAX package's 'v1' plan is not "
+                "ported (ROADMAP.md A7)")
+        self._plan_name = PLAN_NAMES[cfg.pipeline]
         self._v2 = build_v2(dims, dev)
         self._fingerprint = build_fingerprint(dims, dev)
-        self._plan = PLANS[cfg.pipeline].resolve_plan(dev, cfg.enqueue_method)
+        self._plan = PLANS[self._plan_name].resolve_plan(dev,
+                                                          cfg.enqueue_method)
         if cfg.checkpoint_dir is not None:
             ckpt_mod.check_dims_checkpointable(dims)
         self._por_table = resolve_por(cfg, dims, invariants or {},
@@ -362,7 +424,7 @@ class BFSEngine:
         self._TA = self._TQ + K if cfg.record_trace else 1
         self._CH = max(1, cfg.sync_every)
         front = None
-        if cfg.pipeline == "v4":
+        if self._plan_name == "v4":
             front = Front(dims=dims, v2=self._v2, inv_fns=self._inv_fns,
                           constraint=constraint, B=B, K=K, device=dev,
                           por_mask=por_mask, por_priority=por_priority)
@@ -432,7 +494,48 @@ class BFSEngine:
         self._drop_graphs()
         stall = time.time() - t
         res.growth_stalls.append((seen.capacity, round(stall, 3)))
+        self.metrics.counter("engine/fpset_resizes")
+        self._evlog.emit("fpset_resize", capacity=seen.capacity,
+                         stall_seconds=round(stall, 3),
+                         memory=device_memory_stats(self.device))
         return seen, t0 + stall
+
+    def _phase(self, name: str, seconds: float):
+        """Add host seconds to ``EngineResult.phases[name]`` and the same
+        seconds to the registry's ``phase/<name>``: one clock, two
+        views."""
+        self._result.phases[name] += seconds
+        self.metrics.observe(PHASE_PREFIX + name, seconds)
+
+    def _emit_level_event(self, res, frontier_rows: int):
+        """A level boundary: the report's ``level_stats`` row and the
+        ``level_complete`` event (counters, per-phase seconds since the
+        run started, the card's memory), as the JAX engine's."""
+        mt = self.metrics
+        mem = device_memory_stats(self.device)
+        peak = mem.get("peak_bytes_in_use")
+        if peak is not None:
+            self._hbm_watermark = max(self._hbm_watermark, peak)
+            mt.gauge("engine/device_hbm_peak_bytes", self._hbm_watermark)
+        if self.config.statespace_report:
+            res.level_stats.append({
+                "level": res.diameter, "frontier": int(frontier_rows),
+                "distinct": res.distinct, "generated": res.generated,
+                "seen_size": int(mt.gauge_value("engine/seen_size")),
+                "seen_capacity": int(mt.gauge_value("engine/seen_capacity")),
+                "hbm_peak_bytes": peak,
+                "hbm_bytes_in_use": mem.get("bytes_in_use")})
+        evlog = self._evlog
+        if not evlog.enabled:
+            return
+        phases = phase_delta(mt.phase_seconds(), self._phase_base)
+        evlog.emit(
+            "level_complete", level=res.diameter,
+            frontier_rows=frontier_rows, distinct=res.distinct,
+            generated=res.generated, phase_seconds=phases,
+            unattributed_seconds=round(
+                evlog.elapsed() - sum(phases.values()), 6),
+            memory=mem)
 
     def resume_point(self, ck: ckpt_mod.Checkpoint) -> ResumePoint:
         """A ``Checkpoint`` as this engine's ``ResumePoint``: the seen set
@@ -561,18 +664,17 @@ class BFSEngine:
         the steps go out in bursts of at most the batches the level has
         left, so a burst wastes no step at a level's end unless progress
         limiting held a batch back; then a short burst follows."""
-        phases = res.phases
         t = time.time()
         run = self._runner(qcur, qnext, seen, res)
         captured = time.time() - t
-        phases["capture"] += captured
+        self._phase("capture", captured)
         self._write_ctl(offset, next_count, cur_count, allowed)
         if self.device.type != "cuda":
             t = time.time()
             while bool(self._step.cond(seen, self._cs)):
                 run()
                 res.steps += 1
-            phases["dispatch"] += time.time() - t
+            self._phase("dispatch", time.time() - t)
             return self._cs.st.tolist(), captured
         done, at = 0, offset
         while True:
@@ -582,8 +684,8 @@ class BFSEngine:
             res.steps += n
             t_s = time.time()
             st = self._cs.st.tolist()          # the chunk's device sync
-            phases["dispatch"] += t_s - t
-            phases["sync"] += time.time() - t_s
+            self._phase("dispatch", t_s - t)
+            self._phase("sync", time.time() - t_s)
             if not st[self._step.CUR + 2]:
                 return st, captured
             done, at = st[ST_STEPS], st[ST_OFFSET]
@@ -630,10 +732,101 @@ class BFSEngine:
         ``min_batch``, and go on from this run's newest snapshot in
         ``checkpoint_dir`` or from the start.  A snapshot that was in the
         directory before a fresh run belongs to another run and is never
-        taken."""
-        cfg = self.config
+        taken.
+
+        The run's events go to ``events_out`` (``run_start`` ...
+        ``run_end``), and at its end come the coverage, the statespace
+        report and, on a traced violation, the counterexample files
+        (``_finish``)."""
         if (init_states is None) == (resume is None):
             raise ValueError("need exactly one of init_states or resume")
+        cfg, mt = self.config, self.metrics
+        self._evlog = RunEventLog(events_path(cfg.events_out,
+                                              cfg.checkpoint_dir))
+        self._phase_base = mt.phase_seconds()
+        self._collision_base = mt.counter_value("engine/fp_collisions")
+        self._hbm_watermark = 0
+        self._result = None
+        self.coverage = None
+        self._evlog.emit(
+            "run_start", engine=type(self).__name__, dims=repr(self.dims),
+            batch=cfg.batch, sync_every=cfg.sync_every,
+            record_trace=cfg.record_trace, resume=resume is not None,
+            memory=device_memory_stats(self.device))
+        err = None
+        try:
+            return self._run_degradable(init_states, resume)
+        except BaseException as e:
+            err = e
+            raise
+        finally:
+            self._finish(err)
+
+    def _finish(self, err):
+        """The run's end, as the JAX engine's: the final coverage, the
+        counterexample files, the statespace report and ``run_end``; the
+        event log closed.  A failing render is reported and never hides
+        the run's own verdict."""
+        cfg, mt, evlog = self.config, self.metrics, self._evlog
+        res, cov = self._result, self.coverage
+        if res is not None and cov is not None:
+            res.coverage = cov.snapshot()
+            cov.feed_metrics(mt)
+            if cov.total_generated:
+                evlog.emit("coverage", final=True, level=res.diameter,
+                           actions=res.coverage)
+            if cfg.progress_interval_seconds:
+                print(cov.render_table(), file=sys.stderr)
+        ce_path = None
+        ce_dir = cfg.counterexample_dir or cfg.checkpoint_dir
+        if (err is None and res is not None and res.violation is not None
+                and cfg.record_trace and ce_dir):
+            try:
+                from .explain import write_counterexample
+                res.counterexample = write_counterexample(self, res, ce_dir)
+                ce_path = res.counterexample["txt"]
+            except Exception as e:
+                print(f"counterexample render failed: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr)
+        if cfg.statespace_report and res is not None and err is None:
+            res.report = report_mod.build_report(
+                res, coverage=cov, level_stats=res.level_stats,
+                seen_capacity=int(mt.gauge_value(
+                    "engine/seen_capacity")) or None,
+                seen_size=int(mt.gauge_value("engine/seen_size")),
+                observed_collisions=int(
+                    mt.counter_value("engine/fp_collisions")
+                    - self._collision_base))
+            report_mod.feed_metrics(res.report, mt)
+            evlog.emit("statespace", report=res.report)
+            if cfg.progress_interval_seconds:
+                print(report_mod.render_report(res.report), file=sys.stderr)
+        # postmortem_path stays None until the flight recorder lands
+        # (ROADMAP A6b).
+        evlog.emit(
+            "run_end",
+            stop_reason=(getattr(res, "stop_reason", None)
+                         if err is None else "error"),
+            error=(f"{type(err).__name__}: {err}" if err is not None
+                   else None),
+            postmortem_path=None, counterexample_path=ce_path,
+            distinct=getattr(res, "distinct", None),
+            generated=getattr(res, "generated", None),
+            diameter=getattr(res, "diameter", None),
+            levels=list(getattr(res, "levels", None) or []),
+            wall_seconds=getattr(res, "wall_seconds", None),
+            growth_stalls=len(getattr(res, "growth_stalls", ())),
+            phase_seconds=phase_delta(mt.phase_seconds(), self._phase_base),
+            memory=device_memory_stats(self.device),
+            host_rss_peak_bytes=peak_host_rss_bytes(),
+            devices_memory=all_device_memory_stats(self.device))
+        evlog.close()
+        self._evlog = RunEventLog(None)
+
+    def _run_degradable(self, init_states, resume) -> EngineResult:
+        """The run, retried at half the batch on running out of device
+        memory (see ``run``)."""
+        cfg = self.config
         user_resume = resume is not None
         preexisting = (set(os.listdir(cfg.checkpoint_dir))
                        if cfg.checkpoint_dir
@@ -645,7 +838,8 @@ class BFSEngine:
                 res.degraded = degraded
                 res.steps += steps
                 return res
-            except torch.cuda.OutOfMemoryError:
+            except torch.cuda.OutOfMemoryError as e:
+                why = f"{type(e).__name__}: {str(e)[:300]}"
                 cfg = self.config
                 new_batch = cfg.batch // 2
                 if not cfg.degrade_on_oom \
@@ -661,6 +855,12 @@ class BFSEngine:
             if ck is not None:
                 init_states, resume = None, ck
             degraded.append((cfg.batch, new_batch, ck))
+            self._evlog.emit(
+                "degraded", reason="resource_exhausted",
+                error=why, batch=cfg.batch,
+                new_batch=new_batch, resume_from=ck,
+                memory=device_memory_stats(self.device))
+            self.metrics.counter("engine/degraded")
             print(f"degraded: out of device memory; retrying at batch "
                   f"{new_batch}" + (f", resuming {ck}" if ck else ""),
                   file=sys.stderr)
@@ -685,9 +885,13 @@ class BFSEngine:
         dims, cfg, dev = self.dims, self.config, self.device
         sw, B, Q = self._sw, self._B, self._Q
         res = self._result = EngineResult(
-            pipeline=cfg.pipeline, fused_stages=dict(self._plan),
+            pipeline=self._plan_name, fused_stages=dict(self._plan),
             device=str(dev), por_instances=(self._por_table.certified
-                                            if self._por_table else 0))
+                                            if self._por_table else 0),
+            family_groups=report_mod.family_groups(dims))
+        mt, evlog = self.metrics, self._evlog
+        coverage = self.coverage = ActionCoverage(dims.family_names,
+                                                  dims.family_sizes)
         if isinstance(resume, str):
             resume = ckpt_mod.load(resume)
         if isinstance(resume, ckpt_mod.Checkpoint):
@@ -708,10 +912,7 @@ class BFSEngine:
                     "for any later trace-on resume; use a different "
                     "checkpoint_dir or keep tracing enabled")
             resume = self.resume_point(ck)
-        phases = res.phases
-        for k in ("dispatch", "sync", "capture", "trace", "spill", "host",
-                  "checkpoint"):
-            phases[k] = 0.0
+        res.phases.update(dict.fromkeys(PHASES, 0.0))
         trace = self.trace = PyTraceStore()
         t_enter = time.time()
         QA = Q + self._PAD
@@ -737,7 +938,8 @@ class BFSEngine:
         t0 = time.time()
         if resume is not None:
             seen = resume.seen
-            while int(seen.size[0]) > seen.capacity // 2:
+            seen_size = int(seen.size[0])
+            while seen_size > seen.capacity // 2:
                 seen = fpset.grow(seen, 2 * seen.capacity)
             fr = resume.frontier
             for i in range(Q, fr.shape[0], Q):
@@ -748,6 +950,10 @@ class BFSEngine:
             res.distinct, res.generated = resume.distinct, resume.generated
             res.diameter, res.levels = resume.diameter, list(resume.levels)
             res.action_counts = dict(resume.action_counts)
+            # The generated series goes on from the snapshot, so the final
+            # table still equals action_counts (distinct and expanded
+            # restart from zero, as in the JAX engine).
+            coverage.seed_generated(resume.action_counts)
             # Duration accumulates across restarts: wall_seconds, the rate
             # and the max_seconds budget all measure total checking time.
             t0 -= resume.wall_seconds
@@ -770,6 +976,8 @@ class BFSEngine:
                     res.stop_reason = "violation"
                     res.levels.append(0)
                     res.wall_seconds = time.time() - t_enter
+                    evlog.emit("violation", invariant=res.violation.invariant,
+                               fingerprint=hex(fp), level=0)
                     return res
             for e in encoded:
                 check_packable(e, dims)
@@ -780,7 +988,7 @@ class BFSEngine:
                     trace.roots.setdefault((h << 32) | l, init_states[i])
             seen = fpset.empty(self._seen_cap, dev)
             t0 = time.time()
-            next_count = 0
+            next_count = seen_size = 0
             for base in range(0, rows_all.shape[0], B):
                 if base and cfg.max_seconds is not None \
                         and time.time() - t0 > cfg.max_seconds:
@@ -808,12 +1016,16 @@ class BFSEngine:
                 if fail:
                     raise RuntimeError("seen-set probe failure during "
                                        "ingest; raise seen_capacity")
-                seen, t0 = self._maybe_grow(seen, int(seen.size[0]), res, t0)
+                mt.counter("engine/distinct", n_new)
+                seen_size = int(seen.size[0])
+                seen, t0 = self._maybe_grow(seen, seen_size, res, t0)
                 if next_count > self._QTH:
                     spill_next.append(host_rows(qnext[:next_count]))
                     res.spills += 1
+                    evlog.emit("spill", rows=next_count, level=0,
+                               where="ingest")
                     next_count = 0
-                phases["host"] += time.time() - t_h
+                self._phase("host", time.time() - t_h)
                 viol = new & (inv >= 0)
                 if bool(viol.any()):
                     v = int(viol.to(torch.int32).argmax())
@@ -822,13 +1034,23 @@ class BFSEngine:
                         self._decode_row(rows[v]),
                         (int(fph[v]) << 32) | int(fpl[v]))
                     res.stop_reason = "violation"
+                    evlog.emit("violation", invariant=res.violation.invariant,
+                               fingerprint=hex(res.violation.fingerprint),
+                               level=0)
                     break
             res.levels.append(next_count + spill_next.total_rows())
+            mt.gauge("engine/seen_capacity", seen.capacity)
+            mt.gauge("engine/seen_size", seen_size)
+            self._emit_level_event(res, res.levels[-1])
             qcur, qnext = qnext, qcur
             cur_count = next_count
             pending, spill_next = spill_next, pending
 
         S = chunk_mod.N_SCALARS
+        # The seen-set gauges, kept current a chunk (the progress line's
+        # load and each level_stats row read them).
+        mt.gauge("engine/seen_capacity", seen.capacity)
+        mt.gauge("engine/seen_size", seen_size)
         self._batch_ema = 0.0       # measured seconds a batch
         last_progress = time.time()
         # A resumed run does not rewrite the snapshot it loaded (without
@@ -847,7 +1069,9 @@ class BFSEngine:
                 self._write_checkpoint(qcur, cur_count, pending, seen, res,
                                        trace, wall=t_h - t0)
                 last_ckpt = time.time()
-                phases["checkpoint"] += last_ckpt - t_h
+                self._phase("checkpoint", last_ckpt - t_h)
+                evlog.emit("checkpoint", level=res.diameter,
+                           distinct=res.distinct)
             if cfg.max_diameter is not None \
                     and res.diameter >= cfg.max_diameter:
                 res.stop_reason = "diameter_budget"
@@ -887,18 +1111,29 @@ class BFSEngine:
                     offset, next_count = st[ST_OFFSET], st[ST_COUNT]
                     res.distinct += st[ST_NEW]
                     res.generated += st[ST_GEN]
-                    for name, c, p in zip(dims.family_names, st[S:S + F],
-                                          st[S + 2 * F:S + 3 * F]):
+                    seen_size = st[ST_SEEN]
+                    mt.counter("engine/distinct", st[ST_NEW])
+                    mt.counter("engine/generated", st[ST_GEN])
+                    mt.gauge("engine/seen_size", seen_size)
+                    mt.gauge("engine/seen_capacity", seen.capacity)
+                    mt.gauge("engine/next_count", next_count)
+                    mt.gauge("engine/diameter", res.diameter)
+                    gen, new = st[S:S + F], st[S + F:S + 2 * F]
+                    pruned = st[S + 2 * F:S + 3 * F]
+                    for name, c, p in zip(dims.family_names, gen, pruned):
                         res.action_counts[name] = \
                             res.action_counts.get(name, 0) + c
                         res.action_pruned[name] = \
                             res.action_pruned.get(name, 0) + p
+                    # Coverage from the same stats read (obs/coverage.py).
+                    coverage.add_chunk(st[ST_EXPANDED], gen, new,
+                                       pruned)
                     inner = 0.0     # trace and spill, timed on their own
                     if cfg.record_trace and st[ST_TCOUNT]:
                         t_t = time.time()
                         self._flush_trace(self._tbuf, st[ST_TCOUNT])
                         inner = time.time() - t_t
-                        phases["trace"] += inner
+                        self._phase("trace", inner)
                     if st[ST_OVF]:
                         raise RuntimeError(
                             f"{st[ST_OVF]} successors exceeded fixed-width "
@@ -919,8 +1154,10 @@ class BFSEngine:
                         qnext = self._spill(inflight, free_q, qnext,
                                             next_count)
                         res.spills += 1
+                        evlog.emit("spill", rows=next_count,
+                                   level=res.diameter, where="chunk_loop")
                         next_count = 0
-                        phases["spill"] += time.time() - t_s
+                        self._phase("spill", time.time() - t_s)
                         inner += time.time() - t_s
                     if st[ST_VIOL]:
                         vfp = self._cs.vfp.tolist()
@@ -929,9 +1166,14 @@ class BFSEngine:
                             self._decode_row(self._cs.vrow),
                             (vfp[0] << 32) | vfp[1])
                         res.stop_reason = "violation"
+                        evlog.emit("violation",
+                                   invariant=res.violation.invariant,
+                                   fingerprint=hex(res.violation.fingerprint),
+                                   level=res.diameter)
                     elif st[ST_DEAD] and self._check_deadlock:
                         res.deadlock = self._decode_row(self._cs.drow)
                         res.stop_reason = "deadlock"
+                        evlog.emit("deadlock", level=res.diameter)
                     else:
                         want_progress = bool(
                             cfg.progress_interval_seconds
@@ -949,8 +1191,12 @@ class BFSEngine:
                             if want_progress:
                                 print(progress_line(
                                     res, t0, queue_rows, cur_count,
-                                    st[ST_SEEN] / seen.capacity),
+                                    seen_size / seen.capacity, mt),
                                     file=sys.stderr)
+                                # Coverage rides the same cadence.
+                                coverage.feed_metrics(mt)
+                                evlog.emit("coverage", level=res.diameter,
+                                           actions=coverage.snapshot())
                                 last_progress = time.time()
                             # A violation or deadlock in the same chunk
                             # outranks a budget stop.
@@ -958,7 +1204,7 @@ class BFSEngine:
                                                      res, queue_rows)
                             if hit:
                                 res.stop_reason = hit
-                    phases["host"] += time.time() - t_h - inner
+                    self._phase("host", time.time() - t_h - inner)
                     if res.stop_reason != "exhausted":
                         break
                 if res.stop_reason != "exhausted" or not pending:
@@ -967,14 +1213,15 @@ class BFSEngine:
                 seg = np.require(pending.pop(0), requirements=["C", "W"])
                 qcur[:len(seg)] = torch.from_numpy(seg).to(dev)
                 cur_count = len(seg)
-                phases["spill"] += time.time() - t_s
+                self._phase("spill", time.time() - t_s)
             if res.stop_reason != "exhausted":
                 break
             t_s = time.time()
             self._resolve_spill(inflight, free_q, spill_next)
-            phases["spill"] += time.time() - t_s
+            self._phase("spill", time.time() - t_s)
             res.diameter += 1
             res.levels.append(next_count + spill_next.total_rows())
+            self._emit_level_event(res, res.levels[-1])
             qcur, qnext = qnext, qcur
             cur_count = next_count
             pending, spill_next = spill_next, pending
@@ -1017,6 +1264,9 @@ class BFSEngine:
             en, fps, succ = self.successors(state)
             ok = en & (fps == np.uint64(child_fp))
             if not ok.any():
+                # Where a fingerprint collision becomes visible: counted
+                # for the report's observed collisions.
+                self.metrics.counter("engine/fp_collisions")
                 raise RuntimeError(
                     f"replay divergence: no enabled candidate matches fp "
                     f"{child_fp:#018x} (recorded action {g_rec})")

@@ -6,13 +6,16 @@ Invariant names resolve through ``models/invariants.py``'s registry
 cfg's StopAfter budgets and ``\\* TPU:`` directives (BATCH,
 QUEUE_CAPACITY, SEEN_CAPACITY, PIPELINE, CHECKPOINT_DIR, CHECKPOINT_EVERY,
 CHECKPOINT_INTERVAL, KEEP_CHECKPOINTS, SPILL_DIR, PROGRESS_SECONDS,
-POR_TABLE) seed the engine config.  Precedence: caller > cfg directive >
-built-in default.  MODE picks the checking tier (``exhaustive``, or the
+POR_TABLE, REPORT, EVENTS_OUT, COUNTEREXAMPLE_DIR) seed the engine
+config.  Precedence: caller > cfg directive > built-in default.
+PLATFORM picks the device (``device_for``).  The directives of modules
+not ported yet (``UNPORTED_DIRECTIVES``) are refused, naming their
+ROADMAP item, rather than accepted and ignored.  MODE picks the checking tier (``exhaustive``, or the
 ``swarm`` of ``engine/swarm.py`` with WALKS walks); ``make_swarm`` and
 ``make_simulator`` build the walk tiers with the JAX CLI's defaults.
 ``path_to_state`` finds a shortest action path to a given state.  Every
 entry point takes ``device`` and runs on the card unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"`` (or the cfg says ``PLATFORM = cpu``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,46 @@ from .simulate import Simulator
 from .swarm import SwarmEngine, SwarmResult
 
 MODES = ("exhaustive", "swarm")
+
+#: Directives of modules not ported yet -> the ROADMAP.md item that ports
+#: them.  A cfg that sets one (to anything but off: 0 or FALSE) is refused.
+UNPORTED_DIRECTIVES = {
+    "TRACE_DIR": "A1 (the native trace store)",
+    "TRACE_OUT": "A6b (obs/tracing.py)",
+    "PROFILE_CHUNKS": "A6b (launch and stage accounting)",
+    "XLA_PROFILE": "A6b (a torch.profiler capture)",
+    "METRICS_PORT": "A6b (obs/expose.py)",
+    "HISTORY": "A6b (obs/history.py)",
+    "PERF": "A6b (launch and stage accounting)",
+}
+
+#: PLATFORM directive -> device.
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+def check_directives(setup: CheckSetup) -> None:
+    """Refuse a cfg that asks for what the port does not do yet."""
+    for key, item in UNPORTED_DIRECTIVES.items():
+        if setup.backend.get(key, False) not in (False, 0):
+            raise ValueError(
+                f"the {key} directive is not ported yet (ROADMAP.md "
+                f"{item}); remove it from the cfg")
+
+
+def device_for(setup: CheckSetup, device=None) -> str:
+    """The caller's device, else the PLATFORM directive's (``cpu``, or
+    ``gpu``/``cuda`` for the card), else the card."""
+    if device is not None:
+        return device
+    platform = setup.backend.get("PLATFORM")
+    if platform is None:
+        return "cuda"
+    name = str(platform).lower()
+    if name not in PLATFORMS:
+        raise ValueError(
+            f"PLATFORM = {platform} is not a platform of this package: "
+            "cpu, or gpu/cuda for the card (tpu is the JAX package's)")
+    return PLATFORMS[name]
 
 CONSTRAINT_REGISTRY = {"BoundedSpace": build_constraint}
 
@@ -60,6 +103,7 @@ def resolve_constraint(setup: CheckSetup) -> Optional[Callable]:
 
 
 def engine_config_from_backend(setup: CheckSetup) -> EngineConfig:
+    check_directives(setup)
     be = setup.backend
     return EngineConfig(
         batch=be.get("BATCH", EngineConfig.batch),
@@ -78,14 +122,19 @@ def engine_config_from_backend(setup: CheckSetup) -> EngineConfig:
             be.get("PROGRESS_SECONDS",
                    EngineConfig.progress_interval_seconds)),
         por=bool(be.get("POR", False)),
-        por_table=be.get("POR_TABLE"))
+        por_table=be.get("POR_TABLE"),
+        statespace_report=bool(be.get("REPORT", True)),
+        events_out=be.get("EVENTS_OUT"),
+        counterexample_dir=be.get("COUNTEREXAMPLE_DIR"))
 
 
 def make_engine(setup: CheckSetup,
                 engine_config: Optional[EngineConfig] = None,
-                device="cuda") -> BFSEngine:
+                device=None) -> BFSEngine:
     """An engine with the cfg fallbacks applied (CHECK_DEADLOCK, StopAfter
-    budgets); the caller's config is never mutated."""
+    budgets) on ``device_for(setup, device)``; the caller's config is
+    never mutated."""
+    check_directives(setup)
     base = engine_config or engine_config_from_backend(setup)
     cfg = dataclasses.replace(
         base,
@@ -99,7 +148,7 @@ def make_engine(setup: CheckSetup,
         exit_conditions=(base.exit_conditions or setup.exit_conditions))
     return BFSEngine(setup.dims, invariants=resolve_invariants(setup),
                      constraint=resolve_constraint(setup), config=cfg,
-                     device=device)
+                     device=device_for(setup, device))
 
 
 def resolve_mode(setup: CheckSetup, mode: Optional[str] = None) -> str:
@@ -121,13 +170,19 @@ SWARM_BATCH = 65536
 
 def make_swarm(setup: CheckSetup, walks: Optional[int] = None,
                max_depth: Optional[int] = None,
-               batch: Optional[int] = None, device="cuda",
+               batch: Optional[int] = None, device=None,
                **kw) -> SwarmEngine:
     """The swarm of a cfg: walks from the caller, WALKS or 1024; the depth
     bound from the caller, the cfg's diameter budget or 128; lanes a
     dispatch from the caller, BATCH or ``SWARM_BATCH`` (at most the
-    walks)."""
+    walks); events and counterexample files from the caller, else
+    EVENTS_OUT and COUNTEREXAMPLE_DIR."""
+    check_directives(setup)
     be = setup.backend
+    if kw.get("events_out") is None:
+        kw["events_out"] = be.get("EVENTS_OUT")
+    if kw.get("counterexample_dir") is None:
+        kw["counterexample_dir"] = be.get("COUNTEREXAMPLE_DIR")
     walks = int(walks if walks is not None else be.get("WALKS", 1024))
     batch = int(batch if batch is not None
                 else be.get("BATCH", SWARM_BATCH))
@@ -135,18 +190,19 @@ def make_swarm(setup: CheckSetup, walks: Optional[int] = None,
         setup.dims, invariants=resolve_invariants(setup),
         constraint=resolve_constraint(setup), walks=walks,
         max_depth=max_depth or setup.max_diameter or 128,
-        batch=min(batch, walks), device=device, **kw)
+        batch=min(batch, walks), device=device_for(setup, device), **kw)
 
 
 def make_simulator(setup: CheckSetup, batch: Optional[int] = None,
-                   depth: int = 100, device="cuda") -> Simulator:
+                   depth: int = 100, device=None) -> Simulator:
     """The simulator of a cfg: walkers from the caller, BATCH or 1024."""
+    check_directives(setup)
     be = setup.backend
     return Simulator(
         setup.dims, invariants=resolve_invariants(setup),
         constraint=resolve_constraint(setup),
         batch=int(batch if batch is not None else be.get("BATCH", 1024)),
-        depth=depth, device=device)
+        depth=depth, device=device_for(setup, device))
 
 
 def format_swarm(res: SwarmResult, max_depth: int) -> str:
@@ -207,7 +263,7 @@ def path_to_state(dims: RaftDims, target: PyState,
 
 
 def run_check(cfg_path: str, engine_config: Optional[EngineConfig] = None,
-              device="cuda", resume=None, seed: int = 0) -> EngineResult:
+              device=None, resume=None, seed: int = 0) -> EngineResult:
     """Parse the cfg, build the engine, run it (from the cfg's initial
     states, the smoke roots drawn from ``seed``, or from ``resume``: a
     snapshot's path or a ``Checkpoint``); the engine rides on the result
@@ -231,6 +287,17 @@ def format_result(res: EngineResult) -> str:
         f"stop reason        {res.stop_reason}",
         f"wall seconds       {res.wall_seconds:.2f}",
         f"states/sec         {res.states_per_second:.0f}",
+    ]
+    if res.report:
+        col = res.report["collision"]
+        lines.append(
+            f"fp collision prob  {col['calculated']:.2e} calculated "
+            f"(optimistic); {col['observed_dual_key']} observed")
+        peak = res.report.get("frontier_peak")
+        if peak:
+            lines.append(f"widest level       {peak['level']} "
+                         f"({peak['frontier']:,} states)")
+    lines += [
         f"device             {res.device}",
         f"pipeline           {res.pipeline} (" + " ".join(
             f"{s}={impl}" for s, impl in res.fused_stages.items()) + ")",

@@ -34,14 +34,18 @@ counters are made fresh inside the captured region, and the host reads
 one small tensor a chunk.  A capture that fails raises.  On the CPU the
 chunk runs eagerly.
 
-Not here yet (ROADMAP A6): the hunt observatory (``hunt=True`` raises),
-run events, the flight recorder, the history ledger and counterexample
-files.
+The run's events (``events_out``: ``run_start``, ``swarm_progress``,
+``statespace``, ``run_end``, the JAX swarm's names and fields) and, on a
+violation, ``counterexample.{txt,json}`` in ``counterexample_dir``
+(``engine/explain.py``), as the JAX swarm writes them.  Not here yet
+(ROADMAP A6b): the hunt observatory (``hunt=True`` raises, and with it
+the ``hunt`` event), the flight recorder and the history ledger.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -55,6 +59,8 @@ from ..models.pystate import PyState
 from ..models.schema import (StateBatch, check_packable, decode_state,
                              encode_state, flatten_state, stack_states,
                              unflatten_state)
+from ..obs.events import RunEventLog, device_memory_stats, events_path
+from ..obs.metrics import PHASE_PREFIX, MetricsRegistry
 from ..ops.fingerprint import build_fingerprint
 from ..ops.walk_kernels import (CHOICE_STREAM, FAMILY_STREAM, INIT_STREAM,
                                 ROOT_STREAM, family_subset, preferred_choice,
@@ -112,6 +118,10 @@ class SwarmResult:
     #: The visited-fingerprint multiset, [N, 2] uint32 (hi, lo), only with
     #: ``collect_fingerprints=True``.
     visited_fingerprints: Optional[np.ndarray] = None
+    #: The JAX swarm's run report (``mode``, ``swarm`` block, verdict).
+    report: Dict = dataclasses.field(default_factory=dict)
+    #: {"txt", "json", "depth"} of the written counterexample, else {}.
+    counterexample: Dict = dataclasses.field(default_factory=dict)
 
     @property
     def steps_per_second(self) -> float:
@@ -319,7 +329,8 @@ class SwarmEngine:
     dispatches without changing any walk), ``ring`` is the per-walk dedup
     capacity R, ``chunk`` the steps a dispatch.  The constructor takes the
     JAX engine's arguments that this port has (``hunt`` must stay False
-    until A6) and ``device`` (the card unless ``"cpu"``)."""
+    until A6b; ``progress_seconds`` is the ``swarm_progress`` cadence)
+    and ``device`` (the card unless ``"cpu"``)."""
 
     def __init__(self, dims: RaftDims,
                  invariants: Optional[Dict[str, Callable]] = None,
@@ -328,11 +339,14 @@ class SwarmEngine:
                  batch: Optional[int] = None, chunk: int = 32,
                  ring: int = 16, pipeline: str = "auto",
                  collect_fingerprints: bool = False, hunt: bool = False,
-                 device="cuda"):
+                 events_out: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 counterexample_dir: Optional[str] = None,
+                 progress_seconds: float = 5.0, device="cuda"):
         if hunt:
             raise NotImplementedError(
                 "the hunt observatory (obs/hunt.py) is not ported "
-                "(ROADMAP A6); run with hunt=False")
+                "(ROADMAP A6b); run with hunt=False")
         if walks < 1:
             raise ValueError(f"walks must be >= 1, got {walks}")
         if max_depth < 1:
@@ -349,6 +363,11 @@ class SwarmEngine:
         self.batch = min(batch or walks, walks)
         self.chunk = chunk
         self.collect_fingerprints = collect_fingerprints
+        self.events_out = events_out
+        self.checkpoint_dir = checkpoint_dir
+        self.counterexample_dir = counterexample_dir
+        self.progress_seconds = progress_seconds
+        self.metrics = MetricsRegistry()
         self.pipeline_name = resolve_walk_pipeline(pipeline)
         self._v2 = build_v2(dims, self.device)
         self._fp = build_fingerprint(dims, self.device)
@@ -435,12 +454,77 @@ class SwarmEngine:
                                   "sync": 0.0, "replay": 0.0})
         if num_steps is None and max_seconds is None:
             num_steps = self.max_depth
+        evlog = self._evlog = RunEventLog(events_path(self.events_out,
+                                                      self.checkpoint_dir))
+        evlog.emit("run_start", engine=type(self).__name__, mode="swarm",
+                   dims=repr(self.dims), walks=self.walks,
+                   max_depth=self.max_depth, batch=self.batch,
+                   ring=self.ring, seed=seed, num_steps=num_steps,
+                   memory=device_memory_stats(self.device))
         t0 = time.time()
+        err = None
         try:
             self._run_impl(roots, res, seed, num_steps, max_seconds, t0)
+        except BaseException as e:
+            err = e
+            raise
         finally:
             res.wall_seconds = time.time() - t0 - res.phases["capture"]
+            self._finish(res, err)
         return res
+
+    def _swarm_block(self, res: SwarmResult) -> dict:
+        """The ``swarm`` object of ``swarm_progress``, ``run_end`` and the
+        report (the JAX swarm's, without the hunt snapshot)."""
+        return {"walks": res.walks, "steps": res.steps,
+                "visited": res.visited, "traces": res.traces,
+                "max_depth": self.max_depth, "ring": self.ring,
+                "steps_per_sec": round(res.steps_per_second, 1),
+                "walks_per_sec": round(res.walks_per_second, 1),
+                "visited_per_sec": round(res.states_per_second, 1),
+                "violation_at_seconds": res.violation_at_seconds}
+
+    def _finish(self, res: SwarmResult, err):
+        """The JAX swarm's run end: the counterexample files, the report,
+        its ``statespace`` event and ``run_end``; the run's counters and
+        phase seconds into ``metrics``."""
+        evlog, mt = self._evlog, self.metrics
+        mt.counter("swarm/walks", res.traces)
+        mt.counter("swarm/visited", res.visited)
+        mt.counter("swarm/steps", res.steps)
+        for name, seconds in res.phases.items():
+            mt.observe(PHASE_PREFIX + name, seconds)
+        ce_path = None
+        if err is None and res.violation is not None \
+                and (self.counterexample_dir or self.checkpoint_dir):
+            try:
+                from .explain import write_counterexample
+                res.counterexample = write_counterexample(
+                    self, res, self.counterexample_dir or self.checkpoint_dir)
+                ce_path = res.counterexample["txt"]
+            except Exception as e:
+                print(f"counterexample render failed: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr)
+        swarm_block = self._swarm_block(res)
+        if err is None:
+            res.report = {
+                "collision": {"calculated": 0.0},
+                "diameter": res.diameter,
+                "verdict": ("violation" if res.violation is not None
+                            else "ok"),
+                "levels": [], "mode": "swarm", "swarm": swarm_block}
+            evlog.emit("statespace", report=res.report)
+        evlog.emit(
+            "run_end",
+            stop_reason=(res.stop_reason if err is None else "error"),
+            error=(f"{type(err).__name__}: {err}" if err is not None
+                   else None),
+            postmortem_path=None, counterexample_path=ce_path,
+            distinct=res.visited, generated=res.steps,
+            diameter=res.diameter, levels=[],
+            wall_seconds=res.wall_seconds, phase_seconds=dict(res.phases),
+            swarm=swarm_block, memory=device_memory_stats(self.device))
+        evlog.close()
 
     def _slices(self, seed32: int, n_roots: int):
         """Global walk ids 0..W-1 in ``batch``-lane slices, each walk on
@@ -497,6 +581,7 @@ class SwarmEngine:
         fps_acc: List[np.ndarray] = []
         phases = res.phases
         k0 = 0
+        last_progress = time.time()
         while True:
             t = time.time()
             self._ctl.copy_(torch.tensor([k0, seed32, k_limit]))
@@ -526,6 +611,13 @@ class SwarmEngine:
                         [y[:, 0].reshape(-1)[m], y[:, 1].reshape(-1)[m]],
                         axis=1).astype(np.uint32))
             elapsed = time.time() - t0 - phases["capture"]
+            now = time.time()
+            if k0 == self.chunk \
+                    or now - last_progress >= self.progress_seconds:
+                last_progress = now
+                res.wall_seconds = elapsed
+                self._evlog.emit("swarm_progress", depth=k0,
+                                 swarm=self._swarm_block(res))
             if fired:
                 # The globally first violation in (step, walk) order: the
                 # pick that does not depend on the slicing.

@@ -173,8 +173,8 @@ def test_latest_skips_torn_files_and_gc_keeps_n(port_l3, tmp_path):
     assert ckpt.gc(d, None) == 0 and ckpt.gc(d, 0) == 0
     assert ckpt.gc(d, 2) == 2                    # levels 0 and 1 go
     assert sorted(os.listdir(d)) == [
-        "level_00002.npz", "level_00003.npz", "level_00004.npz",
-        "level_00005.npz.tmp"]
+        "events.jsonl", "level_00002.npz", "level_00003.npz",
+        "level_00004.npz", "level_00005.npz.tmp"]
     assert ckpt.gc(d, 5) == 0                    # quota not filled
 
 
@@ -183,18 +183,21 @@ def test_keep_checkpoints_bounds_the_directory(tmp_path):
     run_check(BOUNDED, port_config(max_diameter=4, checkpoint_dir=d,
                                    keep_checkpoints=2, record_trace=False),
               device="cpu")
-    assert sorted(os.listdir(d)) == ["level_00003.npz", "level_00004.npz"]
+    # The run's events land beside its snapshots (obs/events.py).
+    assert sorted(os.listdir(d)) == ["events.jsonl", "level_00003.npz",
+                                     "level_00004.npz"]
     d2 = str(tmp_path / "every2")
     run_check(BOUNDED, port_config(max_diameter=4, checkpoint_dir=d2,
                                    checkpoint_every=2, record_trace=False),
               device="cpu")
     assert sorted(os.listdir(d2)) == [
-        "level_00000.npz", "level_00002.npz", "level_00004.npz"]
+        "events.jsonl", "level_00000.npz", "level_00002.npz",
+        "level_00004.npz"]
     d3 = str(tmp_path / "interval")
     run_check(BOUNDED, port_config(max_diameter=4, checkpoint_dir=d3,
                                    checkpoint_interval_seconds=3600.0,
                                    record_trace=False), device="cpu")
-    assert os.listdir(d3) == ["level_00000.npz"]
+    assert sorted(os.listdir(d3)) == ["events.jsonl", "level_00000.npz"]
 
 
 def test_resumed_run_does_not_rewrite_its_snapshot(port_l3, tmp_path):
@@ -365,7 +368,7 @@ def test_cli_checkpoint_flags_and_resume_auto(tmp_path, capsys):
               "--checkpoint-interval", "0"]
     assert cli.main(common + ["--max-diameter", "3", "--keep-checkpoints",
                               "1", "--enqueue-method", "kernel"]) == 0
-    assert os.listdir(d) == ["level_00003.npz"]
+    assert sorted(os.listdir(d)) == ["events.jsonl", "level_00003.npz"]
     capsys.readouterr()
     assert cli.main(common + ["--max-diameter", "6", "--resume", "auto",
                               "--checkpoint-every", "2"]) == 0
@@ -373,8 +376,8 @@ def test_cli_checkpoint_flags_and_resume_auto(tmp_path, capsys):
     assert f"resuming from {level_file(d, 3)}" in out
     assert "distinct states    9457" in out
     assert "states generated   24429" in out
-    assert sorted(os.listdir(d)) == ["level_00003.npz", "level_00004.npz",
-                                     "level_00006.npz"]
+    assert sorted(os.listdir(d)) == ["events.jsonl", "level_00003.npz",
+                                     "level_00004.npz", "level_00006.npz"]
     with pytest.raises(SystemExit):
         cli.main(["check", BOUNDED, "--device", "cpu", "--resume", "auto"])
     with pytest.raises(SystemExit):

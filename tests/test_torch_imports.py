@@ -66,13 +66,16 @@ def test_static_scan_finds_no_jax_imports():
     "ops/enqueue.py", "ops/enqueue_cuda.py", "engine/checkpoint.py",
     "analysis/por.py", "analysis/__init__.py", "engine/spillpool.py",
     "engine/chunk.py", "engine/trace.py", "models/safety.py",
-    "models/smoke.py", "models/reconfig.py"])
+    "models/smoke.py", "models/reconfig.py", "obs/__init__.py",
+    "obs/metrics.py", "obs/events.py", "obs/coverage.py", "obs/report.py",
+    "engine/explain.py"])
 def test_split_tail_modules_are_covered(rel):
     """The modules of the split tail, the checkpoints, the POR table, the
     level loop's chunk, spill pool and trace store, the safety suite, the
-    smoke roots and the reconfiguration variant are among the scanned
-    sources, import on a machine without a card, and name neither jax nor
-    the JAX package in an import."""
+    smoke roots, the reconfiguration variant, observability and the
+    counterexample explainer are among the scanned sources, import on a
+    machine without a card, and name neither jax nor the JAX package in
+    an import."""
     import importlib
     path = os.path.join(PORT, rel)
     assert path in set(_port_sources())

@@ -165,4 +165,5 @@ def test_cli_runs_smoke_roots_from_the_seed(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 1
     assert "VIOLATION          CandidateTermNotInLog" in out
-    assert "distinct states    2432" in out and "1: Timeout(i=1)" in out
+    assert "distinct states    2432" in out
+    assert "State 2: <Timeout(i=1)>" in out

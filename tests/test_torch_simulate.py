@@ -129,8 +129,9 @@ def test_cli_swarm_mode_flag_prints_the_canary_trace(capsys):
     assert rc == 1
     assert out.startswith("swarm: 256 walks x depth 16 | 4096 steps")
     assert "visited 2802 | traces 1550 | deepest 12 | stop: violation" in out
-    assert "VIOLATION          NoLeaderElected (fp 0xd6467ee051491c1d)" in out
-    assert "9: BecomeLeader" in out
+    assert ("Error: Invariant NoLeaderElected is violated (fingerprint "
+            "0xd6467ee051491c1d).") in out
+    assert "State 10: <BecomeLeader" in out
 
 
 def test_cli_mode_directive_runs_the_swarm(tmp_path, capsys):
@@ -142,7 +143,8 @@ def test_cli_mode_directive_runs_the_swarm(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 1
     assert out.startswith("swarm: 64 walks x depth 16 |")
-    assert "VIOLATION          NoLeaderElected" in out and "0: Init" in out
+    assert "Error: Invariant NoLeaderElected is violated" in out
+    assert "State 1: <Initial predicate>" in out
     # The flag outranks the directive.
     rc = cli.main(["check", str(cfg), "--device", "cpu", "--mode",
                    "exhaustive", "--max-diameter", "2"])

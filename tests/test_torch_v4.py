@@ -5,7 +5,8 @@ in interpret mode; the port runs ``pipeline="v4"`` on the CPU, where the
 front and the tail take their plain versions.  Counts, levels,
 per-family counts and the recorded trace links must be equal.  Also the
 plan's selection: the cfg's ``PIPELINE`` directive, the CLI's
-``--pipeline`` and the plans the port does not have.
+``--pipeline``, the JAX package's plan names and the plan the port does
+not have.
 """
 
 import os
@@ -62,11 +63,28 @@ def test_v4_l5_equals_jax_v4_with_trace_links(jax_v4_l5):
     assert set(zip(tf.tolist(), tp.tolist(), ta.tolist())) == jlinks
 
 
-@pytest.mark.parametrize("pipeline", ["auto", "v1", "v2"])
+@pytest.mark.parametrize("pipeline", ["v1"])
 def test_plans_the_port_lacks_raise(pipeline):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="ROADMAP.md A7"):
         make_engine(load_config(BOUNDED), port_config(pipeline=pipeline),
                     device="cpu")
+
+
+@pytest.mark.parametrize("pipeline", ["auto", "v2"])
+def test_jax_plan_names_run_the_v3_plan(pipeline, capsys):
+    """The JAX package's default ("auto") and its delta pipeline ("v2")
+    run the port's v3 plan, with v3's counts."""
+    want = run_check(BOUNDED, port_config(pipeline="v3", max_diameter=4),
+                     device="cpu")
+    res = run_check(BOUNDED, port_config(pipeline=pipeline, max_diameter=4),
+                    device="cpu")
+    assert res.pipeline == "v3"
+    assert (res.distinct, res.generated, res.levels, res.action_counts) == \
+        (want.distinct, want.generated, want.levels, want.action_counts)
+    assert cli.main(["check", BOUNDED, "--pipeline", pipeline, "--device",
+                     "cpu", "--max-diameter", "3", "--no-trace",
+                     "--progress-interval", "0"]) == 0
+    assert "distinct states    113" in capsys.readouterr().out
 
 
 def test_pipeline_directive_is_read(tmp_path):
