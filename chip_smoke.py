@@ -12,6 +12,7 @@
                                                variant's phases only)
     python3 chip_smoke.py --outputs           (what check prints and
                                                writes, and its cost only)
+    python3 chip_smoke.py --mesh              (the mesh's phases only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -106,6 +107,32 @@ and events off and on in turns (off, on, on, off: counts identical, each
 wall printed) and the sync check with events on; TPUraft L9's report
 printed, its level table the pinned one.  ``--outputs`` runs these phases
 (but the TPUraft one) alone, after the kernel build.
+
+The mesh (``parallel/mesh.py``, ``parallel/simulate.py``; n logical
+shards on the card, the card count printed, and n = 2 across two cards
+where there are two): the routed insert at the main path's shapes (n = 2
+and 8 shards of K = 32,768 lanes from a real L8 batch, duplicates within
+and across shards, owner tables of 2^25 / n slots at load 0.4) exact
+against the same routing through ``insert_plain``, timed; the compaction
+kernel cut to a shared P exact against ``compact_plain`` with the cap on
+real masks; ``__graft_entry__.py``'s dryrun model at n = 8 (46,553
+distinct, diameter 31, shard growth, generated equal to the single
+engine's); MCraft_bounded at batch 2048 a shard to L9 at n = 1, 2, 4
+(asked for v4: the mesh resolves it to v3's arrangement) with the single
+v3 engine in turns, and at n = 2 to L11; tiny tables at n = 4 (spill and
+growth inside chunks); the sync check at n = 2; ``check --engine mesh``
+on MCraft_noleader through the CLI (the pinned ``counterexample.txt``)
+and at n = 4 a depth-9 trace checked step by step; a mesh L9 snapshot
+resumed by the single engine to L11 and a single one resumed on the mesh;
+TPUraft at n = 2 (4,096 rows a shard) to L8; ``MeshSimulator`` at n = 4
+(a seed repeating its run, the near-election violation); with
+``--mesh`` also profiles of L8 at n = 2 and 8 (~100 s under the
+profiler, so not in the full smoke).  Every mesh run's launches are
+checked: the compaction,
+the insert and the enqueue once on each shard a step (the enqueue twice
+with trace recording), never the fused tail nor the front; the kernels
+line carries them as ``mesh`` entries of those three rows.
+``--mesh`` runs these phases alone, after the kernel build.
 
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
@@ -1299,11 +1326,12 @@ def phase_deep(torch, pipeline, method="fused"):
 
 
 def phase_profile(torch, pipeline, method="fused", cfg_name=None,
-                  config=None):
+                  config=None, devices=None):
     """Device busy share of a check under torch.profiler (MCraft_bounded
-    to L8 at the main path's sizes, or ``cfg_name`` with ``config``): the
-    union of the device-side intervals over the wall time of the run,
-    device ops a step and a batch, and the ops by name."""
+    to L8 at the main path's sizes, or ``cfg_name`` with ``config``; on
+    the mesh over ``devices`` where given): the union of the device-side
+    intervals over the wall time of the run, device ops a step and a
+    batch, and the ops by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from raft_tla_tpu_torch.engine.check import run_check
@@ -1312,10 +1340,12 @@ def phase_profile(torch, pipeline, method="fused", cfg_name=None,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = run_check(os.path.join(HERE, "configs", cfg_name), config,
-                        device="cuda")
+                        device="cuda", devices=devices,
+                        engine_cls="mesh" if devices else None)
         torch.cuda.synchronize()
     what = (f"{cfg_name[:-4]} L{config.max_diameter} {pipeline} {method} "
-            f"tail, sync_every {config.sync_every}")
+            f"tail, sync_every {config.sync_every}"
+            + (f", mesh n={len(devices)}" if devices else ""))
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, end = 0, None
@@ -1352,34 +1382,67 @@ def phase_profile(torch, pipeline, method="fused", cfg_name=None,
               for n, (c, us) in top))
 
 
-def capture_enqueue_batch(torch):
-    """``(krows, enq)`` of the fullest batch of a split-tail v4 check to
-    L8 at the main path's sizes (its steps dispatched eagerly, so the hook
-    sees each call): what the enqueue kernel is given there."""
+#: The capture run's tensors (``capture_l8``), kept for the phases after.
+_L8 = {}
+
+
+def capture_l8(torch):
+    """A split-tail v4 check to L8 at the main path's sizes (its steps
+    dispatched eagerly, so the hooks see each call), run once: the
+    fullest batch the enqueue kernel is given (``krows``, ``enq``), the
+    fullest insert's queries (``keys``, ``kvalid``) and the parent
+    windows of the last few batches (``windows``)."""
+    if _L8:
+        return _L8
     from raft_tla_tpu_torch.engine import chunk as chunk_mod
     from raft_tla_tpu_torch.engine.check import initial_states, make_engine
     from raft_tla_tpu_torch.utils.cfg import load_config
-    real, best = chunk_mod.enqueue, []
+    real_enq, real_ins = chunk_mod.enqueue, chunk_mod.insert
+    best_enq, best_ins, windows = [], [], []
 
-    def capture(qnext, next_count, krows, enq, max_count=None):
+    def enqueue(qnext, next_count, krows, enq, max_count=None):
         n = int(enq.sum())
-        if not best or n > best[0]:
-            best[:] = [n, krows.clone(), enq.clone()]
-        return real(qnext, next_count, krows, enq, max_count)
+        if not best_enq or n > best_enq[0]:
+            best_enq[:] = [n, krows.clone(), enq.clone()]
+        return real_enq(qnext, next_count, krows, enq, max_count)
+
+    def insert(seen, keys, valid):
+        n = int(valid.sum())
+        if not best_ins or n > best_ins[0]:
+            best_ins[:] = [n, keys.clone(), valid.clone()]
+        return real_ins(seen, keys, valid)
 
     setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
     engine = make_engine(setup, bounded_config("v4", 8,
                                                enqueue_method="kernel"),
                          device="cuda")
     dispatch_eagerly(engine)
-    chunk_mod.enqueue = capture
+    body = engine._step.body
+
+    def hook(rows, valid, *args):
+        if bool(valid.any()):
+            windows[:] = windows[-5:] + [(rows.clone(), valid.clone())]
+        return body(rows, valid, *args)
+
+    engine._step.body = hook
+    chunk_mod.enqueue, chunk_mod.insert = enqueue, insert
     try:
         res = engine.run(initial_states(setup))
     finally:
-        chunk_mod.enqueue = real
-    need(res.distinct == MCRAFT_L8_DISTINCT and best,
+        chunk_mod.enqueue, chunk_mod.insert = real_enq, real_ins
+    need(res.distinct == MCRAFT_L8_DISTINCT and best_enq and best_ins
+         and windows,
          "the capture run of the split tail differs from the pinned oracle")
-    return best[1], best[2]
+    _L8.update(krows=best_enq[1], enq=best_enq[2], keys=best_ins[1],
+               kvalid=best_ins[2], windows=windows)
+    return _L8
+
+
+def capture_enqueue_batch(torch):
+    """``(krows, enq)`` of the fullest batch of ``capture_l8``'s run: what
+    the enqueue kernel is given there."""
+    c = capture_l8(torch)
+    return c["krows"], c["enq"]
 
 
 def enqueue_traps(torch, gen, device, rand_rows):
@@ -3687,12 +3750,14 @@ def near_election_root(dims):
         messages=frozenset({((1, 1, 0, 2, 1, ()), 1)}))
 
 
-def check_walk_trace(torch, dims, trace, what, fp=None):
+def check_walk_trace(torch, dims, trace, what, fp=None, reencode=False):
     """A replayed trace, step by step on the card: each recorded action is
     enabled on the threaded (never re-encoded) successor of the one
     before, and that successor's fingerprint is the next state's (the
     fingerprint does not depend on message-slot order); the last one is
-    ``fp`` where given."""
+    ``fp`` where given.  With ``reencode`` each state is encoded afresh
+    before its action is applied, as the exhaustive engine's ``replay``
+    numbers its actions."""
     from raft_tla_tpu_torch.models.actions2 import build_v2
     from raft_tla_tpu_torch.models.schema import encode_state, stack_states
     from raft_tla_tpu_torch.ops.fingerprint import build_fingerprint
@@ -3701,6 +3766,8 @@ def check_walk_trace(torch, dims, trace, what, fp=None):
     st = stack_states([encode_state(trace[0][1], dims)], dev)
     need(trace[0][0] == -1, f"{what}: the trace does not start at a root")
     for depth, (g, state) in enumerate(trace[1:], 1):
+        if reencode:
+            st = stack_states([encode_state(trace[depth - 1][1], dims)], dev)
         en, _ovf = v2.masks(st)
         need(0 <= g < en.shape[1] and bool(en[0, g]),
              f"{what}: action {g} at depth {depth} is not enabled")
@@ -4019,6 +4086,492 @@ def phase_simulate(torch, num_steps=1 << 21):
           f"phase {time.time() - t_phase} s")
 
 
+# -- the mesh (parallel/mesh.py, parallel/simulate.py) -----------------------
+
+#: __graft_entry__.py's dryrun model and what the JAX mesh gives for it
+#: (tests/test_mesh.py test_dryrun_ground_truth_pinned): distinct, diameter.
+DRYRUN_DIMS = dict(n_servers=2, n_values=1, max_log=2, n_msg_slots=8)
+DRYRUN_BOUNDS = dict(max_term=2, max_log_len=1, max_msg_count=1,
+                     max_in_flight=2)
+DRYRUN_PIN = (46553, 31)
+
+
+def check_mesh_launches(counts, steps, n, what, trace=False, inserts=None):
+    """A mesh step launches the compaction, the insert (on each owner) and
+    the enqueue once on each of the n shards, and with trace recording
+    the enqueue once more on each (the trace append); never the fused tail
+    nor the front.  ``inserts``, where given, is the exact number of
+    insert launches outside the steps (root ingest, growth, a resume's
+    rebuild)."""
+    ok = counts["compact"] == n * steps > 0
+    ok = ok and counts["fused_tail"] == 0 and counts["chunk_front"] == 0
+    ok = ok and counts["enqueue"] == n * steps * (2 if trace else 1)
+    outside = counts["fpset_insert"] - n * steps
+    ok = ok and (outside >= 0 if inserts is None else outside == inserts)
+    need(ok, f"{what}: mesh launches {counts} over {steps} steps of {n} "
+         "shards")
+
+
+def mesh_run(torch, cfg_name, n, config, devices=None, resume=None):
+    """``(result, engine, launches, call seconds)`` of a mesh check of
+    ``configs/<cfg_name>`` over n logical shards on the card (or
+    ``devices``)."""
+    from raft_tla_tpu_torch.engine.check import run_check
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.time()
+    res = run_check(os.path.join(HERE, "configs", cfg_name), config,
+                    device="cuda", engine_cls="mesh", resume=resume,
+                    devices=devices or ["cuda"] * n)
+    torch.cuda.synchronize()
+    return res, res.engine, read_counts(), time.time() - t
+
+
+def mesh_tables(torch, n, device, load, present):
+    """n owner tables of SEEN / n slots, each holding ``load`` of its
+    slots in random keys it owns, and the ``present`` keys on their
+    owners."""
+    from raft_tla_tpu_torch.ops import fpset
+    from raft_tla_tpu_torch.ops.fpset_cuda import insert
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261017 + n)
+    tables = []
+    for d in range(n):
+        s = fpset.empty(SEEN // n, device)
+        m = int(load * s.capacity)
+        hi = torch.randint(0, (1 << 32) // n, (m,), generator=gen,
+                           device=device) * n + d
+        lo = torch.randint(0, 1 << 32, (m,), generator=gen, device=device)
+        keys = torch.unique(fpset.pack(hi, lo))
+        mine = present[((present >> 32) & 0xFFFFFFFF) % n == d]
+        for q in (keys, mine):
+            for base in range(0, q.shape[0], 1 << 20):
+                part = q[base:base + (1 << 20)]
+                _new, fail = insert(s, part, torch.ones_like(part,
+                                                             dtype=torch.bool))
+                need(not bool(fail), "mesh table prefill probe failure")
+        tables.append(s)
+    return tables
+
+
+def phase_mesh_insert(torch, device, keys, kvalid):
+    """The routed insert (``parallel/mesh.py route_insert``) at the main
+    path's shapes: n = 2 and 8 logical shards of K = 32,768 lanes each,
+    made from a real L8 batch (rolled per shard, so every key arrives
+    from every shard; a block of lanes copied within each shard; a third
+    of each shard's lanes given its own high bits, so owners differ),
+    into owner tables of 2^25 / n slots at load 0.4 that already hold a
+    quarter of the batch's keys.  The kernel (the insert once on each
+    owner over n·K arrivals) must equal the same routing on host copies
+    through ``insert_plain``: ``is_new`` of every lane, each shard's key
+    set and size, no key off its owner.  Timed: one routed call between
+    two CUDA events, on fresh copies of the tables."""
+    from raft_tla_tpu_torch.ops import fpset_cuda
+    from raft_tla_tpu_torch.ops.fpset import EMPTY
+    from raft_tla_tpu_torch.parallel.mesh import route_insert
+    out = {}
+    present = keys[kvalid][::4]
+    for n in (2, 8):
+        shard_keys, shard_valid = [], []
+        for s in range(n):
+            q = keys.roll(s * 4099).clone()
+            v = kvalid.roll(s * 4099).clone()
+            q[:1024] = q[2048:3072]                  # duplicates within
+            v[:1024] = v[2048:3072]
+            third = slice(K // 3 * (s % 3), K // 3 * (s % 3 + 1))
+            q[third] ^= (s + 1) << 40                # owners of their own
+            shard_keys.append(q)
+            shard_valid.append(v)
+        base = mesh_tables(torch, n, device, 0.4, present)
+        tables = [copy_table(torch, t) for t in base]
+        host = [t._replace(keys=t.keys.cpu(), size=t.size.cpu(), owner=None)
+                for t in base]
+        reset_counts()
+        new, fail = route_insert(tables, shard_keys, shard_valid)
+        torch.cuda.synchronize()
+        launches = read_counts()["fpset_insert"]
+        want_new, want_fail = route_insert(
+            host, [q.cpu() for q in shard_keys],
+            [v.cpu() for v in shard_valid])
+        err = max_abs(torch, [(a, b) for a, b in zip(new, want_new)]
+                      + [(a.to(torch.int64), b.to(torch.int64))
+                         for a, b in zip(fail, want_fail)])
+        for d in range(n):
+            got = tables[d].keys[tables[d].keys != EMPTY]
+            ref = host[d].keys[host[d].keys != EMPTY]
+            err = max(err, max_abs(torch, [
+                (got.sort().values, ref.sort().values.to(device)),
+                (tables[d].size, host[d].size)]))
+            need(bool((((got >> 32) & 0xFFFFFFFF) % n == d).all()),
+                 f"routed insert n={n}: a key off its owner {d}")
+        n_new = sum(int(x.sum()) for x in new)
+        need(err == 0 and launches == n and not any(bool(f) for f in fail),
+             f"routed insert n={n}: differs from the plain routing (max "
+             f"abs err {err}) or launched the insert {launches} times")
+
+        def call():
+            route_insert(tables, shard_keys, shard_valid)
+
+        def fresh():
+            for t, b in zip(tables, base):
+                t.keys.copy_(b.keys)
+                t.size.copy_(b.size)
+
+        ms = cuda_ms(torch, call, 5, setup=fresh)
+        ops = device_ops(torch, call, setup=fresh)
+        ins = [us for name, us in ops if name in fpset_cuda.KERNELS]
+        out[n] = {"ms": ms, "new": n_new,
+                  "valid": sum(int(v.sum()) for v in shard_valid),
+                  "device_us": sum(us for _n, us in ops),
+                  "insert_us": sum(ins), "ops": len(ops)}
+        print(f"routed insert n={n} x K={K} at load 0.4: exact against the "
+              f"plain routing (is_new, {n} key sets, sizes, owners), "
+              f"{n_new} new of {out[n]['valid']} valid lanes, one call "
+              f"{ms} ms between events ({n} insert calls on {n * K} "
+              f"arrivals each); under the profiler {len(ops)} device ops, "
+              f"{out[n]['device_us']} us of device time, of it the insert "
+              f"kernel's {len(ins)} launches {sum(ins)} us")
+        del tables, base, host
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_compact(torch, device, windows):
+    """The shared-P compaction: the compaction kernel on real masks (the
+    last parent windows of a check to L8), its output cut by
+    ``ops/compact.py cap_prefix`` to P = its own, half of it and 1,
+    against ``compact_plain`` with that cap.  Exact."""
+    from raft_tla_tpu_torch.models.actions2 import build_v2
+    from raft_tla_tpu_torch.models.schema import unflatten_state
+    from raft_tla_tpu_torch.ops.compact import cap_prefix, kspread
+    from raft_tla_tpu_torch.ops.compact_cuda import compact, compact_plain
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    dims = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg")).dims
+    v2 = build_v2(dims, device)
+    kspr = kspread(B, G, K, device)
+    err, cases = 0.0, 0
+    for rows, valid in windows:
+        en, _ovf = v2.masks(unflatten_state(rows, dims))
+        en = (en & valid[:, None]).contiguous()
+        pt, lane, kvalid = compact(en, K, kspr)
+        for cap in sorted({int(pt[0]), max(1, int(pt[0]) // 2), 1}):
+            P = torch.tensor([cap], dtype=torch.int64, device=device)
+            total, lane_c, kvalid_c = cap_prefix(P, G, lane, kvalid, kspr)
+            want = compact_plain(en.cpu(), K, kspr.cpu(), p_cap=cap)
+            err = max(err, max_abs(torch, [
+                (torch.cat([P, total]), want[0]), (lane_c, want[1]),
+                (kvalid_c, want[2])]))
+            cases += 1
+    need(err == 0, f"shared-P compaction differs from compact_plain with "
+         f"the cap: max abs err {err}")
+    print(f"shared-P compaction: the kernel cut by cap_prefix exact against "
+          f"compact_plain with the cap on {cases} cases (real L8 masks)")
+    return err
+
+
+def phase_mesh(torch, device, profile_shards=()):
+    """The mesh's phases on the card (``--mesh``, and in the full smoke):
+    see the module doc; L8 profiled at each of ``profile_shards``.
+    Returns the kernels line's ``mesh`` entries."""
+    from raft_tla_tpu_torch.engine import checkpoint as ckpt
+    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    from raft_tla_tpu_torch.engine.check import run_check
+    t_all = t_part = time.time()
+    cards = torch.cuda.device_count()
+    print(f"mesh: torch.cuda.device_count() = {cards}")
+
+    def took(what):
+        nonlocal t_part
+        print(f"mesh: {what}: {time.time() - t_part} s")
+        t_part = time.time()
+
+    real = capture_l8(torch)
+    routed = phase_mesh_insert(torch, device, real["keys"], real["kvalid"])
+    cap_err = phase_mesh_compact(torch, device, real["windows"])
+    torch.cuda.empty_cache()
+    took("routed insert and shared-P compaction")
+
+    # The dryrun model at n = 8, against the single engine in this call.
+    from raft_tla_tpu_torch.engine.bfs import BFSEngine
+    from raft_tla_tpu_torch.models.dims import RaftDims
+    from raft_tla_tpu_torch.models.invariants import Bounds, build_constraint
+    from raft_tla_tpu_torch.models.pystate import init_state
+    from raft_tla_tpu_torch.parallel.mesh import MeshBFSEngine
+    dims = RaftDims(**DRYRUN_DIMS)
+    dcfg = EngineConfig(batch=64, queue_capacity=1 << 12,
+                        seen_capacity=1 << 16, check_deadlock=False,
+                        record_trace=False, sync_every=8)
+    cons = build_constraint(dims, Bounds(**DRYRUN_BOUNDS))
+    t = time.time()
+    single = BFSEngine(dims, constraint=cons, config=dcfg,
+                       device="cuda").run([init_state(dims)])
+    t_single = time.time() - t
+    reset_counts()
+    t = time.time()
+    eng = MeshBFSEngine(dims, constraint=cons, config=dcfg,
+                        devices=["cuda"] * 8)
+    res = eng.run([init_state(dims)])
+    counts = read_counts()
+    print(f"dryrun model n=8 (batch 64, queue 2^12, seen 2^16, sync_every "
+          f"8): distinct={res.distinct} diameter={res.diameter} "
+          f"generated={res.generated} (single {single.generated}) "
+          f"growths={res.growth_stalls} spills={res.spills} steps="
+          f"{res.steps} check {res.wall_seconds} s, call {time.time() - t} "
+          f"s (single: check {single.wall_seconds} s, call {t_single} s), "
+          f"launches {counts}")
+    need((res.distinct, res.diameter) == DRYRUN_PIN
+         and res.stop_reason == "exhausted"
+         and res.generated == single.generated
+         and res.levels == single.levels and res.growth_stalls,
+         "the dryrun model on the mesh differs from its pin or the single "
+         "engine, or its shards did not grow")
+    check_mesh_launches(counts, res.steps, 8, "dryrun n=8")
+    took("dryrun model")
+
+    # MCraft_bounded at batch 2048 a shard: n = 1, 2, 4 to L9 (v4 asked:
+    # the mesh resolves it to v3's arrangement), the single v3 engine in
+    # turns; n = 4 writes its level-9 snapshot (the wall printed is the
+    # check's less the snapshot's seconds).
+    walls = {}
+    mesh_launches = {}
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ck_")
+    for what in ("single", 1, 2, 4, "single"):
+        if what == "single":
+            reset_counts()
+            t = time.time()
+            r = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                          bounded_config("v3", 9), device="cuda")
+            walls.setdefault("single v3", []).append(r.wall_seconds)
+            continue
+        snap = (dict(checkpoint_dir=ckdir, checkpoint_every=9)
+                if what == 4 else {})
+        r, e, c, call = mesh_run(torch, "MCraft_bounded.cfg", what,
+                                 bounded_config("v4", 9, **snap))
+        walls.setdefault(f"mesh n={what}", []).append(
+            r.wall_seconds - r.phases["checkpoint"])
+        print(f"MCraft_bounded L9 mesh n={what}: distinct={r.distinct} "
+              f"generated={r.generated} levels={r.levels} steps={r.steps} "
+              f"chunks={r.chunks} check {r.wall_seconds} s, call {call} s, "
+              f"phases {r.phases}, launches {c}, plan {r.fused_stages}")
+        need(r.distinct == MCRAFT_L9_DISTINCT
+             and r.generated == MCRAFT_L9_GENERATED
+             and r.levels == MCRAFT_L9_LEVELS and not r.growth_stalls,
+             f"MCraft_bounded L9 on the mesh at n={what} differs from the "
+             "pinned oracle")
+        need(r.pipeline == "v4" and "front" in r.fused_reasons
+             and r.fused_stages["enqueue"] == "cuda"
+             and r.fused_stages["insert"] == "cuda-routed",
+             f"the mesh's v4 plan did not resolve to v3's: {r.fused_stages}")
+        check_mesh_launches(c, r.steps, what, f"MCraft_bounded L9 n={what}",
+                            inserts=what)
+        mesh_launches[what] = c
+    print(f"MCraft_bounded L9 walls in turns (check seconds): {walls}")
+    took("MCraft_bounded L9 in turns")
+    # n = 2 to L11.
+    r, e, c, call = mesh_run(torch, "MCraft_bounded.cfg", 2,
+                             bounded_config("v3", 11))
+    print(f"MCraft_bounded L11 mesh n=2: distinct={r.distinct} generated="
+          f"{r.generated} levels={r.levels} steps={r.steps} spills="
+          f"{r.spills} check {r.wall_seconds} s, phases {r.phases}")
+    need(r.distinct == MCRAFT_L11_DISTINCT
+         and r.generated == MCRAFT_L11_GENERATED
+         and r.levels == MCRAFT_L11_LEVELS,
+         "MCraft_bounded L11 on the mesh at n=2 differs from the pinned "
+         "oracle")
+    check_mesh_launches(c, r.steps, 2, "MCraft_bounded L11 n=2", inserts=2)
+    if cards > 1:
+        r, e, c, call = mesh_run(torch, "MCraft_bounded.cfg", 2,
+                                 bounded_config("v3", 9),
+                                 devices=["cuda:0", "cuda:1"])
+        print(f"MCraft_bounded L9 mesh across two cards: distinct="
+              f"{r.distinct} generated={r.generated} check "
+              f"{r.wall_seconds} s (eager steps)")
+        need(r.distinct == MCRAFT_L9_DISTINCT
+             and r.generated == MCRAFT_L9_GENERATED,
+             "MCraft_bounded L9 across two cards differs from the oracle")
+
+    took("MCraft_bounded L11")
+    # MCraft_noleader through the CLI's --engine mesh, in a subprocess
+    # started now and read after the sync check.
+    ce = tempfile.mkdtemp(prefix="chip_smoke_mesh_ce_")
+    cli_run = port_cli(["check", os.path.join(
+        HERE, "configs/MCraft_noleader.cfg"), "--engine", "mesh",
+        "--counterexample-dir", ce, "--progress-interval", "0"])
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    try:
+        # Tiny tables at n = 4: spill and growth inside chunks.
+        r, e, c, call = mesh_run(
+            torch, "MCraft_bounded.cfg", 4, bounded_config(
+                "v3", 6, batch=32, queue_capacity=1024, seen_capacity=256,
+                sync_every=8))
+        print(f"MCraft_bounded L6 mesh n=4, tiny tables: distinct="
+              f"{r.distinct} generated={r.generated} levels={r.levels} "
+              f"spills={r.spills} growths={r.growth_stalls} steps="
+              f"{r.steps} launches {c}")
+        need(r.distinct == MCRAFT_L6_DISTINCT
+             and r.generated == MCRAFT_L6_GENERATED
+             and r.levels == MCRAFT_L9_LEVELS[:7]
+             and r.spills >= 2 and r.growth_stalls,
+             "the tiny-table mesh run differs from the oracle, or did not "
+             "spill twice and grow")
+        check_mesh_launches(c, r.steps, 4, "MCraft_bounded L6 n=4 tiny")
+
+        # The sync check: every mesh chunk's dispatch under sync debug
+        # mode "error".
+        bsetup = load_config(os.path.join(HERE,
+                                          "configs/MCraft_bounded.cfg"))
+        eng = make_engine(bsetup, bounded_config("v3", 8), device="cuda",
+                          engine_cls="mesh", devices=["cuda"] * 2)
+        dispatch, checked = eng._dispatch, []
+
+        def strict(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                checked.append(args[1])
+
+        eng._dispatch = strict
+        try:
+            r = eng.run(initial_states(bsetup))
+        except RuntimeError as e:
+            raise PhaseFailed(f"a mesh chunk dispatch waited for the "
+                              f"device: {e}")
+        print(f"mesh dispatch sync check L8 n=2: {len(checked)} dispatches "
+              f"of {sum(checked)} steps under sync debug mode 'error', none "
+              f"waited; distinct={r.distinct}")
+        need(r.distinct == MCRAFT_L8_DISTINCT
+             and len(checked) >= r.chunks > 0,
+             "the mesh sync check run differs from the oracle")
+    except BaseException:
+        cli_run.kill()
+        cli_run.wait()
+        shutil.rmtree(ce, ignore_errors=True)
+        raise
+    took("tiny tables and the sync check")
+    # MCraft_noleader through the CLI's --engine mesh, and at n = 4.
+    import hashlib
+    p = cli_run
+    try:
+        out, err = p.communicate(timeout=300)
+        txt = open(os.path.join(ce, "counterexample.txt"), "rb").read()
+        doc = json.load(open(os.path.join(ce, "counterexample.json")))
+    finally:
+        shutil.rmtree(ce, ignore_errors=True)
+    digest = hashlib.sha256(txt).hexdigest()
+    print(f"check MCraft_noleader --engine mesh (CLI, {cards} card(s)): exit "
+          f"{p.returncode}, depth {doc['depth']}, counterexample.txt sha256 "
+          f"{digest}; " + " | ".join(
+              ln for ln in out.splitlines() if ln.startswith(("device",
+                                                              "pipeline"))))
+    need(p.returncode == 1 and digest == NOLEADER_TXT_SHA256
+         and doc["depth"] == 9 and "mesh of" in out,
+         f"check --engine mesh on MCraft_noleader: exit {p.returncode}, "
+         f"sha256 {digest}, stderr {err[-400:]}")
+    nsetup = load_config(os.path.join(HERE, "configs/MCraft_noleader.cfg"))
+    reset_counts()
+    neng = make_engine(nsetup, device="cuda", engine_cls="mesh",
+                       devices=["cuda"] * 4)
+    r = neng.run(initial_states(nsetup))
+    c = read_counts()
+    steps = neng.replay(r.violation.fingerprint)
+    check_walk_trace(torch, nsetup.dims, steps, "MCraft_noleader mesh n=4",
+                     fp=r.violation.fingerprint, reencode=True)
+    need(len(steps) - 1 == 9 and steps[-1][1] == r.violation.state,
+         f"MCraft_noleader mesh n=4: depth {len(steps) - 1} != 9")
+    check_mesh_launches(c, r.steps, 4, "MCraft_noleader n=4", trace=True)
+    took("MCraft_noleader")
+
+    # Snapshots across engines: the n = 4 L9 run's, then the single's.
+    try:
+        path = ckpt.latest(ckdir)
+        need(path is not None and path.endswith("level_00009.npz"),
+             "the mesh n=4 L9 run wrote no level-9 snapshot")
+        b = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                      bounded_config("v4", 11), device="cuda", resume=path)
+        os.remove(path)
+        run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                  bounded_config("v4", 9, checkpoint_dir=ckdir,
+                                 checkpoint_every=9), device="cuda")
+        path = ckpt.latest(ckdir)
+        m, _e, c, _t = mesh_run(torch, "MCraft_bounded.cfg", 2,
+                                bounded_config("v3", 11), resume=path)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"snapshots: mesh n=4 L9 -> single v4 L11 distinct={b.distinct} "
+          f"generated={b.generated}; single L9 -> mesh n=2 L11 distinct="
+          f"{m.distinct} generated={m.generated} levels={m.levels} steps="
+          f"{m.steps} check {m.wall_seconds} s (the single L9 run's "
+          "seconds included)")
+    for what, x in (("mesh -> single", b), ("single -> mesh", m)):
+        need(x.distinct == MCRAFT_L11_DISTINCT
+             and x.generated == MCRAFT_L11_GENERATED
+             and x.levels == MCRAFT_L11_LEVELS,
+             f"snapshot {what} differs from the pinned oracle")
+    check_mesh_launches(c, m.steps, 2, "resume single L9 -> mesh L11",
+                        inserts=2)
+    took("snapshots")
+
+    # TPUraft at n = 2, 4,096 rows a shard, to L8.
+    r, e, c, call = mesh_run(torch, "TPUraft.cfg", 2, dataclasses.replace(
+        tpuraft_config(8), batch=4096))
+    print(f"TPUraft L8 mesh n=2 batch 4096 a shard: distinct={r.distinct} "
+          f"generated={r.generated} levels={r.levels} steps={r.steps} "
+          f"spills={r.spills} check {r.wall_seconds} s, call {call} s, "
+          f"phases {r.phases}, peak {torch.cuda.max_memory_allocated()} B")
+    need(r.distinct == TPURAFT_DISTINCT[8]
+         and r.generated == TPURAFT_GENERATED[8]
+         and r.levels == TPURAFT_LEVELS[:9],
+         "TPUraft L8 on the mesh differs from the oracle")
+    check_mesh_launches(c, r.steps, 2, "TPUraft L8 n=2",
+                        trace=e.config.record_trace)
+    took("TPUraft L8")
+
+    # MeshSimulator at n = 4: the near-election roots, a seed repeating.
+    from raft_tla_tpu_torch.models.dims import LEADER
+    from raft_tla_tpu_torch.parallel.simulate import MeshSimulator
+    sdims = RaftDims(**dict(SWARM_DIMS, n_msg_slots=24))
+    root = near_election_root(sdims)
+
+    sim = MeshSimulator(
+        sdims, invariants={"NoLeader": lambda st: (st.role != LEADER)
+                           .all(1)},
+        constraint=build_constraint(
+            sdims, Bounds(max_term=3, max_log_len=1, max_msg_count=1)),
+        batch=32, depth=16, chunk=64, devices=["cuda"] * 4)
+    t = time.time()
+    runs = [sim.run([root], num_steps=4 * 32 * 64 * 8, seed=s)
+            for s in (0, 0)]
+    keys = [(x.steps, x.traces, x.violation_trace) for x in runs]
+    need(keys[0] == keys[1] and runs[0].violation_invariant == "NoLeader",
+         "MeshSimulator n=4: a seed does not repeat its run, or no leader")
+    check_walk_trace(torch, sdims, runs[0].violation_trace,
+                     "MeshSimulator n=4 seeded violation")
+    print(f"MeshSimulator n=4: steps {runs[0].steps} traces "
+          f"{runs[0].traces} trace {[g for g, _ in runs[0].violation_trace]}"
+          f", repeated by a second run ({time.time() - t} s)")
+    took("MeshSimulator")
+
+    # Per-step device time and ops (profiler), last: graphs replay slower
+    # once the profiler has run.
+    for n in profile_shards:
+        phase_profile(torch, "v3", "kernel", config=bounded_config("v3", 8),
+                      devices=["cuda"] * n)
+    took("profiles")
+    print(f"mesh phases: {time.time() - t_all} s")
+    return {"compact": {"launches": mesh_launches[2]["compact"],
+                        "run": "MCraft_bounded L9, n = 2",
+                        "max_abs_err": cap_err},
+            "fpset_insert": {"launches": mesh_launches[2]["fpset_insert"],
+                             "run": "MCraft_bounded L9, n = 2",
+                             "routed_ms": {str(k): v["ms"]
+                                           for k, v in routed.items()}},
+            "enqueue": {"launches": mesh_launches[2]["enqueue"],
+                        "run": "MCraft_bounded L9, n = 2"}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4059,6 +4612,9 @@ def main() -> int:
     if sys.argv[1:] == ["--outputs"]:
         print(f"check outputs: {phase_check_outputs(torch)} s")
         phase_observation_cost(torch)
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        phase_mesh(torch, device, profile_shards=(2, 8))
         return 0
     if sys.argv[1:] == ["--reconfig"]:
         t = time.time()
@@ -4138,6 +4694,9 @@ def main() -> int:
         phase_reconfig_cfg(torch)["chunk_front"]
     phase_reconfig_leader(torch)
     print(f"reconfig phases: {time.time() - t} s")
+    torch.cuda.empty_cache()
+    mesh_rows = phase_mesh(torch, device)
+    torch.cuda.empty_cache()
     print(f"MCraft phases done: {time.time() - t_smoke} s")
     t = time.time()
     phase_swarm_parity(torch)
@@ -4155,10 +4714,12 @@ def main() -> int:
              "fpset_insert": "v4 split", "enqueue": "v4 split"}
     for row in rows:
         row["launches"] = counts[paths[row["name"]]][row["name"]]
+        if row["name"] in mesh_rows:
+            row["mesh"] = mesh_rows[row["name"]]
     print(f"chip_smoke: {time.time() - t_smoke} s in all")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in ROW_KEYS + (("reconfig",) if "reconfig" in r
-                                      else ())} for r in rows]}))
+        {k: r[k] for k in ROW_KEYS + tuple(x for x in ("reconfig", "mesh")
+                                           if x in r)} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

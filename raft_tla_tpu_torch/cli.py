@@ -42,6 +42,12 @@ reached state graph as DOT or GraphML.  ``simulate`` runs TLC-style
 random traces (``engine/simulate.py``: ``--num-steps`` walker-steps,
 ``--depth``, ``--batch`` walkers, ``--max-seconds`` over the cfg's
 StopAfter, ``--seed``) and prints the JAX CLI's result block.
+
+``--engine`` (``check``, ``explain``, ``simulate``; the JAX CLI's
+choices) picks the single-device engine or the mesh (``parallel/``):
+``mesh`` shards over every visible card (one shard with ``--device
+cpu``), ``auto`` (the default) takes the mesh when more than one card is
+visible.
 """
 
 from __future__ import annotations
@@ -55,10 +61,11 @@ import sys
 from .engine import checkpoint as ckpt_mod
 from .engine import explain as explain_mod
 from .engine.bfs import PLAN_NAMES, EngineConfig
-from .engine.check import (MODES, engine_config_from_backend,
+from .engine.check import (ENGINES, MODES, device_for,
+                           engine_config_from_backend,
                            format_result, format_swarm, initial_states,
                            make_engine, make_simulator, make_swarm,
-                           resolve_mode)
+                           resolve_mode, use_mesh)
 from .models.pystate import format_state
 from .ops.pipeline_v3 import ENQUEUE_METHODS
 from .utils.cfg import load_config
@@ -88,6 +95,10 @@ def _common(sp):
                     help="message slots (over the cfg's N_MSG_SLOTS)")
     sp.add_argument("--seed", type=int, default=0,
                     help="seed of the smoke roots (Init <- SmokeInit)")
+    sp.add_argument("--engine", choices=ENGINES, default="auto",
+                    help="mesh = shard over all visible cards (one shard "
+                         "with --device cpu or an indexed device); auto = "
+                         "mesh iff more than one card (default)")
 
 
 def main(argv=None) -> int:
@@ -182,6 +193,9 @@ def main(argv=None) -> int:
     s.add_argument("--max-seconds", type=float,
                    help="wall-clock budget (over the cfg's StopAfter)")
     s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--engine", choices=ENGINES, default="auto",
+                   help="mesh = one walker fleet a visible card; auto = "
+                        "mesh iff more than one card (default)")
     args = ap.parse_args(argv)
 
     if args.cmd == "simulate":
@@ -229,7 +243,8 @@ def main(argv=None) -> int:
         statespace_report=cfg.statespace_report and not args.no_report,
         counterexample_dir=_counterexample_dir(args, cfg.counterexample_dir,
                                                ckpt_dir))
-    engine = make_engine(setup, cfg, device=args.device)
+    engine = make_engine(setup, cfg, device=args.device,
+                         **_engine_kw(args, setup))
     resume = args.resume
     if resume == "auto":
         if not cfg.checkpoint_dir:
@@ -260,6 +275,14 @@ def main(argv=None) -> int:
         print(format_state(res.deadlock, setup.dims))
         return 1
     return 0
+
+
+def _engine_kw(args, setup, key: str = "engine_cls") -> dict:
+    """``{key: "mesh"}`` where ``--engine`` resolves to the mesh on the
+    run's device, else nothing (the single engine)."""
+    if use_mesh(args.engine, device_for(setup, args.device)):
+        return {key: "mesh"}
+    return {}
 
 
 def _counterexample_dir(args, directive, ckpt_dir):
@@ -317,7 +340,8 @@ def _explain(args, setup) -> int:
         max_diameter=args.max_diameter, max_seconds=args.max_seconds,
         record_trace=True,
         pipeline=resolve(args.pipeline, "PIPELINE", "auto"))
-    engine = make_engine(setup, cfg, device=args.device)
+    engine = make_engine(setup, cfg, device=args.device,
+                         **_engine_kw(args, setup))
     res = engine.run(initial_states(setup, seed=args.seed))
     rc = 0
     if res.violation is not None:
@@ -396,7 +420,8 @@ def _swarm(args, setup) -> int:
 def _simulate(args, setup) -> int:
     """``simulate``: the JAX CLI's result block; exit 1 on a violation."""
     sim = make_simulator(setup, batch=args.batch, depth=args.depth,
-                         device=args.device)
+                         device=args.device,
+                         **_engine_kw(args, setup, "engine"))
     max_seconds = (args.max_seconds if args.max_seconds is not None
                    else setup.max_seconds)
     res = sim.run(initial_states(setup, seed=args.seed),

@@ -239,6 +239,10 @@ class EngineConfig:
     statespace_report: bool = True
     events_out: Optional[str] = None
     counterexample_dir: Optional[str] = None
+    # The mesh (parallel/mesh.py): a ``skew`` event at a level boundary
+    # whose largest shard frontier is at least this many times the mean
+    # (0 = never).
+    skew_warn_ratio: float = 2.0
 
 
 @dataclasses.dataclass
@@ -274,6 +278,9 @@ class EngineResult:
     degraded: List = dataclasses.field(default_factory=list)
     pipeline: str = "v3"
     fused_stages: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # Why a stage is not what the plan names elsewhere (the mesh's
+    # resolution, ops/pipeline_v3.py resolve_mesh_plan); {} otherwise.
+    fused_reasons: Dict[str, str] = dataclasses.field(default_factory=dict)
     device: str = ""
     # Host wall seconds: "dispatch" (queueing a chunk's steps), "sync"
     # (waiting for the device at the chunk's stats read), "capture" (CUDA
@@ -319,6 +326,25 @@ class ResumePoint:
     # (fps, parents, actions) numpy columns and the roots, or None/{}.
     trace: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
     roots: Dict[int, PyState] = dataclasses.field(default_factory=dict)
+
+
+def check_resume_trace(cfg: EngineConfig, ck: ckpt_mod.Checkpoint) -> None:
+    """Refuse a snapshot whose trace records do not fit the run's trace
+    recording."""
+    if cfg.record_trace and ck.distinct > 0 and ck.trace_fps.size == 0:
+        raise ValueError(
+            "checkpoint was written with trace recording "
+            "disabled; counterexample replay could never reach "
+            "a root — resume with record_trace=False "
+            "(--no-trace) or restart from scratch")
+    if not cfg.record_trace and ck.trace_fps.size > 0 \
+            and cfg.checkpoint_dir is not None:
+        raise ValueError(
+            "resuming a trace-carrying checkpoint with trace "
+            "recording disabled would write trace-less snapshots "
+            "into the same directory, shadowing the intact ones "
+            "for any later trace-on resume; use a different "
+            "checkpoint_dir or keep tracing enabled")
 
 
 def exit_condition_hit(conds, res, queue_rows) -> Optional[str]:
@@ -517,6 +543,12 @@ class BFSEngine:
         if peak is not None:
             self._hbm_watermark = max(self._hbm_watermark, peak)
             mt.gauge("engine/device_hbm_peak_bytes", self._hbm_watermark)
+        # The mesh's shard balance, sampled just before (parallel/mesh.py
+        # _sample_skew); None on one device.
+        skew = getattr(self, "_last_skew", None)
+        extra = ({k: skew.get(k) for k in ("frontier_skew", "seen_skew",
+                                           "shard_frontier")}
+                 if skew is not None else {})
         if self.config.statespace_report:
             res.level_stats.append({
                 "level": res.diameter, "frontier": int(frontier_rows),
@@ -524,7 +556,7 @@ class BFSEngine:
                 "seen_size": int(mt.gauge_value("engine/seen_size")),
                 "seen_capacity": int(mt.gauge_value("engine/seen_capacity")),
                 "hbm_peak_bytes": peak,
-                "hbm_bytes_in_use": mem.get("bytes_in_use")})
+                "hbm_bytes_in_use": mem.get("bytes_in_use"), **extra})
         evlog = self._evlog
         if not evlog.enabled:
             return
@@ -535,7 +567,7 @@ class BFSEngine:
             generated=res.generated, phase_seconds=phases,
             unattributed_seconds=round(
                 evlog.elapsed() - sum(phases.values()), 6),
-            memory=mem)
+            memory=mem, **extra)
 
     def resume_point(self, ck: ckpt_mod.Checkpoint) -> ResumePoint:
         """A ``Checkpoint`` as this engine's ``ResumePoint``: the seen set
@@ -564,6 +596,17 @@ class BFSEngine:
                           wall):
         """Snapshot the level boundary: this level's frontier (device rows,
         then the host segments), the seen keys, counters and trace."""
+        seen_hi, seen_lo = fpset.to_host_keys(seen)
+        self._save_checkpoint(
+            np.concatenate([host_rows(qcur[:cur_count]),
+                            *pending.segments()]),
+            seen_hi, seen_lo, res, trace, wall)
+
+    def _save_checkpoint(self, frontier, seen_hi, seen_lo, res, trace,
+                         wall):
+        """``level_<diameter>.npz`` in ``checkpoint_dir`` from the
+        frontier rows and the lex-sorted seen keys, with the counters and
+        the trace."""
         cfg = self.config
         if cfg.record_trace:
             tf, tp, ta = trace.export()
@@ -572,11 +615,8 @@ class BFSEngine:
             tf = tp = np.empty(0, np.uint64)
             ta = np.empty(0, np.int32)
             roots = {}
-        seen_hi, seen_lo = fpset.to_host_keys(seen)
         ck = ckpt_mod.Checkpoint(
-            dims=self.dims,
-            frontier=np.concatenate([host_rows(qcur[:cur_count]),
-                                     *pending.segments()]),
+            dims=self.dims, frontier=frontier,
             seen_hi=seen_hi, seen_lo=seen_lo,
             distinct=res.distinct, generated=res.generated,
             diameter=res.diameter, levels=tuple(res.levels),
@@ -594,22 +634,25 @@ class BFSEngine:
         step whose cond is false (it loads every kernel and changes
         nothing).  The wrappers' launch counts the capture took are given
         back, and returned as what each replay launches."""
-        dev = self.device
         if not self._warm:
-            self._write_ctl(0, 0, 0, 0)
+            self._write_idle_ctl()
             fn()
             res.steps += 1
             self._warm = True
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = [m.launches for m in KERNEL_MODULES]
-        g = capture_graph(fn, dev, self._pool)
+        g = capture_graph(fn, self.device, self._pool)
         delta = []
         for m, b in zip(KERNEL_MODULES, before):
             if m.launches != b:
                 delta.append((m, m.launches - b))
                 m.launches = b
         return g, delta
+
+    def _write_idle_ctl(self):
+        """Control words under which a step changes nothing."""
+        self._write_ctl(0, 0, 0, 0)
 
     def _drop_graphs(self):
         """Release the captured graphs and their memory pool (a pool whose
@@ -628,7 +671,14 @@ class BFSEngine:
 
         if self.device.type != "cuda":
             return eager
-        key = (qcur.data_ptr(), qnext.data_ptr(), seen.keys.data_ptr())
+        return self._graph_replay(
+            (qcur.data_ptr(), qnext.data_ptr(), seen.keys.data_ptr()),
+            eager, res)
+
+    def _graph_replay(self, key, eager, res):
+        """A replay of ``eager``'s graph for the buffers ``key`` names
+        (captured at first use), which adds the launches the capture
+        took to the wrappers' counts."""
         if key not in self._graphs:
             self._graphs[key] = self._capture(eager, res)
         g, delta = self._graphs[key]
@@ -895,23 +945,8 @@ class BFSEngine:
         if isinstance(resume, str):
             resume = ckpt_mod.load(resume)
         if isinstance(resume, ckpt_mod.Checkpoint):
-            ck = resume
-            if cfg.record_trace and ck.distinct > 0 \
-                    and ck.trace_fps.size == 0:
-                raise ValueError(
-                    "checkpoint was written with trace recording "
-                    "disabled; counterexample replay could never reach "
-                    "a root — resume with record_trace=False "
-                    "(--no-trace) or restart from scratch")
-            if not cfg.record_trace and ck.trace_fps.size > 0 \
-                    and cfg.checkpoint_dir is not None:
-                raise ValueError(
-                    "resuming a trace-carrying checkpoint with trace "
-                    "recording disabled would write trace-less snapshots "
-                    "into the same directory, shadowing the intact ones "
-                    "for any later trace-on resume; use a different "
-                    "checkpoint_dir or keep tracing enabled")
-            resume = self.resume_point(ck)
+            check_resume_trace(cfg, resume)
+            resume = self.resume_point(resume)
         res.phases.update(dict.fromkeys(PHASES, 0.0))
         trace = self.trace = PyTraceStore()
         t_enter = time.time()
@@ -961,31 +996,9 @@ class BFSEngine:
                 trace.add_batch(*resume.trace)
                 trace.roots.update(resume.roots)
         else:
-            encoded = [encode_state(s, dims) for s in init_states]
-            roots = stack_states(encoded, dev)
-            if self._inv_id is not None:
-                inv = self._inv_id(roots).cpu()
-                if (inv >= 0).any():
-                    i = int((inv >= 0).to(torch.int32).argmax())
-                    hi, lo = self._fingerprint(roots)
-                    fp = (int(hi[i]) << 32) | int(lo[i])
-                    if cfg.record_trace:
-                        trace.roots.setdefault(fp, init_states[i])
-                    res.violation = Violation(self.inv_names[int(inv[i])],
-                                              init_states[i], fp)
-                    res.stop_reason = "violation"
-                    res.levels.append(0)
-                    res.wall_seconds = time.time() - t_enter
-                    evlog.emit("violation", invariant=res.violation.invariant,
-                               fingerprint=hex(fp), level=0)
-                    return res
-            for e in encoded:
-                check_packable(e, dims)
-            rows_all = flatten_state(roots, dims)
-            if cfg.record_trace:
-                rhi, rlo = self._fingerprint(unflatten_state(rows_all, dims))
-                for i, (h, l) in enumerate(zip(rhi.tolist(), rlo.tolist())):
-                    trace.roots.setdefault((h << 32) | l, init_states[i])
+            rows_all = self._root_rows(init_states, res, trace, t_enter)
+            if rows_all is None:
+                return res
             seen = fpset.empty(self._seen_cap, dev)
             t0 = time.time()
             next_count = seen_size = 0
@@ -1046,7 +1059,6 @@ class BFSEngine:
             cur_count = next_count
             pending, spill_next = spill_next, pending
 
-        S = chunk_mod.N_SCALARS
         # The seen-set gauges, kept current a chunk (the progress line's
         # load and each level_stats row read them).
         mt.gauge("engine/seen_capacity", seen.capacity)
@@ -1109,42 +1121,16 @@ class BFSEngine:
                                                + 0.5 * per))
                     res.batches += steps
                     offset, next_count = st[ST_OFFSET], st[ST_COUNT]
-                    res.distinct += st[ST_NEW]
-                    res.generated += st[ST_GEN]
                     seen_size = st[ST_SEEN]
-                    mt.counter("engine/distinct", st[ST_NEW])
-                    mt.counter("engine/generated", st[ST_GEN])
-                    mt.gauge("engine/seen_size", seen_size)
-                    mt.gauge("engine/seen_capacity", seen.capacity)
-                    mt.gauge("engine/next_count", next_count)
-                    mt.gauge("engine/diameter", res.diameter)
-                    gen, new = st[S:S + F], st[S + F:S + 2 * F]
-                    pruned = st[S + 2 * F:S + 3 * F]
-                    for name, c, p in zip(dims.family_names, gen, pruned):
-                        res.action_counts[name] = \
-                            res.action_counts.get(name, 0) + c
-                        res.action_pruned[name] = \
-                            res.action_pruned.get(name, 0) + p
-                    # Coverage from the same stats read (obs/coverage.py).
-                    coverage.add_chunk(st[ST_EXPANDED], gen, new,
-                                       pruned)
+                    self._account_chunk(res, st, seen_size, seen.capacity,
+                                        next_count)
                     inner = 0.0     # trace and spill, timed on their own
                     if cfg.record_trace and st[ST_TCOUNT]:
                         t_t = time.time()
                         self._flush_trace(self._tbuf, st[ST_TCOUNT])
                         inner = time.time() - t_t
                         self._phase("trace", inner)
-                    if st[ST_OVF]:
-                        raise RuntimeError(
-                            f"{st[ST_OVF]} successors exceeded fixed-width "
-                            f"capacity (max_log={dims.max_log}, "
-                            f"n_msg_slots={dims.n_msg_slots}) or wrapped "
-                            "the uint8 row; rerun with larger capacities")
-                    if st[ST_FAIL]:
-                        raise RuntimeError(
-                            "seen-set probe failure (load spiked past the "
-                            "growth threshold within one batch); raise "
-                            "seen_capacity")
+                    self._check_faults(st)
                     seen, t0 = self._maybe_grow(seen, st[ST_SEEN], res, t0)
                     if next_count > self._QTH \
                             and (offset < cur_count or pending):
@@ -1159,51 +1145,18 @@ class BFSEngine:
                         next_count = 0
                         self._phase("spill", time.time() - t_s)
                         inner += time.time() - t_s
-                    if st[ST_VIOL]:
-                        vfp = self._cs.vfp.tolist()
-                        res.violation = Violation(
-                            self.inv_names[st[ST_VINV]],
-                            self._decode_row(self._cs.vrow),
-                            (vfp[0] << 32) | vfp[1])
-                        res.stop_reason = "violation"
-                        evlog.emit("violation",
-                                   invariant=res.violation.invariant,
-                                   fingerprint=hex(res.violation.fingerprint),
-                                   level=res.diameter)
-                    elif st[ST_DEAD] and self._check_deadlock:
-                        res.deadlock = self._decode_row(self._cs.drow)
-                        res.stop_reason = "deadlock"
-                        evlog.emit("deadlock", level=res.diameter)
-                    else:
-                        want_progress = bool(
-                            cfg.progress_interval_seconds
-                            and time.time() - last_progress
-                            >= cfg.progress_interval_seconds)
-                        if cfg.exit_conditions or want_progress:
-                            # TLC's "queue" is the whole unexplored queue:
-                            # the rest of this level and everything
-                            # enqueued for the next, drains in flight too.
-                            queue_rows = (
-                                max(0, cur_count - offset)
-                                + pending.total_rows() + next_count
-                                + spill_next.total_rows()
-                                + sum(c for _b, c, _e in inflight))
-                            if want_progress:
-                                print(progress_line(
-                                    res, t0, queue_rows, cur_count,
-                                    seen_size / seen.capacity, mt),
-                                    file=sys.stderr)
-                                # Coverage rides the same cadence.
-                                coverage.feed_metrics(mt)
-                                evlog.emit("coverage", level=res.diameter,
-                                           actions=coverage.snapshot())
-                                last_progress = time.time()
-                            # A violation or deadlock in the same chunk
-                            # outranks a budget stop.
-                            hit = exit_condition_hit(cfg.exit_conditions,
-                                                     res, queue_rows)
-                            if hit:
-                                res.stop_reason = hit
+                    # TLC's "queue" is the whole unexplored queue: the
+                    # rest of this level and everything enqueued for the
+                    # next, drains in flight too.
+                    last_progress = self._verdict(
+                        res, (st[ST_VINV], self._cs) if st[ST_VIOL] else None,
+                        self._cs if st[ST_DEAD] else None,
+                        lambda: (max(0, cur_count - offset)
+                                 + pending.total_rows() + next_count
+                                 + spill_next.total_rows()
+                                 + sum(c for _b, c, _e in inflight)),
+                        cur_count, seen_size / seen.capacity, t0,
+                        last_progress)
                     self._phase("host", time.time() - t_h - inner)
                     if res.stop_reason != "exhausted":
                         break
@@ -1227,6 +1180,120 @@ class BFSEngine:
             pending, spill_next = spill_next, pending
         res.wall_seconds = time.time() - t0
         return res
+
+    def _account_chunk(self, res, st, seen_size: int, capacity: int,
+                       next_count: int):
+        """A chunk's counters (``ST_*`` words, summed over shards on the
+        mesh) into the result, the registry and the coverage."""
+        S, F = chunk_mod.N_SCALARS, len(self.dims.family_sizes)
+        mt = self.metrics
+        res.distinct += st[ST_NEW]
+        res.generated += st[ST_GEN]
+        mt.counter("engine/distinct", st[ST_NEW])
+        mt.counter("engine/generated", st[ST_GEN])
+        mt.gauge("engine/seen_size", seen_size)
+        mt.gauge("engine/seen_capacity", capacity)
+        mt.gauge("engine/next_count", next_count)
+        mt.gauge("engine/diameter", res.diameter)
+        gen, new = st[S:S + F], st[S + F:S + 2 * F]
+        pruned = st[S + 2 * F:S + 3 * F]
+        for name, c, p in zip(self.dims.family_names, gen, pruned):
+            res.action_counts[name] = res.action_counts.get(name, 0) + c
+            res.action_pruned[name] = res.action_pruned.get(name, 0) + p
+        # Coverage from the same stats read (obs/coverage.py).
+        self.coverage.add_chunk(st[ST_EXPANDED], gen, new, pruned)
+
+    def _check_faults(self, st):
+        """Stop on an overflowing successor or a seen-set probe failure."""
+        dims = self.dims
+        if st[ST_OVF]:
+            raise RuntimeError(
+                f"{st[ST_OVF]} successors exceeded fixed-width "
+                f"capacity (max_log={dims.max_log}, "
+                f"n_msg_slots={dims.n_msg_slots}) or wrapped "
+                "the uint8 row; rerun with larger capacities")
+        if st[ST_FAIL]:
+            raise RuntimeError(
+                "seen-set probe failure (load spiked past the "
+                "growth threshold within one batch); raise "
+                "seen_capacity")
+
+    def _verdict(self, res, viol, dead, queue_rows, level_frontier: int,
+                 load: float, t0: float, last_progress: float) -> float:
+        """After a chunk: the violation (``(invariant index, ChunkState)``)
+        or the deadlock (the ``ChunkState`` holding it) it stopped on, else
+        the progress line and the TLCGet budgets (``queue_rows()`` is read
+        only when one needs it).  Returns the progress line's time."""
+        cfg, evlog = self.config, self._evlog
+        if viol is not None:
+            inv, cs = viol
+            vfp = cs.vfp.tolist()
+            res.violation = Violation(self.inv_names[inv],
+                                      self._decode_row(cs.vrow),
+                                      (vfp[0] << 32) | vfp[1])
+            res.stop_reason = "violation"
+            evlog.emit("violation", invariant=res.violation.invariant,
+                       fingerprint=hex(res.violation.fingerprint),
+                       level=res.diameter)
+            return last_progress
+        if dead is not None and self._check_deadlock:
+            res.deadlock = self._decode_row(dead.drow)
+            res.stop_reason = "deadlock"
+            evlog.emit("deadlock", level=res.diameter)
+            return last_progress
+        want_progress = bool(cfg.progress_interval_seconds
+                             and time.time() - last_progress
+                             >= cfg.progress_interval_seconds)
+        if not (cfg.exit_conditions or want_progress):
+            return last_progress
+        rows = queue_rows()
+        if want_progress:
+            mt = self.metrics
+            print(progress_line(res, t0, rows, level_frontier, load, mt),
+                  file=sys.stderr)
+            # Coverage rides the same cadence.
+            self.coverage.feed_metrics(mt)
+            evlog.emit("coverage", level=res.diameter,
+                       actions=self.coverage.snapshot())
+            last_progress = time.time()
+        # A violation or deadlock in the same chunk outranks a budget stop.
+        hit = exit_condition_hit(cfg.exit_conditions, res, rows)
+        if hit:
+            res.stop_reason = hit
+        return last_progress
+
+    def _root_rows(self, init_states, res, trace, t_enter):
+        """The roots as packed rows on the engine's device, registered in
+        the trace; None when a root violates an invariant (checked on its
+        unpacked encoding; ``res`` then holds the violation)."""
+        dims, cfg = self.dims, self.config
+        encoded = [encode_state(s, dims) for s in init_states]
+        roots = stack_states(encoded, self.device)
+        if self._inv_id is not None:
+            inv = self._inv_id(roots).cpu()
+            if (inv >= 0).any():
+                i = int((inv >= 0).to(torch.int32).argmax())
+                hi, lo = self._fingerprint(roots)
+                fp = (int(hi[i]) << 32) | int(lo[i])
+                if cfg.record_trace:
+                    trace.roots.setdefault(fp, init_states[i])
+                res.violation = Violation(self.inv_names[int(inv[i])],
+                                          init_states[i], fp)
+                res.stop_reason = "violation"
+                res.levels.append(0)
+                res.wall_seconds = time.time() - t_enter
+                self._evlog.emit("violation",
+                                 invariant=res.violation.invariant,
+                                 fingerprint=hex(fp), level=0)
+                return None
+        for e in encoded:
+            check_packable(e, dims)
+        rows_all = flatten_state(roots, dims)
+        if cfg.record_trace:
+            rhi, rlo = self._fingerprint(unflatten_state(rows_all, dims))
+            for i, (h, l) in enumerate(zip(rhi.tolist(), rlo.tolist())):
+                trace.roots.setdefault((h << 32) | l, init_states[i])
+        return rows_all
 
     # ------------------------------------------------------------------
     def successors(self, state: PyState):

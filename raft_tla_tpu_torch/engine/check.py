@@ -16,6 +16,11 @@ ROADMAP item, rather than accepted and ignored.  MODE picks the checking tier (`
 ``path_to_state`` finds a shortest action path to a given state.  Every
 entry point takes ``device`` and runs on the card unless the caller
 passes ``device="cpu"`` (or the cfg says ``PLATFORM = cpu``).
+``engine_cls`` ("single", "mesh", "auto" or a class; ``ENGINES``) picks
+the exhaustive engine, and ``make_simulator``'s ``engine`` the simulator:
+the mesh (``parallel/``) shards over every visible card, or over one
+shard on a device named with an index or on the CPU; "auto" takes the
+mesh when more than one card is visible.
 """
 
 from __future__ import annotations
@@ -23,18 +28,26 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional
 
+import torch
+
 from ..models import smoke
 from ..models.dims import RaftDims
 from ..models.invariants import build_constraint, invariant_registry
 from ..models.pystate import PyState, init_state
 from ..models.schema import encode_state, stack_states
 from ..ops.fingerprint import build_fingerprint
+from ..parallel.mesh import MeshBFSEngine
+from ..parallel.simulate import MeshSimulator
 from ..utils.cfg import CheckSetup, load_config
 from .bfs import BFSEngine, EngineConfig, EngineResult
 from .simulate import Simulator
 from .swarm import SwarmEngine, SwarmResult
 
 MODES = ("exhaustive", "swarm")
+
+#: ``--engine``: the single-device engine, the mesh, or the mesh when
+#: more than one card is visible (the JAX CLI's choices and default).
+ENGINES = ("single", "mesh", "auto")
 
 #: Directives of modules not ported yet -> the ROADMAP.md item that ports
 #: them.  A cfg that sets one (to anything but off: 0 or FALSE) is refused.
@@ -128,12 +141,33 @@ def engine_config_from_backend(setup: CheckSetup) -> EngineConfig:
         counterexample_dir=be.get("COUNTEREXAMPLE_DIR"))
 
 
+def use_mesh(engine: Optional[str], device: str) -> bool:
+    """Whether ``engine`` (``ENGINES``, None for "single") on ``device``
+    is the mesh: "auto" is, where more than one card is visible and the
+    run is on the card."""
+    if engine not in (None,) + ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if engine == "auto":
+        return (torch.device(device).type == "cuda"
+                and torch.cuda.is_available()
+                and torch.cuda.device_count() > 1)
+    return engine == "mesh"
+
+
+def mesh_devices(device: str):
+    """The mesh's shards for ``device``: every visible card for "cuda",
+    else that one device."""
+    return None if device == "cuda" else [device]
+
+
 def make_engine(setup: CheckSetup,
                 engine_config: Optional[EngineConfig] = None,
-                device=None) -> BFSEngine:
+                device=None, engine_cls=None, devices=None) -> BFSEngine:
     """An engine with the cfg fallbacks applied (CHECK_DEADLOCK, StopAfter
     budgets) on ``device_for(setup, device)``; the caller's config is
-    never mutated."""
+    never mutated.  ``engine_cls``: None or "single" for ``BFSEngine``,
+    "mesh" or ``MeshBFSEngine`` for the mesh (over ``devices`` when
+    given), "auto" for the mesh where more than one card is visible."""
     check_directives(setup)
     base = engine_config or engine_config_from_backend(setup)
     cfg = dataclasses.replace(
@@ -146,9 +180,17 @@ def make_engine(setup: CheckSetup,
         max_diameter=(base.max_diameter if base.max_diameter is not None
                       else setup.max_diameter),
         exit_conditions=(base.exit_conditions or setup.exit_conditions))
-    return BFSEngine(setup.dims, invariants=resolve_invariants(setup),
-                     constraint=resolve_constraint(setup), config=cfg,
-                     device=device_for(setup, device))
+    dev = device_for(setup, device)
+    kw = dict(invariants=resolve_invariants(setup),
+              constraint=resolve_constraint(setup), config=cfg)
+    if isinstance(engine_cls, type):
+        mesh = issubclass(engine_cls, MeshBFSEngine)
+    else:
+        mesh = use_mesh(engine_cls, dev)
+    if mesh:
+        return MeshBFSEngine(setup.dims, devices=(
+            devices if devices is not None else mesh_devices(dev)), **kw)
+    return BFSEngine(setup.dims, device=dev, **kw)
 
 
 def resolve_mode(setup: CheckSetup, mode: Optional[str] = None) -> str:
@@ -194,15 +236,19 @@ def make_swarm(setup: CheckSetup, walks: Optional[int] = None,
 
 
 def make_simulator(setup: CheckSetup, batch: Optional[int] = None,
-                   depth: int = 100, device=None) -> Simulator:
-    """The simulator of a cfg: walkers from the caller, BATCH or 1024."""
+                   depth: int = 100, device=None, engine=None):
+    """The simulator of a cfg: walkers from the caller, BATCH or 1024
+    (a fleet, on the mesh); ``engine`` as ``make_engine``'s."""
     check_directives(setup)
     be = setup.backend
-    return Simulator(
-        setup.dims, invariants=resolve_invariants(setup),
-        constraint=resolve_constraint(setup),
-        batch=int(batch if batch is not None else be.get("BATCH", 1024)),
-        depth=depth, device=device_for(setup, device))
+    dev = device_for(setup, device)
+    kw = dict(invariants=resolve_invariants(setup),
+              constraint=resolve_constraint(setup),
+              batch=int(batch if batch is not None else be.get("BATCH", 1024)),
+              depth=depth)
+    if use_mesh(engine, dev):
+        return MeshSimulator(setup.dims, devices=mesh_devices(dev), **kw)
+    return Simulator(setup.dims, device=dev, **kw)
 
 
 def format_swarm(res: SwarmResult, max_depth: int) -> str:
@@ -263,13 +309,15 @@ def path_to_state(dims: RaftDims, target: PyState,
 
 
 def run_check(cfg_path: str, engine_config: Optional[EngineConfig] = None,
-              device=None, resume=None, seed: int = 0) -> EngineResult:
+              device=None, resume=None, seed: int = 0, engine_cls=None,
+              devices=None) -> EngineResult:
     """Parse the cfg, build the engine, run it (from the cfg's initial
     states, the smoke roots drawn from ``seed``, or from ``resume``: a
     snapshot's path or a ``Checkpoint``); the engine rides on the result
     as ``res.engine`` (for ``replay``)."""
     setup = load_config(cfg_path)
-    engine = make_engine(setup, engine_config, device=device)
+    engine = make_engine(setup, engine_config, device=device,
+                         engine_cls=engine_cls, devices=devices)
     if resume is None:
         res = engine.run(initial_states(setup, seed=seed))
     else:

@@ -41,12 +41,16 @@ own); the host drains the buffer once a chunk.
 
 The same body as the JAX package's ``engine/chunk.py`` on its v2 and
 fused-front branches with either tail, so every counter, the queue rows
-and the trace links are equal to the JAX engines'.
+and the trace links are equal to the JAX engines'.  The body is built of
+stage functions (``ChunkStages``): ``build_chunk_body`` composes them
+into one call, and the mesh (``parallel/mesh.py``) interleaves them
+across its shards around the shared P and the routed insert, as the JAX
+mesh passes its ``compactor`` and ``insert_fn`` to the same body.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,23 +99,40 @@ class BatchOut(NamedTuple):
     dead: torch.Tensor           # [B] bool deadlocked parents
 
 
-def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
-                     record_trace: bool, device, front=None,
-                     enqueue_method: str = "fused", Q: int = 0,
-                     por_mask=None, por_priority=None):
-    """Returns ``body(rows, valid, seen, qnext, next_count, max_count) ->
-    BatchOut``.
+class ChunkStages(NamedTuple):
+    """The batch's stages, which ``build_chunk_body`` composes into one
+    call and the mesh (``parallel/mesh.py``) interleaves across shards:
 
-    ``rows`` [B, sw] uint8 parents, ``valid`` [B] bool; the tail writes
-    the enqueued successors into ``qnext`` from row ``next_count`` on (a
-    host int, or an int32 device tensor holding at most ``max_count``) and
-    grows ``seen`` in place.  ``front`` (the v4 plan's
-    ``ops/chunk_front_cuda.py`` ``Front``, built for the same predicates
-    and POR arrays) replaces the masks, compaction and lane stages with
-    one front call.  ``enqueue_method`` picks the tail ("fused", or split
-    with "kernel", "scatter", "window"); "scatter" needs ``Q``, the first
-    of its K trash rows.  ``por_mask`` [G] bool and ``por_priority`` [G]
-    int32 tensors on ``device`` (both or neither) turn the reduction on."""
+    - ``masks(rows, valid) -> (states, en, ovf, pruned)``: the guards-only
+      masks of the valid rows, POR-reduced with a table (``pruned`` the
+      lanes it dropped, else None);
+    - ``compact(en) -> (pt, lane_id, kvalid)``: the compaction kernel;
+    - ``lanes(states, lane_id) -> (kh, kl, krows, cons_ok, inv,
+      parent_hi, parent_lo)``: fingerprints, rows, constraint, invariant
+      id and (with trace recording) parent fingerprints of the K lanes;
+    - ``front(rows, valid) -> FrontOut``: the three above with the
+      progress limit, or the v4 front's one call;
+    - ``enqueue(qnext, next_count, krows, enq, max_count) -> count``: the
+      split tail's append;
+    - ``tail(seen, keys, kvalid, krows, cons_ok, qnext, next_count,
+      max_count) -> (new, fail, count)``: the fused or the split tail;
+    - ``finish(valid, front_out, new, fail, count) -> BatchOut``: the
+      batch's counters."""
+
+    masks: Callable
+    compact: Callable
+    lanes: Callable
+    front: Callable
+    enqueue: Callable
+    tail: Callable
+    finish: Callable
+
+
+def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
+                       record_trace: bool, device, front=None,
+                       enqueue_method: str = "fused", Q: int = 0,
+                       por_mask=None, por_priority=None) -> ChunkStages:
+    """The ``ChunkStages`` of one plan (see ``build_chunk_body``)."""
     if enqueue_method not in ENQUEUE_METHODS:
         raise ValueError(f"enqueue_method must be one of {ENQUEUE_METHODS}, "
                          f"got {enqueue_method!r}")
@@ -140,7 +161,7 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
     zero = torch.zeros(1, dtype=torch.int64, device=device)
     one = torch.ones(1, dtype=torch.int64, device=device)
 
-    def split_front(rows, valid):
+    def masks(rows, valid):
         states = unflatten_state(rows, dims)
         en, ovf = v2.masks(states)
         en = en & valid[:, None]
@@ -153,14 +174,12 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
             pruned = en & ~keep
             en = en & keep
             ovf = ovf & keep
+        return states, en, ovf, pruned
 
-        # Progress limiting + compaction: the longest parent prefix whose
-        # fan-out fits K, its enabled lanes in ascending flat order.
-        pt, lane_id, kvalid = compact(en.contiguous(), K, kspr)
-        ptaken = arange_b < pt[0]
-        en = en & ptaken[:, None]
-        ovf = ovf & ptaken[:, None]
+    def compact_en(en):
+        return compact(en.contiguous(), K, kspr)
 
+    def lanes(states, lane_id):
         # Successors for the K compacted lanes only: parents' hash sums
         # plus per-lane deltas (models/actions2.py).
         lane = lane_id.to(torch.int64)
@@ -182,44 +201,50 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
         if record_trace:
             php, plp = v2.parent_fp(ph)
             parent_hi, parent_lo = php[pidx], plp[pidx]
+        return kh, kl, krows, cons_ok, inv, parent_hi, parent_lo
+
+    def split_front(rows, valid):
+        states, en, ovf, pruned = masks(rows, valid)
+        # Progress limiting + compaction: the longest parent prefix whose
+        # fan-out fits K, its enabled lanes in ascending flat order.
+        pt, lane_id, kvalid = compact_en(en)
+        ptaken = arange_b < pt[0]
+        en = en & ptaken[:, None]
+        ovf = ovf & ptaken[:, None]
+        kh, kl, krows, cons_ok, inv, parent_hi, parent_lo = lanes(states,
+                                                                  lane_id)
         return FrontOut(en=en, ovf=ovf, pruned=pruned, P=pt[0], total=pt[1],
                         lane_id=lane_id, kvalid=kvalid, kh=kh, kl=kl,
                         krows=krows, cons_ok=cons_ok, inv=inv,
                         parent_hi=parent_hi, parent_lo=parent_lo)
 
-    run_front = front or split_front
+    def enqueue_split(qnext, next_count, krows, enq, max_count):
+        if enqueue_method == "scatter":
+            return enqueue_scatter(qnext, next_count, krows, enq, Q)
+        if enqueue_method == "window":
+            return enqueue_window(qnext, next_count, krows, enq)
+        return enqueue(qnext, next_count, krows, enq, max_count)
 
-    def body(rows, valid, seen, qnext, next_count, max_count=None) \
-            -> BatchOut:
+    def tail(seen, keys, kvalid, krows, cons_ok, qnext, next_count,
+             max_count):
+        if enqueue_method == "fused":
+            return insert_enqueue(seen, keys, kvalid, krows, cons_ok, qnext,
+                                  next_count, max_count)
+        # The constraint and the rows depend only on the candidates, so
+        # every value below equals the fused branch's.
+        new, fail = insert(seen, keys, kvalid)
+        return new, fail, enqueue_split(qnext, next_count, krows,
+                                        new & cons_ok, max_count)
+
+    def finish(valid, fo: FrontOut, new, fail, count) -> BatchOut:
         # en/ovf arrive progress-limited; P and total stay on the device.
         # pruned is the front's before the progress limit.
-        (en, ovf, pruned, P, total, lane_id, kvalid, kh, kl, krows,
-         cons_ok, inv, parent_hi, parent_lo) = run_front(rows, valid)
-        P = P.to(torch.int64)
+        P = fo.P.to(torch.int64)
         ptaken = arange_b < P
-        act = lane_id.to(torch.int64) % G
-        if not record_trace:
-            parent_hi = parent_lo = None
-
+        act = fo.lane_id.to(torch.int64) % G
+        en, ovf = fo.en, fo.ovf
         dead_b = valid & ptaken & ~en.any(1) & ~ovf.any(1)
-        keys = pack(kh, kl)
-        if enqueue_method == "fused":
-            new, fail, count = insert_enqueue(seen, keys, kvalid, krows,
-                                              cons_ok, qnext, next_count,
-                                              max_count)
-        else:
-            # The constraint and the rows depend only on the candidates,
-            # so every value below equals the fused branch's.
-            new, fail = insert(seen, keys, kvalid)
-            enq = new & cons_ok
-            if enqueue_method == "kernel":
-                count = enqueue(qnext, next_count, krows, enq, max_count)
-            elif enqueue_method == "scatter":
-                count = enqueue_scatter(qnext, next_count, krows, enq, Q)
-            else:
-                count = enqueue_window(qnext, next_count, krows, enq)
-        viol = new & (inv >= 0)
-
+        viol = new & (fo.inv >= 0)
         fam_counts = torch.zeros(F, dtype=torch.int64, device=device)
         fam_counts.index_add_(0, fam_of_g, en.sum(0))
         fam_new = torch.zeros(F, dtype=torch.int64, device=device)
@@ -229,22 +254,62 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
             # Counted for the parents this batch advanced past only.
             fam_pruned = torch.zeros(F, dtype=torch.int64, device=device)
             fam_pruned.index_add_(0, fam_of_g,
-                                  (pruned & ptaken[:, None]).sum(0))
+                                  (fo.pruned & ptaken[:, None]).sum(0))
         # The ST_* increments: ST_COUNT, ST_SEEN, ST_TCOUNT and ST_VINV
         # are set, not added, by the step.
         delta = torch.cat([
             P.view(1), one, zero, zero, zero,
-            total.to(torch.int64).view(1), new.sum().view(1),
+            fo.total.to(torch.int64).view(1), new.sum().view(1),
             ovf.sum().view(1), dead_b.any().to(torch.int64).view(1),
             viol.any().to(torch.int64).view(1), zero,
             fail.to(torch.int64).view(1),
             (valid & ptaken).sum().view(1), fam_counts, fam_new,
             fam_pruned])
-        return BatchOut(delta=delta, new=new, kh=kh, kl=kl, krows=krows,
-                        parent_hi=parent_hi, parent_lo=parent_lo,
-                        actions=act, count=count, inv=inv, viol=viol,
-                        dead=dead_b)
+        parent_hi, parent_lo = ((fo.parent_hi, fo.parent_lo)
+                                if record_trace else (None, None))
+        return BatchOut(delta=delta, new=new, kh=fo.kh, kl=fo.kl,
+                        krows=fo.krows, parent_hi=parent_hi,
+                        parent_lo=parent_lo, actions=act, count=count,
+                        inv=fo.inv, viol=viol, dead=dead_b)
 
+    return ChunkStages(masks=masks, compact=compact_en, lanes=lanes,
+                       front=front or split_front, enqueue=enqueue_split,
+                       tail=tail, finish=finish)
+
+
+def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
+                     record_trace: bool, device, front=None,
+                     enqueue_method: str = "fused", Q: int = 0,
+                     por_mask=None, por_priority=None):
+    """Returns ``body(rows, valid, seen, qnext, next_count, max_count) ->
+    BatchOut``.
+
+    ``rows`` [B, sw] uint8 parents, ``valid`` [B] bool; the tail writes
+    the enqueued successors into ``qnext`` from row ``next_count`` on (a
+    host int, or an int32 device tensor holding at most ``max_count``) and
+    grows ``seen`` in place.  ``front`` (the v4 plan's
+    ``ops/chunk_front_cuda.py`` ``Front``, built for the same predicates
+    and POR arrays) replaces the masks, compaction and lane stages with
+    one front call.  ``enqueue_method`` picks the tail ("fused", or split
+    with "kernel", "scatter", "window"); "scatter" needs ``Q``, the first
+    of its K trash rows.  ``por_mask`` [G] bool and ``por_priority`` [G]
+    int32 tensors on ``device`` (both or neither) turn the reduction on.
+    The body's stages are ``body.stages`` (``ChunkStages``)."""
+    stages = build_chunk_stages(
+        dims=dims, v2=v2, inv_fns=inv_fns, constraint=constraint, B=B, K=K,
+        record_trace=record_trace, device=device, front=front,
+        enqueue_method=enqueue_method, Q=Q, por_mask=por_mask,
+        por_priority=por_priority)
+
+    def body(rows, valid, seen, qnext, next_count, max_count=None) \
+            -> BatchOut:
+        fo = stages.front(rows, valid)
+        new, fail, count = stages.tail(seen, pack(fo.kh, fo.kl), fo.kvalid,
+                                       fo.krows, fo.cons_ok, qnext,
+                                       next_count, max_count)
+        return stages.finish(valid, fo, new, fail, count)
+
+    body.stages = stages
     return body
 
 
@@ -277,10 +342,14 @@ class ChunkStep:
     failure or (when checked) deadlock yet, and room in the trace buffer
     for a batch.  Otherwise it leaves every tensor as it was.  The step
     makes no host wait.  ``body`` is the per-batch function of
-    ``build_chunk_body``; the step looks it up on each call."""
+    ``build_chunk_body``; the step looks it up on each call.  Its parts,
+    ``cond``, ``window`` and ``update``, are what the mesh runs around
+    the body's stages on each shard; there ``count_word`` names the word
+    holding the shard's own row count, the level's largest in ``CUR``."""
 
     def __init__(self, *, dims, B: int, K: int, Q: int, QTH: int, TQ: int,
-                 record_trace: bool, check_deadlock: bool, device, **body):
+                 record_trace: bool, check_deadlock: bool, device,
+                 count_word: Optional[int] = None, **body):
         self.body = build_chunk_body(dims=dims, B=B, K=K, Q=Q,
                                      record_trace=record_trace,
                                      device=device, **body)
@@ -289,6 +358,7 @@ class ChunkStep:
         F = len(dims.family_sizes)
         self.N = N_SCALARS + 3 * F
         self.CUR = self.N
+        self.count_word = self.CUR if count_word is None else count_word
         # cond as lhs <= rhs over these words (the first two against the
         # control words less one).
         idx = [ST_OFFSET, ST_STEPS, ST_COUNT, ST_VIOL, ST_OVF, ST_FAIL]
@@ -311,15 +381,21 @@ class ChunkStep:
         return ((lhs <= rhs).all()
                 & (seen.size <= seen.capacity // 2)[0]).view(1)
 
-    def __call__(self, qcur, seen, qnext, tbuf, cs: ChunkState) -> None:
+    def window(self, qcur, cs: ChunkState, a):
+        """``(rows [B, sw], valid [B])``: the batch at the device offset,
+        valid while ``a`` and within the level's rows."""
         st = cs.st
-        a = self.cond(seen, cs)
         off = st.narrow(0, ST_OFFSET, 1).to(torch.int64)
         at = off + self._arange_b
         rows = qcur.index_select(0, at.clamp(max=qcur.shape[0] - 1))
-        valid = a & (at < st.narrow(0, self.CUR, 1))
-        out = self.body(rows, valid, seen, qnext,
-                        st.narrow(0, ST_COUNT, 1), self.Q)
+        valid = a & (at < st.narrow(0, self.count_word, 1))
+        return rows, valid
+
+    def update(self, out: BatchOut, rows, a, seen, tbuf, cs: ChunkState):
+        """The batch's results into the state (nothing when ``a`` is
+        false): the first violation and deadlock, the trace records, the
+        counters."""
+        st = cs.st
         N = self.N
         # First violation and first deadlock of the chunk win.
         vpos = out.viol.to(torch.int32).argmax().view(1)
@@ -347,3 +423,10 @@ class ChunkStep:
         head.add_((out.delta * a).to(torch.int32))
         st.narrow(0, ST_COUNT, 1).copy_(out.count.view(1))
         st.narrow(0, ST_SEEN, 1).copy_(seen.size)
+
+    def __call__(self, qcur, seen, qnext, tbuf, cs: ChunkState) -> None:
+        a = self.cond(seen, cs)
+        rows, valid = self.window(qcur, cs, a)
+        out = self.body(rows, valid, seen, qnext,
+                        cs.st.narrow(0, ST_COUNT, 1), self.Q)
+        self.update(out, rows, a, seen, tbuf, cs)

@@ -201,12 +201,11 @@ class Simulator:
         self._graph = (g, n)
         res.phases["capture"] += time.time() - t
 
-    def run(self, roots: List[PyState], num_steps: int, seed: int = 0,
-            max_seconds: Optional[float] = None) -> SimResult:
-        res = SimResult(device=str(self.device),
-                        phases={"capture": 0.0, "dispatch": 0.0,
-                                "sync": 0.0})
-        t0 = time.time()
+    def start(self, roots: List[PyState], seed: int,
+              res: SimResult) -> bool:
+        """A run's start: the root check (False, with the violation in
+        ``res``, when a root violates), the buffers and graph, the
+        generator seeded from ``seed`` and each walker on a random root."""
         dev, B = self.device, self.batch
         bad, inv, encoded = check_roots(self.dims, roots, self._inv_id,
                                         self._inv_fns, dev)
@@ -214,8 +213,7 @@ class Simulator:
             res.violation_state = roots[bad]
             res.violation_trace = [(-1, roots[bad])]
             res.violation_invariant = self.inv_names[inv]
-            res.wall_seconds = time.time() - t0
-            return res
+            return False
         self._buffers(root_rows(self.dims, encoded, dev))
         if dev.type == "cuda" and self._graph is None:
             self._capture(res)
@@ -228,24 +226,43 @@ class Simulator:
         self._w["cur_root"].copy_(start)
         self._w["tstep"].zero_()
         self._w["abuf"].zero_()
-        res.traces = B
+        res.traces += B
+        return True
+
+    def dispatch_chunk(self) -> None:
+        """Queue one chunk of steps (no host wait)."""
+        self._acc.copy_(self._acc0)
+        if self._graph is None:
+            self._steps(self._w, self._roots, self._acc, self._gen,
+                        self.chunk)
+        else:
+            g, n = self._graph
+            for _ in range(self.chunk // n):
+                g.replay()
+
+    def read_chunk(self) -> list:
+        """The chunk's restarts and latch (``ACC_*``): its one sync."""
+        return self._acc.tolist()
+
+    def run(self, roots: List[PyState], num_steps: int, seed: int = 0,
+            max_seconds: Optional[float] = None) -> SimResult:
+        res = SimResult(device=str(self.device),
+                        phases={"capture": 0.0, "dispatch": 0.0,
+                                "sync": 0.0})
+        t0 = time.time()
+        if not self.start(roots, seed, res):
+            res.wall_seconds = time.time() - t0
+            return res
         phases = res.phases
         while res.steps < num_steps:
             t = time.time()
-            self._acc.copy_(self._acc0)
-            if self._graph is None:
-                self._steps(self._w, self._roots, self._acc, self._gen,
-                            self.chunk)
-            else:
-                g, n = self._graph
-                for _ in range(self.chunk // n):
-                    g.replay()
+            self.dispatch_chunk()
             t_s = time.time()
-            acc = self._acc.tolist()            # the chunk's one sync
+            acc = self.read_chunk()
             phases["dispatch"] += t_s - t
             phases["sync"] += time.time() - t_s
             res.chunks += 1
-            res.steps += B * self.chunk
+            res.steps += self.batch * self.chunk
             res.traces += acc[ACC_RESTARTS]
             if acc[ACC_VF]:
                 self._reconstruct(res, roots, acc)

@@ -10,7 +10,12 @@ Invariants, as in the JAX package's ``ops/compact.py``:
 - progress limiting: only the longest parent prefix whose fan-out fits K
   is taken, and the caller advances its queue offset by ``P``;
 - dead compacted slots hold ``kspread``, the same vector the JAX lowerings
-  use, so ``lane_id`` is equal to theirs slot for slot.
+  use, so ``lane_id`` is equal to theirs slot for slot;
+- shared P (the mesh, ``parallel/mesh.py``): every shard advances by the
+  least P over the shards, the JAX compactor's ``reduce_p=pmin``.  The
+  kernel runs unchanged on each shard and ``cap_prefix`` cuts its output
+  to the first P parents' lanes: they are a prefix of it, because the
+  lanes come in ascending flat order.
 """
 
 from __future__ import annotations
@@ -51,3 +56,14 @@ def kspread(B: int, G: int, K: int, device) -> torch.Tensor:
     """[K] int32 hash-spread addresses for dead compacted slots."""
     v = (np.arange(K, dtype=np.int64) * 2654435761) % (B * G)
     return torch.as_tensor(v.astype(np.int32), device=device)
+
+
+def cap_prefix(P: torch.Tensor, G: int, lane_id: torch.Tensor,
+               kvalid: torch.Tensor, kspread: torch.Tensor):
+    """A compaction of P' >= P parents cut to the first ``P`` (a [1]
+    int64 device tensor): ``(total [1] int64, lane_id, kvalid)`` equal to
+    the compaction of those P parents alone.  Elementwise, with no host
+    read."""
+    kvalid = kvalid & (lane_id.to(torch.int64) < P * G)
+    return (kvalid.sum().view(1), torch.where(kvalid, lane_id, kspread),
+            kvalid)

@@ -31,12 +31,18 @@ launches = 0
 KERNELS = ("count_kernel", "compact_scan_kernel")
 
 
-def compact_plain(en: torch.Tensor, K: int, kspread: torch.Tensor):
+def compact_plain(en: torch.Tensor, K: int, kspread: torch.Tensor,
+                  p_cap=None):
     """Plain PyTorch version: ``(pt [2] int32, lane_id [K] int32,
-    kvalid [K] bool)`` with ``pt = (P, total)``."""
+    kvalid [K] bool)`` with ``pt = (P, total)``.  ``p_cap`` (an int)
+    takes at most that many parents, as the JAX compactor with
+    ``reduce_p`` does; the kernel's output cut by ``ops/compact.py
+    cap_prefix`` is equal to it."""
     B, G = en.shape
     cum = en.to(torch.int64).sum(1).cumsum(0)
     P = int((cum <= K).sum())
+    if p_cap is not None:
+        P = min(P, int(p_cap))
     total = int(cum[P - 1]) if P > 0 else 0
     flat = en[:P].reshape(-1).nonzero().squeeze(1).to(torch.int32)
     lane_id = kspread.clone()

@@ -68,14 +68,15 @@ def test_static_scan_finds_no_jax_imports():
     "engine/chunk.py", "engine/trace.py", "models/safety.py",
     "models/smoke.py", "models/reconfig.py", "obs/__init__.py",
     "obs/metrics.py", "obs/events.py", "obs/coverage.py", "obs/report.py",
-    "engine/explain.py"])
+    "engine/explain.py", "parallel/__init__.py", "parallel/mesh.py",
+    "parallel/simulate.py"])
 def test_split_tail_modules_are_covered(rel):
     """The modules of the split tail, the checkpoints, the POR table, the
     level loop's chunk, spill pool and trace store, the safety suite, the
-    smoke roots, the reconfiguration variant, observability and the
-    counterexample explainer are among the scanned sources, import on a
-    machine without a card, and name neither jax nor the JAX package in
-    an import."""
+    smoke roots, the reconfiguration variant, observability, the
+    counterexample explainer and the mesh are among the scanned sources,
+    import on a machine without a card, and name neither jax nor the JAX
+    package in an import."""
     import importlib
     path = os.path.join(PORT, rel)
     assert path in set(_port_sources())
