@@ -13,6 +13,8 @@
     python3 chip_smoke.py --outputs           (what check prints and
                                                writes, and its cost only)
     python3 chip_smoke.py --mesh              (the mesh's phases only)
+    python3 chip_smoke.py --multihost         (the multi-controller
+                                               mesh's phases only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -134,6 +136,32 @@ with trace recording), never the fused tail nor the front; the kernels
 line carries them as ``mesh`` entries of those three rows.
 ``--mesh`` runs these phases alone, after the kernel build.
 
+The multi-controller mesh (``parallel/multihost.py``): the parent builds
+the kernels, then starts two workers (``chip_smoke.py
+--multihost-worker`` with the ``RAFT_*`` launch variables and a free
+port), both on the one card over gloo, staged through pinned host
+memory; a worker that fails or a pair past ``MH_TIMEOUT`` fails the
+phase.  The card count and each worker's transport are printed.  Each
+controller runs: the routed insert across processes at n = 2 (one shard
+a process) and n = 4 (two), K = 32,768 keys a shard from a real L8
+batch with duplicates within shards and across processes, exact against
+the same routing through ``insert_plain`` in one process and timed (one
+call between events, staging included); MCraft_bounded L9 at n = 2,
+batch 2048 a shard, twice, with the pinned counts, the one-process n = 2
+run's batches and chunks and each controller's launches (B3, B1 and B5
+once a local shard a step), in turns with the one-process run for the
+walls; MCraft_noleader through the engine with a trace directory (depth
+9, ``counterexample.p{i}of2.txt`` byte-equal across the controllers and
+to the one-process n = 2 mesh's file, two trace pieces of one run id)
+and ``check --no-trace`` through the CLI under the launch contract (the
+same counts on both); an L7 piece group, resumed to L9 by the pair and
+by the single engine in the parent; ``MeshSimulator`` at n = 2 equal to
+the one-process one walk for walk.  Where more than one card is visible
+the L9 phase also runs with one card a process over NCCL.  The kernels
+line's B1, B3 and B5 rows carry a ``multihost`` entry (launches a
+controller on the L9 run, the routed call's ms).  ``--multihost`` runs
+these phases alone, after the kernel build.
+
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
 scan block, P == 1, B not a multiple of the scan block), the front on
@@ -182,6 +210,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -4572,6 +4601,480 @@ def phase_mesh(torch, device, profile_shards=()):
                         "run": "MCraft_bounded L9, n = 2"}}
 
 
+# ---------------------------------------------------------------------------
+# The multi-controller mesh (parallel/multihost.py): two processes on the
+# card, one shard each (and two each for the routed insert at n = 4).
+
+MH_TIMEOUT = 420                # seconds the worker pair may take
+MH_GROUP_TIMEOUT = 180          # seconds a worker's collective may take
+MH_NOLEADER_QUEUE = 1 << 20     # rows: no spill before the violation
+MH_SIM = dict(batch=32, depth=16, chunk=64)
+
+
+def mh_shard_inputs(torch, keys, kvalid, n, shards):
+    """``phase_mesh_insert``'s shards of the routed insert at global n,
+    for the global indices ``shards``: a real L8 batch rolled per shard
+    (every key arrives from every shard, so across processes too), a
+    block copied within each shard, a third given owners of its own."""
+    out_q, out_v = [], []
+    for s in shards:
+        q = keys.roll(s * 4099).clone()
+        v = kvalid.roll(s * 4099).clone()
+        q[:1024] = q[2048:3072]
+        v[:1024] = v[2048:3072]
+        third = slice(K // 3 * (s % 3), K // 3 * (s % 3 + 1))
+        q[third] ^= (s + 1) << 40
+        out_q.append(q)
+        out_v.append(v)
+    return out_q, out_v
+
+
+def walk_key(res, dims):
+    """A simulator run as comparable plain values."""
+    from raft_tla_tpu_torch.models.schema import (encode_state, flatten_state,
+                                                  stack_states)
+    trace = [[g, bytes(flatten_state(stack_states(
+        [encode_state(s, dims)], "cpu"), dims)[0].numpy()).hex()]
+        for g, s in res.violation_trace or []]
+    return {"steps": res.steps, "traces": res.traces, "chunks": res.chunks,
+            "violation": res.violation_invariant, "trace": trace}
+
+
+def mh_sim(torch, devices):
+    from raft_tla_tpu_torch.models.dims import LEADER, RaftDims
+    from raft_tla_tpu_torch.models.invariants import Bounds, build_constraint
+    from raft_tla_tpu_torch.parallel.simulate import MeshSimulator
+    sdims = RaftDims(**dict(SWARM_DIMS, n_msg_slots=24))
+    sim = MeshSimulator(
+        sdims, invariants={"NoLeader": lambda st: (st.role != LEADER)
+                           .all(1)},
+        constraint=build_constraint(
+            sdims, Bounds(max_term=3, max_log_len=1, max_msg_count=1)),
+        devices=devices, **MH_SIM)
+    res = sim.run([near_election_root(sdims)],
+                  num_steps=2 * MH_SIM["batch"] * MH_SIM["chunk"] * 8, seed=0)
+    return walk_key(res, sdims), res, sdims
+
+
+def mh_noleader_config(ce_dir, **kw):
+    """MCraft_noleader's engine config at sizes that take no spill before
+    the violation, so the placements equal the one-process mesh's."""
+    from raft_tla_tpu_torch.engine.check import engine_config_from_backend
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/MCraft_noleader.cfg"))
+    cfg = dataclasses.replace(
+        engine_config_from_backend(setup), queue_capacity=MH_NOLEADER_QUEUE,
+        counterexample_dir=ce_dir, **kw)
+    return setup, cfg
+
+
+def mh_l9_summary(r, wall, counts):
+    return {"distinct": r.distinct, "generated": r.generated,
+            "levels": r.levels, "steps": r.steps, "batches": r.batches,
+            "chunks": r.chunks,
+            "spills": r.spills, "check_s": r.wall_seconds, "call_s": wall,
+            "phases": r.phases, "launches": counts,
+            "host_s_per_step": r.wall_seconds / max(1, r.steps)}
+
+
+def multihost_worker() -> int:
+    """One controller of the pair (``--multihost-worker``; the launch
+    contract's ``RAFT_*`` variables, the shared directory ``MH_DIR``):
+    the routed insert across processes at n = 2 and 4, MCraft_bounded L9
+    at n = 2 (twice, launch counts checked), MCraft_noleader with a trace
+    directory, ``check --no-trace`` under the launch contract, a piece
+    group at L7 resumed to L9, ``MeshSimulator`` at n = 2.  Writes
+    ``result.p<i>.json`` (and the routed insert's arrays) to ``MH_DIR``.
+    ``MH_PHASES=l9`` runs the L9 phase alone."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from raft_tla_tpu_torch import cli
+    from raft_tla_tpu_torch.engine import checkpoint as ckpt
+    from raft_tla_tpu_torch.engine.check import (initial_states, make_engine,
+                                                 run_check)
+    from raft_tla_tpu_torch.ops.fpset import EMPTY
+    from raft_tla_tpu_torch.parallel import multihost as mh
+    from raft_tla_tpu_torch.parallel.mesh import route_insert
+    transport = mh.initialize(timeout_seconds=MH_GROUP_TIMEOUT)
+    pi, pc = mh.process_index(), mh.process_count()
+    d = os.environ["MH_DIR"]
+    only_l9 = os.environ.get("MH_PHASES") == "l9"
+    device = torch.device("cuda")
+    out = {"process": pi, "count": pc, "transport": transport,
+           "cards": torch.cuda.device_count(),
+           "card": torch.cuda.get_device_name(0)}
+    bounded = os.path.join(HERE, "configs/MCraft_bounded.cfg")
+
+    if not only_l9:
+        # The routed insert across processes.
+        real = torch.load(os.path.join(d, "l8.pt"))
+        keys, kvalid = real["keys"].to(device), real["kvalid"].to(device)
+        present = keys[kvalid][::4]
+        out["routed"] = {}
+        for n in (2, 4):
+            L = n // pc
+            mine = range(pi * L, pi * L + L)
+            q, v = mh_shard_inputs(torch, keys, kvalid, n, mine)
+            base = [t for i, t in enumerate(
+                mesh_tables(torch, n, device, 0.4, present)) if i in mine]
+            tables = [copy_table(torch, t) for t in base]
+            ex = mh.GroupExchange([device] * L, n)
+            reset_counts()
+            new, fail = route_insert(tables, q, v, ex)
+            torch.cuda.synchronize()
+            launches = read_counts()["fpset_insert"]
+            arrays = {}
+            for j, s in enumerate(mine):
+                arrays[f"new{s}"] = new[j].cpu().numpy()
+                arrays[f"fail{s}"] = fail[j].cpu().numpy()
+                got = tables[j].keys[tables[j].keys != EMPTY]
+                arrays[f"keys{s}"] = got.sort().values.cpu().numpy()
+                arrays[f"size{s}"] = tables[j].size.cpu().numpy()
+            np.savez(os.path.join(d, f"routed_n{n}.p{pi}.npz"), **arrays)
+
+            def call():
+                route_insert(tables, q, v, ex)
+
+            def fresh():
+                for t, b in zip(tables, base):
+                    t.keys.copy_(b.keys)
+                    t.size.copy_(b.size)
+
+            out["routed"][str(n)] = {"launches": launches,
+                                     "ms": cuda_ms(torch, call, 5,
+                                                   setup=fresh)}
+            del tables, base
+            torch.cuda.empty_cache()
+
+    # MCraft_bounded L9 at n = 2 (one shard a process), twice.
+    out["l9"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.time()
+        r = run_check(bounded, bounded_config("v4", 9), device="cuda",
+                      engine_cls="mesh", devices=["cuda"])
+        torch.cuda.synchronize()
+        c = read_counts()
+        check_mesh_launches(c, r.steps, 1, f"controller {pi} L9", inserts=1)
+        out["l9"].append(mh_l9_summary(r, time.time() - t, c))
+        out["device"] = r.device
+    if only_l9:
+        with open(os.path.join(d, f"result.p{pi}.json"), "w") as f:
+            json.dump(out, f)
+        return 0
+
+    # MCraft_noleader through the engine with a trace directory, then the
+    # CLI's check --no-trace under the launch contract.
+    setup, cfg = mh_noleader_config(os.path.join(d, "ce"),
+                                    trace_dir=os.path.join(d, "trace"))
+    reset_counts()
+    eng = make_engine(setup, cfg, device="cuda", engine_cls="mesh",
+                      devices=["cuda"])
+    r = eng.run(initial_states(setup))
+    c = read_counts()
+    check_mesh_launches(c, r.steps, 1, f"controller {pi} noleader",
+                        trace=True)
+    steps = eng.replay(r.violation.fingerprint)
+    out["noleader"] = {"depth": len(steps) - 1, "fp": r.violation.fingerprint,
+                       "spills": r.spills, "distinct": r.distinct,
+                       "ce": r.counterexample.get("txt"),
+                       "run_id": eng._trace_run_id, "launches": c}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["check", os.path.join(HERE,
+                                             "configs/MCraft_noleader.cfg"),
+                       "--no-trace", "--progress-interval", "0"])
+    out["cli"] = {"rc": rc, "counts": [
+        ln for ln in buf.getvalue().splitlines()
+        if ln.startswith(("distinct", "states generated", "levels",
+                          "VIOLATION"))]}
+
+    # A piece group at L7, resumed by the pair to L9.
+    ck = os.path.join(d, "ck")
+    r = run_check(bounded, bounded_config("v3", 7, checkpoint_dir=ck,
+                                          checkpoint_every=7),
+                  device="cuda", engine_cls="mesh", devices=["cuda"])
+    path = ckpt.latest(ck)
+    r2 = run_check(bounded, bounded_config("v3", 9), device="cuda",
+                   engine_cls="mesh", devices=["cuda"], resume=path)
+    out["snap"] = {"written": r.diameter, "latest": os.path.basename(path),
+                   "distinct": r2.distinct, "generated": r2.generated,
+                   "levels": r2.levels}
+
+    # MeshSimulator at n = 2.
+    out["sim"], _r, _d = mh_sim(torch, ["cuda"])
+    with open(os.path.join(d, f"result.p{pi}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mh_pair(d, env=None, visible=None):
+    """Start the worker pair on a free port and wait for both; a worker
+    that fails, or a pair past ``MH_TIMEOUT``, ends both and fails the
+    phase.  Returns both results."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for i in range(2):
+        e = dict(os.environ, RAFT_COORDINATOR=f"127.0.0.1:{port}",
+                 RAFT_NUM_PROCESSES="2", RAFT_PROCESS_ID=str(i), MH_DIR=d,
+                 PYTHONPATH=HERE, **(env or {}))
+        if visible is not None:
+            e["CUDA_VISIBLE_DEVICES"] = str(visible[i])
+        logs.append(os.path.join(d, f"worker{i}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--multihost-worker"], cwd=HERE, env=e, text=True,
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.time() + MH_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p for p in procs if p.poll() not in (None, 0)]
+            if bad or time.time() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for i, p in enumerate(procs):
+        with open(logs[i]) as f:
+            tail = f.read()[-2500:]
+        need(p.returncode == 0,
+             f"multihost worker {i} exited {p.returncode}: {tail}")
+    res = []
+    for i in range(2):
+        with open(os.path.join(d, f"result.p{i}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_multihost(torch, device):
+    """The multi-controller mesh on the card (``--multihost``, and in the
+    full smoke after the mesh's phases): two controllers over gloo on the
+    one card, checked against the one-process mesh at the same n; see the
+    module doc.  Returns the kernels line's ``multihost`` entries."""
+    import numpy as np
+    from raft_tla_tpu_torch.engine import checkpoint as ckpt
+    from raft_tla_tpu_torch.engine.check import make_engine, run_check
+    from raft_tla_tpu_torch.engine.check import initial_states
+    from raft_tla_tpu_torch.ops.fpset import EMPTY
+    from raft_tla_tpu_torch.parallel.mesh import route_insert
+    t_all = time.time()
+    cards = torch.cuda.device_count()
+    d = tempfile.mkdtemp(prefix="chip_smoke_mh_")
+    bounded = os.path.join(HERE, "configs/MCraft_bounded.cfg")
+    try:
+        # The one-process references, before the pair.
+        real = capture_l8(torch)
+        torch.save({k: real[k].cpu() for k in ("keys", "kvalid")},
+                   os.path.join(d, "l8.pt"))
+        present = real["keys"][real["kvalid"]][::4]
+        plain = {}
+        for n in (2, 4):
+            q, v = mh_shard_inputs(torch, real["keys"], real["kvalid"], n,
+                                   range(n))
+            host = [t._replace(keys=t.keys.cpu(), size=t.size.cpu(),
+                               owner=None)
+                    for t in mesh_tables(torch, n, device, 0.4, present)]
+            new, fail = route_insert(host, [x.cpu() for x in q],
+                                     [x.cpu() for x in v])
+            plain[n] = (new, fail, host)
+        torch.cuda.empty_cache()
+        walls = {"one-process n=2": [], "two processes n=2": []}
+        reset_counts()
+        one, _e, one_c, _t = mesh_run(torch, "MCraft_bounded.cfg", 2,
+                                      bounded_config("v4", 9))
+        walls["one-process n=2"].append(one.wall_seconds)
+        ce1 = os.path.join(d, "ce1")
+        setup, cfg = mh_noleader_config(ce1)
+        eng = make_engine(setup, cfg, device="cuda", engine_cls="mesh",
+                          devices=["cuda"] * 2)
+        nl = eng.run(initial_states(setup))
+        need(nl.spills == 0 and nl.counterexample,
+             "the one-process noleader reference spilled or wrote no "
+             "counterexample")
+        one_txt = open(nl.counterexample["txt"], "rb").read()
+        sim_one, sim_res, sdims = mh_sim(torch, ["cuda"] * 2)
+        check_walk_trace(torch, sdims, sim_res.violation_trace,
+                         "MeshSimulator n=2 (one process)")
+        torch.cuda.empty_cache()
+        took = time.time() - t_all
+        print(f"multihost: torch.cuda.device_count() = {cards}; the "
+              f"one-process references took {took} s")
+
+        # The pair.
+        t = time.time()
+        a, b = mh_pair(d)
+        pair_s = time.time() - t
+        print(f"multihost: two controllers on one card, transport "
+              f"{a['transport']} / {b['transport']} (layout: "
+              f"{a['cards']} card(s) visible to each); the pair took "
+              f"{pair_s} s")
+        need(a["transport"] == b["transport"] == "gloo",
+             f"two processes on one card chose {a['transport']}, not gloo")
+
+        # The routed insert across processes against the plain routing.
+        routed = {}
+        for n in (2, 4):
+            new, fail, host = plain[n]
+            err = 0.0
+            arrays = {}
+            for i in range(2):
+                with np.load(os.path.join(d, f"routed_n{n}.p{i}.npz")) as z:
+                    arrays.update({k: z[k] for k in z.files})
+            for s in range(n):
+                ref = host[s].keys[host[s].keys != EMPTY].sort().values
+                got = torch.from_numpy(arrays[f"keys{s}"])
+                err = max(err, max_abs(torch, [
+                    (torch.from_numpy(arrays[f"new{s}"]), new[s]),
+                    (torch.from_numpy(arrays[f"fail{s}"]).to(torch.int64),
+                     fail[s].to(torch.int64)),
+                    (got, ref),
+                    (torch.from_numpy(arrays[f"size{s}"]), host[s].size)]))
+                need(bool((((got >> 32) & 0xFFFFFFFF) % n == s).all()),
+                     f"routed insert across processes n={n}: a key off "
+                     f"its owner {s}")
+            launches = [x["routed"][str(n)]["launches"] for x in (a, b)]
+            need(err == 0 and launches == [n // 2] * 2,
+                 f"routed insert across processes n={n}: differs from the "
+                 f"plain routing (max abs err {err}) or launched {launches}")
+            routed[n] = [x["routed"][str(n)]["ms"] for x in (a, b)]
+            print(f"routed insert across two processes n={n} x K={K}: "
+                  f"exact against the plain routing (is_new, {n} key sets, "
+                  f"sizes, owners); one call {routed[n]} ms between events "
+                  f"on each controller, staging included")
+
+        # MCraft_bounded L9 at n = 2.
+        for x in (a, b):
+            for r in x["l9"]:
+                need(r["distinct"] == MCRAFT_L9_DISTINCT
+                     and r["generated"] == MCRAFT_L9_GENERATED
+                     and r["levels"] == MCRAFT_L9_LEVELS
+                     and (r["batches"], r["chunks"]) == (one.batches,
+                                                         one.chunks),
+                     f"controller {x['process']} L9 at n=2: {r['distinct']}"
+                     f" / {r['generated']}, {r['batches']} batches in "
+                     f"{r['chunks']} chunks (one process: {one.batches} in "
+                     f"{one.chunks})")
+                walls["two processes n=2"].append(r["check_s"])
+        need(a["l9"][0]["chunks"] == b["l9"][0]["chunks"],
+             "the controllers' L9 runs took different chunk counts")
+        reset_counts()
+        again, _e, _c, _t = mesh_run(torch, "MCraft_bounded.cfg", 2,
+                                     bounded_config("v4", 9))
+        walls["one-process n=2"].append(again.wall_seconds)
+        for x in (a, b):
+            r = x["l9"][0]
+            print(f"MCraft_bounded L9 n=2, controller {x['process']} "
+                  f"({x['device']}): distinct={r['distinct']} generated="
+                  f"{r['generated']} steps={r['steps']} chunks={r['chunks']}"
+                  f" spills={r['spills']} check {r['check_s']} s, call "
+                  f"{r['call_s']} s, host seconds a step "
+                  f"{r['host_s_per_step']}, phases {r['phases']}, launches "
+                  f"{r['launches']}")
+        print(f"MCraft_bounded L9 at n=2 in turns (one process, pair x2, "
+              f"one process), check seconds: {walls}; one-process steps "
+              f"{one.steps}, launches {one_c}")
+
+        # MCraft_noleader with a trace directory; the CLI.
+        import hashlib
+        txts = []
+        for x in (a, b):
+            nlx = x["noleader"]
+            need(nlx["depth"] == 9 and nlx["spills"] == 0
+                 and nlx["fp"] == nl.violation.fingerprint,
+                 f"controller {x['process']} noleader: depth {nlx['depth']}"
+                 f", spills {nlx['spills']}, fp {nlx['fp']:#x} (one "
+                 f"process {nl.violation.fingerprint:#x})")
+            need(nlx["ce"].endswith(f"counterexample.p{x['process']}of2.txt"),
+                 f"controller {x['process']} wrote {nlx['ce']}")
+            txts.append(open(nlx["ce"], "rb").read())
+        pieces = sorted(os.listdir(os.path.join(d, "trace")))
+        rid = a["noleader"]["run_id"]
+        need(txts[0] == txts[1] == one_txt
+             and b["noleader"]["run_id"] == rid
+             and pieces == [f"trace_run_{rid:08x}.p{i}of2.npz"
+                            for i in (0, 1)],
+             f"noleader across processes: counterexamples equal "
+             f"{txts[0] == txts[1]}, to the one-process file "
+             f"{txts[0] == one_txt}; pieces {pieces}")
+        print(f"MCraft_noleader n=2 over two controllers with trace_dir: "
+              f"depth 9 on both, counterexample.p0of2.txt == p1of2 == the "
+              f"one-process mesh's (sha256 "
+              f"{hashlib.sha256(one_txt).hexdigest()}; the single engine's "
+              f"{NOLEADER_TXT_SHA256}), pieces {pieces}, launches a "
+              f"controller {a['noleader']['launches']}")
+        need(a["cli"] == b["cli"] and a["cli"]["rc"] == 1
+             and any("VIOLATION" in ln for ln in a["cli"]["counts"]),
+             f"check --no-trace under the launch contract: {a['cli']} vs "
+             f"{b['cli']}")
+        print(f"check MCraft_noleader --no-trace under RAFT_COORDINATOR: "
+              f"exit 1 on both, {a['cli']['counts']}")
+
+        # Snapshots: the pair's L7 piece group, resumed by the pair (in
+        # the workers) and by the single engine here.
+        group = sorted(n for n in os.listdir(os.path.join(d, "ck"))
+                       if n.startswith("level_00007."))
+        path = ckpt.latest(os.path.join(d, "ck"))
+        s = run_check(bounded, bounded_config("v4", 9), device="cuda",
+                      resume=path)
+        for what, x in (("controller 0", a["snap"]),
+                        ("controller 1", b["snap"]),
+                        ("single engine", {"distinct": s.distinct,
+                                           "generated": s.generated,
+                                           "levels": s.levels})):
+            need(x["distinct"] == MCRAFT_L9_DISTINCT
+                 and x["generated"] == MCRAFT_L9_GENERATED
+                 and x["levels"] == MCRAFT_L9_LEVELS,
+                 f"the L7 piece group resumed by the {what} to L9 differs "
+                 "from the pinned oracle")
+        need(group == ["level_00007.p0of2.npz", "level_00007.p1of2.npz"],
+             f"the pair wrote {group} at L7")
+        print(f"snapshots: the pair's L7 piece group {group} resumed to L9 "
+              f"by both controllers and by the single engine: "
+              f"{s.distinct} / {s.generated}")
+
+        # MeshSimulator at n = 2.
+        need(a["sim"] == b["sim"] == sim_one,
+             f"MeshSimulator over two processes differs from one process: "
+             f"{a['sim']['steps']}/{a['sim']['traces']} vs "
+             f"{sim_one['steps']}/{sim_one['traces']}")
+        acts = [g for g, _ in sim_one["trace"]]
+        print(f"MeshSimulator n=2 over two processes == one process: steps "
+              f"{sim_one['steps']} traces {sim_one['traces']} violation "
+              f"{sim_one['violation']} trace {acts}")
+
+        if cards > 1:
+            # One card a process: the NCCL transport.
+            for f in os.listdir(d):
+                if f.startswith("result."):
+                    os.remove(os.path.join(d, f))
+            n0, n1 = mh_pair(d, env={"MH_PHASES": "l9"}, visible=(0, 1))
+            need(n0["transport"] == n1["transport"] == "nccl"
+                 and all(r["distinct"] == MCRAFT_L9_DISTINCT
+                         and r["generated"] == MCRAFT_L9_GENERATED
+                         for r in n0["l9"] + n1["l9"]),
+                 f"MCraft_bounded L9 over NCCL differs: {n0['transport']}")
+            print(f"MCraft_bounded L9 n=2 over NCCL, one card a process: "
+                  f"check seconds {[r['check_s'] for r in n0['l9']]}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"multihost phases: {time.time() - t_all} s")
+    launches = a["l9"][0]["launches"]
+    run = "MCraft_bounded L9, n = 2 over two processes, per controller"
+    return {"compact": {"launches": launches["compact"], "run": run},
+            "fpset_insert": {"launches": launches["fpset_insert"], "run": run,
+                             "routed_ms": {str(n): routed[n]
+                                           for n in routed}},
+            "enqueue": {"launches": launches["enqueue"], "run": run}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4615,6 +5118,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mesh"]:
         phase_mesh(torch, device, profile_shards=(2, 8))
+        return 0
+    if sys.argv[1:] == ["--multihost"]:
+        phase_multihost(torch, device)
         return 0
     if sys.argv[1:] == ["--reconfig"]:
         t = time.time()
@@ -4697,6 +5203,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_rows = phase_mesh(torch, device)
     torch.cuda.empty_cache()
+    mh_rows = phase_multihost(torch, device)
+    torch.cuda.empty_cache()
     print(f"MCraft phases done: {time.time() - t_smoke} s")
     t = time.time()
     phase_swarm_parity(torch)
@@ -4716,10 +5224,12 @@ def main() -> int:
         row["launches"] = counts[paths[row["name"]]][row["name"]]
         if row["name"] in mesh_rows:
             row["mesh"] = mesh_rows[row["name"]]
+            row["multihost"] = mh_rows[row["name"]]
     print(f"chip_smoke: {time.time() - t_smoke} s in all")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in ROW_KEYS + tuple(x for x in ("reconfig", "mesh")
-                                           if x in r)} for r in rows]}))
+        {k: r[k] for k in ROW_KEYS + tuple(
+            x for x in ("reconfig", "mesh", "multihost") if x in r)}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4727,6 +5237,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--multihost-worker"]:
+        sys.exit(multihost_worker())
     try:
         sys.exit(main())
     except PhaseFailed as e:

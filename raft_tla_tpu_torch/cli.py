@@ -48,6 +48,15 @@ choices) picks the single-device engine or the mesh (``parallel/``):
 ``mesh`` shards over every visible card (one shard with ``--device
 cpu``), ``auto`` (the default) takes the mesh when more than one card is
 visible.
+
+The launch contract of the JAX CLI (``parallel/multihost.py``): export
+``RAFT_COORDINATOR`` (host:port), ``RAFT_NUM_PROCESSES`` and
+``RAFT_PROCESS_ID`` and run the same command in every process; the group
+forms before any device is touched, and the mesh spans every process's
+shards (``--engine single`` is a usage error, ``auto`` takes the mesh).
+``check`` then needs ``--no-trace``, as in the JAX CLI; ``--trace-dir``
+(the TRACE_DIR directive) names the directory where a traced run's
+controllers exchange their trace pieces.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from .engine.check import (ENGINES, MODES, device_for,
                            resolve_mode, use_mesh)
 from .models.pystate import format_state
 from .ops.pipeline_v3 import ENQUEUE_METHODS
+from .parallel import multihost
 from .utils.cfg import load_config
 
 PIPELINES = tuple(sorted(PLAN_NAMES))
@@ -196,7 +206,24 @@ def main(argv=None) -> int:
     s.add_argument("--engine", choices=ENGINES, default="auto",
                    help="mesh = one walker fleet a visible card; auto = "
                         "mesh iff more than one card (default)")
+    c.add_argument("--trace-dir",
+                   help="shared directory where the controllers of a "
+                        "process group exchange their trace pieces "
+                        "(flag > cfg TRACE_DIR > the checkpoint "
+                        "directory)")
     args = ap.parse_args(argv)
+
+    if os.environ.get("RAFT_COORDINATOR"):
+        # The launch contract: the group forms before any device is
+        # touched, and the mesh spans every process's shards.
+        multihost.initialize()
+        if args.engine == "single":
+            ap.error("multi-host mode (RAFT_COORDINATOR) requires "
+                     "--engine mesh or auto")
+        args.engine = "mesh"
+        if args.cmd == "check" and not args.no_trace:
+            ap.error("multi-host check requires --no-trace "
+                     "(counterexample traces are not multi-host yet)")
 
     if args.cmd == "simulate":
         return _simulate(args, load_config(args.cfg))
@@ -240,6 +267,7 @@ def main(argv=None) -> int:
                                  cfg.keep_checkpoints),
         por_table=resolve(args.por_table, cfg.por_table),
         events_out=resolve(args.events_out, cfg.events_out),
+        trace_dir=resolve(args.trace_dir, cfg.trace_dir),
         statespace_report=cfg.statespace_report and not args.no_report,
         counterexample_dir=_counterexample_dir(args, cfg.counterexample_dir,
                                                ckpt_dir))

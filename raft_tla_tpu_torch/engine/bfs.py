@@ -243,6 +243,12 @@ class EngineConfig:
     # whose largest shard frontier is at least this many times the mean
     # (0 = never).
     skew_warn_ratio: float = 2.0
+    # The mesh under a process group (parallel/multihost.py): the shared
+    # directory where the controllers exchange their trace pieces (None
+    # means checkpoint_dir), and how long a replay waits for a sibling's
+    # piece (None: 30 s plus the local piece's bytes at 8 MB/s).
+    trace_dir: Optional[str] = None
+    trace_merge_timeout_seconds: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -603,10 +609,10 @@ class BFSEngine:
             seen_hi, seen_lo, res, trace, wall)
 
     def _save_checkpoint(self, frontier, seen_hi, seen_lo, res, trace,
-                         wall):
-        """``level_<diameter>.npz`` in ``checkpoint_dir`` from the
-        frontier rows and the lex-sorted seen keys, with the counters and
-        the trace."""
+                         wall, path: Optional[str] = None):
+        """``level_<diameter>.npz`` in ``checkpoint_dir`` (or ``path``: a
+        controller's piece) from the frontier rows and the lex-sorted seen
+        keys, with the counters and the trace."""
         cfg = self.config
         if cfg.record_trace:
             tf, tp, ta = trace.export()
@@ -622,8 +628,9 @@ class BFSEngine:
             diameter=res.diameter, levels=tuple(res.levels),
             action_counts=dict(res.action_counts), wall_seconds=wall,
             trace_fps=tf, trace_parents=tp, trace_actions=ta, roots=roots)
-        ckpt_mod.save(os.path.join(cfg.checkpoint_dir,
-                                   f"level_{res.diameter:05d}.npz"), ck)
+        ckpt_mod.save(path or os.path.join(cfg.checkpoint_dir,
+                                           f"level_{res.diameter:05d}.npz"),
+                      ck)
         # Retention after the write: the newest snapshot lands first.
         ckpt_mod.gc(cfg.checkpoint_dir, cfg.keep_checkpoints)
 
@@ -791,8 +798,7 @@ class BFSEngine:
         if (init_states is None) == (resume is None):
             raise ValueError("need exactly one of init_states or resume")
         cfg, mt = self.config, self.metrics
-        self._evlog = RunEventLog(events_path(cfg.events_out,
-                                              cfg.checkpoint_dir))
+        self._evlog = RunEventLog(self._events_path())
         self._phase_base = mt.phase_seconds()
         self._collision_base = mt.counter_value("engine/fp_collisions")
         self._hbm_watermark = 0
@@ -802,7 +808,8 @@ class BFSEngine:
             "run_start", engine=type(self).__name__, dims=repr(self.dims),
             batch=cfg.batch, sync_every=cfg.sync_every,
             record_trace=cfg.record_trace, resume=resume is not None,
-            memory=device_memory_stats(self.device))
+            memory=device_memory_stats(self.device),
+            **self._run_start_fields())
         err = None
         try:
             return self._run_degradable(init_states, resume)
@@ -811,6 +818,20 @@ class BFSEngine:
             raise
         finally:
             self._finish(err)
+
+    def _events_path(self) -> Optional[str]:
+        """Where the run's events go (``events_out``, else next to the
+        checkpoints, else nowhere)."""
+        return events_path(self.config.events_out, self.config.checkpoint_dir)
+
+    def _run_start_fields(self) -> dict:
+        """Fields the ``run_start`` event carries beyond the common
+        ones (the mesh under a process group adds its layout)."""
+        return {}
+
+    def _counterexample_base(self) -> str:
+        """The stem of the counterexample files."""
+        return "counterexample"
 
     def _finish(self, err):
         """The run's end, as the JAX engine's: the final coverage, the
@@ -833,7 +854,8 @@ class BFSEngine:
                 and cfg.record_trace and ce_dir):
             try:
                 from .explain import write_counterexample
-                res.counterexample = write_counterexample(self, res, ce_dir)
+                res.counterexample = write_counterexample(
+                    self, res, ce_dir, basename=self._counterexample_base())
                 ce_path = res.counterexample["txt"]
             except Exception as e:
                 print(f"counterexample render failed: "

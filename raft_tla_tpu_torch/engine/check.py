@@ -6,8 +6,8 @@ Invariant names resolve through ``models/invariants.py``'s registry
 cfg's StopAfter budgets and ``\\* TPU:`` directives (BATCH,
 QUEUE_CAPACITY, SEEN_CAPACITY, PIPELINE, CHECKPOINT_DIR, CHECKPOINT_EVERY,
 CHECKPOINT_INTERVAL, KEEP_CHECKPOINTS, SPILL_DIR, PROGRESS_SECONDS,
-POR_TABLE, REPORT, EVENTS_OUT, COUNTEREXAMPLE_DIR) seed the engine
-config.  Precedence: caller > cfg directive > built-in default.
+POR_TABLE, REPORT, EVENTS_OUT, COUNTEREXAMPLE_DIR, TRACE_DIR) seed the
+engine config.  Precedence: caller > cfg directive > built-in default.
 PLATFORM picks the device (``device_for``).  The directives of modules
 not ported yet (``UNPORTED_DIRECTIVES``) are refused, naming their
 ROADMAP item, rather than accepted and ignored.  MODE picks the checking tier (``exhaustive``, or the
@@ -20,7 +20,8 @@ passes ``device="cpu"`` (or the cfg says ``PLATFORM = cpu``).
 the exhaustive engine, and ``make_simulator``'s ``engine`` the simulator:
 the mesh (``parallel/``) shards over every visible card, or over one
 shard on a device named with an index or on the CPU; "auto" takes the
-mesh when more than one card is visible.
+mesh when more than one card is visible, and under a process group
+(``parallel/multihost.py``), where the single engine is refused.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..models.invariants import build_constraint, invariant_registry
 from ..models.pystate import PyState, init_state
 from ..models.schema import encode_state, stack_states
 from ..ops.fingerprint import build_fingerprint
+from ..parallel import multihost as mh
 from ..parallel.mesh import MeshBFSEngine
 from ..parallel.simulate import MeshSimulator
 from ..utils.cfg import CheckSetup, load_config
@@ -52,7 +54,6 @@ ENGINES = ("single", "mesh", "auto")
 #: Directives of modules not ported yet -> the ROADMAP.md item that ports
 #: them.  A cfg that sets one (to anything but off: 0 or FALSE) is refused.
 UNPORTED_DIRECTIVES = {
-    "TRACE_DIR": "A1 (the native trace store)",
     "TRACE_OUT": "A6b (obs/tracing.py)",
     "PROFILE_CHUNKS": "A6b (launch and stage accounting)",
     "XLA_PROFILE": "A6b (a torch.profiler capture)",
@@ -138,16 +139,19 @@ def engine_config_from_backend(setup: CheckSetup) -> EngineConfig:
         por_table=be.get("POR_TABLE"),
         statespace_report=bool(be.get("REPORT", True)),
         events_out=be.get("EVENTS_OUT"),
-        counterexample_dir=be.get("COUNTEREXAMPLE_DIR"))
+        counterexample_dir=be.get("COUNTEREXAMPLE_DIR"),
+        trace_dir=be.get("TRACE_DIR"))
 
 
 def use_mesh(engine: Optional[str], device: str) -> bool:
     """Whether ``engine`` (``ENGINES``, None for "single") on ``device``
-    is the mesh: "auto" is, where more than one card is visible and the
-    run is on the card."""
+    is the mesh: "auto" is under a process group, and where more than one
+    card is visible and the run is on the card."""
     if engine not in (None,) + ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     if engine == "auto":
+        if mh.is_multiprocess():
+            return True
         return (torch.device(device).type == "cuda"
                 and torch.cuda.is_available()
                 and torch.cuda.device_count() > 1)
@@ -158,6 +162,15 @@ def mesh_devices(device: str):
     """The mesh's shards for ``device``: every visible card for "cuda",
     else that one device."""
     return None if device == "cuda" else [device]
+
+
+def refuse_single_in_group(mesh: bool) -> None:
+    """A single-device engine or simulator in each process of a group
+    would run N duplicate full checks, all writing one counterexample:
+    under a process group only the mesh runs (the JAX CLI's rule)."""
+    if not mesh and mh.is_multiprocess():
+        raise ValueError("multi-host mode (RAFT_COORDINATOR) requires "
+                         "--engine mesh or auto")
 
 
 def make_engine(setup: CheckSetup,
@@ -187,6 +200,7 @@ def make_engine(setup: CheckSetup,
         mesh = issubclass(engine_cls, MeshBFSEngine)
     else:
         mesh = use_mesh(engine_cls, dev)
+    refuse_single_in_group(mesh)
     if mesh:
         return MeshBFSEngine(setup.dims, devices=(
             devices if devices is not None else mesh_devices(dev)), **kw)
@@ -246,7 +260,9 @@ def make_simulator(setup: CheckSetup, batch: Optional[int] = None,
               constraint=resolve_constraint(setup),
               batch=int(batch if batch is not None else be.get("BATCH", 1024)),
               depth=depth)
-    if use_mesh(engine, dev):
+    mesh = use_mesh(engine, dev)
+    refuse_single_in_group(mesh)
+    if mesh:
         return MeshSimulator(setup.dims, devices=mesh_devices(dev), **kw)
     return Simulator(setup.dims, device=dev, **kw)
 

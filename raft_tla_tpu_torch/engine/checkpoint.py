@@ -16,9 +16,11 @@ pairs as ``ops/fpset.py to_host_keys`` gives them), so a snapshot written
 by either package is read by the other, ``RaftDims`` and ``ReconfigDims``
 snapshots alike (the metadata names the dims class).  What the port
 leaves out: the fault-injection hooks.  The piece files a
-multi-controller mesh run writes (``level_00012.p0of2.npz``, ...) load
-and merge here, so such a run resumes on one card; the port never writes
-them.
+multi-controller mesh run writes (``piece_path``:
+``level_00012.p0of2.npz``, ...; ``parallel/mesh.py`` under a process
+group) load and merge here, so such a run resumes on one card or on any
+number of controllers.  ``latest`` and ``gc`` count a piece group only
+when every piece is there and the pieces agree.
 
 ``roots`` is a pickle, as in the JAX package: load only snapshots that
 this program or the JAX package wrote.
@@ -155,6 +157,13 @@ def save(path: str, ckpt: Checkpoint) -> None:
         os.fsync(dfd)
     finally:
         os.close(dfd)
+
+
+def piece_path(checkpoint_dir: str, diameter: int, pid: int,
+               nproc: int) -> str:
+    """Controller ``pid`` of ``nproc``'s piece of the level's snapshot."""
+    return os.path.join(checkpoint_dir,
+                        f"level_{diameter:05d}.p{pid}of{nproc}.npz")
 
 
 def _merge(pieces) -> Checkpoint:

@@ -69,12 +69,13 @@ def test_static_scan_finds_no_jax_imports():
     "models/smoke.py", "models/reconfig.py", "obs/__init__.py",
     "obs/metrics.py", "obs/events.py", "obs/coverage.py", "obs/report.py",
     "engine/explain.py", "parallel/__init__.py", "parallel/mesh.py",
-    "parallel/simulate.py"])
+    "parallel/simulate.py", "parallel/multihost.py"])
 def test_split_tail_modules_are_covered(rel):
     """The modules of the split tail, the checkpoints, the POR table, the
     level loop's chunk, spill pool and trace store, the safety suite, the
     smoke roots, the reconfiguration variant, observability, the
-    counterexample explainer and the mesh are among the scanned sources,
+    counterexample explainer, the mesh and its process group are among
+    the scanned sources,
     import on a machine without a card, and name neither jax nor the JAX
     package in an import."""
     import importlib
