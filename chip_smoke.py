@@ -15,6 +15,8 @@
     python3 chip_smoke.py --mesh              (the mesh's phases only)
     python3 chip_smoke.py --multihost         (the multi-controller
                                                mesh's phases only)
+    python3 chip_smoke.py --obs               (observability's phases
+                                               only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -462,7 +464,7 @@ def phase_compact(torch, device, gen):
     library_us = device_ops(torch, lambda: torch.nonzero(flat))
     # The mask once, kspread only for the dead slots, lane_id, kvalid and
     # (P, total) written once.
-    nbytes = B * G + (K - total) * 4 + K * 4 + K + 8
+    nbytes = roofline().compact_bytes(B, G, K, total)
     row = dict(name="compact", route="cuda",
                source="raft_tla_tpu_torch/csrc/compact.cu",
                headers=["compact.cuh", "common.cuh"],
@@ -488,11 +490,11 @@ def distinct_valid(torch, q, valid):
     return int(torch.unique(q[valid]).numel())
 
 
-def insert_bytes(n, n_distinct, n_new):
-    # queries + valid + is_new + fail, one 32-byte sector read per distinct
-    # valid key (a duplicate finds its key where the first lane did) and
-    # one written per claimed slot.
-    return n * (8 + 1 + 1) + 1 + 32 * n_distinct + 32 * n_new
+def roofline():
+    """The port's byte counts (``obs/roofline.py``): one count for the
+    kernels' bounds here and the stages' floors of ``--perf``."""
+    from raft_tla_tpu_torch.obs import roofline as mod
+    return mod
 
 
 def owner_clear(torch, s):
@@ -664,7 +666,8 @@ def phase_insert(torch, device, gen, base, present):
     batches = iter(fresh_batches(torch, gen, device, present))
     queued = queued_ms(torch, lambda: fpset_cuda.insert(
         work, *next(batches)), QUEUED_REPS, QUEUED_SAMPLES)
-    nbytes = insert_bytes(K, distinct_valid(torch, q, valid), n_new)
+    nbytes = roofline().insert_bytes(K, distinct_valid(torch, q, valid),
+                                     n_new)
     row = dict(name="fpset_insert", route="cuda",
                source="raft_tla_tpu_torch/csrc/fpset.cu",
                headers=["fpset.cuh", "common.cuh"],
@@ -853,8 +856,8 @@ def phase_fused_tail(torch, device, gen, base, present):
         QUEUED_REPS, QUEUED_SAMPLES)
     # The insert's bytes, enq_ok and the count, and each enqueued row read
     # once and written once (no other row need be touched).
-    nbytes = (insert_bytes(K, distinct_valid(torch, q, valid), n_new)
-              + K + 4 + 2 * n_enq * sw)
+    nbytes = roofline().fused_tail_bytes(
+        K, distinct_valid(torch, q, valid), n_new, n_enq, sw)
     row = dict(name="fused_tail", route="cuda",
                source="raft_tla_tpu_torch/csrc/fused_tail.cu",
                headers=["fpset.cuh", "enqueue.cuh", "common.cuh"],
@@ -991,7 +994,7 @@ def phase_front(torch, device):
     plain_ms = cuda_ms(torch, lambda: front.plain(rows, valid), 5)
     ops = device_ops(torch, lambda: front(rows, valid))
     sw = state_width(dims)
-    nbytes = front_bytes(dims, B, K, total)
+    nbytes = roofline().front_bytes(dims, B, K, total)
     row = dict(name="chunk_front", route="cuda",
                source="raft_tla_tpu_torch/csrc/chunk_front.cu",
                headers=["raft_model.cuh", "compact.cuh", "common.cuh"],
@@ -1017,20 +1020,6 @@ def phase_front(torch, device):
          "check_dims counts other shared memory than the launches take")
     del windows, pool, cases, out
     return row
-
-
-def front_bytes(dims, b, k, total):
-    """Bytes one front call must move.  Read: the parent rows, valid,
-    kspread in the dead slots and the salt tables; written: the three
-    [b, G] masks, (P, total), lane_id, kvalid and on each live lane its
-    row and six scalars (dead lanes are left unwritten by contract)."""
-    from raft_tla_tpu_torch.models.schema import state_width
-    sw, g = state_width(dims), dims.n_instances
-    salts = 4 * (2 + 2 * (7 * dims.n_servers + 2 * dims.n_servers
-                          * dims.max_log + 2 * dims.n_servers ** 2)
-                 + 2 * dims.msg_width)
-    return (b * sw + b + (k - total) * 4 + salts + 3 * b * g + 8
-            + k * 4 + k + total * (sw + 8 * 5 + 1))
 
 
 def mid_block_window(torch, pool, fanout):
@@ -1626,8 +1615,8 @@ def phase_enqueue(torch, device, gen):
     launch_check(torch, "enqueue", kernel, enqueue_cuda.KERNELS)
     full_us = device_ops(torch, kernel_full)
     # The mask once, each enqueued row read once and written once, the count.
-    nbytes = K + 2 * n_enq * sw + 4
-    full_bytes = K + 2 * K * sw + 4
+    nbytes = roofline().enqueue_bytes(K, n_enq, sw)
+    full_bytes = roofline().enqueue_bytes(K, K, sw)
     row = dict(name="enqueue", route="cuda",
                source="raft_tla_tpu_torch/csrc/enqueue.cu",
                headers=["enqueue.cuh", "common.cuh"],
@@ -2890,7 +2879,7 @@ def phase_tpuraft_kernels(torch, device, gen):
     need(err == 0.0, "chunk_front differs from front_plain at TPUraft")
     us = [t for _n, t in device_ops(torch, lambda: front(rows, valid))]
     queued = queued_ms(torch, lambda: front(rows, valid))
-    nbytes = front_bytes(dims, b, k, total)
+    nbytes = roofline().front_bytes(dims, b, k, total)
     print(f"TPUraft chunk_front [{b},{sw}] -> K={k}: P={int(out.P)} "
           f"total={total} max_abs_err={err}; queued back to back {queued} "
           f"ms, launches' device microseconds {us}; bound "
@@ -2925,8 +2914,8 @@ def phase_tpuraft_kernels(torch, device, gen):
 
     us = [t for _n, t in device_ops(torch, tail, setup=restore)]
     ms = cuda_ms(torch, tail, 10, setup=restore)
-    nbytes = (insert_bytes(k, distinct_valid(torch, keys, out.kvalid), n_new)
-              + k + 4 + 2 * n_enq * sw)
+    nbytes = roofline().fused_tail_bytes(
+        k, distinct_valid(torch, keys, out.kvalid), n_new, n_enq, sw)
     print(f"TPUraft fused_tail K={k}: {n_new} new, {n_enq} enqueued; one "
           f"call between two events {ms} ms, launches' device "
           f"microseconds {us or 'not measured'}; bound "
@@ -2951,7 +2940,7 @@ def phase_tpuraft_kernels(torch, device, gen):
 
     us = [t for _n, t in device_ops(torch, append)]
     queued = queued_ms(torch, append)
-    nbytes = k + 2 * n_new * chunk_mod.TRACE_ROW + 4
+    nbytes = roofline().enqueue_bytes(k, n_new, chunk_mod.TRACE_ROW)
     print(f"TPUraft trace append K={k}: {n_new} records of 20 B; queued "
           f"back to back {queued} ms, launches' device microseconds "
           f"{us or 'not measured'}; bound "
@@ -3608,7 +3597,7 @@ def phase_reconfig_front(torch, device):
     rows, valid = l11
     out = front(rows, valid)
     total = int(out.total)
-    nbytes = front_bytes(dims, B, K, total)
+    nbytes = roofline().front_bytes(dims, B, K, total)
     row = dict(
         launches=None, max_abs_err=err,
         ms=cuda_ms(torch, lambda: front(rows, valid), 50),
@@ -5075,6 +5064,315 @@ def phase_multihost(torch, device):
             "enqueue": {"launches": launches["enqueue"], "run": run}}
 
 
+
+# ---------------------------------------------------------------------------
+# Observability: the native trace store measured against the
+# columnar one, the stage profiler, roofline and launch accounting, the
+# swarm's stage table, the span trace, the device-profiler capture, and a
+# running check scraped over HTTP, then stopped by SIGTERM.
+
+def obs_trace_store(torch):
+    """configs/TPUraft.cfg to L9 with trace on, once with each store: the
+    trace drain's seconds (the ``trace`` phase) with each; then the
+    columnar run's 24,753,442 records fed to a fresh store of each kind in
+    the engine's own flush sizes (``add_batch``), the chain of the deepest
+    record, and ``export``, each timed.  Returns the seconds of both."""
+    from raft_tla_tpu_torch.engine import trace as trace_mod
+    sizes = []
+    add = trace_mod.PyTraceStore.add_batch
+
+    def record(self, fps, parents, actions):
+        sizes.append(len(fps))
+        return add(self, fps, parents, actions)
+
+    drains, stores = {}, {}
+    trace_mod.PyTraceStore.add_batch = record
+    try:
+        for kind in ("columnar", "native"):
+            if kind == "native":
+                trace_mod.PyTraceStore.add_batch = add
+            engine, res, _peak = tpuraft_check(
+                torch, "TPUraft.cfg", 9, f"TPUraft L9 v4, trace on, {kind} "
+                "trace store", pipeline="v4", record_trace=True,
+                sync_every=32, trace_store=kind)
+            need(res.trace_store == kind, f"the run used {res.trace_store}")
+            drains[kind] = res.phases["trace"]
+            stores[kind] = engine.trace
+            print(f"TPUraft L9, {kind} trace store: trace drain "
+                  f"{res.phases['trace']} s of the check's "
+                  f"{res.wall_seconds} s, {len(engine.trace)} records")
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        trace_mod.PyTraceStore.add_batch = add
+    fps, par, act = stores["columnar"].export()
+    need(len(fps) == sum(sizes) == TPURAFT_DISTINCT[9]
+         and len(stores["native"]) == len(fps),
+         f"{len(fps)} records in {len(sizes)} flushes")
+    deepest = int(fps[-1])
+    want = stores["columnar"].chain(deepest)
+    need(stores["native"].chain(deepest) == want and len(want) == 10,
+         "the stores' chains of the deepest record differ")
+    del stores
+    times = {}
+    for kind in ("columnar", "native"):
+        store = trace_mod.make_trace_store(kind)
+        t = time.perf_counter()
+        off = 0
+        for n in sizes:
+            store.add_batch(fps[off:off + n], par[off:off + n],
+                            act[off:off + n])
+            off += n
+        t_add = time.perf_counter() - t
+        t = time.perf_counter()
+        chain = store.chain(deepest)
+        t_chain = time.perf_counter() - t
+        t = time.perf_counter()
+        out = store.export()
+        t_export = time.perf_counter() - t
+        need(chain == want and len(out[0]) == len(fps),
+             f"the {kind} store's chain or export differs")
+        times[kind] = (t_add, t_chain, t_export)
+        print(f"trace store {kind}: add_batch of {len(fps)} records in "
+              f"{len(sizes)} flushes (mean {len(fps) / len(sizes)}) "
+              f"{t_add} s, chain of the deepest record (10 records) "
+              f"{t_chain} s, export {t_export} s")
+        del store, out
+    print(f"trace store measurement (TPUraft L9): drain seconds columnar "
+          f"{drains['columnar']}, native {drains['native']}; add_batch "
+          f"columnar {times['columnar'][0]}, native {times['native'][0]}")
+    return drains, times
+
+
+def obs_profiled(torch):
+    """MCraft_bounded L11 on v4 and L9 on v3 with the stage profiler every
+    16th chunk and perf on, each against the same run with both off: the
+    pins, the same counts and the same launches; each stage's mean ms, its
+    bound at the card's peak and the share reached; launches a chunk."""
+    from raft_tla_tpu_torch.engine.check import run_check
+    path = os.path.join(HERE, "configs/MCraft_bounded.cfg")
+    for pipeline, depth in (("v4", 11), ("v3", 9)):
+        got = []
+        for on in (False, True):
+            reset_counts()
+            kw = dict(profile_chunks_every=16, perf=True) if on else {}
+            res = run_check(path, bounded_config(pipeline, depth, **kw),
+                            device="cuda")
+            counts = read_counts()
+            check_launches(pipeline, counts, res.steps,
+                           f"MCraft_bounded L{depth} profiled={on}",
+                           inserts=1)
+            got.append((res, counts))
+        (off, c_off), (on, c_on) = got
+        pins = ((MCRAFT_L11_LEVELS, MCRAFT_L11_DISTINCT,
+                 MCRAFT_L11_GENERATED) if depth == 11 else
+                (MCRAFT_L9_LEVELS, MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED))
+        for res in (off, on):
+            need((res.levels, res.distinct, res.generated) == pins,
+                 f"L{depth} {pipeline} differs from the pins")
+        need((on.distinct, on.generated, on.levels, on.action_counts,
+              on.batches, on.steps) == (off.distinct, off.generated,
+                                        off.levels, off.action_counts,
+                                        off.batches, off.steps)
+             and c_on == c_off,
+             f"profiling changed a count or a launch ({pipeline})")
+        perf = on.perf
+        rows = perf["roofline"]["stages"]
+        launch = perf["launch"]
+        print(f"stage table MCraft_bounded L{depth} {pipeline} "
+              f"(--profile-chunks 16 --perf; {perf['roofline']['peak_source']}"
+              f"): " + ", ".join(
+                  f"({s}, mean {r['mean_seconds'] * 1e3} ms, bound "
+                  f"{r['floor_seconds'] * 1e3} ms, {r['bandwidth_fraction']}"
+                  f" of the bound's rate, {r['launches']} kernel launches)"
+                  for s, r in rows.items()))
+        print(f"perf MCraft_bounded L{depth} {pipeline}: "
+              f"{launch['launches_per_batch']} device ops a step, "
+              f"{launch['launches_fixed_per_chunk']} a chunk besides, "
+              f"{launch['launches_per_chunk']} a chunk over "
+              f"{launch['chunk_calls']} chunk calls and {launch['batches']} "
+              f"steps, launch {launch['launch_overhead_us']} us (measured), "
+              f"share {launch['launch_overhead_share']}; kernels a chunk "
+              f"{perf['plan_launches']}; advisor: "
+              f"{perf['advisor']['verdict']}; fused total "
+              f"{on.chunk_stages['total'] * 1e3} ms; checks off / on "
+              f"{off.wall_seconds} / {on.wall_seconds} s, phases on "
+              f"{on.phases}")
+
+
+def obs_swarm(torch):
+    """The swarm's walk-stage table at 16,384 walks (MCraft_bounded, 64
+    steps), against the same run with the profiler and perf off."""
+    from raft_tla_tpu_torch.engine.check import initial_states, make_swarm
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
+    got = []
+    for on in (False, True):
+        kw = dict(profile_chunks_every=1, perf=True) if on else {}
+        eng = make_swarm(setup, walks=16384, max_depth=64, device="cuda",
+                         **kw)
+        res = eng.run(initial_states(setup), seed=5, num_steps=64)
+        got.append(res)
+    off, on = got
+    need((on.steps, on.visited, on.traces, on.diameter)
+         == (off.steps, off.visited, off.traces, off.diameter),
+         "profiling changed the swarm's walks")
+    # The hunt in the chunk's graph: the canary on the card and on the
+    # CPU give one report (times aside) and the canary's pin.
+    canary = load_config(os.path.join(HERE, CANARY["cfg"]))
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        e = make_swarm(canary, walks=CANARY["walks"],
+                       max_depth=CANARY["max_depth"], device=dev,
+                       chunk=CANARY["chunk"], ring=CANARY["ring"], hunt=True)
+        r = e.run(initial_states(canary), seed=CANARY["seed"])
+        need((r.violation.fingerprint, r.steps, r.visited, r.traces)
+             == (CANARY_PIN[1],) + CANARY_PIN[3:6],
+             f"the hunted canary on {dev} misses its pin")
+        reports[dev] = {k: v for k, v in r.report["hunt"].items()
+                        if k not in ("wall_seconds",
+                                     "time_to_violation_seconds")}
+    need(reports["cuda"] == reports["cpu"],
+         "the hunt's report on the card differs from the CPU's")
+    print(f"hunt, the canary on the card (= the CPU's): saturation "
+          f"{reports['cuda']['saturation']}, distinct observed "
+          f"{reports['cuda']['distinct_observed']}, restarts "
+          f"{reports['cuda']['restarts']}, bloom {reports['cuda']['bloom']}")
+    rows = on.perf["roofline"]["stages"]
+    print(f"swarm stage table, 16,384 walks a slice (MCraft_bounded, 64 "
+          f"steps): " + ", ".join(
+              f"({s}, mean {r['mean_seconds'] * 1e3} ms, bound "
+              f"{r['floor_seconds'] * 1e3} ms, {r['bandwidth_fraction']})"
+              for s, r in rows.items())
+          + f"; {on.perf['launch']['launches_per_batch']} device ops a "
+          f"chunk dispatch of {eng.chunk} steps; steps/s off "
+          f"{off.steps_per_second}, on {on.steps_per_second}")
+
+
+def obs_cli(torch):
+    """``check --trace-out`` (the run, level and loop spans), and the
+    ``--xla-profile`` captures whose CUDA activity names B1, B2, B4 and
+    B5 (a traced v4 run) and B3 (v3)."""
+    from raft_tla_tpu_torch import cli
+    bounded = os.path.join(HERE, "configs/MCraft_bounded.cfg")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        trace = os.path.join(tmp, "t.json")
+        rc = cli.main(["check", bounded, "--pipeline", "v4",
+                       "--max-diameter", "9", "--progress-interval", "0",
+                       "--trace-out", trace])
+        need(rc == 0, f"check --trace-out exited {rc}")
+        spans = collections.Counter(
+            e["name"] for e in json.load(open(trace)) if e["ph"] == "X")
+        print(f"--trace-out spans of MCraft_bounded L9 v4: {dict(spans)}")
+        need(spans["run"] == 1 and spans["level"] == 10
+             and all(spans[s] for s in ("chunk", "stats_fetch", "ingest",
+                                        "trace_flush", "root_check")),
+             "the trace misses the run, level or phase spans")
+        want = {"v4": {"B1": "resolve_kernel<false>",
+                       "B2": "resolve_kernel<true>", "B4": "lanes_kernel",
+                       "B5": "enqueue_count_kernel"},
+                "v3": {"B3": "count_kernel"}}
+        for pipeline, kernels in want.items():
+            d = os.path.join(tmp, f"xp_{pipeline}")
+            rc = cli.main(["check", bounded, "--pipeline", pipeline,
+                           "--max-diameter", "7", "--progress-interval",
+                           "0", "--xla-profile", "4", "--xla-profile-dir",
+                           d])
+            need(rc == 0, f"check --xla-profile exited {rc}")
+            files = [f for f in os.listdir(d) if f.endswith(".json")]
+            need(len(files) == 1, f"capture files {files}")
+            names = {e.get("name", "") for e in json.load(open(
+                os.path.join(d, files[0])))["traceEvents"]
+                if e.get("cat") == "kernel"}
+            found = {b: any(k in n for n in names)
+                     for b, k in kernels.items()}
+            print(f"--xla-profile {pipeline} (MCraft_bounded L7, 4 chunk "
+                  f"calls): {len(names)} kernel names, ours {found}")
+            need(all(found.values()), f"the {pipeline} capture misses "
+                 f"{[b for b, f in found.items() if not f]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def obs_scrape_and_sigterm(torch):
+    """A ``check`` child on the card (configs/TPUraft.cfg to L9, trace off)
+    with ``--metrics-port``: ``/metrics`` scraped while it runs and parsed
+    by ``parse_prometheus``, ``/flight`` armed; then SIGTERM: the child
+    dies of the signal and leaves ``postmortem.json``."""
+    import signal
+    import urllib.request
+    from raft_tla_tpu_torch.obs.expose import counter_sample, parse_prometheus
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pm_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    p = subprocess.Popen(
+        [sys.executable, "-m", "raft_tla_tpu_torch", "check",
+         os.path.join(HERE, "configs/TPUraft.cfg"), "--no-trace",
+         "--max-diameter", "9", "--checkpoint-dir", tmp,
+         "--checkpoint-interval", "100000", "--progress-interval", "0",
+         "--metrics-port", str(port)], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        t0, scraped = time.time(), None
+        while time.time() - t0 < 180 and p.poll() is None:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                    text = r.read().decode()
+                samples = parse_prometheus(text)
+                # Past TPUraft's L6: chunks (and progress records) ran.
+                if (counter_sample(samples, "engine/distinct") or 0) \
+                        > TPURAFT_DISTINCT[6]:
+                    scraped = (text, samples, time.time() - t0)
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        need(scraped is not None, "no /metrics scrape of the running check")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/flight?last=2",
+                                    timeout=5) as r:
+            fl = json.loads(r.read())
+        p.send_signal(signal.SIGTERM)
+        _out, err = p.communicate(timeout=120)
+        text, samples, at = scraped
+        print(f"/metrics of a running TPUraft check at {at} s: "
+              f"{len(samples)} series, {len(text)} bytes, distinct "
+              f"{counter_sample(samples, 'engine/distinct')}; /flight armed "
+              f"{fl['armed']}, kinds {sorted(fl['records'])}; SIGTERM: exit "
+              f"{p.returncode}")
+        need(fl["armed"], "/flight says no run is live")
+        need(p.returncode == -signal.SIGTERM,
+             f"the child exited {p.returncode}: {err[-1500:]}")
+        pm = json.load(open(os.path.join(tmp, "postmortem.json")))
+        need(pm["reason"] == "sigterm" and pm["records"].get("progress"),
+             "the postmortem holds no progress")
+        print(f"postmortem.json: reason {pm['reason']}, kinds "
+              f"{sorted(pm['records'])}, host {pm['host']}")
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_obs(torch):
+    """The observability slice's phases (``--obs``), ~90 s: the profiled
+    runs first (their torch.profiler samples leave graphs slower), after
+    the trace-store runs that need no profiler."""
+    t = time.time()
+    obs_trace_store(torch)
+    torch.cuda.empty_cache()
+    obs_scrape_and_sigterm(torch)
+    obs_swarm(torch)
+    obs_profiled(torch)
+    obs_cli(torch)
+    torch.cuda.empty_cache()
+    print(f"obs phases: {time.time() - t} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5121,6 +5419,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--multihost"]:
         phase_multihost(torch, device)
+        return 0
+    if sys.argv[1:] == ["--obs"]:
+        phase_obs(torch)
         return 0
     if sys.argv[1:] == ["--reconfig"]:
         t = time.time()
@@ -5218,6 +5519,8 @@ def main() -> int:
                   config=tpuraft_config(6, record_trace=True))
     phase_tpuraft_more(torch)
     phase_oom(torch)
+    torch.cuda.empty_cache()
+    phase_obs(torch)
     paths = {"compact": "v3", "fused_tail": "v4", "chunk_front": "v4",
              "fpset_insert": "v4 split", "enqueue": "v4 split"}
     for row in rows:

@@ -56,12 +56,26 @@ forms before any device is touched, and the mesh spans every process's
 shards (``--engine single`` is a usage error, ``auto`` takes the mesh).
 ``check`` then needs ``--no-trace``, as in the JAX CLI; ``--trace-dir``
 (the TRACE_DIR directive) names the directory where a traced run's
-controllers exchange their trace pieces.
+controllers exchange their trace pieces.  Before it returns, ``main``
+leaves the process group (``multihost.shutdown``).
+
+Observability, the JAX CLI's flags (a flag over its cfg directive):
+``--trace-out`` (TRACE_OUT: the run's spans as a Chrome trace),
+``--profile-chunks [N]`` (PROFILE_CHUNKS: the stage profile of every Nth
+chunk call), ``--perf`` (PERF: launch accounting, roofline and advisor;
+implies ``--profile-chunks 16``), ``--metrics-port`` (METRICS_PORT:
+``/metrics`` and ``/flight`` on 127.0.0.1 while the run lasts),
+``--xla-profile [N]`` and ``--xla-profile-dir`` (XLA_PROFILE: a
+``torch.profiler`` capture of the first N chunk calls, a Chrome trace)
+and ``--history`` (HISTORY: one run-history entry appended).
+``check --mode swarm`` runs the
+hunt observatory and prints its report, as the JAX CLI does.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -76,6 +90,7 @@ from .engine.check import (ENGINES, MODES, device_for,
                            make_engine, make_simulator, make_swarm,
                            resolve_mode, use_mesh)
 from .models.pystate import format_state
+from .obs import hunt as hunt_mod
 from .ops.pipeline_v3 import ENQUEUE_METHODS
 from .parallel import multihost
 from .utils.cfg import load_config
@@ -112,6 +127,19 @@ def _common(sp):
 
 
 def main(argv=None) -> int:
+    """The command's exit code.  A process group the command forms under
+    the launch contract is left (``multihost.shutdown``) before it
+    returns; a group its caller formed is the caller's to leave."""
+    forms = (bool(os.environ.get("RAFT_COORDINATOR"))
+             and not multihost.is_multiprocess())
+    try:
+        return _main(argv)
+    finally:
+        if forms:
+            multihost.shutdown()
+
+
+def _main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="raft_tla_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("check", help="exhaustive BFS check of a TLC cfg")
@@ -206,6 +234,45 @@ def main(argv=None) -> int:
     s.add_argument("--engine", choices=ENGINES, default="auto",
                    help="mesh = one walker fleet a visible card; auto = "
                         "mesh iff more than one card (default)")
+    s.add_argument("--trace-out",
+                   help="write the simulation's spans as Chrome "
+                        "trace-event JSON (flag > cfg TRACE_OUT)")
+    c.add_argument("--trace-out",
+                   help="write the run's spans (every phase, a level span "
+                        "a BFS level, the run) as Chrome trace-event JSON "
+                        "(flag > cfg TRACE_OUT)")
+    c.add_argument("--profile-chunks", nargs="?", const=1, type=int,
+                   metavar="N",
+                   help="re-run every Nth chunk call's first batch stage "
+                        "by stage between CUDA events (default 1): "
+                        "chunk_stage/* histograms, a chunk_profile event "
+                        "and a stage table on stderr; results are "
+                        "bit-identical (flag > cfg PROFILE_CHUNKS)")
+    c.add_argument("--perf", action="store_true",
+                   help="launch accounting (device ops a step, the "
+                        "kernels' launches a chunk), the stages' roofline "
+                        "and the fusion advisor: a perf event, perf/* "
+                        "gauges and a table; implies --profile-chunks 16 "
+                        "(flag > cfg PERF)")
+    c.add_argument("--metrics-port", type=int, metavar="PORT",
+                   help="serve /metrics (Prometheus text) and /flight "
+                        "(the flight recorder's ring) on 127.0.0.1:PORT "
+                        "while the run lasts; 0 = off (flag > cfg "
+                        "METRICS_PORT)")
+    c.add_argument("--xla-profile", nargs="?", const=8, type=int,
+                   metavar="N",
+                   help="torch.profiler capture (CPU and CUDA activity) "
+                        "from the run's start through its first N chunk "
+                        "calls (default 8), written as a Chrome trace "
+                        "into --xla-profile-dir (flag > cfg XLA_PROFILE)")
+    c.add_argument("--xla-profile-dir", metavar="DIR",
+                   help="where --xla-profile writes (default: "
+                        "<--checkpoint-dir>/xla_profile, else "
+                        "./xla_profile)")
+    c.add_argument("--history", metavar="FILE",
+                   help="append one run-history entry (JSONL: cfg, model "
+                        "and host fingerprints, verdict, counts, rates) "
+                        "(flag > cfg HISTORY)")
     c.add_argument("--trace-dir",
                    help="shared directory where the controllers of a "
                         "process group exchange their trace pieces "
@@ -268,6 +335,13 @@ def main(argv=None) -> int:
         por_table=resolve(args.por_table, cfg.por_table),
         events_out=resolve(args.events_out, cfg.events_out),
         trace_dir=resolve(args.trace_dir, cfg.trace_dir),
+        trace_out=resolve(args.trace_out, cfg.trace_out),
+        profile_chunks_every=resolve(args.profile_chunks,
+                                     cfg.profile_chunks_every),
+        perf=args.perf or cfg.perf,
+        xla_profile_chunks=resolve(args.xla_profile,
+                                   cfg.xla_profile_chunks),
+        xla_profile_dir=args.xla_profile_dir,
         statespace_report=cfg.statespace_report and not args.no_report,
         counterexample_dir=_counterexample_dir(args, cfg.counterexample_dir,
                                                ckpt_dir))
@@ -283,13 +357,15 @@ def main(argv=None) -> int:
             ap.error("--resume auto: no checkpoint found in "
                      f"{cfg.checkpoint_dir!r}")
         print(f"resuming from {resume}")
-    if resume is None:
-        res = engine.run(initial_states(setup, seed=args.seed))
-    else:
-        res = engine.run(resume=resume)
+    with _metrics_listener(args, setup, engine.metrics):
+        if resume is None:
+            res = engine.run(initial_states(setup, seed=args.seed))
+        else:
+            res = engine.run(resume=resume)
     print(format_result(res))
     if args.metrics_out:
         _write_metrics(args.metrics_out, engine.metrics)
+    _append_history(args, setup, "check", res)
     if res.violation is not None:
         if args.no_trace:
             print("\nviolating state (trace recording disabled):")
@@ -303,6 +379,49 @@ def main(argv=None) -> int:
         print(format_state(res.deadlock, setup.dims))
         return 1
     return 0
+
+
+@contextlib.contextmanager
+def _metrics_listener(args, setup, registry):
+    """``--metrics-port`` (METRICS_PORT; 0 is off): the listener up for
+    the run; a port it cannot bind is said and the run goes on."""
+    port = args.metrics_port
+    if port is None:
+        port = setup.backend.get("METRICS_PORT")
+    srv = None
+    if port:
+        from .obs.expose import start_metrics_server
+        from .obs.flight import RECORDER
+        try:
+            srv, _thread = start_metrics_server(int(port), registry,
+                                                flight=RECORDER)
+            print(f"metrics: http://127.0.0.1:{srv.server_address[1]}"
+                  f"/metrics (+ /flight)", file=sys.stderr)
+        except OSError as e:
+            print(f"metrics: cannot listen on port {port} ({e}); "
+                  f"continuing without the listener", file=sys.stderr)
+    try:
+        yield srv
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+
+
+def _append_history(args, setup, kind: str, res, extra=None) -> None:
+    """``--history`` (HISTORY): one ledger entry for the run."""
+    path = args.history or setup.backend.get("HISTORY")
+    if not path:
+        return
+    from .obs import history as history_mod
+    from .obs.flight import host_fingerprint
+    with open(args.cfg) as f:
+        cfg_text = f.read()
+    history_mod.append_entry(path, history_mod.entry_from_result(
+        kind, res, cfg_text=cfg_text, dims=setup.dims,
+        host_fingerprint=host_fingerprint(),
+        label=os.path.basename(args.cfg), extra=extra))
+    print(f"history: entry appended to {path}", file=sys.stderr)
 
 
 def _engine_kw(args, setup, key: str = "engine_cls") -> dict:
@@ -430,14 +549,27 @@ def _swarm(args, setup) -> int:
             args, be.get("COUNTEREXAMPLE_DIR"), ckpt_dir),
         progress_seconds=float(
             args.progress_interval if args.progress_interval is not None
-            else be.get("PROGRESS_SECONDS", 5.0)))
+            else be.get("PROGRESS_SECONDS", 5.0)),
+        hunt=True, perf=args.perf, profile_chunks_every=args.profile_chunks,
+        xla_profile_chunks=args.xla_profile,
+        xla_profile_dir=args.xla_profile_dir, trace_out=args.trace_out)
     max_seconds = (args.max_seconds if args.max_seconds is not None
                    else setup.max_seconds)
-    res = engine.run(initial_states(setup, seed=args.seed), seed=args.seed,
-                     max_seconds=max_seconds)
+    with _metrics_listener(args, setup, engine.metrics):
+        res = engine.run(initial_states(setup, seed=args.seed),
+                         seed=args.seed, max_seconds=max_seconds)
     print(format_swarm(res, engine.max_depth))
+    hunt = res.report.get("hunt")
+    if hunt:
+        print(hunt_mod.render_report(hunt))
     if args.metrics_out:
         _write_metrics(args.metrics_out, engine.metrics)
+    _append_history(args, setup, "swarm", res, extra={
+        "swarm": {"walks": res.walks,
+                  "steps_per_sec": round(res.steps_per_second, 1),
+                  "walks_per_sec": round(res.walks_per_second, 1),
+                  "violation_at_seconds": res.violation_at_seconds},
+        "hunt": hunt_mod.summarize(hunt) if hunt else None})
     if res.violation is None:
         return 0
     print()
@@ -452,9 +584,15 @@ def _simulate(args, setup) -> int:
                          **_engine_kw(args, setup, "engine"))
     max_seconds = (args.max_seconds if args.max_seconds is not None
                    else setup.max_seconds)
-    res = sim.run(initial_states(setup, seed=args.seed),
-                  num_steps=args.num_steps, seed=args.seed,
-                  max_seconds=max_seconds)
+    from .obs.tracing import SpanTracer
+    tracer = sim.tracer = SpanTracer(args.trace_out
+                                     or setup.backend.get("TRACE_OUT"))
+    with tracer.span("simulate_run", num_steps=args.num_steps,
+                     batch=sim.batch, depth=args.depth):
+        res = sim.run(initial_states(setup, seed=args.seed),
+                      num_steps=args.num_steps, seed=args.seed,
+                      max_seconds=max_seconds)
+    tracer.write()
     print(f"steps visited      {res.steps}")
     print(f"traces             {res.traces}")
     print(f"wall seconds       {res.wall_seconds:.2f}")

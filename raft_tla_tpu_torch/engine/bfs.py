@@ -66,12 +66,22 @@ boundary, the statespace report at run end (``statespace_report``) and,
 on a traced violation, ``counterexample.{txt,json}``
 (``counterexample_dir``, else ``checkpoint_dir``).  All of it reads
 values the level loop has already brought to the host: it adds no wait
-for the device, and no count depends on it.  The native trace store, the
-span tracer, the flight recorder and the postmortem dump are not ported.
+for the device, and no count depends on it.  Also the JAX engine's: the
+span tracer (``trace_out``: a ``run`` span, a ``level`` span a level and
+the loop's spans under the JAX names), the flight recorder armed for the
+run (``postmortem.json`` in ``postmortem_dir``, else ``checkpoint_dir``,
+on an escaping exception, SIGTERM or an exit while armed; ``run_end``
+carries its path), the chunk profiler (``profile_chunks_every``), the
+performance block (``perf``), the device-profiler capture
+(``xla_profile_chunks``) and the trace store's choice (``trace_store``,
+named on ``run_start`` and ``EngineResult.trace_store``).  A profiler
+sample waits for the card once; everything else reads what the loop
+already has.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -95,7 +105,9 @@ from ..obs.coverage import ActionCoverage
 from ..obs.events import (RunEventLog, all_device_memory_stats,
                           device_memory_stats, events_path,
                           peak_host_rss_bytes)
+from ..obs.flight import RECORDER as _FLIGHT
 from ..obs.metrics import PHASE_PREFIX, MetricsRegistry, phase_delta
+from ..obs.tracing import SpanTracer
 from ..ops import chunk_front_cuda, compact_cuda, enqueue_cuda
 from ..ops import compact as compact_mod
 from ..ops import fpset, fpset_cuda, fused_tail_cuda, pipeline_v3
@@ -111,7 +123,7 @@ from .chunk import (ST_COUNT, ST_DEAD, ST_EXPANDED, ST_FAIL, ST_GEN, ST_NEW,
                     ST_OFFSET, ST_OVF, ST_SEEN, ST_STEPS, ST_TCOUNT, ST_VIOL,
                     ST_VINV)
 from .spillpool import SpillPool
-from .trace import PyTraceStore
+from .trace import make_trace_store
 
 PLANS = {"v3": pipeline_v3, "v4": pipeline_v4}
 
@@ -249,6 +261,24 @@ class EngineConfig:
     # piece (None: 30 s plus the local piece's bytes at 8 MB/s).
     trace_dir: Optional[str] = None
     trace_merge_timeout_seconds: Optional[float] = None
+    # The predecessor-trace store (engine/trace.py make_trace_store):
+    # "columnar" (numpy columns) or "native" (the C++ hash store).
+    trace_store: str = "columnar"
+    # Span tracing (obs/tracing.py): the Chrome trace file, None = off.
+    trace_out: Optional[str] = None
+    # The chunk profiler (obs/profile.py): sample every Nth chunk call;
+    # None = unset (perf then samples every 16th), 0 = off.
+    profile_chunks_every: Optional[int] = None
+    # The performance block (obs/perf.py, obs/roofline.py).
+    perf: bool = False
+    # Where the flight recorder's postmortem.json lands (None means
+    # checkpoint_dir; with neither, no dump).
+    postmortem_dir: Optional[str] = None
+    # The device-profiler capture (obs/profile.py ProfileCapture) of the
+    # first N chunk calls, into xla_profile_dir (None means
+    # <checkpoint_dir>/xla_profile, else ./xla_profile).
+    xla_profile_chunks: Optional[int] = None
+    xla_profile_dir: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -308,6 +338,13 @@ class EngineResult:
     level_stats: List = dataclasses.field(default_factory=list)
     # {"txt", "json", "depth"} of the written counterexample, else {}.
     counterexample: Dict = dataclasses.field(default_factory=dict)
+    # The trace store that ran: "columnar" or "native" (a native store
+    # that could not be built runs columnar, and says why on stderr).
+    trace_store: str = ""
+    # {stage: mean seconds} when the chunk profiler ran, else {}.
+    chunk_stages: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # The performance block (obs/perf.py) with perf on, else {}.
+    perf: Dict = dataclasses.field(default_factory=dict)
 
     @property
     def states_per_second(self) -> float:
@@ -412,6 +449,9 @@ class BFSEngine:
         if not hasattr(self, "metrics"):
             self.metrics = MetricsRegistry()
             self._evlog = RunEventLog(None)
+            self.tracer = SpanTracer(cfg.trace_out)
+            self.metrics.tracer = self.tracer
+            self._xla_capture = None
         self.inv_names = list((invariants or {}).keys())
         self._inv_fns = list((invariants or {}).values())
         self._inv_id = (build_inv_id(self._inv_fns) if self._inv_fns
@@ -470,7 +510,42 @@ class BFSEngine:
         self._graphs: Dict[tuple, tuple] = {}
         self._pool = None
         self._warm = False
-        self.trace = PyTraceStore()
+        self.trace = make_trace_store(cfg.trace_store)
+        self._build_observers(dict(
+            v2=self._v2, inv_fns=self._inv_fns, constraint=constraint,
+            record_trace=cfg.record_trace,
+            enqueue_method=cfg.enqueue_method, por_mask=por_mask,
+            por_priority=por_priority))
+
+    def _build_observers(self, stage_kw: dict) -> None:
+        """The chunk profiler and the performance accounting, built for
+        this engine's batch (rebuilt by a degradation's re-entrant
+        ``__init__``); ``perf`` alone samples every 16th chunk call."""
+        cfg, dims, dev = self.config, self.dims, self.device
+        every = (cfg.profile_chunks_every
+                 if cfg.profile_chunks_every is not None
+                 else (16 if cfg.perf else None))
+        pipeline = self._plan_name
+        self._profiler = None
+        if every:
+            from ..obs.profile import ChunkProfiler
+            self._profiler = ChunkProfiler(
+                dims, batch=self._B, lanes=self._K,
+                seen_capacity=max(min(cfg.seen_capacity or (1 << 20),
+                                      1 << 22), 8 * self._K),
+                pipeline=pipeline, every=every, metrics=self.metrics,
+                device=dev, stage_kw=stage_kw, sync_every=cfg.sync_every,
+                enqueue_method=cfg.enqueue_method)
+        self._perf = None
+        if cfg.perf:
+            from ..obs import perf as perf_mod
+            from ..obs import roofline
+            self._perf = perf_mod.PerfAccounting(
+                pipeline=pipeline,
+                stage_traffic=roofline.stage_traffic(
+                    dims, self._B, self._K, pipeline=pipeline,
+                    enqueue_method=cfg.enqueue_method),
+                device=dev, metrics=self.metrics)
 
     # ------------------------------------------------------------------
     def _absorb(self, rows, valid, seen, qnext, next_count: int):
@@ -536,14 +611,26 @@ class BFSEngine:
         """Add host seconds to ``EngineResult.phases[name]`` and the same
         seconds to the registry's ``phase/<name>``: one clock, two
         views."""
-        self._result.phases[name] += seconds
+        phases = self._result.phases
+        phases[name] = phases.get(name, 0.0) + seconds
         self.metrics.observe(PHASE_PREFIX + name, seconds)
 
     def _emit_level_event(self, res, frontier_rows: int):
         """A level boundary: the report's ``level_stats`` row and the
         ``level_complete`` event (counters, per-phase seconds since the
-        run started, the card's memory), as the JAX engine's."""
+        run started, the card's memory), as the JAX engine's, and the
+        level's span.  The event goes out with or without a file (the
+        flight ring mirrors it)."""
         mt = self.metrics
+        if self.tracer.enabled:
+            self.tracer.complete("level", self._lvl_t0, level=res.diameter,
+                                 frontier_rows=frontier_rows,
+                                 distinct=res.distinct,
+                                 generated=res.generated)
+            self.tracer.write()
+        self._lvl_t0 = time.perf_counter()
+        if self._perf is not None:
+            self._perf.end_level(res.diameter)
         mem = device_memory_stats(self.device)
         peak = mem.get("peak_bytes_in_use")
         if peak is not None:
@@ -564,8 +651,6 @@ class BFSEngine:
                 "hbm_peak_bytes": peak,
                 "hbm_bytes_in_use": mem.get("bytes_in_use"), **extra})
         evlog = self._evlog
-        if not evlog.enabled:
-            return
         phases = phase_delta(mt.phase_seconds(), self._phase_base)
         evlog.emit(
             "level_complete", level=res.diameter,
@@ -726,13 +811,18 @@ class BFSEngine:
         captured = time.time() - t
         self._phase("capture", captured)
         self._write_ctl(offset, next_count, cur_count, allowed)
+        tracer = self.tracer
+        t_span = time.perf_counter()
         if self.device.type != "cuda":
             t = time.time()
             while bool(self._step.cond(seen, self._cs)):
                 run()
                 res.steps += 1
             self._phase("dispatch", time.time() - t)
-            return self._cs.st.tolist(), captured
+            if tracer.enabled:
+                tracer.complete("chunk", t_span)
+            with self._span("stats_fetch"):
+                return self._cs.st.tolist(), captured
         done, at = 0, offset
         while True:
             n = min(allowed - done, -(-(cur_count - at) // self._B))
@@ -740,12 +830,44 @@ class BFSEngine:
             self._dispatch(run, n, seen)
             res.steps += n
             t_s = time.time()
+            t_f = time.perf_counter()
             st = self._cs.st.tolist()          # the chunk's device sync
             self._phase("dispatch", t_s - t)
             self._phase("sync", time.time() - t_s)
             if not st[self._step.CUR + 2]:
+                if tracer.enabled:
+                    # One chunk span a call (its bursts included) and the
+                    # last stats read, as the JAX engine's chunk call.
+                    tracer.complete("chunk", t_span)
+                    tracer.complete("stats_fetch", t_f)
                 return st, captured
             done, at = st[ST_STEPS], st[ST_OFFSET]
+
+    def _observe_chunk(self, qcur, qnext, seen, offset: int,
+                       cur_count: int) -> None:
+        """Before a chunk call (between graph replays): the launch model
+        at the first call with perf on, and the profiler's sample of the
+        batch the call expands first.  Neither changes what the engine
+        computes."""
+        pf, prof = self._perf, self._profiler
+        if pf is not None and pf.wants_model(self._xla_capture):
+            t = time.time()
+
+            def idle_step():
+                self._write_idle_ctl()
+                self._step(qcur, seen, qnext, self._tbuf, self._cs)
+
+            pf.measure(idle_step,
+                       lambda: self._dispatch(lambda: None, 0, seen))
+            self._phase("profile", time.time() - t)
+        if prof is not None and prof.want():
+            t = time.time()
+            B = self._B
+            with self._span("profile"):
+                prof.sample(qcur[offset:offset + B],
+                            (offset + torch.arange(B, device=self.device))
+                            < cur_count)
+            self._phase("profile", time.time() - t)
 
     def _spill(self, inflight, free_q, qnext, count: int):
         """Start draining ``count`` rows of ``qnext`` to the host and
@@ -770,11 +892,13 @@ class BFSEngine:
         the spare."""
         while inflight:
             buf, count, ev = inflight.pop(0)
-            if ev is None:
-                spill_next.append(host_rows(buf[:count]))
-            else:
-                ev.synchronize()
-                spill_next.append(self._pinned[:count].numpy(), copy=True)
+            with self._span("spill"):
+                if ev is None:
+                    spill_next.append(host_rows(buf[:count]))
+                else:
+                    ev.synchronize()
+                    spill_next.append(self._pinned[:count].numpy(),
+                                      copy=True)
             free_q.append(buf)
 
     # ------------------------------------------------------------------
@@ -798,18 +922,38 @@ class BFSEngine:
         if (init_states is None) == (resume is None):
             raise ValueError("need exactly one of init_states or resume")
         cfg, mt = self.config, self.metrics
-        self._evlog = RunEventLog(self._events_path())
+        self._evlog = evlog = RunEventLog(self._events_path())
         self._phase_base = mt.phase_seconds()
         self._collision_base = mt.counter_value("engine/fp_collisions")
         self._hbm_watermark = 0
         self._result = None
         self.coverage = None
-        self._evlog.emit(
+        for obs in (self._profiler, self._perf):
+            if obs is not None:
+                obs.reset()
+        if self.tracer.enabled:
+            self.tracer.reset()             # one trace file, one run
+        # The black box, armed before the first event so run_start is in
+        # its ring.
+        _FLIGHT.arm(self._postmortem_path(), metrics=mt, context={
+            "engine": type(self).__name__, "dims": repr(self.dims),
+            "batch": cfg.batch, "resume": resume is not None,
+            "pipeline": self._plan_name, "fused_stages": dict(self._plan)})
+        _FLIGHT.set_live_evlog(evlog)
+        self._xla_capture = None
+        if cfg.xla_profile_chunks:
+            from ..obs.profile import ProfileCapture
+            self._xla_capture = ProfileCapture(
+                self._xla_profile_dir(), cfg.xla_profile_chunks,
+                self.device)
+            self._xla_capture.start()
+        self._run_t0 = self._lvl_t0 = time.perf_counter()
+        evlog.emit(
             "run_start", engine=type(self).__name__, dims=repr(self.dims),
             batch=cfg.batch, sync_every=cfg.sync_every,
             record_trace=cfg.record_trace, resume=resume is not None,
             memory=device_memory_stats(self.device),
-            **self._run_start_fields())
+            trace_store=self.trace.kind, **self._run_start_fields())
         err = None
         try:
             return self._run_degradable(init_states, resume)
@@ -833,11 +977,32 @@ class BFSEngine:
         """The stem of the counterexample files."""
         return "counterexample"
 
+    def _postmortem_path(self) -> Optional[str]:
+        """Where the flight recorder dumps on an abnormal end
+        (``postmortem_dir``, else next to the checkpoints, else
+        nowhere)."""
+        d = self.config.postmortem_dir or self.config.checkpoint_dir
+        return os.path.join(d, "postmortem.json") if d else None
+
+    def _xla_profile_dir(self) -> str:
+        """Where ``--xla-profile`` writes: ``xla_profile_dir``, else next
+        to the checkpoints, else ``./xla_profile``."""
+        cfg = self.config
+        if cfg.xla_profile_dir:
+            return cfg.xla_profile_dir
+        return os.path.join(cfg.checkpoint_dir or ".", "xla_profile")
+
+    def _span(self, name: str):
+        """A span of the run's trace (a no-op with tracing off)."""
+        return self.tracer.span(name)
+
     def _finish(self, err):
         """The run's end, as the JAX engine's: the final coverage, the
-        counterexample files, the statespace report and ``run_end``; the
-        event log closed.  A failing render is reported and never hides
-        the run's own verdict."""
+        counterexample files, the statespace report, the chunk profile,
+        the perf block, the capture's event, on an error the postmortem
+        dump, and ``run_end``; the flight recorder disarmed, the event log
+        closed, the trace written.  A failing render is reported and never
+        hides the run's own verdict."""
         cfg, mt, evlog = self.config, self.metrics, self._evlog
         res, cov = self._result, self.coverage
         if res is not None and cov is not None:
@@ -873,15 +1038,35 @@ class BFSEngine:
             evlog.emit("statespace", report=res.report)
             if cfg.progress_interval_seconds:
                 print(report_mod.render_report(res.report), file=sys.stderr)
-        # postmortem_path stays None until the flight recorder lands
-        # (ROADMAP A6b).
+        # Read after the run: a degradation rebuilt both for its batch.
+        prof, pf = self._profiler, self._perf
+        if prof is not None:
+            if res is not None:
+                res.chunk_stages = prof.stage_means()
+            prof.finish(evlog)
+        if pf is not None and err is None and res is not None:
+            try:
+                res.perf = pf.finish(evlog, chunk_stages=res.chunk_stages)
+            except Exception as e:
+                print(f"perf: block assembly failed "
+                      f"({type(e).__name__}: {e})", file=sys.stderr)
+        if self._xla_capture is not None:
+            self._xla_capture.finish(evlog)
+        # An exception escaping the run is an abnormal end: the black box
+        # is dumped and its path goes on run_end.
+        pm_path = None
+        if err is not None:
+            pm_path = _FLIGHT.dump(f"run error: {type(err).__name__}: {err}")
+            if pm_path is not None:
+                evlog.emit("postmortem", dump={"path": pm_path,
+                                               "reason": "run_error"})
         evlog.emit(
             "run_end",
             stop_reason=(getattr(res, "stop_reason", None)
                          if err is None else "error"),
             error=(f"{type(err).__name__}: {err}" if err is not None
                    else None),
-            postmortem_path=None, counterexample_path=ce_path,
+            postmortem_path=pm_path, counterexample_path=ce_path,
             distinct=getattr(res, "distinct", None),
             generated=getattr(res, "generated", None),
             diameter=getattr(res, "diameter", None),
@@ -892,8 +1077,16 @@ class BFSEngine:
             memory=device_memory_stats(self.device),
             host_rss_peak_bytes=peak_host_rss_bytes(),
             devices_memory=all_device_memory_stats(self.device))
+        _FLIGHT.set_live_evlog(None)
+        _FLIGHT.disarm()        # ended or already dumped: no exit dump
         evlog.close()
         self._evlog = RunEventLog(None)
+        if self.tracer.enabled:
+            self.tracer.complete("run", self._run_t0,
+                                 engine=type(self).__name__,
+                                 stop_reason=getattr(res, "stop_reason",
+                                                     None))
+            self.tracer.write()
 
     def _run_degradable(self, init_states, resume) -> EngineResult:
         """The run, retried at half the batch on running out of device
@@ -970,7 +1163,8 @@ class BFSEngine:
             check_resume_trace(cfg, resume)
             resume = self.resume_point(resume)
         res.phases.update(dict.fromkeys(PHASES, 0.0))
-        trace = self.trace = PyTraceStore()
+        trace = self.trace = make_trace_store(cfg.trace_store)
+        res.trace_store = trace.kind
         t_enter = time.time()
         QA = Q + self._PAD
         F = len(dims.family_sizes)
@@ -978,17 +1172,19 @@ class BFSEngine:
         def queue():
             return torch.zeros((QA, sw), dtype=ROW_DTYPE, device=dev)
 
-        qcur, qnext = queue(), queue()
-        free_q = [queue()]          # the async spill's spare
+        with self._span("warmup"):
+            qcur, qnext = queue(), queue()
+            free_q = [queue()]          # the async spill's spare
+            self._tbuf = torch.zeros((self._TA, chunk_mod.TRACE_ROW),
+                                     dtype=torch.uint8, device=dev)
+            self._cs = chunk_mod.chunk_state(F, sw, dev)
+            self._ctl = torch.zeros(chunk_mod.state_words(F),
+                                    dtype=torch.int32,
+                                    pin_memory=dev.type == "cuda")
+            self._pinned = None
+            if dev.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(dev)
         inflight: List = []         # drains not yet landed
-        self._tbuf = torch.zeros((self._TA, chunk_mod.TRACE_ROW),
-                                 dtype=torch.uint8, device=dev)
-        self._cs = chunk_mod.chunk_state(F, sw, dev)
-        self._ctl = torch.zeros(chunk_mod.state_words(F), dtype=torch.int32,
-                                pin_memory=dev.type == "cuda")
-        self._pinned = None
-        if dev.type == "cuda":
-            self._copy_stream = torch.cuda.Stream(dev)
         pending = SpillPool(cfg.spill_dir)      # host segments of this level
         spill_next = SpillPool(cfg.spill_dir)   # host segments of the next
 
@@ -1044,10 +1240,12 @@ class BFSEngine:
                 part = rows_all[base:base + B]
                 rows[:part.shape[0]] = part
                 valid = torch.arange(B, device=dev) < part.shape[0]
-                n_new, next_count, fail, new, fph, fpl, inv = self._absorb(
-                    rows, valid, seen, qnext, next_count)
+                with self._span("ingest"):
+                    n_new, next_count, fail, new, fph, fpl, inv = \
+                        self._absorb(rows, valid, seen, qnext, next_count)
                 res.distinct += n_new
-                self._record(new, fph, fpl)
+                with self._span("trace_flush"):
+                    self._record(new, fph, fpl)
                 if fail:
                     raise RuntimeError("seen-set probe failure during "
                                        "ingest; raise seen_capacity")
@@ -1055,7 +1253,8 @@ class BFSEngine:
                 seen_size = int(seen.size[0])
                 seen, t0 = self._maybe_grow(seen, seen_size, res, t0)
                 if next_count > self._QTH:
-                    spill_next.append(host_rows(qnext[:next_count]))
+                    with self._span("spill"):
+                        spill_next.append(host_rows(qnext[:next_count]))
                     res.spills += 1
                     evlog.emit("spill", rows=next_count, level=0,
                                where="ingest")
@@ -1100,8 +1299,9 @@ class BFSEngine:
                     and (time.time() - last_ckpt
                          >= cfg.checkpoint_interval_seconds):
                 t_h = time.time()
-                self._write_checkpoint(qcur, cur_count, pending, seen, res,
-                                       trace, wall=t_h - t0)
+                with self._span("checkpoint"):
+                    self._write_checkpoint(qcur, cur_count, pending, seen,
+                                           res, trace, wall=t_h - t0)
                 last_ckpt = time.time()
                 self._phase("checkpoint", last_ckpt - t_h)
                 evlog.emit("checkpoint", level=res.diameter,
@@ -1128,12 +1328,21 @@ class BFSEngine:
                             2 << min(calls_in_level, 9)))
                             if self._batch_ema else 1)
                     calls_in_level += 1
+                    self._observe_chunk(qcur, qnext, seen, offset,
+                                        cur_count)
                     t_call = time.time()
-                    st, captured = self._run_chunk(
-                        qcur, qnext, seen, cur_count, offset, next_count,
-                        allowed, res)
+                    steps0 = res.steps
+                    cap = self._xla_capture
+                    with (cap.step() if cap is not None
+                          else contextlib.nullcontext()):
+                        st, captured = self._run_chunk(
+                            qcur, qnext, seen, cur_count, offset,
+                            next_count, allowed, res)
                     t0 += captured
                     t_h = time.time()
+                    if self._perf is not None:
+                        self._perf.add_chunk(res.steps - steps0,
+                                             t_h - t_call - captured)
                     res.chunks += 1
                     steps = st[ST_STEPS]
                     if steps:
@@ -1147,9 +1356,16 @@ class BFSEngine:
                     self._account_chunk(res, st, seen_size, seen.capacity,
                                         next_count)
                     inner = 0.0     # trace and spill, timed on their own
+                    _FLIGHT.progress(
+                        distinct=res.distinct, generated=res.generated,
+                        diameter=res.diameter, frontier=cur_count,
+                        offset=offset, next_count=next_count,
+                        seen_size=seen_size,
+                        elapsed=round(time.time() - t0, 3))
                     if cfg.record_trace and st[ST_TCOUNT]:
                         t_t = time.time()
-                        self._flush_trace(self._tbuf, st[ST_TCOUNT])
+                        with self._span("trace_flush"):
+                            self._flush_trace(self._tbuf, st[ST_TCOUNT])
                         inner = time.time() - t_t
                         self._phase("trace", inner)
                     self._check_faults(st)
@@ -1159,8 +1375,9 @@ class BFSEngine:
                         # Drain to the host behind the next chunks.
                         t_s = time.time()
                         self._resolve_spill(inflight, free_q, spill_next)
-                        qnext = self._spill(inflight, free_q, qnext,
-                                            next_count)
+                        with self._span("spill"):
+                            qnext = self._spill(inflight, free_q, qnext,
+                                                next_count)
                         res.spills += 1
                         evlog.emit("spill", rows=next_count,
                                    level=res.diameter, where="chunk_loop")
@@ -1185,8 +1402,10 @@ class BFSEngine:
                 if res.stop_reason != "exhausted" or not pending:
                     break
                 t_s = time.time()
-                seg = np.require(pending.pop(0), requirements=["C", "W"])
-                qcur[:len(seg)] = torch.from_numpy(seg).to(dev)
+                with self._span("upload"):
+                    seg = np.require(pending.pop(0),
+                                     requirements=["C", "W"])
+                    qcur[:len(seg)] = torch.from_numpy(seg).to(dev)
                 cur_count = len(seg)
                 self._phase("spill", time.time() - t_s)
             if res.stop_reason != "exhausted":
@@ -1292,7 +1511,8 @@ class BFSEngine:
         encoded = [encode_state(s, dims) for s in init_states]
         roots = stack_states(encoded, self.device)
         if self._inv_id is not None:
-            inv = self._inv_id(roots).cpu()
+            with self._span("root_check"):
+                inv = self._inv_id(roots).cpu()
             if (inv >= 0).any():
                 i = int((inv >= 0).to(torch.int32).argmax())
                 hi, lo = self._fingerprint(roots)
@@ -1312,9 +1532,11 @@ class BFSEngine:
             check_packable(e, dims)
         rows_all = flatten_state(roots, dims)
         if cfg.record_trace:
-            rhi, rlo = self._fingerprint(unflatten_state(rows_all, dims))
-            for i, (h, l) in enumerate(zip(rhi.tolist(), rlo.tolist())):
-                trace.roots.setdefault((h << 32) | l, init_states[i])
+            with self._span("root_check"):
+                rhi, rlo = self._fingerprint(unflatten_state(rows_all, dims))
+                for i, (h, l) in enumerate(zip(rhi.tolist(),
+                                               rlo.tolist())):
+                    trace.roots.setdefault((h << 32) | l, init_states[i])
         return rows_all
 
     # ------------------------------------------------------------------

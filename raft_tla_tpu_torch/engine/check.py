@@ -53,14 +53,10 @@ ENGINES = ("single", "mesh", "auto")
 
 #: Directives of modules not ported yet -> the ROADMAP.md item that ports
 #: them.  A cfg that sets one (to anything but off: 0 or FALSE) is refused.
-UNPORTED_DIRECTIVES = {
-    "TRACE_OUT": "A6b (obs/tracing.py)",
-    "PROFILE_CHUNKS": "A6b (launch and stage accounting)",
-    "XLA_PROFILE": "A6b (a torch.profiler capture)",
-    "METRICS_PORT": "A6b (obs/expose.py)",
-    "HISTORY": "A6b (obs/history.py)",
-    "PERF": "A6b (launch and stage accounting)",
-}
+#: Every directive of the JAX package's obs/ is honoured now (TRACE_OUT,
+#: PROFILE_CHUNKS, XLA_PROFILE and PERF here, METRICS_PORT and HISTORY by
+#: the CLI), so none is left.
+UNPORTED_DIRECTIVES: Dict[str, str] = {}
 
 #: PLATFORM directive -> device.
 PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
@@ -140,7 +136,11 @@ def engine_config_from_backend(setup: CheckSetup) -> EngineConfig:
         statespace_report=bool(be.get("REPORT", True)),
         events_out=be.get("EVENTS_OUT"),
         counterexample_dir=be.get("COUNTEREXAMPLE_DIR"),
-        trace_dir=be.get("TRACE_DIR"))
+        trace_dir=be.get("TRACE_DIR"),
+        trace_out=be.get("TRACE_OUT"),
+        profile_chunks_every=be.get("PROFILE_CHUNKS"),
+        xla_profile_chunks=be.get("XLA_PROFILE") or None,
+        perf=bool(be.get("PERF", False)))
 
 
 def use_mesh(engine: Optional[str], device: str) -> bool:
@@ -239,6 +239,13 @@ def make_swarm(setup: CheckSetup, walks: Optional[int] = None,
         kw["events_out"] = be.get("EVENTS_OUT")
     if kw.get("counterexample_dir") is None:
         kw["counterexample_dir"] = be.get("COUNTEREXAMPLE_DIR")
+    for key, directive in (("trace_out", "TRACE_OUT"),
+                           ("profile_chunks_every", "PROFILE_CHUNKS"),
+                           ("xla_profile_chunks", "XLA_PROFILE")):
+        if kw.get(key) is None:
+            kw[key] = be.get(directive)
+    if not kw.get("perf"):
+        kw["perf"] = bool(be.get("PERF", False))
     walks = int(walks if walks is not None else be.get("WALKS", 1024))
     batch = int(batch if batch is not None
                 else be.get("BATCH", SWARM_BATCH))

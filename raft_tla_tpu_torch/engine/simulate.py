@@ -39,6 +39,7 @@ from ..models.dims import RaftDims
 from ..models.invariants import build_inv_id
 from ..models.pystate import PyState
 from ..models.schema import flatten_state, unflatten_state
+from ..obs.tracing import SpanTracer
 from ..ops.walk_kernels import masked_choice
 from ..utils.device import capture_graph, resolve_device
 from .swarm import (check_roots, latch_update, replay_actions,
@@ -154,6 +155,9 @@ class Simulator:
         self._inv_fns = list((invariants or {}).values())
         self._inv_id = build_inv_id(self._inv_fns)
         self.batch, self.depth, self.chunk = batch, depth, chunk
+        # The span tracer (obs/tracing.py): the CLI attaches one
+        # for --trace-out; sim_chunk and sim_fetch spans a chunk.
+        self.tracer = SpanTracer(None)
         self.pipeline_name = resolve_walk_pipeline(pipeline)
         self._v2 = build_v2(dims, self.device)
         self._steps = build_sim_steps(dims, self._inv_fns, constraint, depth,
@@ -254,11 +258,14 @@ class Simulator:
             res.wall_seconds = time.time() - t0
             return res
         phases = res.phases
+        tracer = self.tracer
         while res.steps < num_steps:
             t = time.time()
-            self.dispatch_chunk()
+            with tracer.span("sim_chunk"):
+                self.dispatch_chunk()
             t_s = time.time()
-            acc = self.read_chunk()
+            with tracer.span("sim_fetch"):
+                acc = self.read_chunk()
             phases["dispatch"] += t_s - t
             phases["sync"] += time.time() - t_s
             res.chunks += 1

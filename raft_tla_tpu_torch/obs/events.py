@@ -14,10 +14,10 @@ file.
 
 Placement: ``EngineConfig.events_out`` names the file; unset, it lands
 as ``events.jsonl`` next to the checkpoint directory, and with neither
-there is no file.  ``RunEventLog(None)`` discards every event, so the
-engines emit unconditionally.  The JAX log also mirrors each event into
-the flight recorder's ring; that waits for ``obs/flight.py`` (ROADMAP
-A6b).
+there is no file.  ``RunEventLog(None)`` writes no file, so the engines
+emit unconditionally; as in the JAX package every event, with a file or
+without, is also mirrored into the flight recorder's ring
+(``obs/flight.py``), so a postmortem dump holds the run's recent events.
 """
 
 from __future__ import annotations
@@ -150,8 +150,9 @@ def events_path(events_out: Optional[str], checkpoint_dir: Optional[str],
 
 
 class RunEventLog:
-    """Append-only JSONL event writer; ``RunEventLog(None)`` discards
-    every event.  Thread-safe: one line is written whole under a lock."""
+    """Append-only JSONL event writer; ``RunEventLog(None)`` writes no
+    file.  Every event is mirrored into the flight recorder's ring.
+    Thread-safe: one line is written whole under a lock."""
 
     def __init__(self, path: Optional[str]):
         self.path = path
@@ -174,12 +175,16 @@ class RunEventLog:
         return time.time() - self._t0
 
     def emit(self, event: str, **fields) -> None:
-        if self._f is None:
-            return
         now = time.time()
         rec = {"event": event, "ts": round(now, 6),
                "elapsed_seconds": round(now - self._t0, 6)}
         rec.update(fields)
+        # The flight ring first, file or not (imported here: flight is a
+        # sibling module).
+        from .flight import RECORDER
+        RECORDER.record("event", **rec)
+        if self._f is None:
+            return
         # One line an event, flushed at once: a crashed run's log stays
         # readable up to the crash.
         with self._lock:

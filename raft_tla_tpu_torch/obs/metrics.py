@@ -8,8 +8,9 @@ Thread-safe (a few dict operations under one lock) and free of any
 device code.  Phase seconds live in histograms named ``phase/<name>``
 whose ``total`` is the accumulated seconds; the engines observe into them
 the same seconds they add to ``EngineResult.phases`` (one clock), and
-``phase_seconds()`` projects that view for run events.  The JAX
-registry's span-tracer mirror waits for ``obs/tracing.py`` (ROADMAP A6b).
+``phase_seconds()`` projects that view for run events.  As in the JAX
+package, a span tracer attached as ``registry.tracer``
+(``obs/tracing.py``) mirrors every ``phase_timer`` block into a span.
 """
 
 from __future__ import annotations
@@ -82,6 +83,9 @@ class MetricsRegistry:
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._histograms: Dict[str, Histogram] = {}
+        # The span tracer (obs/tracing.py SpanTracer, duck-typed): when
+        # attached and enabled, every phase_timer block is also a span.
+        self.tracer = None
 
     # -- writers -------------------------------------------------------
     def counter(self, name: str, inc: float = 1) -> None:
@@ -111,6 +115,9 @@ class MetricsRegistry:
             yield
         finally:
             self.observe(PHASE_PREFIX + name, time.perf_counter() - t0)
+            tracer = self.tracer
+            if tracer is not None and tracer.enabled:
+                tracer.complete(name, t0)
 
     # -- readers -------------------------------------------------------
     def counter_value(self, name: str) -> float:

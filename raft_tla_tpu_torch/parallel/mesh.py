@@ -84,6 +84,7 @@ not degraded, under a group.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import os
@@ -103,7 +104,7 @@ from ..engine.bfs import (PHASES, PLAN_NAMES, PLANS, BFSEngine,
 from ..engine.chunk import (ST_COUNT, ST_DEAD, ST_OFFSET, ST_SEEN, ST_STEPS,
                             ST_TCOUNT, ST_VINV, ST_VIOL)
 from ..engine.spillpool import SpillPool
-from ..engine.trace import PyTraceStore
+from ..engine.trace import make_trace_store
 from ..models.actions2 import build_v2
 from ..models.dims import RaftDims
 from ..models.invariants import build_inv_id
@@ -111,7 +112,9 @@ from ..models.schema import ROW_DTYPE, state_width, unflatten_state
 from ..obs import report as report_mod
 from ..obs.coverage import ActionCoverage
 from ..obs.events import RunEventLog, device_memory_stats, events_path
+from ..obs.flight import RECORDER as _FLIGHT
 from ..obs.metrics import MetricsRegistry
+from ..obs.tracing import SpanTracer
 from ..ops import compact as compact_mod
 from ..ops import fpset
 from ..ops.chunk_front import FrontOut
@@ -282,6 +285,11 @@ class MeshStep:
             step.update(out, rows, a[s], seens[s], tbufs[s], cs)
 
 
+#: The exchange's crossings a step: the cond's AND, the shared P's
+#: minimum, the owner blocks out and the novelty bits back.
+EXCHANGE_CROSSINGS = 4
+
+
 class MeshBFSEngine(BFSEngine):
     """Exhaustive checker sharded over ``devices`` (see the module doc);
     the same ``EngineResult``, ``run``, ``replay`` and ``successors`` as
@@ -314,6 +322,15 @@ class MeshBFSEngine(BFSEngine):
         if not hasattr(self, "metrics"):
             self.metrics = MetricsRegistry()
             self._evlog = RunEventLog(None)
+            # One trace file a controller under a process group.
+            trace_out = cfg.trace_out
+            if trace_out is not None and self._pc > 1:
+                root, ext = os.path.splitext(trace_out)
+                trace_out = (f"{root}.p{self._pi}of{self._pc}"
+                             f"{ext or '.json'}")
+            self.tracer = SpanTracer(trace_out)
+            self.metrics.tracer = self.tracer
+            self._xla_capture = None
         self.inv_names = list((invariants or {}).keys())
         self._inv_fns = list((invariants or {}).values())
         self._inv_id = (build_inv_id(self._inv_fns) if self._inv_fns
@@ -408,7 +425,24 @@ class MeshBFSEngine(BFSEngine):
         self._pool = None
         self._warm = False
         self._last_skew = None
-        self.trace = PyTraceStore()
+        self.trace = make_trace_store(cfg.trace_store)
+        # The chunk profiler is a one-device instrument, as in the JAX
+        # mesh; perf keeps launch accounting and the exchange's probe.
+        self._profiler = None
+        self._perf = None
+        if cfg.perf:
+            from ..obs import perf as perf_mod
+            self._perf = perf_mod.PerfAccounting(
+                pipeline=self._plan_name, stage_traffic=None,
+                device=dev0, metrics=self.metrics,
+                collectives_per_batch=EXCHANGE_CROSSINGS)
+
+    def _postmortem_path(self):
+        """One postmortem piece a controller under a process group."""
+        base = BFSEngine._postmortem_path(self)
+        if base is None:
+            return None
+        return events_path(base, None, self._pi, self._pc)
 
     def _rebuild_at_batch(self, new_batch: int) -> None:
         """The mesh again at a smaller batch (OOM degradation)."""
@@ -563,13 +597,18 @@ class MeshBFSEngine(BFSEngine):
         captured = time.time() - t
         self._phase("capture", captured)
         self._write_ctl(offset, next_counts, cur_counts, allowed)
+        tracer = self.tracer
+        t_span = time.perf_counter()
         if self.device.type != "cuda":
             t = time.time()
             while bool(self._mstep.cond(seens, self._css)[0]):
                 run()
                 res.steps += 1
             self._phase("dispatch", time.time() - t)
-            return self._read_stats(), captured
+            if tracer.enabled:
+                tracer.complete("chunk", t_span)
+            with self._span("stats_fetch"):
+                return self._read_stats(), captured
         top = max(cur_counts)
         done, at = 0, offset
         while True:
@@ -578,10 +617,14 @@ class MeshBFSEngine(BFSEngine):
             self._dispatch(run, k, seens)
             res.steps += k
             t_s = time.time()
+            t_f = time.perf_counter()
             st = self._read_stats()            # the chunk's device sync
             self._phase("dispatch", t_s - t)
             self._phase("sync", time.time() - t_s)
             if not st[0][self._CUR + 2]:
+                if tracer.enabled:
+                    tracer.complete("chunk", t_span)
+                    tracer.complete("stats_fetch", t_f)
                 return st, captured
             done, at = st[0][ST_STEPS], st[0][ST_OFFSET]
 
@@ -643,6 +686,44 @@ class MeshBFSEngine(BFSEngine):
                 "level": res.diameter, "frontier_skew": fsk,
                 "seen_skew": ssk, "shard_frontier": vals,
                 "threshold": thr})
+        if self._perf is not None:
+            self._exchange_probe()
+
+    def _measure_launches(self, qcur, qnext, seens) -> None:
+        """The perf launch model from one idle mesh step (its cond false
+        on every shard: it changes nothing), on every controller at the
+        same call."""
+        t = time.time()
+
+        def idle_step():
+            self._write_idle_ctl()
+            self._mstep(qcur, seens, qnext, self._tbufs, self._css)
+
+        self._perf.measure(idle_step,
+                           lambda: self._dispatch(lambda: None, 0, seens))
+        self._phase("profile", time.time() - t)
+
+    def _exchange_probe(self) -> None:
+        """perf: one timed crossing of the exchange, an ``all_reduce``
+        across processes (an agreement round), a ``Tensor.to`` round over
+        the shards' devices in one process."""
+        from ..obs import perf as perf_mod
+        if self._mp:
+            if not hasattr(self, "_sum_probe"):
+                self._sum_probe = mh.build_sum()
+                self._sum_probe(1)
+            fn, args = self._sum_probe, (1,)
+        else:
+            x = torch.ones(1, device=self.device)
+
+            def fn():
+                for d in self.devices:
+                    y = x.to(d)
+                return float(y.to(self.device)[0])
+            args = ()
+        self._perf.note_collective_probe(
+            perf_mod.timed_collective_probe(fn, *args,
+                                            warm=not self._mp))
 
     def _write_mesh_checkpoint(self, qcur, cur_counts, pending, seens, res,
                                trace, wall):
@@ -893,7 +974,8 @@ class MeshBFSEngine(BFSEngine):
             self._trace_run_id = self._agree_min(
                 int(time.time() * 1000) & 0x7FFFFFFF)
         res.phases.update(dict.fromkeys(PHASES, 0.0))
-        trace = self.trace = PyTraceStore()
+        trace = self.trace = make_trace_store(cfg.trace_store)
+        res.trace_store = trace.kind
         t_enter = time.time()
         QLA = QL + self._PAD
 
@@ -1000,12 +1082,23 @@ class MeshBFSEngine(BFSEngine):
                             res.stop_reason = "duration_budget"
                             break
                     calls_in_level += 1
+                    pf = self._perf
+                    if pf is not None \
+                            and pf.wants_model(self._xla_capture):
+                        self._measure_launches(qcur, qnext, seens)
                     t_call = time.time()
-                    st, captured = self._run_mesh_chunk(
-                        qcur, qnext, seens, cur_counts, offset, next_counts,
-                        allowed, res)
+                    steps0 = res.steps
+                    cap = self._xla_capture
+                    with (cap.step() if cap is not None
+                          else contextlib.nullcontext()):
+                        st, captured = self._run_mesh_chunk(
+                            qcur, qnext, seens, cur_counts, offset,
+                            next_counts, allowed, res)
                     t0 += captured
                     t_h = time.time()
+                    if pf is not None:
+                        pf.add_chunk(res.steps - steps0,
+                                     t_h - t_call - captured)
                     res.chunks += 1
                     r0 = st[0]
                     steps = r0[ST_STEPS]
@@ -1021,12 +1114,19 @@ class MeshBFSEngine(BFSEngine):
                     total = [sum(col) for col in zip(*st)]
                     self._account_chunk(res, total, max(sizes), self._CL,
                                         sum(next_counts))
+                    _FLIGHT.progress(
+                        distinct=res.distinct, generated=res.generated,
+                        diameter=res.diameter, frontier=top, offset=offset,
+                        next_count=sum(next_counts), seen_size=max(sizes),
+                        elapsed=round(time.time() - t0, 3))
                     inner = 0.0
                     if cfg.record_trace and total[ST_TCOUNT]:
                         t_t = time.time()
-                        for tbuf, r in zip(self._tbufs, self._mine(st)):
-                            if r[ST_TCOUNT]:
-                                self._flush_trace(tbuf, r[ST_TCOUNT])
+                        with self._span("trace_flush"):
+                            for tbuf, r in zip(self._tbufs,
+                                               self._mine(st)):
+                                if r[ST_TCOUNT]:
+                                    self._flush_trace(tbuf, r[ST_TCOUNT])
                         inner = time.time() - t_t
                         self._phase("trace", inner)
                     self._check_faults(total)

@@ -19,6 +19,12 @@ global device list is: process r owns the shards r·L … r·L+L−1.
   one device), staging the exchanged tensors through pinned host
   buffers.  CPU shards ride gloo.  The transport is never switched
   after a failure: a collective that fails or times out raises.
+- ``shutdown()`` leaves the group: a barrier (every controller has
+  finished its collectives), then the NCCL group and the default group
+  destroyed, so no controller drops the TCP store rank 0 hosts while
+  another still tears down.  ``initialize`` registers it with
+  ``atexit``; the CLI calls it before it returns its exit code.  A
+  later ``initialize`` forms a new group.
 - The agreement primitives (``build_any``, ``build_min``, ``build_sum``,
   ``build_budget_agree``), each one collective round trip over the gloo
   group, turn per-process host facts into one value every process reads.
@@ -44,6 +50,7 @@ Host-loop rules for multi-controller engines, the JAX module's:
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import socket
@@ -60,7 +67,8 @@ TIMEOUT_SECONDS = 300.0
 # The group this process joined: the NCCL group for card shards (None
 # where the transport is gloo) and the transport's name.  Process-wide,
 # as torch.distributed's default group itself is.
-_state: Dict[str, object] = {"transport": None, "nccl": None}
+_state: Dict[str, object] = {"transport": None, "nccl": None,
+                             "atexit": False}
 
 
 def initialize(coordinator: Optional[str] = None,
@@ -88,6 +96,9 @@ def initialize(coordinator: Optional[str] = None,
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id,
                             timeout=timeout)
+    if not _state["atexit"]:
+        atexit.register(shutdown)
+        _state["atexit"] = True
     cards = all_gather_objects(visible_cards())
     owners: Dict[str, int] = {}
     shared = False
@@ -100,6 +111,23 @@ def initialize(coordinator: Optional[str] = None,
     else:
         _state["transport"] = "gloo"
     return _state["transport"]
+
+
+def shutdown() -> None:
+    """Leave the group: a barrier under the group's timeout, then the
+    NCCL group (where there is one) and the default group destroyed.  A
+    no-op outside a group; the groups are destroyed even when the
+    barrier fails (a controller that died), and the failure raises."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    try:
+        dist.barrier()
+    finally:
+        nccl = _state["nccl"]
+        _state["transport"] = _state["nccl"] = None
+        if nccl is not None:
+            dist.destroy_process_group(nccl)
+        dist.destroy_process_group()
 
 
 def is_multiprocess() -> bool:

@@ -33,6 +33,7 @@ import torch
 from ..engine.simulate import ACC_RESTARTS, ACC_VF, SimResult, Simulator
 from ..models.dims import RaftDims
 from ..models.pystate import PyState
+from ..obs.tracing import SpanTracer
 from . import multihost as mh
 from .mesh import resolve_devices
 
@@ -69,6 +70,9 @@ class MeshSimulator:
         self._L, self._r0 = L, pi * L
         self.n_dev = pc * L
         self.batch, self.depth, self.chunk = batch, depth, chunk
+        # The span tracer (obs/tracing.py): the CLI attaches one
+        # for --trace-out; sim_chunk and sim_fetch spans a chunk.
+        self.tracer = SpanTracer(None)
         self.inv_names = list((invariants or {}).keys())
         self.fleets = [Simulator(dims, invariants=invariants,
                                  constraint=constraint, batch=batch,
@@ -104,12 +108,15 @@ class MeshSimulator:
                 return res
         res.traces = self.n_dev * self.batch
         phases = res.phases
+        tracer = self.tracer
         while res.steps < num_steps:
             t = time.time()
-            for fleet in self.fleets:
-                fleet.dispatch_chunk()
+            with tracer.span("sim_chunk"):
+                for fleet in self.fleets:
+                    fleet.dispatch_chunk()
             t_s = time.time()
-            accs = [fleet.read_chunk() for fleet in self.fleets]
+            with tracer.span("sim_fetch"):
+                accs = [fleet.read_chunk() for fleet in self.fleets]
             phases["dispatch"] += t_s - t
             phases["sync"] += time.time() - t_s
             restarts, hit = self._round(accs)

@@ -69,12 +69,17 @@ def test_static_scan_finds_no_jax_imports():
     "models/smoke.py", "models/reconfig.py", "obs/__init__.py",
     "obs/metrics.py", "obs/events.py", "obs/coverage.py", "obs/report.py",
     "engine/explain.py", "parallel/__init__.py", "parallel/mesh.py",
-    "parallel/simulate.py", "parallel/multihost.py"])
+    "parallel/simulate.py", "parallel/multihost.py", "obs/tracing.py",
+    "obs/flight.py", "obs/expose.py", "obs/history.py", "obs/profile.py",
+    "obs/roofline.py", "obs/perf.py", "obs/hunt.py", "native/__init__.py"])
 def test_split_tail_modules_are_covered(rel):
     """The modules of the split tail, the checkpoints, the POR table, the
     level loop's chunk, spill pool and trace store, the safety suite, the
-    smoke roots, the reconfiguration variant, observability, the
-    counterexample explainer, the mesh and its process group are among
+    smoke roots, the reconfiguration variant, observability (with the
+    span tracer, flight recorder, Prometheus exposition, history, chunk
+    profiler, roofline, perf accounting and hunt), the native trace
+    store's loader, the counterexample explainer, the mesh and its
+    process group are among
     the scanned sources,
     import on a machine without a card, and name neither jax nor the JAX
     package in an import."""

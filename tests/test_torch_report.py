@@ -9,8 +9,9 @@ directives of this slice.
   phase seconds are ``EngineResult.phases``; a run's events (checkpoint,
   spill, growth, degradation) validate.
 - The directives: PLATFORM picks the device, REPORT, EVENTS_OUT and
-  COUNTEREXAMPLE_DIR are honoured (a flag over its directive), and the
-  seven of modules not ported yet are refused, naming their ROADMAP item.
+  COUNTEREXAMPLE_DIR are honoured (a flag over its directive), and so
+  are the six of the JAX package's other obs/ modules (TRACE_OUT,
+  PROFILE_CHUNKS, XLA_PROFILE, METRICS_PORT, HISTORY, PERF).
 """
 
 import json
@@ -238,23 +239,56 @@ def test_platform_directive_picks_the_device(monkeypatch, tmp_path,
         make_engine(load_config(cfg_with(tmp_path, "PLATFORM = tpu")))
 
 
-@pytest.mark.parametrize("key", sorted(UNPORTED_DIRECTIVES))
-def test_unported_directives_are_refused(tmp_path, key):
-    value = "out/x" if key in ("TRACE_DIR", "TRACE_OUT", "HISTORY") \
-        else "TRUE" if key == "PERF" else "8"
-    setup = load_config(cfg_with(tmp_path, f"{key} = {value}"))
-    item = UNPORTED_DIRECTIVES[key].split()[0]
-    assert item in ("A1", "A6b")
-    with pytest.raises(ValueError, match=f"{key}.*ROADMAP.md {item}"):
-        make_engine(setup, device="cpu")
-    with pytest.raises(ValueError, match=f"ROADMAP.md {item}"):
-        cli.main(["check", cfg_with(tmp_path, f"{key} = {value}"),
-                  "--device", "cpu"])
+#: The directives of the JAX package's obs/, refused until their modules
+#: were ported, honoured since.
+OBS_DIRECTIVES = ("HISTORY", "METRICS_PORT", "PERF", "PROFILE_CHUNKS",
+                  "TRACE_OUT", "XLA_PROFILE")
+
+
+@pytest.mark.parametrize("key", OBS_DIRECTIVES)
+def test_unported_directives_are_refused(tmp_path, key, capsys):
+    """None is refused now: each of the six is honoured by the engine or
+    the CLI, and off asks for nothing."""
+    assert not UNPORTED_DIRECTIVES
+    out = tmp_path / "out"
+    value = {"HISTORY": out / "h.jsonl", "TRACE_OUT": out / "t.json",
+             "PERF": "TRUE", "METRICS_PORT": free_port()}.get(key, "8")
+    cfg = cfg_with(tmp_path, f"{key} = {value}")
+    eng = make_engine(load_config(cfg), device="cpu")
+    c = eng.config
+    assert {"PERF": c.perf and eng._perf is not None,
+            "PROFILE_CHUNKS": c.profile_chunks_every == 8
+            and eng._profiler.every == 8,
+            "XLA_PROFILE": c.xla_profile_chunks == 8,
+            "TRACE_OUT": c.trace_out == str(value)}.get(key, True)
+    if key in ("HISTORY", "METRICS_PORT", "TRACE_OUT"):
+        assert cli.main(["check", cfg, "--device", "cpu",
+                         "--max-diameter", "2"]) == 0
+        err = capsys.readouterr().err
+        if key == "HISTORY":
+            assert json.loads((out / "h.jsonl").read_text())["distinct"] \
+                == 22
+        elif key == "METRICS_PORT":
+            assert f"metrics: http://127.0.0.1:{value}/metrics" in err
+        else:
+            names = {e["name"] for e in json.loads(
+                (out / "t.json").read_text())}
+            assert {"run", "level", "chunk"} <= names
     # Off asks for nothing.
     if key in ("PERF", "METRICS_PORT", "PROFILE_CHUNKS", "XLA_PROFILE"):
         off = "FALSE" if key == "PERF" else "0"
-        make_engine(load_config(cfg_with(tmp_path, f"{key} = {off}")),
-                    device="cpu")
+        eng = make_engine(load_config(cfg_with(tmp_path, f"{key} = {off}",
+                                               name="off.cfg")),
+                          device="cpu")
+        assert eng._perf is None and eng._profiler is None
+        assert not eng.config.xla_profile_chunks
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def test_report_events_and_counterexample_directives(tmp_path, capsys):
