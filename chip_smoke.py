@@ -17,6 +17,9 @@
                                                mesh's phases only)
     python3 chip_smoke.py --obs               (observability's phases
                                                only)
+    python3 chip_smoke.py --serve             (the L9 main paths, then the
+                                               checker service's and the
+                                               chaos drills' phases only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -163,6 +166,25 @@ the L9 phase also runs with one card a process over NCCL.  The kernels
 line's B1, B3 and B5 rows carry a ``multihost`` entry (launches a
 controller on the L9 run, the routed call's ms).  ``--multihost`` runs
 these phases alone, after the kernel build.
+
+Resilience and serving (``--serve`` runs these after the L9 main paths):
+the checker service (``raft_tla_tpu_torch/server.py``) in this process on
+the card, so the wrappers' counters see the served kernels — ``check``
+of MCraft_bounded L9 on v3 (cold and a warm repeat), three jobs from two
+tenants queued together (L9 v4, L11 v4, L9 v3), L11 v4 served and direct
+in turns, the noleader job with trace, the swarm canary job,
+configs/TPUraft.cfg to L9 as a job under a ``watch --job`` client and
+``stats`` / ``/jobs`` / ``/metrics`` polls at ~10 Hz (the seen set grows
+meanwhile), a ``--metrics-port`` scrape, an eviction's device bytes given
+back, and a server restarted on the same job directory resuming a queued
+job; each at its pins.  Then four supervised chaos drills through
+``python -m raft_tla_tpu_torch check --supervise`` in a child process
+(MCraft_bounded L11 v4 under a torn snapshot write and a kill, an
+out-of-memory at a chunk, one at a seen-set growth, a failed spill
+write), each to 6,005,282 / 17,354,955; the supervisor parent and the
+``watch`` client must create no CUDA context.  The kernels line's rows
+carry a ``served`` entry: launches on the cold served L9 runs beside the
+direct runs' (equal).
 
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
@@ -5373,6 +5395,551 @@ def phase_obs(torch):
     print(f"obs phases: {time.time() - t} s")
 
 
+# -- serving and resilience (A6c) -------------------------------------------
+SERVE_SIZES = dict(batch=B, queue_capacity=QUEUE, seen_capacity=SEEN)
+TERMINAL = ("done", "failed", "cancelled")
+
+
+def serve_rt(addr, req, timeout=900):
+    """One request line to the checker service, its one response line."""
+    with socket.create_connection(addr, timeout=timeout) as s:
+        s.sendall((json.dumps(req) + "\n").encode())
+        line = s.makefile("rb").readline()
+    need(line, f"the server closed the connection on {req.get('op')}")
+    return json.loads(line)
+
+
+def serve_ok(addr, req, what, timeout=900):
+    r = serve_rt(addr, req, timeout)
+    need(r.get("ok") is True, f"{what}: {r.get('error')}")
+    return r
+
+
+def serve_wait(addr, ids, timeout=900):
+    """The jobs' summaries once all are terminal."""
+    t0 = time.time()
+    while time.time() - t0 < timeout:
+        by = {j["id"]: j for j in serve_ok(addr, {"op": "jobs"},
+                                           "jobs")["jobs"]}
+        if all(by[i]["state"] in TERMINAL for i in ids):
+            return by
+        time.sleep(0.05)
+    raise PhaseFailed(f"jobs {ids} did not settle in {timeout} s")
+
+
+def count_jobs(mgr):
+    """The job manager's executor wrapped: each job's kernel launches (the
+    wrappers' counts after it less before it), by job id."""
+    per_job, run = {}, mgr._executor
+
+    def counted(request, job):
+        before = read_counts()
+        try:
+            return run(request, job)
+        finally:
+            after = read_counts()
+            per_job[job["id"]] = {k: after[k] - before[k] for k in after}
+
+    mgr._executor = counted
+    return per_job
+
+
+def need_counts(r, distinct, generated, levels, what):
+    need((r.get("distinct"), r.get("generated"), r.get("levels"))
+         == (distinct, generated, levels),
+         f"{what}: distinct {r.get('distinct')} generated "
+         f"{r.get('generated')} levels {r.get('levels')}")
+
+
+def warm_launches(pipeline, counts, direct, what):
+    """A warm engine's repeat of a direct run: the same replays, less the
+    cold engine's one eager step, and the one insert of the roots."""
+    front = "compact" if pipeline == "v3" else "chunk_front"
+    other = "chunk_front" if pipeline == "v3" else "compact"
+    need(counts[front] == counts["fused_tail"] == direct[front] - 1
+         and counts[other] == 0 and counts["fpset_insert"] == 1
+         and counts["enqueue"] == 0,
+         f"{what}: launches {counts} against the direct run's {direct}")
+
+
+def held_bytes(torch):
+    """(allocated, reserved) device bytes once the allocator's cache has
+    gone back to the driver: what live tensors and the captured graphs'
+    pools hold.  Called between runs only (no capture in flight)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def bytes_delta(after, before):
+    return {"allocated": after[0] - before[0],
+            "reserved": after[1] - before[1]}
+
+
+def cuda_pids():
+    """Processes holding a CUDA context on the card, as nvidia-smi lists
+    them (None where it cannot)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30)
+    if out.returncode != 0:
+        return None
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+#: The supervisor through the port's CLI, then whether the process created
+#: a CUDA context (it must not).
+CLI_PROBE = ("import sys, torch\n"
+             "from raft_tla_tpu_torch import cli\n"
+             "rc = cli.main(sys.argv[1:])\n"
+             "print('device touched', torch.cuda.is_initialized(),"
+             " flush=True)\n"
+             "sys.exit(rc)\n")
+#: A client of the service, then whether it imported torch at all (it
+#: must not: ``python -m raft_tla_tpu_torch watch`` takes this path).
+CLIENT_PROBE = ("import sys\n"
+                "from raft_tla_tpu_torch import clients\n"
+                "rc = clients.main(sys.argv[1:])\n"
+                "print('device touched', 'torch' in sys.modules,"
+                " flush=True)\n"
+                "sys.exit(rc)\n")
+
+
+def probe_cli(args, probe=CLI_PROBE):
+    """``probe`` started (not waited for) from the checkout."""
+    return subprocess.Popen([sys.executable, "-c", probe] + args,
+                            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                            text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+
+
+def probe_done(p, what, timeout=600):
+    out, err = p.communicate(timeout=timeout)
+    need("device touched False" in out,
+         f"{what}: the process touched the device or died (exit "
+         f"{p.returncode}): {out[-800:]} {err[-1500:]}")
+    return p.returncode, out, err
+
+
+def serve_tpuraft_under_load(torch, addr, srv):
+    """configs/TPUraft.cfg to L9 on v4 as a job (its own sizes: batch 8192,
+    queue 4,194,304 rows, seen 2^25 slots, which grows) while a ``watch
+    --job`` client (the CLI, a child process) streams at 10 Hz and two
+    threads poll ``stats`` and the HTTP ``/jobs`` and ``/metrics`` at
+    ~10 Hz each: the run must meet the oracle's pins."""
+    import threading
+    import urllib.request
+    cfg = os.path.join(HERE, "configs/TPUraft.cfg")
+    mem0 = held_bytes(torch)
+    jid = serve_ok(addr, {"op": "submit", "tenant": "north-star",
+                          "job": {"op": "check", "cfg": cfg,
+                                  "pipeline": "v4", "max_diameter": 9}},
+                   "submit TPUraft")["job"]["id"]
+    watcher = probe_cli(["watch", f"{addr[0]}:{addr[1]}", "--job", jid,
+                         "--interval", "0.1"], CLIENT_PROBE)
+    stop, polls, errors = threading.Event(), collections.Counter(), []
+    mport = srv.metrics_http.server_address[1]
+
+    def poll_stats():
+        while not stop.is_set():
+            try:
+                r = serve_rt(addr, {"op": "stats"}, timeout=30)
+                polls["stats"] += 1
+                if not r.get("ok"):
+                    errors.append(r)
+            except OSError as e:
+                errors.append(repr(e))
+            time.sleep(0.1)
+
+    def poll_http():
+        while not stop.is_set():
+            for path in ("/jobs", "/metrics"):
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{mport}{path}",
+                            timeout=30) as r:
+                        r.read()
+                    polls[path] += 1
+                except OSError as e:
+                    errors.append(repr(e))
+            time.sleep(0.1)
+
+    threads = [threading.Thread(target=f, daemon=True)
+               for f in (poll_stats, poll_http)]
+    for th in threads:
+        th.start()
+    pids_seen = None
+    try:
+        t0 = time.time()
+        while time.time() - t0 < 600:
+            st = serve_ok(addr, {"op": "status", "job_id": jid},
+                          "status")["job"]
+            if st["state"] == "running" and pids_seen is None:
+                time.sleep(1.0)
+                pids_seen = cuda_pids()
+            if st["state"] in TERMINAL:
+                break
+            time.sleep(0.1)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+    rc, wout, werr = probe_done(watcher, "watch --job")
+    need(rc == 0 and f"job {jid} done" in wout,
+         f"watch --job exited {rc}: {wout[-800:]} {werr[-800:]}")
+    need(not errors, f"polls during the TPUraft job failed: {errors[:3]}")
+    res = serve_ok(addr, {"op": "result", "job_id": jid}, "result")["result"]
+    need_counts(res, TPURAFT_DISTINCT[9], TPURAFT_GENERATED[9],
+                TPURAFT_LEVELS, "served TPUraft L9")
+    need(res["growth_stalls"], "the served TPUraft seen set never grew")
+    warm = bytes_delta(held_bytes(torch), mem0)
+    snaps = sum(1 for line in wout.splitlines() if line.startswith("watch["))
+    print(f"served TPUraft L9 job under load: {res['distinct']} / "
+          f"{res['generated']}, check {res['wall_seconds']} s, growths "
+          f"{res['growth_stalls']}, job {st}; polls {dict(polls)}, watch "
+          f"lines {snaps}; CUDA pids during the run {pids_seen} (watch "
+          f"client pid {watcher.pid}); a warm TPUraft engine holds {warm} "
+          "bytes (allocated, and reserved with its graphs' pool)")
+    need(polls["stats"] >= 10 and polls["/jobs"] >= 10,
+         f"too few polls during the run: {dict(polls)}")
+    return warm
+
+
+def phase_serve(torch, direct):
+    """The checker service (``raft_tla_tpu_torch/server.py``) in this
+    process on the card, so the wrappers' counters see the served kernels:
+    ``ping``; MCraft_bounded L9 on v3 through ``check`` (cold, then a warm
+    repeat); three jobs from two tenants queued together (L9 v4, L11 v4,
+    L9 v3), each at its pins; L11 v4 served and direct in turns; the
+    noleader job with trace (depth 9); the swarm canary job (its pins);
+    TPUraft L9 under watch and stats load; a ``--metrics-port`` scrape; a
+    server restarted on the same job directory resuming a queued job; the
+    warm engines' device bytes, and what an eviction gives back.  The cold
+    served L9 runs launch each kernel as often as the direct runs
+    (``direct``: ``phase_main_path``'s counts)."""
+    import threading
+    import urllib.request
+    from raft_tla_tpu_torch import server as srv_mod
+    from raft_tla_tpu_torch.engine.check import run_check
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    t_phase = time.time()
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    srv = srv_mod.serve(port=0, job_dir=os.path.join(work, "jobs"),
+                        metrics_port=0,
+                        history=os.path.join(work, "ledger.jsonl"))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    addr = srv.server_address
+    per_job = count_jobs(srv.jobs)
+    mem = {}
+    served = {}
+    cfg = os.path.join(HERE, "configs/MCraft_bounded.cfg")
+    with open(cfg) as f:
+        cfg_text = f.read()
+    try:
+        ping = serve_rt(addr, {"op": "ping"})
+        need(ping == {"ok": True, "platform": "gpu",
+                      "device": torch.cuda.get_device_name(0)},
+             f"ping: {ping}")
+        v3 = dict(op="check", cfg=cfg, pipeline="v3", max_diameter=9,
+                  **SERVE_SIZES)
+        mem0 = held_bytes(torch)
+        reset_counts()
+        t = time.time()
+        r = serve_ok(addr, v3, "check v3 L9")
+        cold = time.time() - t
+        served["v3"] = read_counts()
+        need_counts(r, MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED,
+                    MCRAFT_L9_LEVELS, "served check v3 L9")
+        need(served["v3"] == direct["v3"],
+             f"served check v3 L9 launches {served['v3']}, direct "
+             f"{direct['v3']}")
+        mem["MCraft_bounded v3"] = bytes_delta(held_bytes(torch), mem0)
+        reset_counts()
+        t = time.time()
+        r2 = serve_ok(addr, v3, "warm check v3 L9")
+        warm = time.time() - t
+        need_counts(r2, MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED,
+                    MCRAFT_L9_LEVELS, "warm served check v3 L9")
+        warm_launches("v3", read_counts(), direct["v3"], "warm check v3 L9")
+        print(f"served check MCraft_bounded L9 v3: cold {cold} s (check "
+              f"{r['wall_seconds']} s), warm {warm} s (check "
+              f"{r2['wall_seconds']} s); a warm engine holds "
+              f"{mem['MCraft_bounded v3']} bytes")
+        jobs = [("acme", 9, "v4"), ("bravo", 11, "v4"), ("acme", 9, "v3")]
+        ids = [serve_ok(addr, {"op": "submit", "tenant": tenant,
+                               "job": dict(op="check", cfg_text=cfg_text,
+                                           pipeline=p, max_diameter=d,
+                                           **SERVE_SIZES)},
+                        "submit")["job"]["id"] for tenant, d, p in jobs]
+        by = serve_wait(addr, ids)
+        for (tenant, d, p), jid in zip(jobs, ids):
+            need(by[jid]["state"] == "done", f"job {by[jid]}")
+            res = serve_ok(addr, {"op": "result", "job_id": jid},
+                           "result")["result"]
+            if d == 9:
+                need_counts(res, MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED,
+                            MCRAFT_L9_LEVELS, f"job L9 {p}")
+            else:
+                need_counts(res, MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED,
+                            MCRAFT_L11_LEVELS, f"job L11 {p}")
+            print(f"job {jid} ({tenant}, L{d} {p}): queue wait "
+                  f"{by[jid]['queue_wait_seconds']} s, run "
+                  f"{by[jid]['run_seconds']} s, check {res['wall_seconds']}"
+                  f" s, launches {per_job[jid]}; allocated after the "
+                  f"jobs {torch.cuda.memory_allocated()} B")
+        served["v4"] = per_job[ids[0]]
+        need(served["v4"] == direct["v4"],
+             f"served job v4 L9 launches {served['v4']}, direct "
+             f"{direct['v4']}")
+        warm_launches("v3", per_job[ids[2]], direct["v3"], "job L9 v3")
+        need(by[ids[1]]["started_ts"] < by[ids[2]]["started_ts"],
+             "bravo's job did not run before acme's second one")
+        # L11 v4, direct and served (warm), in turns.
+        l11 = dict(op="check", cfg=cfg, pipeline="v4", max_diameter=11,
+                   **SERVE_SIZES)
+        from raft_tla_tpu_torch.engine.bfs import EngineConfig
+        turns = []
+        for how in ("direct", "served", "served", "direct"):
+            t = time.time()
+            if how == "direct":
+                res = run_check(cfg, EngineConfig(
+                    pipeline="v4", max_diameter=11, record_trace=False,
+                    **SERVE_SIZES), device="cuda")
+                check_s, got = res.wall_seconds, (res.distinct,
+                                                  res.generated)
+            else:
+                jid = serve_ok(addr, {"op": "submit", "tenant": "turns",
+                                      "job": l11}, "submit")["job"]["id"]
+                j = serve_wait(addr, [jid])[jid]
+                res = serve_ok(addr, {"op": "result", "job_id": jid},
+                               "result")["result"]
+                check_s, got = res["wall_seconds"], (res["distinct"],
+                                                     res["generated"])
+                how += (f" (queue wait {j['queue_wait_seconds']} s, run "
+                        f"{j['run_seconds']} s, turnaround "
+                        f"{j['turnaround_seconds']} s)")
+            need(got == (MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED),
+                 f"L11 v4 {how}: {got}")
+            turns.append((how, check_s, time.time() - t))
+        print("MCraft_bounded L11 v4 direct and served in turns (how, check "
+              "seconds, call seconds): " + ", ".join(map(str, turns)))
+        # The noleader violation with its trace, and the swarm canary.
+        noleader = os.path.join(HERE, CANARY["cfg"])
+        jn = serve_ok(addr, {"op": "submit", "tenant": "bravo", "job": {
+            "op": "check", "cfg": noleader, "trace": True}},
+            "submit noleader")["job"]["id"]
+        jc = serve_ok(addr, {"op": "submit", "tenant": "acme", "job": {
+            "op": "check", "cfg": noleader, "mode": "swarm",
+            "walks": CANARY["walks"], "max_depth": CANARY["max_depth"],
+            "seed": CANARY["seed"]}}, "submit canary")["job"]["id"]
+        serve_wait(addr, [jn, jc])
+        rn = serve_ok(addr, {"op": "result", "job_id": jn},
+                      "result")["result"]
+        v = rn["violation"]
+        need(v and v["invariant"] == "NoLeaderElected"
+             and len(v["trace"]) == 10 and v["trace"][0]["action"] == "Init",
+             f"noleader job: {v and (v['invariant'], len(v['trace']))}")
+        rc_ = serve_ok(addr, {"op": "result", "job_id": jc},
+                       "result")["result"]
+        inv, fp, acts, steps, visited, traces, depth = CANARY_PIN
+        dims = load_config(noleader).dims
+        want = ["Init"] + [dims.describe_instance(g) for g in acts[1:]]
+        need(rc_["violation"]["invariant"] == inv
+             and int(rc_["violation"]["fingerprint"], 16) == fp
+             and [s["action"] for s in rc_["violation"]["trace"]] == want
+             and (rc_["steps"], rc_["visited"], rc_["traces"],
+                  rc_["diameter"]) == (steps, visited, traces, depth),
+             f"swarm canary job: {rc_['violation']['fingerprint']} "
+             f"{(rc_['steps'], rc_['visited'], rc_['traces'])}")
+        print(f"noleader job: depth {len(v['trace']) - 1} "
+              f"{[s['action'] for s in v['trace'][1:]]}; swarm canary job:"
+              f" {rc_['violation']['fingerprint']}, {rc_['steps']} steps, "
+              f"visited {rc_['visited']}, traces {rc_['traces']}, deepest "
+              f"{rc_['diameter']}, hunt {rc_['hunt'] and 'on'}")
+        mem["TPUraft"] = serve_tpuraft_under_load(torch, addr, srv)
+        # The exposition listener.
+        mport = srv.metrics_http.server_address[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                    timeout=30) as f:
+            text = f.read().decode()
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/jobs",
+                                    timeout=30) as f:
+            jdoc = json.loads(f.read())
+        need("raft_jobs_queue_wait_seconds_bucket" in text
+             and "raft_server_requests_submit" in text
+             and jdoc["ok"] and jdoc["by_state"]["done"] >= 8,
+             f"/metrics or /jobs: {jdoc.get('by_state')}")
+        stats = serve_ok(addr, {"op": "stats"}, "stats")
+        c = stats["metrics"]["counters"]
+        need(c.get("server/engine_cache/hits", 0) >= 4,
+             f"engine cache counters {c}")
+        print(f"/metrics: {len(text)} bytes, {text.count(chr(10))} lines; "
+              f"/jobs by state {jdoc['by_state']}; engine cache "
+              f"{stats['engine_cache']}, hits "
+              f"{c.get('server/engine_cache/hits')}, misses "
+              f"{c.get('server/engine_cache/misses')}")
+        # Eviction gives the warm engines' memory back.
+        before = held_bytes(torch)
+        n = stats["engine_cache"]["size"]
+        cap = srv_mod._CACHE_CAP
+        srv_mod._CACHE_CAP = 1
+        try:
+            serve_ok(addr, dict(op="check", cfg=cfg, max_diameter=2,
+                                batch=128, queue_capacity=1 << 12,
+                                seen_capacity=1 << 15), "small check")
+        finally:
+            srv_mod._CACHE_CAP = cap
+        after = held_bytes(torch)
+        ev = serve_ok(addr, {"op": "stats"}, "stats")["metrics"][
+            "counters"].get("server/engine_cache/evictions", 0)
+        print(f"eviction of {n} warm engines (cap lowered to 1 for one "
+              f"request): (allocated, reserved) {before} -> {after} bytes, "
+              f"evictions {ev}")
+        need(ev == n and after[0] < before[0] and after[1] < before[1],
+             f"{ev} evictions of {n}; allocated {before} -> {after}")
+        mem["after eviction"] = after
+        # A restart on the same job directory resumes a queued job.
+        jd = os.path.join(work, "restart")
+        s1 = srv_mod.serve(port=0, job_dir=jd)
+        s1.jobs.close(wait=False)        # no executor: the job stays queued
+        threading.Thread(target=s1.serve_forever, daemon=True).start()
+        jr = serve_ok(s1.server_address, {"op": "submit", "tenant": "acme",
+                                          "job": dict(v3, max_diameter=6)},
+                      "submit")["job"]["id"]
+        s1.shutdown()
+        s1.server_close()
+        t = time.time()
+        s2 = srv_mod.serve(port=0, job_dir=jd)
+        threading.Thread(target=s2.serve_forever, daemon=True).start()
+        try:
+            j = serve_wait(s2.server_address, [jr])[jr]
+            rr = serve_ok(s2.server_address, {"op": "result", "job_id": jr},
+                          "result")["result"]
+        finally:
+            s2.shutdown()
+            s2.server_close()
+        need(j["state"] == "done" and j["note"] == "resumed_after_restart"
+             and (rr["distinct"], rr["generated"])
+             == (MCRAFT_L6_DISTINCT, MCRAFT_L6_GENERATED),
+             f"restart: {j} {rr.get('distinct')}")
+        print(f"restart on the same job dir: job {jr} resumed, done in "
+              f"{time.time() - t} s, {rr['distinct']} / {rr['generated']}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        for cache in (srv_mod._ENGINES, srv_mod._SIMS, srv_mod._SWARMS):
+            while cache:
+                srv_mod._release(cache.popitem()[1])
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"warm engine device bytes: {mem}")
+    print(f"serve phase: {time.time() - t_phase} s")
+    return {name: {"launches": served["v3"][name] + served["v4"][name],
+                   "direct": direct["v3"][name] + direct["v4"][name],
+                   "runs": "MCraft_bounded L9 served: check v3 and a job "
+                           "v4, both cold"}
+            for name in served["v3"]}
+
+
+def read_events(path):
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def chaos_drill(name, plan, extra, work):
+    """``python -m raft_tla_tpu_torch check --supervise`` of MCraft_bounded
+    to L11 on v4 under ``plan``, through ``CLI_PROBE`` (the supervisor
+    parent must make no CUDA context): the pinned counts, and the run's
+    events."""
+    ck = os.path.join(work, name)
+    t = time.time()
+    p = probe_cli(["check", os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                   "--pipeline", "v4", "--max-diameter", "11", "--no-trace",
+                   "--batch", str(B), "--queue-capacity", str(QUEUE),
+                   "--seen-capacity", str(SEEN), "--checkpoint-dir", ck,
+                   "--progress-interval", "0", "--supervise",
+                   "--fault-plan", plan] + extra)
+    parent_in = None
+    while p.poll() is None and time.time() - t < 20:
+        pids = cuda_pids()
+        if pids:
+            parent_in = p.pid in pids
+            break
+        time.sleep(0.5)
+    rc, out, err = probe_done(p, f"drill {name}")
+    wall = time.time() - t
+    m = re.search(r"distinct states\s+(\d+)\s+states generated\s+(\d+)", out)
+    need(rc == 0 and m and (int(m.group(1)), int(m.group(2)))
+         == (MCRAFT_L11_DISTINCT, MCRAFT_L11_GENERATED),
+         f"drill {name}: exit {rc}, {m and m.groups()}: {out[-1500:]} "
+         f"{err[-2500:]}")
+    events = read_events(os.path.join(ck, "events.jsonl"))
+    print(f"chaos drill {name} ({plan}): {wall} s, exit {rc}, "
+          f"{m.group(1)} / {m.group(2)}; events "
+          f"{dict(collections.Counter(e['event'] for e in events))}; "
+          f"supervisor parent in nvidia-smi's compute apps: {parent_in}")
+    need(parent_in is not True, "the supervisor parent holds a context")
+    return events, out, ck
+
+
+def phase_chaos(torch):
+    """Supervised chaos drills: MCraft_bounded L11 v4 in a child process
+    under four fault plans, each to the pinned 6,005,282 / 17,354,955."""
+    t_phase = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    try:
+        ev, _out, _ck = chaos_drill(
+            "torn_kill", "ckpt_torn_write@level=8,kill@level=9",
+            ["--checkpoint-interval", "0"], work)
+        restarts = [e for e in ev if e["event"] == "restart"]
+        need([e["exit_code"] for e in restarts] == [86, 86]
+             and restarts[0]["resume_from"].endswith("level_00007.npz")
+             and restarts[1]["resume_from"].endswith("level_00009.npz")
+             and any(e["event"] == "supervised_done" for e in ev),
+             f"torn_kill restarts {restarts}")
+        lv = [e for e in ev if e["event"] == "level_complete"
+              and e["ts"] > restarts[1]["ts"]]
+        print(f"time to recover after the kill (the restart event, its "
+              f"{restarts[1]['backoff_seconds']} s backoff included, to the "
+              f"resumed child's first level event): "
+              f"{lv[0]['ts'] - restarts[1]['ts']} s")
+        ev, out, _ck = chaos_drill(
+            "oom_chunk", "oom@level=9;chunk=2",
+            ["--checkpoint-every", "3", "--checkpoint-interval", "0"], work)
+        deg = [e for e in ev if e["event"] == "degraded"]
+        need(len(deg) == 1 and deg[0]["batch"] == B
+             and deg[0]["new_batch"] == B // 2
+             and deg[0]["resume_from"].endswith("level_00009.npz")
+             and not any(e["event"] == "restart" for e in ev),
+             f"oom_chunk: {deg}")
+        m = re.search(r"wall seconds\s+([0-9.]+)", out)
+        print(f"degraded run: {deg[0]['error']}; check wall "
+              f"{m and m.group(1)} s")
+        ev, _out, _ck = chaos_drill(
+            "oom_grow", "oom@grow=1",
+            ["--seen-capacity", str(1 << 20), "--checkpoint-interval",
+             "100000"], work)
+        deg = [e for e in ev if e["event"] == "degraded"]
+        need(len(deg) == 1 and deg[0]["reason"] == "oom_grow_retry",
+             f"oom_grow: {deg}")
+        ev, _out, ck = chaos_drill(
+            "spill_write", "spill_write@attempt=1",
+            ["--queue-capacity", str(1 << 18), "--spill-dir",
+             os.path.join(work, "spill"), "--checkpoint-interval",
+             "100000"], work)
+        need(any(e["event"] == "spill" for e in ev)
+             and os.path.exists(os.path.join(
+                 ck, ".fault_state", "fired_00_spill_write")),
+             "spill_write: no spill, or the fault never fired")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"chaos phase: {time.time() - t_phase} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5422,6 +5989,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--obs"]:
         phase_obs(torch)
+        return 0
+    if sys.argv[1:] == ["--serve"]:
+        direct = {p: phase_main_path(torch, p) for p in ("v3", "v4")}
+        served = phase_serve(torch, direct)
+        phase_chaos(torch)
+        print(json.dumps({"served": served}))
         return 0
     if sys.argv[1:] == ["--reconfig"]:
         t = time.time()
@@ -5521,6 +6094,8 @@ def main() -> int:
     phase_oom(torch)
     torch.cuda.empty_cache()
     phase_obs(torch)
+    served = phase_serve(torch, counts)
+    phase_chaos(torch)
     paths = {"compact": "v3", "fused_tail": "v4", "chunk_front": "v4",
              "fpset_insert": "v4 split", "enqueue": "v4 split"}
     for row in rows:
@@ -5528,10 +6103,12 @@ def main() -> int:
         if row["name"] in mesh_rows:
             row["mesh"] = mesh_rows[row["name"]]
             row["multihost"] = mh_rows[row["name"]]
+        row["served"] = served[row["name"]]
     print(f"chip_smoke: {time.time() - t_smoke} s in all")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ROW_KEYS + tuple(
-            x for x in ("reconfig", "mesh", "multihost") if x in r)}
+            x for x in ("reconfig", "mesh", "multihost", "served")
+            if x in r)}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

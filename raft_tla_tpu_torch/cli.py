@@ -59,6 +59,17 @@ shards (``--engine single`` is a usage error, ``auto`` takes the mesh).
 controllers exchange their trace pieces.  Before it returns, ``main``
 leaves the process group (``multihost.shutdown``).
 
+Resilience and serving, the JAX CLI's: ``check --supervise[=N]`` runs
+the check in a child process and resumes it from the newest intact
+snapshot after a crash (``resilience/supervisor.py``; needs a checkpoint
+directory), ``check --fault-plan PLAN`` (or ``FAULT_PLAN``) injects
+deterministic faults (``resilience/faults.py``).  The clients of the
+checker service (``server.py``): ``submit <cfg>`` queues a job (``--wait``
+for its result), ``jobs`` lists the registry, ``watch [HOST:PORT |
+http://HOST:PORT]`` streams a run's or a job's (``--job``) snapshots.  The
+supervisor parent and the clients make no CUDA call: they hold no card
+memory.
+
 Observability, the JAX CLI's flags (a flag over its cfg directive):
 ``--trace-out`` (TRACE_OUT: the run's spans as a Chrome trace),
 ``--profile-chunks [N]`` (PROFILE_CHUNKS: the stage profile of every Nth
@@ -81,6 +92,7 @@ import json
 import os
 import sys
 
+from . import clients
 from .engine import checkpoint as ckpt_mod
 from .engine import explain as explain_mod
 from .engine.bfs import PLAN_NAMES, EngineConfig
@@ -167,6 +179,21 @@ def _main(argv=None) -> int:
     c.add_argument("--no-degrade", action="store_true",
                    help="fail on running out of device memory instead of "
                         "halving the batch and resuming")
+    c.add_argument("--supervise", nargs="?", const=3, type=int,
+                   metavar="N",
+                   help="crash-resume supervisor (resilience/): run the "
+                        "check in a child process and, on a crash exit, "
+                        "resume it from the newest intact checkpoint with "
+                        "exponential backoff, up to N restarts (default "
+                        "3).  Requires --checkpoint-dir (or the "
+                        "CHECKPOINT_DIR directive); 'restart' events go "
+                        "into the JSONL event log")
+    c.add_argument("--fault-plan",
+                   help="deterministic fault injection (resilience/"
+                        "faults.py), e.g. 'ckpt_torn_write@level=3,"
+                        "kill@level=5,oom@grow=1'; the FAULT_PLAN "
+                        "environment variable is the fallback.  Testing "
+                        "and chaos drills only")
     c.add_argument("--progress-interval", "--progress-seconds",
                    dest="progress_interval", type=float,
                    help="seconds between progress lines on stderr (0 = "
@@ -278,7 +305,16 @@ def _main(argv=None) -> int:
                         "process group exchange their trace pieces "
                         "(flag > cfg TRACE_DIR > the checkpoint "
                         "directory)")
+    # The checker service's clients (clients.py): pure sockets.
+    clients.add_parsers(sub)
+
     args = ap.parse_args(argv)
+
+    # The clients: pure sockets, dispatched before any device is touched.
+    if args.cmd in clients.COMMANDS:
+        return clients.run(args)
+    if args.cmd == "check" and args.supervise is not None:
+        return _supervise(ap, args, argv)
 
     if os.environ.get("RAFT_COORDINATOR"):
         # The launch contract: the group forms before any device is
@@ -345,6 +381,15 @@ def _main(argv=None) -> int:
         statespace_report=cfg.statespace_report and not args.no_report,
         counterexample_dir=_counterexample_dir(args, cfg.counterexample_dir,
                                                ckpt_dir))
+    # Fault injection (resilience/): --fault-plan or the FAULT_PLAN a
+    # supervised child inherits.  Fired markers default next to the
+    # checkpoints, so a restarted child never fires a die-class fault at
+    # the same level again.
+    from .resilience import faults
+    faults.install_from_env(
+        default_state_dir=(os.path.join(ckpt_dir, ".fault_state")
+                           if ckpt_dir else None),
+        text=args.fault_plan)
     engine = make_engine(setup, cfg, device=args.device,
                          **_engine_kw(args, setup))
     resume = args.resume
@@ -422,6 +467,39 @@ def _append_history(args, setup, kind: str, res, extra=None) -> None:
         host_fingerprint=host_fingerprint(),
         label=os.path.basename(args.cfg), extra=extra))
     print(f"history: entry appended to {path}", file=sys.stderr)
+
+
+def _supervise(ap, args, argv) -> int:
+    """``check --supervise[=N]``: this same command again in a child
+    process, without ``--supervise`` (the child checks) and ``--resume``
+    (the supervisor picks the resume point for each attempt).  The
+    parent reads the cfg's directives as text and makes no CUDA call."""
+    from .resilience.supervisor import run_supervised, strip_supervisor_flags
+    from .utils.cfg import parse_backend_directives
+    ckdir, events_out = args.checkpoint_dir, args.events_out
+    trace_out = args.trace_out
+    if ckdir is None or events_out is None or trace_out is None:
+        try:
+            with open(args.cfg) as f:
+                be = parse_backend_directives(f.read())
+        except (OSError, ValueError):
+            be = {}
+        ckdir = ckdir if ckdir is not None else be.get("CHECKPOINT_DIR")
+        events_out = (events_out if events_out is not None
+                      else be.get("EVENTS_OUT"))
+        trace_out = (trace_out if trace_out is not None
+                     else be.get("TRACE_OUT"))
+    if not ckdir:
+        ap.error("--supervise requires --checkpoint-dir (or a "
+                 "CHECKPOINT_DIR directive): crash-resume restarts from "
+                 "its snapshots")
+    raw = list(argv) if argv is not None else sys.argv[1:]
+    child = [sys.executable, "-m", "raft_tla_tpu_torch"] \
+        + strip_supervisor_flags(raw)
+    # The user's own --resume is honoured on the first attempt.
+    return run_supervised(child, ckdir, max_restarts=args.supervise,
+                          events_out=events_out, initial_resume=args.resume,
+                          trace_out=trace_out)
 
 
 def _engine_kw(args, setup, key: str = "engine_cls") -> dict:

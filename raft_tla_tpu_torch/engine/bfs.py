@@ -31,9 +31,16 @@ a chunk.  What it keeps of the JAX engine:
   rows into pinned memory, resolved at the next drain or the level's end;
 - seen-set growth: past half full the table doubles by rehashing on its
   device (off the duration clock, recorded in ``growth_stalls``);
-- graceful degradation: a ``torch.cuda.OutOfMemoryError`` rebuilds the
-  engine at half the batch (down to ``min_batch``) and resumes from this
-  run's newest snapshot in ``checkpoint_dir``, or from the roots;
+- graceful degradation: running out of device memory in the level loop
+  (``torch.cuda.OutOfMemoryError``, or what ``resilience/faults.py``
+  ``is_resource_exhausted`` accepts) rebuilds the engine at half the
+  batch (down to ``min_batch``) and resumes from this run's newest
+  snapshot in ``checkpoint_dir``, or from the roots; a seen-set growth
+  that runs out retries once from the host keys after releasing the old
+  table (the ``degraded`` event with ``reason="oom_grow_retry"``);
+- the fault sites of the JAX loop (``resilience/faults.py``): ``kill``
+  and ``oom`` at a chunk call (params ``level``, ``chunk``), ``oom`` at a
+  growth (param ``grow``);
 - the TLC-style progress line every ``progress_interval_seconds``;
 - ``replay``: walk the trace back to a root and re-run the successor
   function forward, matching each recorded child by fingerprint.
@@ -116,6 +123,8 @@ from ..ops.chunk_front_cuda import Front
 from ..ops.fingerprint import build_fingerprint
 from ..ops.fpset import pack
 from ..ops.fpset_cuda import insert
+from ..resilience import faults as _faults
+from ..resilience.faults import is_resource_exhausted
 from ..utils.device import capture_graph, resolve_device
 from . import checkpoint as ckpt_mod
 from . import chunk as chunk_mod
@@ -238,7 +247,8 @@ class EngineConfig:
     # por=True (certify in process) needs the analyzer, not ported.
     por: bool = False
     por_table: Optional[object] = None
-    # On torch.cuda.OutOfMemoryError: rebuild at half the batch (not below
+    # On running out of device memory (resilience/faults.py
+    # is_resource_exhausted): rebuild at half the batch (not below
     # min_batch) and resume from this run's newest snapshot, or restart.
     degrade_on_oom: bool = True
     min_batch: int = 32
@@ -279,6 +289,13 @@ class EngineConfig:
     # <checkpoint_dir>/xla_profile, else ./xla_profile).
     xla_profile_chunks: Optional[int] = None
     xla_profile_dir: Optional[str] = None
+    # A shared MetricsRegistry (None gives the engine its own): the
+    # checker service passes its process-wide one, so several runs
+    # aggregate and other threads read live gauges.
+    metrics: Optional[object] = None
+    # Caller tags (the serving layer's job and tenant) on the flight
+    # recorder's run_context record.
+    run_context_extra: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -447,7 +464,8 @@ class BFSEngine:
         self.config = cfg = config or EngineConfig()
         self.device = dev = resolve_device(device)
         if not hasattr(self, "metrics"):
-            self.metrics = MetricsRegistry()
+            self.metrics = (cfg.metrics if cfg.metrics is not None
+                            else MetricsRegistry())
             self._evlog = RunEventLog(None)
             self.tracer = SpanTracer(cfg.trace_out)
             self.metrics.tracer = self.tracer
@@ -593,11 +611,24 @@ class BFSEngine:
 
     def _maybe_grow(self, seen, size: int, res, t0):
         """Double the table past half full (off the duration clock); the
-        graphs captured on the old table go with it."""
+        graphs captured on the old table go with it.  A growth that runs
+        out of device memory is retried once from the host keys
+        (``_grow_from_host``); the ``oom`` fault site (param ``grow``,
+        the engine's growth count) rehearses that."""
         if size <= seen.capacity // 2:
             return seen, t0
         t = time.time()
-        seen = fpset.grow(seen, 2 * seen.capacity)
+        cap = 2 * seen.capacity
+        self._grow_attempts = getattr(self, "_grow_attempts", 0) + 1
+        try:
+            if _faults.ACTIVE:
+                _faults.fire("oom", grow=self._grow_attempts)
+            grown = fpset.grow(seen, cap)
+        except Exception as e:
+            if not (self.config.degrade_on_oom and is_resource_exhausted(e)):
+                raise
+            grown = self._grow_from_host(seen, cap, e)
+        seen = grown
         self._drop_graphs()
         stall = time.time() - t
         res.growth_stalls.append((seen.capacity, round(stall, 3)))
@@ -606,6 +637,27 @@ class BFSEngine:
                          stall_seconds=round(stall, 3),
                          memory=device_memory_stats(self.device))
         return seen, t0 + stall
+
+    def _grow_from_host(self, seen, cap: int, err):
+        """The JAX engine's degraded growth retry: the keys to the host,
+        then the graphs captured on the old table dropped (their pool is
+        freed with them), the old table's storage released in place and
+        the cache returned to the driver, so the new table is the
+        retry's only large allocation.  A second failure propagates to
+        ``_run_degradable``, which halves the batch."""
+        hi, lo = fpset.to_host_keys(seen)
+        self._evlog.emit(
+            "degraded", reason="oom_grow_retry", capacity=cap,
+            error=f"{type(err).__name__}: {str(err)[:300]}",
+            memory=device_memory_stats(self.device))
+        self.metrics.counter("engine/degraded")
+        self._drop_graphs()
+        for t in (seen.keys, seen.owner):
+            if t is not None:
+                t.set_()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return fpset.from_host_keys(hi, lo, cap, self.device)
 
     def _phase(self, name: str, seconds: float):
         """Add host seconds to ``EngineResult.phases[name]`` and the same
@@ -751,6 +803,18 @@ class BFSEngine:
         graphs are all gone cannot take another capture)."""
         self._graphs.clear()
         self._pool = None
+
+    #: What a run leaves on the device besides the graphs (``release``).
+    _RUN_BUFFERS = ("_cs", "_tbuf", "_ctl", "_pinned")
+
+    def release(self) -> None:
+        """Give back what the engine holds on its device between runs (the
+        checker service calls it on a warm engine it evicts): the captured
+        graphs first, whose memory pool lives as long as they do, then the
+        run's buffers."""
+        self._drop_graphs()
+        for name in self._RUN_BUFFERS:
+            self.__dict__.pop(name, None)
 
     def _runner(self, qcur, qnext, seen, res):
         """One step on these buffers: a graph replay on the card (captured
@@ -908,7 +972,8 @@ class BFSEngine:
         """Check from ``init_states``, or continue from ``resume``: a
         snapshot's path, a loaded ``Checkpoint`` or a ``ResumePoint``.
 
-        On ``torch.cuda.OutOfMemoryError`` (and only on that) with
+        On running out of device memory (``torch.cuda.OutOfMemoryError``
+        or what ``is_resource_exhausted`` accepts, and only on that) with
         ``degrade_on_oom``: rebuild at half the batch, down to
         ``min_batch``, and go on from this run's newest snapshot in
         ``checkpoint_dir`` or from the start.  A snapshot that was in the
@@ -938,7 +1003,8 @@ class BFSEngine:
         _FLIGHT.arm(self._postmortem_path(), metrics=mt, context={
             "engine": type(self).__name__, "dims": repr(self.dims),
             "batch": cfg.batch, "resume": resume is not None,
-            "pipeline": self._plan_name, "fused_stages": dict(self._plan)})
+            "pipeline": self._plan_name, "fused_stages": dict(self._plan),
+            **dict(cfg.run_context_extra or {})})
         _FLIGHT.set_live_evlog(evlog)
         self._xla_capture = None
         if cfg.xla_profile_chunks:
@@ -1103,7 +1169,9 @@ class BFSEngine:
                 res.degraded = degraded
                 res.steps += steps
                 return res
-            except torch.cuda.OutOfMemoryError as e:
+            except Exception as e:
+                if not is_resource_exhausted(e):
+                    raise
                 why = f"{type(e).__name__}: {str(e)[:300]}"
                 cfg = self.config
                 new_batch = cfg.batch // 2
@@ -1134,9 +1202,7 @@ class BFSEngine:
     def _rebuild_at_batch(self, new_batch: int) -> None:
         """The engine again at a smaller batch (re-entrant ``__init__``),
         its graphs and buffers released first."""
-        self._drop_graphs()
-        for name in ("_cs", "_tbuf", "_ctl", "_pinned"):
-            self.__dict__.pop(name, None)
+        self.release()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         BFSEngine.__init__(
@@ -1172,6 +1238,11 @@ class BFSEngine:
         def queue():
             return torch.zeros((QA, sw), dtype=ROW_DTYPE, device=dev)
 
+        # A warm engine's graphs were captured on the last run's buffers,
+        # which this run allocates anew: a graph keyed on a queue that
+        # lands at the same address would write the old trace buffer and
+        # counters.  Every run captures its own.
+        self._drop_graphs()
         with self._span("warmup"):
             qcur, qnext = queue(), queue()
             free_q = [queue()]          # the async spill's spare
@@ -1328,6 +1399,14 @@ class BFSEngine:
                             2 << min(calls_in_level, 9)))
                             if self._batch_ema else 1)
                     calls_in_level += 1
+                    if _faults.ACTIVE:
+                        # The JAX loop's sites: "kill" dies here (mid-
+                        # level, past the level's snapshot), "oom" raises
+                        # into the degradation path.
+                        _faults.fire("kill", level=res.diameter,
+                                     chunk=calls_in_level)
+                        _faults.fire("oom", level=res.diameter,
+                                     chunk=calls_in_level)
                     self._observe_chunk(qcur, qnext, seen, offset,
                                         cur_count)
                     t_call = time.time()

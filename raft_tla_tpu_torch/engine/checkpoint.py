@@ -14,8 +14,9 @@ This is the JAX package's ``engine/checkpoint.py`` format, version 4,
 array for array and key for key (seen keys lex-sorted ``(hi, lo)`` uint32
 pairs as ``ops/fpset.py to_host_keys`` gives them), so a snapshot written
 by either package is read by the other, ``RaftDims`` and ``ReconfigDims``
-snapshots alike (the metadata names the dims class).  What the port
-leaves out: the fault-injection hooks.  The piece files a
+snapshots alike (the metadata names the dims class), with the same
+fault-injection sites in ``save`` (``resilience/faults.py``).  The piece
+files a
 multi-controller mesh run writes (``piece_path``:
 ``level_00012.p0of2.npz``, ...; ``parallel/mesh.py`` under a process
 group) load and merge here, so such a run resumes on one card or on any
@@ -42,6 +43,7 @@ from ..models.dims import RaftDims
 from ..models.pystate import PyState
 from ..models.reconfig import ReconfigDims
 from ..models.schema import state_width
+from ..resilience import faults
 
 FORMAT_VERSION = 4
 
@@ -119,8 +121,31 @@ def _dump_roots(roots: Dict[int, PyState]) -> bytes:
     return buf.getvalue()
 
 
+def _level_of(path: str) -> Optional[int]:
+    """The BFS level in a snapshot's file name (single or piece), or None
+    for another path: fault-plan params match on it."""
+    name = os.path.basename(path)
+    m = _PIECE_RE.match(name)
+    if m:
+        return int(m.group(1)[len("level_"):])
+    if name.startswith("level_") and name.endswith(".npz"):
+        try:
+            return int(name[len("level_"):-len(".npz")])
+        except ValueError:
+            return None
+    return None
+
+
 def save(path: str, ckpt: Checkpoint) -> None:
-    """Atomically write ``ckpt`` to ``path`` (a ``.npz`` file)."""
+    """Atomically write ``ckpt`` to ``path`` (a ``.npz`` file).  The fault
+    sites of the JAX ``save``: ``ckpt_piece_missing`` skips the write,
+    ``ckpt_torn_write`` dies between the tmp file's fsync and its
+    rename."""
+    if faults.ACTIVE:
+        m = _PIECE_RE.match(os.path.basename(path))
+        if faults.fire("ckpt_piece_missing", level=_level_of(path),
+                       piece=int(m.group(2)) if m else 0, path=path):
+            return          # this controller died before its piece landed
     check_dims_checkpointable(ckpt.dims)
     meta = {
         "version": FORMAT_VERSION,
@@ -151,6 +176,9 @@ def save(path: str, ckpt: Checkpoint) -> None:
             roots=np.frombuffer(_dump_roots(ckpt.roots), np.uint8))
         f.flush()
         os.fsync(f.fileno())     # the rename must never land a torn file
+    if faults.ACTIVE:
+        # The torn-write window: tmp complete on disk, not yet renamed.
+        faults.fire("ckpt_torn_write", level=_level_of(path), path=path)
     os.replace(tmp, path)
     dfd = os.open(folder, os.O_RDONLY)
     try:

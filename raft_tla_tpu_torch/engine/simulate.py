@@ -170,6 +170,13 @@ class Simulator:
         self._w = None
         self._roots = None
 
+    def release(self) -> None:
+        """Give back the captured graph and the walker buffers: the
+        checker service calls it on an evicted simulator."""
+        self._graph = None
+        self._w = None
+        self._roots = None
+
     def _buffers(self, rows):
         """The walker tensors and the roots, where the graph reads them;
         roots of another count drop the graph."""

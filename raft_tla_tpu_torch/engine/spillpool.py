@@ -9,7 +9,9 @@ Python heap, holds what fits.
 
 The JAX package's ``engine/spillpool.py`` ``SpillPool`` with the same
 API (append, ``pop(0)``, ``len``, total rows, iteration for checkpoints,
-truthiness, clear), without its fault-injection hooks.
+truthiness, clear) and the same retry: a disk segment write that fails
+is tried once more through a fresh file before the error surfaces (the
+``spill_write`` fault site, ``resilience/faults.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import tempfile
 from typing import List, Optional
 
 import numpy as np
+
+from ..resilience import faults as _faults
 
 
 class SpillPool:
@@ -41,20 +45,37 @@ class SpillPool:
         if self.directory is None:
             self._ram.append(np.array(rows, copy=True) if copy else rows)
             return
-        fd, path = tempfile.mkstemp(prefix=f"seg_{self._seq:06d}_",
-                                    suffix=".rows", dir=self.directory)
-        os.close(fd)
-        self._seq += 1
-        try:
-            mm = np.memmap(path, dtype=rows.dtype, mode="w+",
-                           shape=rows.shape)
-            mm[:] = rows
-            mm.flush()
-            del mm
-        except BaseException:
-            os.unlink(path)                # never leave a torn segment
-            raise
-        self._files.append((path, rows.shape, rows.dtype))
+        # A spilled segment is engine state: a lost write is a lost
+        # slice of the frontier, so a transient disk error gets one retry
+        # through a fresh file before it surfaces.
+        last_err = None
+        for attempt in (1, 2):
+            path = None
+            try:
+                if _faults.ACTIVE:
+                    _faults.fire("spill_write", attempt=attempt)
+                fd, path = tempfile.mkstemp(
+                    prefix=f"seg_{self._seq:06d}_", suffix=".rows",
+                    dir=self.directory)
+                os.close(fd)
+                self._seq += 1
+                mm = np.memmap(path, dtype=rows.dtype, mode="w+",
+                               shape=rows.shape)
+                mm[:] = rows
+                mm.flush()
+                del mm
+                self._files.append((path, rows.shape, rows.dtype))
+                return
+            except OSError as e:
+                last_err = e
+                if path is not None:
+                    try:
+                        os.unlink(path)    # never leave a torn segment
+                    except OSError:
+                        pass
+        raise OSError(
+            f"spill segment write failed twice in {self.directory!r} "
+            f"({len(rows)} rows): {last_err}") from last_err
 
     def pop(self, index: int = 0) -> np.ndarray:
         """Remove and return a segment (a read-only memmap when

@@ -436,8 +436,10 @@ class SwarmEngine:
     dispatches without changing any walk), ``ring`` is the per-walk dedup
     capacity R, ``chunk`` the steps a dispatch.  The constructor takes the
     JAX engine's arguments (``progress_seconds`` is the
-    ``swarm_progress`` cadence; ``hunt`` defaults to off), ``trace_out``
-    and ``device`` (the card unless ``"cpu"``)."""
+    ``swarm_progress`` cadence; ``hunt`` defaults to off), ``trace_out``,
+    ``metrics`` (a shared registry), ``run_context_extra`` (caller tags
+    on the flight recorder's run_context) and ``device`` (the card unless
+    ``"cpu"``)."""
 
     def __init__(self, dims: RaftDims,
                  invariants: Optional[Dict[str, Callable]] = None,
@@ -455,7 +457,8 @@ class SwarmEngine:
                  profile_chunks_every: Optional[int] = None,
                  xla_profile_chunks: Optional[int] = None,
                  xla_profile_dir: Optional[str] = None,
-                 trace_out: Optional[str] = None, device="cuda"):
+                 trace_out: Optional[str] = None, metrics=None,
+                 run_context_extra: Optional[dict] = None, device="cuda"):
         if walks < 1:
             raise ValueError(f"walks must be >= 1, got {walks}")
         if max_depth < 1:
@@ -477,7 +480,8 @@ class SwarmEngine:
         self.counterexample_dir = counterexample_dir
         self.progress_seconds = progress_seconds
         self.postmortem_dir = postmortem_dir
-        self.metrics = MetricsRegistry()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.run_context_extra = run_context_extra
         self.tracer = SpanTracer(trace_out)
         self.metrics.tracer = self.tracer
         self.hunt, self.hunt_cells = hunt, int(hunt_cells)
@@ -582,6 +586,13 @@ class SwarmEngine:
                          torch.zeros((self.chunk, 2), dtype=torch.int64,
                                      device=self.device))
 
+    def release(self) -> None:
+        """Give back the captured graphs (their pool with them) and the
+        staged roots: the checker service calls it on an evicted engine."""
+        self._graphs.clear()
+        self._pool = None
+        self._roots = None
+
     def _stage_roots(self, rows):
         """The roots where the graphs read them; graphs captured on roots
         of another count are dropped."""
@@ -633,7 +644,8 @@ class SwarmEngine:
                              "dims": repr(self.dims), "walks": self.walks,
                              "max_depth": self.max_depth,
                              "batch": self.batch, "ring": self.ring,
-                             "pipeline": self.pipeline_name})
+                             "pipeline": self.pipeline_name,
+                             **dict(self.run_context_extra or {})})
         _FLIGHT.set_live_evlog(evlog)
         self._run_t0 = time.perf_counter()
         evlog.emit("run_start", engine=type(self).__name__, mode="swarm",

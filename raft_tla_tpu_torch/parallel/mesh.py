@@ -121,6 +121,7 @@ from ..ops.chunk_front import FrontOut
 from ..ops.fingerprint import MASK32, build_fingerprint
 from ..ops.fpset import EMPTY, pack
 from ..ops.fpset_cuda import insert
+from ..resilience import faults as _faults
 from ..utils.device import resolve_device
 from . import multihost as mh
 
@@ -320,7 +321,8 @@ class MeshBFSEngine(BFSEngine):
         self.n_dev = n = self._pc * L
         self.device = dev0 = devs[0]
         if not hasattr(self, "metrics"):
-            self.metrics = MetricsRegistry()
+            self.metrics = (cfg.metrics if cfg.metrics is not None
+                            else MetricsRegistry())
             self._evlog = RunEventLog(None)
             # One trace file a controller under a process group.
             trace_out = cfg.trace_out
@@ -444,11 +446,11 @@ class MeshBFSEngine(BFSEngine):
             return None
         return events_path(base, None, self._pi, self._pc)
 
+    _RUN_BUFFERS = ("_css", "_tbufs", "_ctl", "_st_groups")
+
     def _rebuild_at_batch(self, new_batch: int) -> None:
         """The mesh again at a smaller batch (OOM degradation)."""
-        self._drop_graphs()
-        for name in ("_css", "_tbufs", "_ctl", "_st_groups"):
-            self.__dict__.pop(name, None)
+        self.release()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         MeshBFSEngine.__init__(
@@ -641,6 +643,12 @@ class MeshBFSEngine(BFSEngine):
         (off the duration clock; the graphs go with the old tables)."""
         if max(sizes) <= self._CL // 2:
             return seens, t0
+        self._grow_attempts = getattr(self, "_grow_attempts", 0) + 1
+        if _faults.ACTIVE:
+            # A growth that runs out here propagates to the degradation
+            # wrapper (halve the batch, resume): the per-shard rebuild has
+            # no safe retry point midway, as in the JAX mesh.
+            _faults.fire("oom", grow=self._grow_attempts)
         t = time.time()
         self._CL *= 2
         seens = [fpset.grow(s, self._CL) for s in seens]
@@ -864,6 +872,10 @@ class MeshBFSEngine(BFSEngine):
         """This controller's trace records, at every run exit (every
         controller takes the same exit), written atomically."""
         fps, parents, actions = trace.export()
+        if _faults.ACTIVE:
+            # An injected slow sibling: exercises the merge's poll and
+            # deadline without a slow host.
+            _faults.fire("trace_piece_delay", piece=self._pi)
         path = self._trace_piece_path(self._pi)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = path + ".tmp"
@@ -983,6 +995,11 @@ class MeshBFSEngine(BFSEngine):
             return [torch.zeros((QLA, sw), dtype=ROW_DTYPE, device=d)
                     for d in devs]
 
+        # A warm engine's graphs were captured on the last run's buffers,
+        # which this run allocates anew: a graph keyed on a queue that
+        # lands at the same address would write the old trace buffer and
+        # counters.  Every run captures its own.
+        self._drop_graphs()
         qcur, qnext = queues(), queues()
         self._tbufs = [torch.zeros((self._TA, chunk_mod.TRACE_ROW),
                                    dtype=torch.uint8, device=d)
@@ -1082,6 +1099,13 @@ class MeshBFSEngine(BFSEngine):
                             res.stop_reason = "duration_budget"
                             break
                     calls_in_level += 1
+                    if _faults.ACTIVE:
+                        # The single loop's sites (resilience/): mid-level
+                        # kill and simulated out-of-memory.
+                        _faults.fire("kill", level=res.diameter,
+                                     chunk=calls_in_level)
+                        _faults.fire("oom", level=res.diameter,
+                                     chunk=calls_in_level)
                     pf = self._perf
                     if pf is not None \
                             and pf.wants_model(self._xla_capture):

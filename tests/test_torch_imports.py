@@ -71,7 +71,10 @@ def test_static_scan_finds_no_jax_imports():
     "engine/explain.py", "parallel/__init__.py", "parallel/mesh.py",
     "parallel/simulate.py", "parallel/multihost.py", "obs/tracing.py",
     "obs/flight.py", "obs/expose.py", "obs/history.py", "obs/profile.py",
-    "obs/roofline.py", "obs/perf.py", "obs/hunt.py", "native/__init__.py"])
+    "obs/roofline.py", "obs/perf.py", "obs/hunt.py", "native/__init__.py",
+    "resilience/__init__.py", "resilience/faults.py",
+    "resilience/supervisor.py", "serving/__init__.py", "serving/jobs.py",
+    "serving/manager.py", "server.py", "clients.py"])
 def test_split_tail_modules_are_covered(rel):
     """The modules of the split tail, the checkpoints, the POR table, the
     level loop's chunk, spill pool and trace store, the safety suite, the
@@ -79,7 +82,8 @@ def test_split_tail_modules_are_covered(rel):
     span tracer, flight recorder, Prometheus exposition, history, chunk
     profiler, roofline, perf accounting and hunt), the native trace
     store's loader, the counterexample explainer, the mesh and its
-    process group are among
+    process group, resilience (fault injection, the supervisor), the job
+    layer, the checker service and its clients are among
     the scanned sources,
     import on a machine without a card, and name neither jax nor the JAX
     package in an import."""
@@ -92,6 +96,20 @@ def test_split_tail_modules_are_covered(rel):
     assert not re.search(r"^\s*(?:import|from)\s+(jax|jaxlib|raft_tla_tpu)\b"
                          r"(?!_torch)", src, re.M)
     assert mod.__file__ == path
+
+
+def test_the_clients_import_no_torch():
+    """``python -m raft_tla_tpu_torch submit|jobs|watch`` never imports
+    torch (so never touches the device), and offers the engine's plans."""
+    probe = ("import sys\n"
+             "from raft_tla_tpu_torch import clients\n"
+             "print(clients.COMMANDS, 'torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.stdout.strip() == "('submit', 'jobs', 'watch') False"
+    from raft_tla_tpu_torch import cli, clients
+    assert clients.PIPELINES == cli.PIPELINES
 
 
 def test_every_kernel_source_has_its_loader():

@@ -183,6 +183,10 @@ def test_flight_ring_equals_jax():
 def test_postmortem_after_a_raising_invariant_equals_jax(tmp_path):
     def boom(_st):
         raise RuntimeError("invariant boom")
+    # The rings are process-wide: records an earlier test's run left (a
+    # hunted swarm's, say) are not this run's.
+    flight.RECORDER.clear()
+    jflight.RECORDER.clear()
     docs = []
     for name, eng_cls, cfg_cls, setup, cons, root, dev in (
             ("j", JEngine, JConfig, j_load_config(BOUNDED), j_constraint,
