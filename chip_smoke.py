@@ -20,6 +20,9 @@
     python3 chip_smoke.py --serve             (the L9 main paths, then the
                                                checker service's and the
                                                chaos drills' phases only)
+    python3 chip_smoke.py --v1                (the L9 main paths, then the
+                                               v1 pipeline's phases and
+                                               the hunt's cost only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -115,6 +118,24 @@ wall printed) and the sync check with events on; TPUraft L9's report
 printed, its level table the pinned one.  ``--outputs`` runs these phases
 (but the TPUraft one) alone, after the kernel build.
 
+The classical v1 pipeline (``models/actions.py``, ``ops/pipeline_v1.py``:
+every instance of every parent built as a packed row, then B3, the full
+hash of the K gathered rows, B1 and B5; ``phase_v1``, and ``--v1`` runs
+it alone after the two L9 main paths, with the hunt's cost): MCraft_bounded
+to L9 at batch 2048 with its pins, per-family counts equal to v3's in
+the same call and its launches counted (B3 and B5 once a step, B1 once
+more for the roots, B2 and B4 never), its peak memory and an L8 profile;
+L11 with its pins, v1 and v3 in turns, each twice; the NoLeaderElected
+replay at depth 9; reconfig3 to L11 against the JAX pins; the mesh at
+n = 2 to L9; the swarm canary's pin on v1 and ``simulate --pipeline v1``
+at 2^21 steps; ``configs/TPUraft.cfg`` to L7 at its written batch 8192
+(after the earlier runs' engines are released: an engine's graphs hold
+their pool while it is referenced), and were it to run out of device
+memory the peak it reached printed and the run repeated at the largest
+power of two that fits; and the port's oracle on the host to L5 against
+v1 and v3 on tiny tables.  The hunt's cost (``phase_hunt_cost``): the swarm at
+1,024, 16,384 and 65,536 walks with the hunt off, on, on, off.
+
 The mesh (``parallel/mesh.py``, ``parallel/simulate.py``; n logical
 shards on the card, the card count printed, and n = 2 across two cards
 where there are two): the routed insert at the main path's shapes (n = 2
@@ -184,7 +205,7 @@ out-of-memory at a chunk, one at a seen-set growth, a failed spill
 write), each to 6,005,282 / 17,354,955; the supervisor parent and the
 ``watch`` client must create no CUDA context.  The kernels line's rows
 carry a ``served`` entry: launches on the cold served L9 runs beside the
-direct runs' (equal).
+direct runs' (equal), and a ``v1`` entry: launches on the v1 L9 run.
 
 The compaction is also held on masks built around its traps (zero
 fan-out rows after the last row that fits, total == K on and inside a
@@ -1194,8 +1215,12 @@ def check_launches(pipeline, counts, steps, what, method="fused",
     runs the insert kernel each step besides, and the enqueue kernel each
     step when that is its enqueue.  With trace recording the enqueue
     kernel also appends each step's trace records.  ``inserts``, where
-    given, is the exact number of insert launches outside the steps."""
-    front, other = (("compact", "chunk_front") if pipeline == "v3"
+    given, is the exact number of insert launches outside the steps.  The
+    v1 path launches as v3's with the split tail (its fused tail resolves
+    to the enqueue kernel)."""
+    if pipeline == "v1" and method == "fused":
+        method = "kernel"
+    front, other = (("compact", "chunk_front") if pipeline in ("v1", "v3")
                     else ("chunk_front", "compact"))
     ok = counts[front] == steps > 0 and counts[other] == 0
     per_step = 0 if method == "fused" else steps
@@ -3825,11 +3850,13 @@ def check_walk_trace(torch, dims, trace, what, fp=None, reencode=False):
 
 
 def swarm_eager(engine):
-    """Run ``engine``'s chunks eagerly on the card (no graph)."""
+    """Run ``engine``'s chunks eagerly on the card (no graph), with the
+    hunt's buffers where the hunt is on, as the engine's CPU path does."""
     def runner(s, outs, res):
         ys = engine._ys(len(s.walk_ids))
+        s.hunt = engine._hunt_state()
         engine._chunk(s.carry, s.walk_ids, engine._roots, engine._ctl,
-                      outs[s.index], ys)
+                      outs[s.index], ys, s.hunt)
         return ys
     engine._runner = runner
     return engine
@@ -3861,7 +3888,7 @@ def phase_swarm_parity(torch):
     c = dict(CANARY)
     eng, roots = swarm_of(os.path.basename(c.pop("cfg")),
                           walks=c["walks"], max_depth=c["max_depth"],
-                          chunk=c["chunk"], ring=c["ring"])
+                          chunk=c["chunk"], ring=c["ring"], hunt=False)
     # A warm run first (another seed), as the CI canary times its swarm:
     # the timed run then loads no kernel for the first time.
     need(eng.run(roots, seed=2, max_seconds=120).violation is not None,
@@ -3900,7 +3927,8 @@ def phase_swarm_parity(torch):
                               "NoLeader": lambda st: (st.role != LEADER)
                               .all(1)},
             constraint=build_constraint(dims, Bounds(**SWARM_BOUNDS)),
-            walks=32, max_depth=8, chunk=8, ring=8, device=device)
+            walks=32, max_depth=8, chunk=8, ring=8, device=device,
+            hunt=False)
         r = e.run([root], seed=1, num_steps=64)
         return r, (r.violation.invariant if r.violation else None,
                    r.violation.fingerprint if r.violation else None,
@@ -3919,7 +3947,8 @@ def phase_swarm_parity(torch):
 
     def multiset(device="cuda", eager=False, walks=4096, steps=128, **kw):
         e, rts = swarm_of("MCraft_bounded.cfg", device=device, walks=walks,
-                          max_depth=64, collect_fingerprints=True, **kw)
+                          max_depth=64, collect_fingerprints=True,
+                          hunt=False, **kw)
         if eager:
             swarm_eager(e)
         r = e.run(rts, seed=7, num_steps=steps)
@@ -3996,25 +4025,27 @@ def timed_swarm(torch, eng):
 
 
 def swarm_throughput(torch, cfg_name, walks, batch, profile=True,
-                     steps=128, turn=""):
+                     steps=128, turn="", hunt=False):
     """One throughput run (``batch`` lanes a dispatch, the CLI's default
-    where None): steps/s, visited/s, traces, host seconds a chunk, each
-    chunk's device milliseconds between CUDA events, peak device memory,
-    then (``profile``) device ops and device time a step of one more
-    chunk under the profiler."""
+    where None; the bare chunk unless ``hunt``): steps/s, visited/s,
+    traces, host seconds a chunk, each chunk's device milliseconds
+    between CUDA events, peak device memory, then (``profile``) device
+    ops and device time a step of one more chunk under the profiler.
+    Returns the steps a second."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kw = {} if batch is None else dict(batch=batch)
     eng, roots = swarm_of(cfg_name, walks=walks, max_depth=128, ring=16,
-                          chunk=32, **kw)
+                          chunk=32, hunt=hunt, **kw)
     chunk_ms = timed_swarm(torch, eng)
     res = eng.run(roots, seed=11, num_steps=steps)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     ms = chunk_ms()
     what = (f"swarm {cfg_name[:-4]} {walks} walks, {eng.batch} a dispatch"
-            f"{' (the CLI default)' if batch is None else ''}{turn}")
+            f"{' (the CLI default)' if batch is None else ''}, hunt "
+            f"{'on' if hunt else 'off'}{turn}")
     need(res.stop_reason == "steps" and res.steps == walks * steps,
          f"{what}: stop {res.stop_reason} after {res.steps} steps")
     print(f"{what}: {res.steps} steps in {res.wall_seconds} s = "
@@ -4027,15 +4058,37 @@ def swarm_throughput(torch, cfg_name, walks, batch, profile=True,
           f"{sum(ms) / 1e3 / res.wall_seconds}), peak device memory "
           f"allocated {peak} B")
     if not profile:
-        return
+        return res.steps_per_second
     ops = device_ops(torch, lambda: eng.run(roots, seed=12,
                                             num_steps=eng.chunk))
     if not ops:
         print(f"{what}: the profiler saw no device time (not measured)")
-        return
+        return res.steps_per_second
     print(f"{what}: {len(ops) / eng.chunk} device ops a step, device time "
           f"a step {sum(us for _n, us in ops) / eng.chunk} us (profiler, "
           f"one chunk of {eng.chunk} steps)")
+    return res.steps_per_second
+
+
+def phase_hunt_cost(torch, turns=(False, True, True, False)):
+    """What the hunt observatory costs the swarm (on by default, as in
+    the JAX package): MCraft_bounded at 1,024, 16,384 and
+    65,536 walks, the hunt off and on in ``turns``, before any profile of
+    the walk phases; steps/s of each and on over off."""
+    t = time.time()
+    out = {}
+    for walks in (1024, 16384, 65536):
+        sps = {False: [], True: []}
+        for hunt in turns:
+            sps[hunt].append(swarm_throughput(
+                torch, "MCraft_bounded.cfg", walks, None, profile=False,
+                hunt=hunt, turn=", hunt turns"))
+        out[walks] = ((sum(sps[True]) / len(sps[True]))
+                      / (sum(sps[False]) / len(sps[False])))
+        print(f"hunt cost at {walks} walks: steps/s off {sps[False]}, on "
+              f"{sps[True]}; on over off {out[walks]}")
+    print(f"hunt cost phase: {time.time() - t} s")
+    return out
 
 
 def phase_swarm_throughput(torch, turns=False):
@@ -5232,7 +5285,7 @@ def obs_swarm(torch):
     for on in (False, True):
         kw = dict(profile_chunks_every=1, perf=True) if on else {}
         eng = make_swarm(setup, walks=16384, max_depth=64, device="cuda",
-                         **kw)
+                         hunt=False, **kw)
         res = eng.run(initial_states(setup), seed=5, num_steps=64)
         got.append(res)
     off, on = got
@@ -5599,7 +5652,7 @@ def serve_tpuraft_under_load(torch, addr, srv):
           f"{res['growth_stalls']}, job {st}; polls {dict(polls)}, watch "
           f"lines {snaps}; CUDA pids during the run {pids_seen} (watch "
           f"client pid {watcher.pid}); a warm TPUraft engine holds {warm} "
-          "bytes (allocated, and reserved with its graphs' pool)")
+          "bytes (allocated, reserved; its graphs went at the run's end)")
     need(polls["stats"] >= 10 and polls["/jobs"] >= 10,
          f"too few polls during the run: {dict(polls)}")
     return warm
@@ -5797,7 +5850,9 @@ def phase_serve(torch, direct):
         print(f"eviction of {n} warm engines (cap lowered to 1 for one "
               f"request): (allocated, reserved) {before} -> {after} bytes, "
               f"evictions {ev}")
-        need(ev == n and after[0] < before[0] and after[1] < before[1],
+        # The engines dropped their graphs' pools at their runs' ends:
+        # eviction gives back their buffers.
+        need(ev == n and after[0] < before[0] and after[1] <= before[1],
              f"{ev} evictions of {n}; allocated {before} -> {after}")
         mem["after eviction"] = after
         # A restart on the same job directory resumes a queued job.
@@ -5940,6 +5995,224 @@ def phase_chaos(torch):
     print(f"chaos phase: {time.time() - t_phase} s")
 
 
+# -- the classical v1 pipeline (models/actions.py, ops/pipeline_v1.py) ------
+
+#: reconfig3.cfg's depth on v1 (the JAX pins at L11: RECONFIG_DISTINCT).
+RECONFIG_V1_DEPTH = 11
+#: TPUraft.cfg's depth on v1 at its written batch.
+TPURAFT_V1_DEPTH = 7
+
+
+def v1_check(torch, pipeline, depth, what, **kw):
+    """MCraft_bounded to ``depth`` at the main path's sizes on
+    ``pipeline``: ``(result, launches, peak device bytes allocated)``,
+    the pins and the launches held."""
+    from raft_tla_tpu_torch.engine.check import run_check
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.time()
+    res = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                    bounded_config(pipeline, depth, **kw), device="cuda")
+    torch.cuda.synchronize()
+    call = time.time() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"MCraft_bounded L{depth} {pipeline} ({what}): distinct="
+          f"{res.distinct} generated={res.generated} levels={res.levels} "
+          f"batches={res.batches} steps={res.steps} check "
+          f"{res.wall_seconds} s, call {call} s, phases {res.phases}, peak "
+          f"device memory allocated {peak} B, plan {res.fused_stages} "
+          f"{res.fused_reasons}, launches {counts}")
+    levels = MCRAFT_L11_LEVELS[:depth + 1]
+    distinct, generated = {9: (MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED),
+                           11: (MCRAFT_L11_DISTINCT,
+                                MCRAFT_L11_GENERATED)}[depth]
+    need(res.pipeline == pipeline and res.levels == levels
+         and res.distinct == distinct and res.generated == generated,
+         f"MCraft_bounded L{depth} {pipeline} differs from the pins")
+    check_launches(pipeline, counts, res.steps,
+                   f"MCraft_bounded L{depth} {pipeline}", "fused",
+                   inserts=1)
+    return res, counts, peak
+
+
+def release_device(torch):
+    """Give the allocator's cache back (an engine drops its graphs and
+    their pool at the end of each run); the card's allocated and reserved
+    bytes printed."""
+    torch.cuda.empty_cache()
+    print(f"device memory: allocated {torch.cuda.memory_allocated()} B, "
+          f"reserved {torch.cuda.memory_reserved()} B")
+
+
+def v1_mcraft(torch):
+    """MCraft_bounded on v1: L9 beside v3 (pins, per-family counts,
+    launches, peak memory), an L8 profile, L11 in turns, the noleader
+    replay.  Returns the L9 run's launches."""
+    t = time.time()
+    r1, counts, peak1 = v1_check(torch, "v1", 9, "main path")
+    r3, _c3, peak3 = v1_check(torch, "v3", 9, "beside v1")
+    need(r1.action_counts == r3.action_counts,
+         f"v1 per-family counts {r1.action_counts} differ from v3's "
+         f"{r3.action_counts}")
+    need(counts["fused_tail"] == 0 and counts["chunk_front"] == 0
+         and counts["compact"] == counts["enqueue"] == r1.steps
+         and counts["fpset_insert"] == r1.steps + 1,
+         f"v1 L9 launches {counts} over {r1.steps} steps")
+    print(f"v1 L9: check {r1.wall_seconds} s against v3's "
+          f"{r3.wall_seconds} s; peak device memory v1 {peak1} B, v3 "
+          f"{peak3} B; per-family counts equal v3's: {r1.action_counts}")
+    del r1, r3
+    phase_profile(torch, "v1")
+    print(f"v1: L9 {time.time() - t} s")
+    t = time.time()
+    walls = {"v1": [], "v3": []}
+    for pipeline in ("v1", "v3", "v3", "v1"):
+        r, _c, _p = v1_check(torch, pipeline, 11, "L11 in turns")
+        walls[pipeline].append(r.wall_seconds)
+        del r
+    print(f"MCraft_bounded L11 in turns (check seconds): {walls}")
+    phase_counterexample(torch, "v1")
+    print(f"v1: L11 and the counterexample {time.time() - t} s")
+    return counts
+
+
+def v1_variants(torch):
+    """reconfig3 against the JAX pins, the mesh at n = 2, the walk tier
+    (the canary's pin, ``simulate --pipeline v1``), all on v1."""
+    from raft_tla_tpu_torch import cli
+    from raft_tla_tpu_torch.engine.check import initial_states
+    t = time.time()
+    d = RECONFIG_V1_DEPTH
+    _e, r, _c = reconfig_check(torch, initial_states, d,
+                               f"reconfig3 L{d} v1", "v1")
+    need(r.levels == RECONFIG_LEVELS[:d + 1]
+         and r.distinct == RECONFIG_DISTINCT[d]
+         and r.generated == RECONFIG_GENERATED[d],
+         f"reconfig3 L{d} v1 differs from the JAX pins")
+    del _e, r
+    print(f"v1: reconfig3 {time.time() - t} s")
+    t = time.time()
+    r, _e, c, call = mesh_run(torch, "MCraft_bounded.cfg", 2,
+                              bounded_config("v1", 9))
+    print(f"MCraft_bounded L9 v1 mesh n=2: distinct={r.distinct} "
+          f"generated={r.generated} levels={r.levels} steps={r.steps} "
+          f"check {r.wall_seconds} s, call {call} s, plan {r.fused_stages} "
+          f"{r.fused_reasons}, launches {c}")
+    need(r.pipeline == "v1" and r.distinct == MCRAFT_L9_DISTINCT
+         and r.generated == MCRAFT_L9_GENERATED
+         and r.levels == MCRAFT_L9_LEVELS,
+         "MCraft_bounded L9 v1 on the mesh at n=2 differs from the pins")
+    check_mesh_launches(c, r.steps, 2, "MCraft_bounded L9 v1 n=2",
+                        inserts=2)
+    del r, _e
+    print(f"v1: mesh {time.time() - t} s")
+    t = time.time()
+    cfg = dict(CANARY)
+    eng, roots = swarm_of(os.path.basename(cfg.pop("cfg")),
+                          walks=cfg["walks"], max_depth=cfg["max_depth"],
+                          chunk=cfg["chunk"], ring=cfg["ring"],
+                          pipeline="v1", hunt=False)
+    res = eng.run(roots, seed=cfg["seed"], max_seconds=300)
+    got = (res.violation.invariant if res.violation else None,
+           res.violation.fingerprint if res.violation else None,
+           [g for g, _ in res.violation_trace or []], res.steps,
+           res.visited, res.traces, res.diameter)
+    print(f"swarm canary v1 on the card: {got}, wall {res.wall_seconds} s, "
+          f"pipeline {res.pipeline}")
+    need(res.pipeline == "v1" and got == CANARY_PIN,
+         f"swarm canary v1 {got} != the pin {CANARY_PIN}")
+    del eng
+    # The BASELINE simulate workload cut to 2^21 steps, as phase_simulate
+    # runs it on the default (v2) expansion.
+    buf = io.StringIO()
+    t_sim = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["simulate", os.path.join(
+            HERE, "configs/MCraft_bounded.cfg"), "--batch", "1024",
+            "--depth", "100", "--num-steps", str(1 << 21),
+            "--pipeline", "v1"])
+    out = buf.getvalue()
+    print(f"simulate MCraft_bounded --pipeline v1 --batch 1024 --num-steps "
+          f"{1 << 21} (call {time.time() - t_sim} s): "
+          + " | ".join(out.splitlines()[:4]))
+    need(rc == 0 and "VIOLATION" not in out
+         and out.startswith(f"steps visited      {1 << 21}\n"),
+         "simulate --pipeline v1: failed or short")
+    print(f"v1: walk tier {time.time() - t} s")
+
+
+def v1_tpuraft(torch):
+    """configs/TPUraft.cfg on v1 to ``TPURAFT_V1_DEPTH``: its written batch
+    first, without degradation; an out-of-memory stop is reported with the
+    peak it reached and the run repeated at the largest power-of-two
+    batch that fits."""
+    from raft_tla_tpu_torch.resilience.faults import is_resource_exhausted
+    t = time.time()
+    d = TPURAFT_V1_DEPTH
+    for batch in (8192, 4096, 2048):
+        release_device(torch)
+        try:
+            _e, r, peak = tpuraft_check(
+                torch, "TPUraft.cfg", d,
+                f"TPUraft L{d} v1 at batch {batch}", pipeline="v1",
+                batch=batch, degrade_on_oom=False)
+            break
+        except Exception as e:
+            if not is_resource_exhausted(e) or batch == 2048:
+                raise
+            print(f"TPUraft L{d} v1 at batch {batch} does not fit: peak "
+                  f"device memory allocated {torch.cuda.max_memory_allocated()}"
+                  f" B, reserved {torch.cuda.max_memory_reserved()} B; "
+                  f"{str(e).splitlines()[0]}")
+    print(f"TPUraft L{d} v1 at batch {batch}: check {r.wall_seconds} s, "
+          f"peak device memory allocated {peak} B; {time.time() - t} s")
+
+
+def v1_oracle(torch):
+    """The port's oracle on the host to L5 against the card's v1 and v3
+    on tiny tables (growth and spill inside the runs)."""
+    from raft_tla_tpu_torch.engine.check import run_check
+    from raft_tla_tpu_torch.models import oracle
+    from raft_tla_tpu_torch.models.invariants import constraint_py
+    from raft_tla_tpu_torch.models.pystate import init_state
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    t = time.time()
+    setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
+    ora = oracle.bfs([init_state(setup.dims)], setup.dims,
+                     constraint=constraint_py(setup.bounds), max_levels=5)
+    t_ora = time.time() - t
+    for pipeline in ("v1", "v3"):
+        r = run_check(os.path.join(HERE, "configs/MCraft_bounded.cfg"),
+                      bounded_config(pipeline, 5, batch=32,
+                                     queue_capacity=1024, seen_capacity=256),
+                      device="cuda")
+        need((r.distinct, r.generated, r.levels)
+             == (ora.distinct_states, ora.generated_states, ora.levels),
+             f"oracle L5 ({ora.distinct_states}, {ora.generated_states}, "
+             f"{ora.levels}) != {pipeline} on tiny tables ({r.distinct}, "
+             f"{r.generated}, {r.levels})")
+    print(f"oracle L5 on the host ({t_ora} s): {ora.distinct_states} / "
+          f"{ora.generated_states} {ora.levels}, equal to v1 and v3 on tiny "
+          f"tables on the card")
+
+
+def phase_v1(torch):
+    """The v1 plan on the card: MCraft_bounded (``v1_mcraft``), reconfig3,
+    the mesh and the walk tier (``v1_variants``), TPUraft at its written
+    batch (``v1_tpuraft``) and the oracle (``v1_oracle``), each part's
+    engines released before the next.  Returns the L9 run's launches."""
+    t = time.time()
+    counts = v1_mcraft(torch)
+    v1_variants(torch)
+    v1_tpuraft(torch)
+    release_device(torch)
+    v1_oracle(torch)
+    print(f"v1 phases: {time.time() - t} s")
+    return counts
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5959,6 +6232,7 @@ def main() -> int:
     if sys.argv[1:] == ["--walks"]:
         t = time.time()
         phase_swarm_parity(torch)
+        phase_hunt_cost(torch)
         phase_swarm_throughput(torch, turns=True)
         phase_simulate(torch)
         print(f"walk tier phases: {time.time() - t} s")
@@ -5995,6 +6269,12 @@ def main() -> int:
         served = phase_serve(torch, direct)
         phase_chaos(torch)
         print(json.dumps({"served": served}))
+        return 0
+    if sys.argv[1:] == ["--v1"]:
+        counts = {p: phase_main_path(torch, p) for p in ("v3", "v4")}
+        counts["v1"] = phase_v1(torch)
+        print(f"hunt on over off: {phase_hunt_cost(torch)}")
+        print(json.dumps({"v1": counts["v1"]}))
         return 0
     if sys.argv[1:] == ["--reconfig"]:
         t = time.time()
@@ -6074,6 +6354,8 @@ def main() -> int:
         phase_reconfig_cfg(torch)["chunk_front"]
     phase_reconfig_leader(torch)
     print(f"reconfig phases: {time.time() - t} s")
+    release_device(torch)
+    v1_counts = phase_v1(torch)
     torch.cuda.empty_cache()
     mesh_rows = phase_mesh(torch, device)
     torch.cuda.empty_cache()
@@ -6082,6 +6364,9 @@ def main() -> int:
     print(f"MCraft phases done: {time.time() - t_smoke} s")
     t = time.time()
     phase_swarm_parity(torch)
+    # One turn each in the full smoke (the time limit); --v1 and --walks
+    # run off, on, on, off.
+    phase_hunt_cost(torch, turns=(False, True))
     phase_swarm_throughput(torch)
     phase_simulate(torch)
     torch.cuda.empty_cache()
@@ -6104,10 +6389,11 @@ def main() -> int:
             row["mesh"] = mesh_rows[row["name"]]
             row["multihost"] = mh_rows[row["name"]]
         row["served"] = served[row["name"]]
+        row["v1"] = v1_counts[row["name"]]
     print(f"chip_smoke: {time.time() - t_smoke} s in all")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ROW_KEYS + tuple(
-            x for x in ("reconfig", "mesh", "multihost", "served")
+            x for x in ("reconfig", "mesh", "multihost", "served", "v1")
             if x in r)}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {

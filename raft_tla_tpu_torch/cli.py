@@ -6,7 +6,8 @@ plain PyTorch versions; the cfg's PLATFORM directive when no flag is
 given) with the engine sizes and plan of the cfg's ``\\* TPU:`` directives
 (a flag overrides its directive: ``--batch`` BATCH, ``--queue-capacity``
 QUEUE_CAPACITY, ``--seen-capacity`` SEEN_CAPACITY, ``--pipeline``
-PIPELINE (``auto`` and ``v2`` run the v3 plan), ``--checkpoint-dir``
+PIPELINE (``auto`` and ``v2`` run the v3 plan, ``v1`` the classical
+expansion), ``--checkpoint-dir``
 CHECKPOINT_DIR, ``--checkpoint-every``, ``--checkpoint-interval``,
 ``--keep-checkpoints``, ``--spill-dir`` SPILL_DIR,
 ``--progress-interval`` PROGRESS_SECONDS, ``--por-table`` POR_TABLE,
@@ -41,7 +42,14 @@ JSON or HTML (``--format``, ``--out``), and with ``--graph`` writes the
 reached state graph as DOT or GraphML.  ``simulate`` runs TLC-style
 random traces (``engine/simulate.py``: ``--num-steps`` walker-steps,
 ``--depth``, ``--batch`` walkers, ``--max-seconds`` over the cfg's
-StopAfter, ``--seed``) and prints the JAX CLI's result block.
+StopAfter, ``--seed``, ``--max-log``, ``--n-msg-slots``, ``--pipeline``
+(``v1`` the classical expansion), ``--metrics-out`` for the simulator's
+registry) and prints the JAX CLI's result block.  ``--platform`` (on
+``check``, ``explain`` and ``simulate``) is the JAX CLI's spelling of
+``--device``: ``cpu``, or ``gpu``/``cuda`` for the card; ``tpu`` is
+refused.  ``check --por`` (in-process certification) is refused with
+the analyzer's message (ROADMAP A8), exit 2; ``--por-table`` feeds a
+certified table.
 
 ``--engine`` (``check``, ``explain``, ``simulate``; the JAX CLI's
 choices) picks the single-device engine or the mesh (``parallel/``):
@@ -100,7 +108,7 @@ from .engine.check import (ENGINES, MODES, device_for,
                            engine_config_from_backend,
                            format_result, format_swarm, initial_states,
                            make_engine, make_simulator, make_swarm,
-                           resolve_mode, use_mesh)
+                           resolve_device_flags, resolve_mode, use_mesh)
 from .models.pystate import format_state
 from .obs import hunt as hunt_mod
 from .ops.pipeline_v3 import ENQUEUE_METHODS
@@ -110,12 +118,19 @@ from .utils.cfg import load_config
 PIPELINES = tuple(sorted(PLAN_NAMES))
 
 
-def _common(sp):
-    """The arguments ``check`` and ``explain`` share."""
-    sp.add_argument("cfg")
+def _device_args(sp):
     sp.add_argument("--device",
                     help="cuda (the card) or cpu (flag > cfg PLATFORM "
                          "directive > cuda)")
+    sp.add_argument("--platform",
+                    help="the JAX CLI's spelling of --device: cpu, or "
+                         "gpu/cuda for the card (tpu is refused)")
+
+
+def _common(sp):
+    """The arguments ``check`` and ``explain`` share."""
+    sp.add_argument("cfg")
+    _device_args(sp)
     sp.add_argument("--batch", type=int, help="parents expanded a batch")
     sp.add_argument("--queue-capacity", type=int,
                     help="device rows of the next-level queue")
@@ -125,7 +140,8 @@ def _common(sp):
     sp.add_argument("--max-seconds", type=float,
                     help="duration budget (over the cfg's StopAfter)")
     sp.add_argument("--pipeline", choices=PIPELINES,
-                    help="the chunk's plan (auto and v2 run v3)")
+                    help="the chunk's plan: v1 the classical expansion, "
+                         "v3 (auto and v2 run it) or v4")
     sp.add_argument("--max-log", type=int,
                     help="log capacity (over the cfg's MAX_LOG)")
     sp.add_argument("--n-msg-slots", type=int,
@@ -198,6 +214,10 @@ def _main(argv=None) -> int:
                    dest="progress_interval", type=float,
                    help="seconds between progress lines on stderr (0 = "
                         "none; default 60)")
+    c.add_argument("--por", action="store_true",
+                   help="certify a POR table in process: needs the jaxpr "
+                        "analyzer, which is not ported (refused; pass "
+                        "--por-table)")
     c.add_argument("--por-table", metavar="FILE",
                    help="apply a certified POR table (the artifact of the "
                         "JAX package's `analyze --passes por "
@@ -246,11 +266,19 @@ def _main(argv=None) -> int:
                         f"(default {explain_mod.GRAPH_CAP_DEFAULT})")
     s = sub.add_parser("simulate", help="random-trace simulation")
     s.add_argument("cfg")
-    s.add_argument("--device",
-                   help="cuda (the card) or cpu (flag > cfg PLATFORM "
-                        "directive > cuda)")
+    _device_args(s)
     s.add_argument("--batch", type=int,
                    help="walkers (flag > cfg BATCH directive > 1024)")
+    s.add_argument("--max-log", type=int,
+                   help="log capacity (over the cfg's MAX_LOG)")
+    s.add_argument("--n-msg-slots", type=int,
+                   help="message slots (over the cfg's N_MSG_SLOTS)")
+    s.add_argument("--pipeline", choices=PIPELINES,
+                   help="the walk's expansion: v1 the classical one, else "
+                        "the v2 delta kernels (flag > cfg PIPELINE > auto)")
+    s.add_argument("--metrics-out",
+                   help="write the metrics registry's snapshot (JSON: the "
+                        "sim phase timers and step counters) here")
     s.add_argument("--num-steps", type=int, default=1 << 27,
                    help="total walker-steps (default %(default)s, ~1e8: "
                         "the BASELINE workload)")
@@ -316,6 +344,11 @@ def _main(argv=None) -> int:
     if args.cmd == "check" and args.supervise is not None:
         return _supervise(ap, args, argv)
 
+    try:
+        args.device = resolve_device_flags(args.device, args.platform)
+    except ValueError as e:
+        ap.error(str(e))
+
     if os.environ.get("RAFT_COORDINATOR"):
         # The launch contract: the group forms before any device is
         # touched, and the mesh spans every process's shards.
@@ -328,10 +361,10 @@ def _main(argv=None) -> int:
             ap.error("multi-host check requires --no-trace "
                      "(counterexample traces are not multi-host yet)")
 
-    if args.cmd == "simulate":
-        return _simulate(args, load_config(args.cfg))
     setup = load_config(args.cfg, max_log=args.max_log,
                         n_msg_slots=args.n_msg_slots)
+    if args.cmd == "simulate":
+        return _simulate(args, setup)
     if args.cmd == "explain":
         return _explain(args, setup)
     try:
@@ -368,6 +401,7 @@ def _main(argv=None) -> int:
             setup.backend.get("CHECKPOINT_INTERVAL", 60.0))),
         keep_checkpoints=resolve(args.keep_checkpoints,
                                  cfg.keep_checkpoints),
+        por=args.por or cfg.por,
         por_table=resolve(args.por_table, cfg.por_table),
         events_out=resolve(args.events_out, cfg.events_out),
         trace_dir=resolve(args.trace_dir, cfg.trace_dir),
@@ -390,8 +424,15 @@ def _main(argv=None) -> int:
         default_state_dir=(os.path.join(ckpt_dir, ".fault_state")
                            if ckpt_dir else None),
         text=args.fault_plan)
-    engine = make_engine(setup, cfg, device=args.device,
-                         **_engine_kw(args, setup))
+    try:
+        engine = make_engine(setup, cfg, device=args.device,
+                             **_engine_kw(args, setup))
+    except NotImplementedError as e:
+        if not cfg.por:
+            raise
+        # check --por: the in-process certification is the analyzer's.
+        print(f"raft_tla_tpu_torch check: error: {e}", file=sys.stderr)
+        return 2
     resume = args.resume
     if resume == "auto":
         if not cfg.checkpoint_dir:
@@ -628,6 +669,7 @@ def _swarm(args, setup) -> int:
         progress_seconds=float(
             args.progress_interval if args.progress_interval is not None
             else be.get("PROGRESS_SECONDS", 5.0)),
+        pipeline=args.pipeline or be.get("PIPELINE", "auto"),
         hunt=True, perf=args.perf, profile_chunks_every=args.profile_chunks,
         xla_profile_chunks=args.xla_profile,
         xla_profile_dir=args.xla_profile_dir, trace_out=args.trace_out)
@@ -658,7 +700,7 @@ def _swarm(args, setup) -> int:
 def _simulate(args, setup) -> int:
     """``simulate``: the JAX CLI's result block; exit 1 on a violation."""
     sim = make_simulator(setup, batch=args.batch, depth=args.depth,
-                         device=args.device,
+                         device=args.device, pipeline=args.pipeline,
                          **_engine_kw(args, setup, "engine"))
     max_seconds = (args.max_seconds if args.max_seconds is not None
                    else setup.max_seconds)
@@ -671,6 +713,8 @@ def _simulate(args, setup) -> int:
                       num_steps=args.num_steps, seed=args.seed,
                       max_seconds=max_seconds)
     tracer.write()
+    if args.metrics_out:
+        _write_metrics(args.metrics_out, sim.metrics)
     print(f"steps visited      {res.steps}")
     print(f"traces             {res.traces}")
     print(f"wall seconds       {res.wall_seconds:.2f}")

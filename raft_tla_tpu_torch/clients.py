@@ -28,7 +28,7 @@ COMMANDS = ("submit", "jobs", "watch")
 
 #: ``submit --pipeline``: the port's plan names (``engine/bfs.py``
 #: PLAN_NAMES), listed here so the clients need not import the engine.
-PIPELINES = ("auto", "v2", "v3", "v4")
+PIPELINES = ("auto", "v1", "v2", "v3", "v4")
 
 
 def add_parsers(sub) -> None:

@@ -50,11 +50,14 @@ each chunk, its waits for the device (``sync``), graph capture, trace
 drains, spills and its own bookkeeping.  ``EngineConfig.pipeline`` picks
 the chunk's plan: "v3" (the default; the masks and lane stages in
 PyTorch around the compaction kernel; "auto" and "v2", the JAX
-package's names of its delta pipeline, run it too) or "v4" (one front
-kernel, ``ops/chunk_front_cuda.py``).  ``enqueue_method`` picks the tail: the
-fused insert + enqueue kernel (the default) or the split tail, the
-insert kernel followed by the enqueue kernel or a PyTorch lowering.
-Every combination gives equal results.
+package's names of its delta pipeline, run it too), "v4" (one front
+kernel, ``ops/chunk_front_cuda.py``) or "v1" (the classical expansion of
+``models/actions.py`` with the compaction, insert and enqueue kernels,
+``ops/pipeline_v1.py``).  ``enqueue_method`` picks the tail: the fused
+insert + enqueue kernel (the default; on v1 it resolves to the split
+tail's enqueue kernel) or the split tail, the insert kernel followed by
+the enqueue kernel or a PyTorch lowering.  Every combination gives equal
+results.
 
 Also the JAX engine's, in the same terms: level-boundary checkpoints in
 its ``.npz`` format and ``run(resume=...)`` (``engine/checkpoint.py``; a
@@ -98,8 +101,9 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..models.actions import build_expand
 from ..models.actions2 import ParentHash, build_v2
-from ..models.dims import RaftDims
+from ..models.dims import RaftDims, family_groups
 from ..models.invariants import build_inv_id
 from ..models.pystate import PyState
 from ..models.schema import (ROW_DTYPE, StateBatch, check_packable,
@@ -118,7 +122,7 @@ from ..obs.tracing import SpanTracer
 from ..ops import chunk_front_cuda, compact_cuda, enqueue_cuda
 from ..ops import compact as compact_mod
 from ..ops import fpset, fpset_cuda, fused_tail_cuda, pipeline_v3
-from ..ops import pipeline_v4
+from ..ops import pipeline_v1, pipeline_v4
 from ..ops.chunk_front_cuda import Front
 from ..ops.fingerprint import build_fingerprint
 from ..ops.fpset import pack
@@ -134,12 +138,21 @@ from .chunk import (ST_COUNT, ST_DEAD, ST_EXPANDED, ST_FAIL, ST_GEN, ST_NEW,
 from .spillpool import SpillPool
 from .trace import make_trace_store
 
-PLANS = {"v3": pipeline_v3, "v4": pipeline_v4}
+PLANS = {"v1": pipeline_v1, "v3": pipeline_v3, "v4": pipeline_v4}
 
 #: ``EngineConfig.pipeline`` -> plan.  The JAX package's "auto" (its
 #: default) and "v2" (its delta pipeline) are the v3 plan's semantics
-#: with the same counts; "v1" (the classical expand) is not ported.
-PLAN_NAMES = {"v3": "v3", "v4": "v4", "auto": "v3", "v2": "v3"}
+#: with the same counts; "v1" is the classical expansion.
+PLAN_NAMES = {"v1": "v1", "v3": "v3", "v4": "v4", "auto": "v3",
+              "v2": "v3"}
+
+
+def resolve_pipeline(pipeline: str) -> str:
+    """``EngineConfig.pipeline`` -> the plan's name (``PLAN_NAMES``)."""
+    if pipeline not in PLAN_NAMES:
+        raise ValueError(f"pipeline must be one of {sorted(PLAN_NAMES)}, "
+                         f"got {pipeline!r}")
+    return PLAN_NAMES[pipeline]
 
 #: The phases of ``EngineResult.phases``.
 PHASES = ("dispatch", "sync", "capture", "trace", "spill", "host",
@@ -216,7 +229,7 @@ class EngineConfig:
     sync_every: int = 32             # batches per host round trip
     max_seconds: Optional[float] = None    # StopAfter duration budget
     max_diameter: Optional[int] = None     # StopAfter diameter budget
-    pipeline: str = "v3"     # chunk plan: "v3" or "v4" (PLAN_NAMES)
+    pipeline: str = "v3"     # chunk plan: "v1", "v3" or "v4" (PLAN_NAMES)
     # The chunk's tail.  "fused": one insert + enqueue kernel (the JAX
     # plans' fused tail).  Split, the insert kernel and then: "kernel",
     # the enqueue kernel (JAX: enqueue_method="pallas" with
@@ -475,16 +488,18 @@ class BFSEngine:
         self._inv_id = (build_inv_id(self._inv_fns) if self._inv_fns
                         else None)
         self._constraint = constraint
-        if cfg.pipeline not in PLAN_NAMES:
-            raise ValueError(
-                f"pipeline must be 'v3', 'v4', 'auto' or 'v2', got "
-                f"{cfg.pipeline!r}: the JAX package's 'v1' plan is not "
-                "ported (ROADMAP.md A7)")
-        self._plan_name = PLAN_NAMES[cfg.pipeline]
+        self._plan_name = resolve_pipeline(cfg.pipeline)
         self._v2 = build_v2(dims, dev)
         self._fingerprint = build_fingerprint(dims, dev)
         self._plan = PLANS[self._plan_name].resolve_plan(dev,
                                                           cfg.enqueue_method)
+        # v1 has no fused tail: "fused" resolves to the enqueue kernel.
+        self._expand, self._method, self._plan_reasons = None, \
+            cfg.enqueue_method, {}
+        if self._plan_name == "v1":
+            self._expand = build_expand(dims, dev)
+            self._method, self._plan_reasons = pipeline_v1.resolve_method(
+                cfg.enqueue_method)
         if cfg.checkpoint_dir is not None:
             ckpt_mod.check_dims_checkpointable(dims)
         self._por_table = resolve_por(cfg, dims, invariants or {},
@@ -523,8 +538,9 @@ class BFSEngine:
             record_trace=cfg.record_trace,
             check_deadlock=self._check_deadlock, device=dev,
             v2=self._v2, inv_fns=self._inv_fns, constraint=constraint,
-            front=front, enqueue_method=cfg.enqueue_method,
-            por_mask=por_mask, por_priority=por_priority)
+            front=front, enqueue_method=self._method,
+            por_mask=por_mask, por_priority=por_priority,
+            expand=self._expand)
         self._graphs: Dict[tuple, tuple] = {}
         self._pool = None
         self._warm = False
@@ -532,8 +548,8 @@ class BFSEngine:
         self._build_observers(dict(
             v2=self._v2, inv_fns=self._inv_fns, constraint=constraint,
             record_trace=cfg.record_trace,
-            enqueue_method=cfg.enqueue_method, por_mask=por_mask,
-            por_priority=por_priority))
+            enqueue_method=self._method, por_mask=por_mask,
+            por_priority=por_priority, expand=self._expand))
 
     def _build_observers(self, stage_kw: dict) -> None:
         """The chunk profiler and the performance accounting, built for
@@ -553,7 +569,7 @@ class BFSEngine:
                                       1 << 22), 8 * self._K),
                 pipeline=pipeline, every=every, metrics=self.metrics,
                 device=dev, stage_kw=stage_kw, sync_every=cfg.sync_every,
-                enqueue_method=cfg.enqueue_method)
+                enqueue_method=self._method)
         self._perf = None
         if cfg.perf:
             from ..obs import perf as perf_mod
@@ -562,7 +578,7 @@ class BFSEngine:
                 pipeline=pipeline,
                 stage_traffic=roofline.stage_traffic(
                     dims, self._B, self._K, pipeline=pipeline,
-                    enqueue_method=cfg.enqueue_method),
+                    enqueue_method=self._method),
                 device=dev, metrics=self.metrics)
 
     # ------------------------------------------------------------------
@@ -808,10 +824,11 @@ class BFSEngine:
     _RUN_BUFFERS = ("_cs", "_tbuf", "_ctl", "_pinned")
 
     def release(self) -> None:
-        """Give back what the engine holds on its device between runs (the
-        checker service calls it on a warm engine it evicts): the captured
-        graphs first, whose memory pool lives as long as they do, then the
-        run's buffers."""
+        """Give back what the engine holds on its device (the checker
+        service calls it on a warm engine it evicts, the OOM degradation
+        mid-run): the captured graphs first, whose memory pool lives as
+        long as they do (a finished run has dropped them), then the run's
+        buffers."""
         self._drop_graphs()
         for name in self._RUN_BUFFERS:
             self.__dict__.pop(name, None)
@@ -1027,7 +1044,16 @@ class BFSEngine:
             err = e
             raise
         finally:
-            self._finish(err)
+            try:
+                self._finish(err)
+            finally:
+                # The graphs were captured on this run's buffers, which the
+                # next run allocates anew (a graph keyed on a queue that
+                # lands at the same address would write the old trace
+                # buffer and counters), so every run captures its own and
+                # none outlives its run: their pool would hold the step's
+                # temporaries as long as the engine lives (``res.engine``).
+                self._drop_graphs()
 
     def _events_path(self) -> Optional[str]:
         """Where the run's events go (``events_out``, else next to the
@@ -1217,9 +1243,10 @@ class BFSEngine:
         sw, B, Q = self._sw, self._B, self._Q
         res = self._result = EngineResult(
             pipeline=self._plan_name, fused_stages=dict(self._plan),
+            fused_reasons=dict(self._plan_reasons),
             device=str(dev), por_instances=(self._por_table.certified
                                             if self._por_table else 0),
-            family_groups=report_mod.family_groups(dims))
+            family_groups=family_groups(dims))
         mt, evlog = self.metrics, self._evlog
         coverage = self.coverage = ActionCoverage(dims.family_names,
                                                   dims.family_sizes)
@@ -1238,11 +1265,6 @@ class BFSEngine:
         def queue():
             return torch.zeros((QA, sw), dtype=ROW_DTYPE, device=dev)
 
-        # A warm engine's graphs were captured on the last run's buffers,
-        # which this run allocates anew: a graph keyed on a queue that
-        # lands at the same address would write the old trace buffer and
-        # counters.  Every run captures its own.
-        self._drop_graphs()
         with self._span("warmup"):
             qcur, qnext = queue(), queue()
             free_q = [queue()]          # the async spill's spare
@@ -1622,9 +1644,17 @@ class BFSEngine:
     def successors(self, state: PyState):
         """All G candidate successors of one state: ``(enabled [G] bool,
         fps [G] uint64 numpy, StateBatch [G])`` — the v2 masks and lane
-        outputs on every lane of the grid."""
+        outputs on every lane of the grid (on v1: the full expansion,
+        hashed in full)."""
         G, dev = self._G, self.device
         st = stack_states([encode_state(state, self.dims)], dev)
+        if self._expand is not None:
+            cands, en, _ovf = self._expand(st)
+            succ = unflatten_state(cands.rows, self.dims)
+            kh, kl = self._fingerprint(succ)
+            fps = (kh.cpu().numpy().astype(np.uint64) << np.uint64(32)) \
+                | kl.cpu().numpy().astype(np.uint64)
+            return en[0].cpu().numpy(), fps, succ
         en, _ovf = self._v2.masks(st)
         ph = self._v2.parent_hash(st)
         zero = torch.zeros(G, dtype=torch.int64, device=dev)

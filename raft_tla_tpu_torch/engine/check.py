@@ -71,6 +71,32 @@ def check_directives(setup: CheckSetup) -> None:
                 f"{item}); remove it from the cfg")
 
 
+def platform_device(platform) -> str:
+    """A platform name (the PLATFORM directive, or the JAX CLI's
+    ``--platform``) -> its device: ``cpu``, or ``gpu``/``cuda`` for the
+    card; any other (``tpu``) is refused."""
+    name = str(platform).lower()
+    if name not in PLATFORMS:
+        raise ValueError(
+            f"PLATFORM = {platform} is not a platform of this package: "
+            "cpu, or gpu/cuda for the card (tpu is the JAX package's)")
+    return PLATFORMS[name]
+
+
+def resolve_device_flags(device: Optional[str],
+                         platform: Optional[str]) -> Optional[str]:
+    """``--device`` with ``--platform`` (the JAX spelling, mapped by
+    ``platform_device``) -> the device, None where neither was given;
+    ValueError on a refused platform or when the two disagree."""
+    if platform is None:
+        return device
+    mapped = platform_device(platform)
+    if device is not None and device != mapped:
+        raise ValueError(f"--device {device} and --platform {platform} "
+                         "disagree")
+    return mapped
+
+
 def device_for(setup: CheckSetup, device=None) -> str:
     """The caller's device, else the PLATFORM directive's (``cpu``, or
     ``gpu``/``cuda`` for the card), else the card."""
@@ -79,12 +105,7 @@ def device_for(setup: CheckSetup, device=None) -> str:
     platform = setup.backend.get("PLATFORM")
     if platform is None:
         return "cuda"
-    name = str(platform).lower()
-    if name not in PLATFORMS:
-        raise ValueError(
-            f"PLATFORM = {platform} is not a platform of this package: "
-            "cpu, or gpu/cuda for the card (tpu is the JAX package's)")
-    return PLATFORMS[name]
+    return platform_device(platform)
 
 CONSTRAINT_REGISTRY = {"BoundedSpace": build_constraint}
 
@@ -257,16 +278,21 @@ def make_swarm(setup: CheckSetup, walks: Optional[int] = None,
 
 
 def make_simulator(setup: CheckSetup, batch: Optional[int] = None,
-                   depth: int = 100, device=None, engine=None):
+                   depth: int = 100, device=None, engine=None,
+                   pipeline: Optional[str] = None, metrics=None):
     """The simulator of a cfg: walkers from the caller, BATCH or 1024
-    (a fleet, on the mesh); ``engine`` as ``make_engine``'s."""
+    (a fleet, on the mesh); the walk expansion from the caller, PIPELINE
+    or ``auto``; ``engine`` as ``make_engine``'s."""
     check_directives(setup)
     be = setup.backend
     dev = device_for(setup, device)
     kw = dict(invariants=resolve_invariants(setup),
               constraint=resolve_constraint(setup),
               batch=int(batch if batch is not None else be.get("BATCH", 1024)),
-              depth=depth)
+              depth=depth,
+              pipeline=(pipeline if pipeline is not None
+                        else be.get("PIPELINE", "auto")),
+              metrics=metrics)
     mesh = use_mesh(engine, dev)
     refuse_single_in_group(mesh)
     if mesh:
@@ -337,7 +363,7 @@ def run_check(cfg_path: str, engine_config: Optional[EngineConfig] = None,
     """Parse the cfg, build the engine, run it (from the cfg's initial
     states, the smoke roots drawn from ``seed``, or from ``resume``: a
     snapshot's path or a ``Checkpoint``); the engine rides on the result
-    as ``res.engine`` (for ``replay``)."""
+    as ``res.engine`` (for ``replay``), holding no graphs after its run."""
     setup = load_config(cfg_path)
     engine = make_engine(setup, engine_config, device=device,
                          engine_cls=engine_cls, devices=devices)

@@ -1,14 +1,19 @@
-"""The BFS chunk (v3 and v4 plans, one device): one batch, and the step
-that runs it on device-resident counters.
+"""The BFS chunk (v1, v3 and v4 plans, one device): one batch, and the
+step that runs it on device-resident counters.
 
 One batch: B rows off the level queue -> guards-only masks over the B*G
 lanes (``models/actions2.py``) -> compaction of the enabled lanes to K
 slots (kernel) -> delta fingerprints and sparse successors on the K lanes
 -> constraint, invariant id and packed rows -> the tail -> the batch's
 counters.  On the v4 plan everything before the tail is one front call
-(``ops/chunk_front_cuda.py``).  With a POR table the masks are reduced
-before compaction (one certified lane kept per state,
-``ops/chunk_front.py por_keep``; inside the front kernel on v4).
+(``ops/chunk_front_cuda.py``).  On the v1 plan (``ops/pipeline_v1.py``)
+the masks are ``models/actions.py``'s full expansion, which builds every
+lane's successor row with its pack guard (folded into the overflow), and
+the K compacted rows are gathered from it and hashed in full, the
+parents too for the trace links, as the JAX chunk's v1 branches do.
+With a POR table the masks are reduced before compaction (one certified
+lane kept per state, ``ops/chunk_front.py por_keep``; inside the front
+kernel on v4).
 
 The tail is either the fused insert + enqueue kernel
 (``ops/fused_tail_cuda.py``) or split: the seen-set insert kernel
@@ -39,9 +44,9 @@ buffer through the enqueue kernel, which already appends rows of any
 width exactly (a scatter would need K trash rows and a scan of its
 own); the host drains the buffer once a chunk.
 
-The same body as the JAX package's ``engine/chunk.py`` on its v2 and
-fused-front branches with either tail, so every counter, the queue rows
-and the trace links are equal to the JAX engines'.  The body is built of
+The same body as the JAX package's ``engine/chunk.py`` on its v1, v2
+and fused-front branches with either tail, so every counter, the queue
+rows and the trace links are equal to the JAX engines'.  The body is built of
 stage functions (``ChunkStages``): ``build_chunk_body`` composes them
 into one call, and the mesh (``parallel/mesh.py``) interleaves them
 across its shards around the shared P and the routed insert, as the JAX
@@ -59,9 +64,9 @@ from ..models.invariants import build_inv_id
 from ..models.schema import flatten_state, gather_states, unflatten_state
 from ..ops import compact as compact_mod
 from ..ops.chunk_front import FrontOut, por_keep
-from ..ops.compact_cuda import compact
 from ..ops.enqueue import enqueue_scatter, enqueue_window
 from ..ops.enqueue_cuda import enqueue
+from ..ops.fingerprint import build_fingerprint
 from ..ops.fpset import pack
 from ..ops.fpset_cuda import insert
 from ..ops.fused_tail_cuda import insert_enqueue
@@ -104,9 +109,11 @@ class ChunkStages(NamedTuple):
     call and the mesh (``parallel/mesh.py``) interleaves across shards:
 
     - ``masks(rows, valid) -> (states, en, ovf, pruned)``: the guards-only
-      masks of the valid rows, POR-reduced with a table (``pruned`` the
-      lanes it dropped, else None);
-    - ``compact(en) -> (pt, lane_id, kvalid)``: the compaction kernel;
+      masks of the valid rows (v1: the full expansion, ``states`` then
+      the parents and their ``Candidates``), POR-reduced with a table
+      (``pruned`` the lanes it dropped, else None);
+    - ``compact(en) -> (P, total, lane_id, kvalid)``: the compaction
+      kernel (``ops/compact.py build_compactor``);
     - ``lanes(states, lane_id) -> (kh, kl, krows, cons_ok, inv,
       parent_hi, parent_lo)``: fingerprints, rows, constraint, invariant
       id and (with trace recording) parent fingerprints of the K lanes;
@@ -131,7 +138,8 @@ class ChunkStages(NamedTuple):
 def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
                        record_trace: bool, device, front=None,
                        enqueue_method: str = "fused", Q: int = 0,
-                       por_mask=None, por_priority=None) -> ChunkStages:
+                       por_mask=None, por_priority=None,
+                       expand=None) -> ChunkStages:
     """The ``ChunkStages`` of one plan (see ``build_chunk_body``)."""
     if enqueue_method not in ENQUEUE_METHODS:
         raise ValueError(f"enqueue_method must be one of {ENQUEUE_METHODS}, "
@@ -148,7 +156,13 @@ def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
         if por_mask.dtype != torch.bool or por_priority.dtype != torch.int32:
             raise ValueError(f"POR mask/priority must be bool/int32, got "
                              f"{por_mask.dtype} / {por_priority.dtype}")
-    kspr = compact_mod.kspread(B, G, K, device)
+    if expand is not None and (front is not None
+                               or enqueue_method == "fused"):
+        raise ValueError("the v1 expand has no front and no fused tail "
+                         "(ops/pipeline_v1.py)")
+    compact_en = compact_mod.build_compactor(B, G, K, device=device)
+    fingerprint = (build_fingerprint(dims, device) if expand is not None
+                   else None)
     inv_id = build_inv_id(inv_fns) if inv_fns else None
     fam_np = np.zeros(G, np.int64)
     for f, (off, sz) in enumerate(zip(dims.family_offsets,
@@ -163,9 +177,17 @@ def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
 
     def masks(rows, valid):
         states = unflatten_state(rows, dims)
-        en, ovf = v2.masks(states)
-        en = en & valid[:, None]
-        ovf = ovf & valid[:, None]
+        if expand is not None:
+            cands, en, ovf = expand(states)
+            en = en & valid[:, None]
+            # A successor whose term or bag count outgrew its row is an
+            # overflow too: the run stops, never aliases.
+            ovf = (ovf | (en & ~cands.pack_ok)) & valid[:, None]
+            states = (states, cands)
+        else:
+            en, ovf = v2.masks(states)
+            en = en & valid[:, None]
+            ovf = ovf & valid[:, None]
         pruned = None
         if por_mask is not None:
             # One certified enabled lane kept per state, its siblings
@@ -176,30 +198,37 @@ def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
             ovf = ovf & keep
         return states, en, ovf, pruned
 
-    def compact_en(en):
-        return compact(en.contiguous(), K, kspr)
-
     def lanes(states, lane_id):
-        # Successors for the K compacted lanes only: parents' hash sums
-        # plus per-lane deltas (models/actions2.py).
         lane = lane_id.to(torch.int64)
         pidx = lane // G
-        ph = v2.parent_hash(states)
-        kparents = gather_states(states, pidx)
-        kph = type(ph)(*(f.index_select(0, pidx) for f in ph))
-        kh, kl, kstates = v2.lane_out(kparents, kph, lane % G)
+        if expand is not None:
+            # v1: the K compacted candidates' rows, hashed in full (equal
+            # to hashing the structs wherever the pack guard holds, and
+            # an overflow stops the run).
+            states, cands = states
+            krows = cands.rows.index_select(0, lane)
+            kstates = unflatten_state(krows, dims)
+            kh, kl = fingerprint(kstates)
+        else:
+            # Successors for the K compacted lanes only: parents' hash
+            # sums plus per-lane deltas (models/actions2.py).
+            ph = v2.parent_hash(states)
+            kparents = gather_states(states, pidx)
+            kph = type(ph)(*(f.index_select(0, pidx) for f in ph))
+            kh, kl, kstates = v2.lane_out(kparents, kph, lane % G)
+            krows = flatten_state(kstates, dims)
         if constraint is not None:
             cons_ok = constraint(kstates)
         else:
             cons_ok = torch.ones(K, dtype=torch.bool, device=device)
-        krows = flatten_state(kstates, dims)
         if inv_id is not None:
             inv = inv_id(kstates)
         else:
             inv = torch.full((K,), -1, dtype=torch.int64, device=device)
         parent_hi = parent_lo = None
         if record_trace:
-            php, plp = v2.parent_fp(ph)
+            php, plp = (fingerprint(states) if expand is not None
+                        else v2.parent_fp(ph))
             parent_hi, parent_lo = php[pidx], plp[pidx]
         return kh, kl, krows, cons_ok, inv, parent_hi, parent_lo
 
@@ -207,13 +236,13 @@ def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
         states, en, ovf, pruned = masks(rows, valid)
         # Progress limiting + compaction: the longest parent prefix whose
         # fan-out fits K, its enabled lanes in ascending flat order.
-        pt, lane_id, kvalid = compact_en(en)
-        ptaken = arange_b < pt[0]
+        P, total, lane_id, kvalid = compact_en(en)
+        ptaken = arange_b < P
         en = en & ptaken[:, None]
         ovf = ovf & ptaken[:, None]
         kh, kl, krows, cons_ok, inv, parent_hi, parent_lo = lanes(states,
                                                                   lane_id)
-        return FrontOut(en=en, ovf=ovf, pruned=pruned, P=pt[0], total=pt[1],
+        return FrontOut(en=en, ovf=ovf, pruned=pruned, P=P, total=total,
                         lane_id=lane_id, kvalid=kvalid, kh=kh, kl=kl,
                         krows=krows, cons_ok=cons_ok, inv=inv,
                         parent_hi=parent_hi, parent_lo=parent_lo)
@@ -280,7 +309,7 @@ def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
 def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
                      record_trace: bool, device, front=None,
                      enqueue_method: str = "fused", Q: int = 0,
-                     por_mask=None, por_priority=None):
+                     por_mask=None, por_priority=None, expand=None):
     """Returns ``body(rows, valid, seen, qnext, next_count, max_count) ->
     BatchOut``.
 
@@ -294,12 +323,15 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
     with "kernel", "scatter", "window"); "scatter" needs ``Q``, the first
     of its K trash rows.  ``por_mask`` [G] bool and ``por_priority`` [G]
     int32 tensors on ``device`` (both or neither) turn the reduction on.
-    The body's stages are ``body.stages`` (``ChunkStages``)."""
+    ``expand`` (``models/actions.py build_expand``) runs the v1 plan: the
+    full expansion in place of the masks and the gathered rows hashed in
+    full in place of the delta lanes, with a split tail.  The body's
+    stages are ``body.stages`` (``ChunkStages``)."""
     stages = build_chunk_stages(
         dims=dims, v2=v2, inv_fns=inv_fns, constraint=constraint, B=B, K=K,
         record_trace=record_trace, device=device, front=front,
         enqueue_method=enqueue_method, Q=Q, por_mask=por_mask,
-        por_priority=por_priority)
+        por_priority=por_priority, expand=expand)
 
     def body(rows, valid, seen, qnext, next_count, max_count=None) \
             -> BatchOut:

@@ -4,7 +4,9 @@ The JAX package's ``engine/simulate.py`` (the ``simulate`` subcommand).
 Each step, every walker draws uniformly among its enabled action
 instances (``ops/walk_kernels.py masked_choice`` over random bits), takes
 that one successor through the v2 pipeline (``models/actions2.py``
-``lane_out``), checks the invariants on it, and restarts onto a uniform
+``lane_out``; with ``pipeline="v1"`` the classical expansion of
+``models/actions.py``, every instance built and the chosen one taken),
+checks the invariants on it, and restarts onto a uniform
 random root on a dead end, an overflow, a constraint stop or the depth
 bound.  There is no seen set: simulation never dedups.  Each walker
 carries its root and the actions since its last restart, so the chunk's
@@ -24,6 +26,11 @@ On the card the chunk runs as replays of one CUDA graph of up to 32 steps
 registered to the graph, so every replay draws anew; the latch and the
 restart count are reset before each chunk and read once after it.  A
 capture that fails raises.  On the CPU the chunk runs eagerly.
+
+The JAX simulator's telemetry: a ``MetricsRegistry`` (``metrics``) with
+the phase timers ``sim_chunk`` (the dispatch) and ``sim_fetch`` (the
+chunk's one read), the counter ``sim/steps`` and the gauge
+``sim/traces``, which ``simulate --metrics-out`` writes.
 """
 
 from __future__ import annotations
@@ -39,11 +46,12 @@ from ..models.dims import RaftDims
 from ..models.invariants import build_inv_id
 from ..models.pystate import PyState
 from ..models.schema import flatten_state, unflatten_state
+from ..obs.metrics import MetricsRegistry
 from ..obs.tracing import SpanTracer
 from ..ops.walk_kernels import masked_choice
 from ..utils.device import capture_graph, resolve_device
-from .swarm import (check_roots, latch_update, replay_actions,
-                    resolve_walk_pipeline, root_rows)
+from .swarm import (build_walk_expand, check_roots, latch_update,
+                    replay_actions, resolve_walk_pipeline, root_rows)
 
 #: The most steps one graph of the chunk holds.
 GRAPH_STEPS = 32
@@ -78,12 +86,14 @@ def graph_steps(chunk: int) -> int:
                if chunk % d == 0)
 
 
-def build_sim_steps(dims: RaftDims, inv_fns, constraint, D: int, device):
+def build_sim_steps(dims: RaftDims, inv_fns, constraint, D: int, device,
+                    pipeline: str = "v2"):
     """``steps_fn(w, roots, acc, gen, n)``: ``n`` walker steps on the
     walker tensors ``w`` (rows, tstep, cur_root, abuf; updated in place),
     drawing from ``gen``; ``acc`` (restarts, then the latch: ``ACC_*``)
-    accumulates across calls until the caller resets it."""
-    v2 = build_v2(dims, device)
+    accumulates across calls until the caller resets it.  ``pipeline``
+    is the resolved walk expansion (``resolve_walk_pipeline``)."""
+    walk_step = build_walk_expand(dims, pipeline, device)
     inv_id = build_inv_id(inv_fns)
     lanes_d = torch.arange(D, device=device)
 
@@ -96,12 +106,11 @@ def build_sim_steps(dims: RaftDims, inv_fns, constraint, D: int, device):
         latch = acc[ACC_VINV:]
         for _ in range(n):
             st = unflatten_state(rows, dims)
-            en, ovf = v2.masks(st)
             bits = torch.randint(0, 1 << 32, (B,), generator=gen,
                                  device=device)
-            choice = masked_choice(bits, en)
+            en, ovf, choice, nxt = walk_step(
+                st, lambda en: masked_choice(bits, en))
             can_step = en.any(1)
-            _h, _l, nxt = v2.lane_out(st, None, choice, hashes=False)
             nrows = flatten_state(nxt, dims)
             if inv_fns:
                 inv = inv_id(nxt)
@@ -138,19 +147,20 @@ def build_sim_steps(dims: RaftDims, inv_fns, constraint, D: int, device):
 
 class Simulator:
     """B random walkers of depth ``depth``, ``chunk`` steps a host round
-    trip; the JAX simulator's arguments and ``device`` (the card unless
-    ``"cpu"``)."""
+    trip; the JAX simulator's arguments (``metrics``, a shared registry)
+    and ``device`` (the card unless ``"cpu"``)."""
 
     def __init__(self, dims: RaftDims,
                  invariants: Optional[Dict[str, Callable]] = None,
                  constraint: Optional[Callable] = None,
                  batch: int = 256, depth: int = 100, chunk: int = 128,
-                 pipeline: str = "auto", device="cuda"):
+                 pipeline: str = "auto", device="cuda", metrics=None):
         if batch < 1 or depth < 1 or chunk < 1:
             raise ValueError(f"batch, depth and chunk must be >= 1, got "
                              f"{batch}, {depth}, {chunk}")
         self.dims = dims
         self.device = resolve_device(device)
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.inv_names = list((invariants or {}).keys())
         self._inv_fns = list((invariants or {}).values())
         self._inv_id = build_inv_id(self._inv_fns)
@@ -161,7 +171,8 @@ class Simulator:
         self.pipeline_name = resolve_walk_pipeline(pipeline)
         self._v2 = build_v2(dims, self.device)
         self._steps = build_sim_steps(dims, self._inv_fns, constraint, depth,
-                                      self.device)
+                                      self.device,
+                                      pipeline=self.pipeline_name)
         self._gen = torch.Generator(device=self.device)
         self._acc0 = torch.tensor([0, 0, -1, 0, 0, -1] + [0] * depth,
                                   dtype=torch.int64, device=self.device)
@@ -265,19 +276,21 @@ class Simulator:
             res.wall_seconds = time.time() - t0
             return res
         phases = res.phases
-        tracer = self.tracer
+        tracer, mt = self.tracer, self.metrics
         while res.steps < num_steps:
             t = time.time()
-            with tracer.span("sim_chunk"):
+            with tracer.span("sim_chunk"), mt.phase_timer("sim_chunk"):
                 self.dispatch_chunk()
             t_s = time.time()
-            with tracer.span("sim_fetch"):
+            with tracer.span("sim_fetch"), mt.phase_timer("sim_fetch"):
                 acc = self.read_chunk()
             phases["dispatch"] += t_s - t
             phases["sync"] += time.time() - t_s
             res.chunks += 1
             res.steps += self.batch * self.chunk
             res.traces += acc[ACC_RESTARTS]
+            mt.counter("sim/steps", self.batch * self.chunk)
+            mt.gauge("sim/traces", res.traces)
             if acc[ACC_VF]:
                 self._reconstruct(res, roots, acc)
                 break

@@ -4,7 +4,9 @@ The JAX package's ``engine/swarm.py`` (``check --mode swarm``), the
 second checking tier: where the exhaustive engine proves, the swarm
 hunts.  Every walk advances one action a step through the v2 delta
 pipeline (``models/actions2.py``: guards-only masks, then ``lane_out``
-for the one chosen instance), with the JAX engine's rules:
+for the one chosen instance) or, with ``pipeline="v1"``, through the
+classical expansion (``models/actions.py``: every instance's successor
+row, the chosen one taken), with the JAX engine's rules:
 
 - no global seen set: each walk dedups against a ring of its own last R
   accepted fingerprints (``ops/walk_kernels.py``);
@@ -47,9 +49,8 @@ walk-stage profiler (``profile_chunks_every``), the perf block
 (``perf``), the device-profiler capture (``xla_profile_chunks``) and,
 with ``trace_out``, a ``run`` span and ``swarm_chunk`` / ``swarm_fetch``
 spans.  The hunt's tallies feed nothing back into a walk, so a run's
-walks and verdict are the same with it on or off.  The hunt is off by
-default here (the JAX engine's default is on; ``check --mode swarm``
-turns it on, as the JAX CLI runs it).
+walks and verdict are the same with it on or off.  The hunt is on by
+default, as in the JAX engine; ``hunt=False`` builds the bare chunk.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.actions import build_expand
 from ..models.actions2 import build_v2
 from ..models.dims import RaftDims
 from ..models.invariants import build_inv_id
@@ -129,16 +131,48 @@ def same_fp_prior(hi, lo, accept):
 
 
 def resolve_walk_pipeline(pipeline: str) -> str:
-    """The walk tiers run the v2 delta kernels; "v3"/"v4" are plans of the
-    exhaustive chunk and take v2's semantics here, as in the JAX package."""
+    """The walk tiers' expansion: "v1" the classical one (every instance
+    built, the chosen one taken), else the v2 delta kernels; "v3"/"v4"
+    are plans of the exhaustive chunk and take v2's semantics here, as in
+    the JAX package."""
     if pipeline == "v1":
-        raise NotImplementedError(
-            "pipeline v1 (models/actions.py build_expand) is not ported "
-            "(ROADMAP A7); the walk tiers run v2")
+        return "v1"
     if pipeline not in ("auto", "v2", "v3", "v4"):
         raise ValueError(
-            f"pipeline must be auto/v2/v3/v4, got {pipeline!r}")
+            f"pipeline must be auto/v1/v2/v3/v4, got {pipeline!r}")
     return "v2"
+
+
+def build_walk_expand(dims: RaftDims, pipeline: str, device):
+    """``step(st, choose) -> (en, ovf, choice, nxt)`` of one walk step on
+    the resolved pipeline (``resolve_walk_pipeline``): the enabled and
+    overflow masks ``[B, G]`` (the pack guard folded in), ``choose(en)``'s
+    instance a row and that instance's successor.  v2 builds only the
+    chosen successor (``lane_out``); v1 builds every instance's row and
+    takes the chosen one, as the JAX walks' v1 branch does."""
+    if pipeline == "v1":
+        expand = build_expand(dims, device)
+        G = dims.n_instances
+
+        def step(st, choose):
+            cands, en, ovf = expand(st)
+            ovf = ovf | (en & ~cands.pack_ok)
+            choice = choose(en)
+            lane = (torch.arange(en.shape[0], device=en.device) * G
+                    + choice)
+            nxt = unflatten_state(cands.rows.index_select(0, lane), dims)
+            return en, ovf, choice, nxt
+
+        return step
+    v2 = build_v2(dims, device)
+
+    def step(st, choose):
+        en, ovf = v2.masks(st)
+        choice = choose(en)
+        _h, _l, nxt = v2.lane_out(st, None, choice, hashes=False)
+        return en, ovf, choice, nxt
+
+    return step
 
 
 @dataclasses.dataclass
@@ -244,7 +278,7 @@ def latch_update(latch, vf, bad, vals, abuf):
 
 
 def build_swarm_chunk(dims: RaftDims, inv_fns, constraint, D: int,
-                      chunk: int, device):
+                      chunk: int, device, pipeline: str = "v2"):
     """``chunk_fn(carry, walk_ids, roots, ctl, out, ys, hunt)``:
     ``chunk`` lockstep steps from global step ``ctl[0]`` under seed
     ``ctl[1]``, steps at or past ``ctl[2]`` frozen.  Updates ``carry`` in
@@ -253,8 +287,9 @@ def build_swarm_chunk(dims: RaftDims, inv_fns, constraint, D: int,
     3, lanes]``, and where ``hunt`` (a ``HuntState``) is given the hunt's
     filters and tallies (the JAX chunk's, derived from the walk's
     decisions and feeding none of them).  The lane count is the carry's,
-    so one builder serves every slice."""
-    v2 = build_v2(dims, device)
+    so one builder serves every slice; ``pipeline`` is the resolved walk
+    expansion (``resolve_walk_pipeline``)."""
+    walk_step = build_walk_expand(dims, pipeline, device)
     fingerprint = build_fingerprint(dims, device)
     inv_id = build_inv_id(inv_fns)
     fam = torch.as_tensor(np.repeat(
@@ -292,12 +327,11 @@ def build_swarm_chunk(dims: RaftDims, inv_fns, constraint, D: int,
             k = ctl[0] + i
             act = k < k_limit
             st = unflatten_state(rows, dims)
-            en, ovf = v2.masks(st)
             bits = walk_bits_at(key_choice, k)
             mbits = walk_bits_at(key_family, epoch)
-            choice = preferred_choice(bits, en, family_subset(mbits, fam))
+            en, ovf, choice, nxt = walk_step(st, lambda en: preferred_choice(
+                bits, en, family_subset(mbits, fam)))
             can_step = en.any(1) & act
-            _h, _l, nxt = v2.lane_out(st, None, choice, hashes=False)
             nrows = flatten_state(nxt, dims)
             fp_hi, fp_lo = fingerprint(nxt)
             if inv_fns:
@@ -436,7 +470,7 @@ class SwarmEngine:
     dispatches without changing any walk), ``ring`` is the per-walk dedup
     capacity R, ``chunk`` the steps a dispatch.  The constructor takes the
     JAX engine's arguments (``progress_seconds`` is the
-    ``swarm_progress`` cadence; ``hunt`` defaults to off), ``trace_out``,
+    ``swarm_progress`` cadence; ``hunt`` is on by default), ``trace_out``,
     ``metrics`` (a shared registry), ``run_context_extra`` (caller tags
     on the flight recorder's run_context) and ``device`` (the card unless
     ``"cpu"``)."""
@@ -447,7 +481,7 @@ class SwarmEngine:
                  walks: int = 1024, max_depth: int = 128,
                  batch: Optional[int] = None, chunk: int = 32,
                  ring: int = 16, pipeline: str = "auto",
-                 collect_fingerprints: bool = False, hunt: bool = False,
+                 collect_fingerprints: bool = False, hunt: bool = True,
                  hunt_cells: int = 1 << 20,
                  events_out: Optional[str] = None,
                  checkpoint_dir: Optional[str] = None,
@@ -492,7 +526,8 @@ class SwarmEngine:
         self._v2 = build_v2(dims, self.device)
         self._fp = build_fingerprint(dims, self.device)
         self._chunk = build_swarm_chunk(
-            dims, self._inv_fns, constraint, max_depth, chunk, self.device)
+            dims, self._inv_fns, constraint, max_depth, chunk, self.device,
+            pipeline=self.pipeline_name)
         self._ctl = torch.zeros(3, dtype=torch.int64, device=self.device)
         self._pool = None
         self._graphs: Dict[int, tuple] = {}
@@ -506,7 +541,8 @@ class SwarmEngine:
             self._profiler = ChunkProfiler(
                 dims, batch=self.batch, lanes=dims.n_instances,
                 seen_capacity=1 << 10, pipeline="swarm", every=every,
-                metrics=self.metrics, device=self.device, ring=ring)
+                metrics=self.metrics, device=self.device, ring=ring,
+                swarm_pipeline=self.pipeline_name)
         self._perf = None
         if perf:
             from ..obs import perf as perf_mod
@@ -515,7 +551,7 @@ class SwarmEngine:
                 pipeline="swarm",
                 stage_traffic=roofline.stage_traffic(
                     dims, self.batch, dims.n_instances, pipeline="swarm",
-                    ring=ring),
+                    ring=ring, swarm_pipeline=self.pipeline_name),
                 device=self.device, metrics=self.metrics)
         self._xla_chunks, self._xla_dir = xla_profile_chunks, xla_profile_dir
         self._xla_capture = None

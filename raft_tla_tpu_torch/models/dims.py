@@ -40,6 +40,7 @@ ones take one state.  The port imports nothing of that package.
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 import torch
 
@@ -162,6 +163,12 @@ class RaftDims:
         has the masks take that from the kernels."""
         return None
 
+    def extra_successors_py(self, s):
+        """The extra families' successors of one ``PyState``, for the
+        oracle (``models/oracle.py``): ``((family, params), successor)``
+        pairs.  None here."""
+        return ()
+
     def build_value_ok(self):
         """Elementwise: is a log-entry value well-typed (in Value)."""
         v = self.n_values
@@ -207,6 +214,42 @@ class RaftDims:
         fam, p = self.instance_info(g)
         return (f"{self.family_names[fam]}("
                 f"{', '.join(f'{k}={v}' for k, v in p.items())})")
+
+
+#: The base families grouped by parameter grid, by position in the family
+#: list: the JAX package's ``models/actions.py`` ``_BASE_GROUPS`` (its v1
+#: expansion stacks each group into one dispatch).
+_BASE_GROUPS = (
+    ("server", (0, 1, 3, 5)),         # Restart/Timeout/BecomeLeader/ACI (i,)
+    ("server_pair", (2, 6)),          # RequestVote/AppendEntries (i, j)
+    ("server_value", (4,)),           # ClientRequest (i, v)
+    ("slot", (7, 8, 9)),              # Receive/Duplicate/Drop (s,)
+)
+_BASE_FAMILY_NAMES = ("Restart", "Timeout", "RequestVote", "BecomeLeader",
+                      "ClientRequest", "AdvanceCommitIndex",
+                      "AppendEntries", "Receive", "DuplicateMessage",
+                      "DropMessage")
+
+
+def family_groups(dims: RaftDims) -> List[dict]:
+    """``[{"group", "families", "kernels", "lanes"}]``: the base families
+    by parameter grid, each extra (variant) family a group of its own;
+    ``kernels`` the families in the group, ``lanes`` its instances.  The
+    JAX package's ``models/actions.py`` ``family_groups``: the engines'
+    ``EngineResult.family_groups``, which the run report's
+    ``family_groups`` and its ``expansion groups`` line come from."""
+    names = list(dims.family_names)
+    sizes = list(dims.family_sizes)
+    if tuple(names[:10]) != _BASE_FAMILY_NAMES:
+        return [{"group": n, "families": [n], "kernels": 1,
+                 "lanes": int(s)} for n, s in zip(names, sizes)]
+    out = [{"group": gname, "families": [names[m] for m in members],
+            "kernels": len(members),
+            "lanes": int(sum(sizes[m] for m in members))}
+           for gname, members in _BASE_GROUPS]
+    out += [{"group": names[k], "families": [names[k]], "kernels": 1,
+             "lanes": int(sizes[k])} for k in range(10, len(names))]
+    return out
 
 
 def _audit_lane_widths(dims: RaftDims) -> None:

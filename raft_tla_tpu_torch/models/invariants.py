@@ -100,6 +100,10 @@ def build_no_leader(dims: RaftDims):
     return no_leader
 
 
+def no_leader_py(s: PyState, dims: RaftDims) -> bool:
+    return LEADER not in s.role
+
+
 def build_inv_id(inv_fns):
     """``inv_id(st) -> [X] int64``: index of the first violated invariant
     in ``inv_fns`` order, -1 where all hold."""
@@ -139,3 +143,53 @@ def invariant_registry():
     the JAX package's order."""
     return {"TypeOK": build_type_ok, "NoLeaderElected": build_no_leader,
             **SAFETY_INVARIANTS}
+
+
+#: The name the cfg CONSTRAINT goes by among the checkable predicates (a
+#: cfg names its operator, e.g. ``BoundedSpace``; a POR certificate cares
+#: about the predicate the engine evaluates).
+CONSTRAINT_PREDICATE = "CONSTRAINT"
+
+
+def checkable_predicates(dims: RaftDims, invariant_names=None,
+                         bounds: Optional[Bounds] = None,
+                         constraint=None):
+    """Every state predicate a check can evaluate, as ``[(name,
+    predicate)]``: by default every registered invariant (TypeOK, the
+    NoLeaderElected canary, the safety suite), else the named ones, then
+    the constraint under ``CONSTRAINT_PREDICATE`` when ``constraint`` is
+    given or ``bounds`` carries a bound.  The JAX package's export, which
+    its POR pass reads."""
+    registry = invariant_registry()
+    names = (list(registry) if invariant_names is None
+             else list(invariant_names))
+    out = []
+    for name in names:
+        if name not in registry:
+            raise ValueError(f"unknown invariant {name!r}; registered: "
+                             f"{sorted(registry)}")
+        out.append((name, registry[name](dims)))
+    if constraint is not None:
+        out.append((CONSTRAINT_PREDICATE, constraint))
+    elif bounds is not None and any(
+            getattr(bounds, f.name) is not None
+            for f in dataclasses.fields(bounds)):
+        out.append((CONSTRAINT_PREDICATE, build_constraint(dims, bounds)))
+    return out
+
+
+def constraint_py(bounds: Bounds):
+    """``BoundedSpace`` over ``bounds`` on one ``PyState``."""
+    def constraint(s: PyState, dims: RaftDims) -> bool:
+        ok = True
+        if bounds.max_term is not None:
+            ok &= max(s.current_term) <= bounds.max_term
+        if bounds.max_log_len is not None:
+            ok &= max(len(lg) for lg in s.log) <= bounds.max_log_len
+        if bounds.max_msg_count is not None:
+            ok &= all(c <= bounds.max_msg_count for _m, c in s.messages)
+        if bounds.max_in_flight is not None:
+            ok &= len(s.messages) <= bounds.max_in_flight
+        return ok
+
+    return constraint

@@ -42,6 +42,9 @@ class PyState:
     match_index: Tuple[Tuple[int, ...], ...]
     messages: Bag
 
+    def replace(self, **kw) -> "PyState":
+        return dataclasses.replace(self, **kw)
+
 
 def init_state(dims: RaftDims) -> PyState:
     """The unique initial state (``Init``)."""
@@ -58,6 +61,29 @@ def init_state(dims: RaftDims) -> PyState:
         match_index=tuple((0,) * n for _ in range(n)),
         messages=frozenset(),
     )
+
+
+# The bag: WithMessage / WithoutMessage / Reply of the spec.
+
+def bag_add(bag: Bag, m: Message) -> Bag:
+    d = dict(bag)
+    d[m] = d.get(m, 0) + 1
+    return frozenset(d.items())
+
+
+def bag_remove(bag: Bag, m: Message) -> Bag:
+    d = dict(bag)
+    c = d.get(m, 0)
+    if c <= 1:
+        d.pop(m, None)
+    else:
+        d[m] = c - 1
+    return frozenset(d.items())
+
+
+def bag_reply(bag: Bag, response: Message, request: Message) -> Bag:
+    """Add ``response`` and remove ``request`` in one step."""
+    return bag_remove(bag_add(bag, response), request)
 
 
 # Printing: ``state_fields`` is the one decoded view of a state (JSON-able,
@@ -148,3 +174,29 @@ def format_state(s: PyState, dims: RaftDims) -> str:
     for m in msgs:
         lines.append(f"    {m['count']}x {m['msg']}")
     return "\n".join(lines)
+
+
+def probe_states(dims: RaftDims):
+    """Type-correct states that together enable every base action
+    instance (the JAX package's POR probes; they need not be reachable):
+    the initial state; every server a candidate with a granted quorum and
+    no recorded responses; every server a leader; every message slot
+    holding a distinct single-copy request whose term is above every
+    server's."""
+    from .dims import CANDIDATE, LEADER
+    n = dims.n_servers
+    base = init_state(dims)
+    full = (1 << n) - 1
+    out = [base]
+    out.append(base.replace(role=(CANDIDATE,) * n,
+                            current_term=(2,) * n,
+                            votes_granted=(full,) * n))
+    out.append(base.replace(role=(LEADER,) * n, current_term=(2,) * n))
+    msgs = []
+    for s in range(dims.n_msg_slots):
+        src = s % n
+        dst = (s // n) % n
+        last_idx = s // (n * n)
+        msgs.append(((RVQ, src, dst, 2, 0, last_idx), 1))
+    out.append(base.replace(messages=frozenset(msgs)))
+    return out

@@ -27,9 +27,8 @@ The targets a leader may move to are the model constant ``TargetConfigs``
 (``value_bytes`` 2, ``models/schema.py``).
 
 Index tensors are per lane, ``[X, R]`` (R lanes a state row), as in
-``models/actions2.py``.  The JAX package's pure-Python successor function
-(``extra_successors_py``) belongs to its oracle, which the port does not
-have.
+``models/actions2.py``; ``extra_successors_py`` gives the two actions'
+successors of one ``PyState`` to the oracle (``models/oracle.py``).
 """
 
 from __future__ import annotations
@@ -259,6 +258,26 @@ class ReconfigDims(RaftDims):
 
         return [initiate, finalize]
 
+    def extra_successors_py(self, s):
+        n = self.n_servers
+        out = []
+        for i in range(n):
+            if s.role[i] != LEADER:
+                continue
+            old, new, idx = config_of_py(s.log[i], n)
+            if old == 0:
+                for c in self.targets:
+                    if c != new:
+                        t = s.replace(log=_append(
+                            s.log, i, (s.current_term[i],
+                                       joint_value(new, c))))
+                        out.append(((A_INITRECONFIG, (i, c)), t))
+            elif s.commit_index[i] >= idx:
+                t = s.replace(log=_append(
+                    s.log, i, (s.current_term[i], final_value(new))))
+                out.append(((A_FINALIZE, (i,)), t))
+        return out
+
     # -- TypeOK value domain ----------------------------------------------
     def build_value_ok(self):
         v, n = self.n_values, self.n_servers
@@ -308,3 +327,7 @@ def _build_config_scan(dims: ReconfigDims):
         return old, new, torch.where(has, k + 1, 0)
 
     return config_scan
+
+
+def _append(logs, i, entry):
+    return logs[:i] + (logs[i] + (entry,),) + logs[i + 1:]

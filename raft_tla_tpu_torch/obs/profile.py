@@ -11,6 +11,9 @@ stderr table at the run's end.  The stages are the JAX profiler's:
     v4     front (B4), insert_enqueue (B2; the split tail: B1, then B5 or
            a PyTorch enqueue)
     v3     masks, compact (B3), fingerprint, insert_enqueue
+    v1     expand (the full expansion and B3), fingerprint (the K rows
+           gathered and hashed), dedup_insert (B1), enqueue (B5 or a
+           PyTorch enqueue) — the JAX package's classical ``STAGES``
     swarm  expand, choose, latch, ring_probe
 
 and ``total`` runs the same stages unfenced, the fused reference.  The
@@ -27,8 +30,9 @@ card so that the stages run back to back while the host queues them:
 the events then time the card, not the host's launches, as far as the
 card's launch queue holds them (about a thousand launches; a PyTorch
 stage of more ops, v3's masks and fingerprint, is timed at the host's
-pace past that).  The v1 stages (``STAGES``) are not
-ported (ROADMAP A7).
+pace past that).  The JAX table's budget column holds the TPU's
+milliseconds of its planning notes, which do not carry over to the
+card: the port's summary leaves it null.
 
 ``ProfileCapture`` is the counterpart of the JAX ``XlaProfileCapture``:
 a ``torch.profiler`` capture (CPU and CUDA activity) from the run's
@@ -82,7 +86,7 @@ def launches_put_back():
 
 def _stage_fns(dims, B: int, K: int, QP: int, device, stage_kw: dict,
                pipeline: str) -> dict:
-    """The v3 / v4 stage functions on the engine's stages."""
+    """The v1 / v3 / v4 stage functions on the engine's stages."""
     from ..engine.chunk import build_chunk_stages
     from ..ops.chunk_front_cuda import Front
     from ..ops.fpset import pack
@@ -93,6 +97,9 @@ def _stage_fns(dims, B: int, K: int, QP: int, device, stage_kw: dict,
                       constraint=kw["constraint"], B=B, K=K, device=device,
                       por_mask=kw.get("por_mask"),
                       por_priority=kw.get("por_priority"))
+    if pipeline == "v1" and kw.get("expand") is None:
+        from ..models.actions import build_expand
+        kw["expand"] = build_expand(dims, device)
     st = build_chunk_stages(dims=dims, B=B, K=K, device=device, front=front,
                             Q=QP, **kw)
 
@@ -101,29 +108,37 @@ def _stage_fns(dims, B: int, K: int, QP: int, device, stage_kw: dict,
         return st.tail(seen, pack(fo.kh, fo.kl), fo.kvalid, fo.krows,
                        fo.cons_ok, qnext, count, QP)
 
-    return {"stages": st, "tail": tail}
+    def insert(seen, kh, kl, kvalid):
+        from ..ops.fpset_cuda import insert as fpset_insert
+        return fpset_insert(seen, pack(kh, kl), kvalid)
+
+    def enqueue(qnext, count, krows, enq):
+        count.zero_()
+        return st.enqueue(qnext, count, krows, enq, QP)
+
+    return {"stages": st, "tail": tail, "insert": insert,
+            "enqueue": enqueue}
 
 
 class ChunkProfiler:
     """Samples every ``every``-th chunk call of one engine's runs.
 
-    ``pipeline`` is "v3", "v4" or "swarm"; ``stage_kw`` the engine's
-    ``build_chunk_stages`` arguments (v2, inv_fns, constraint,
-    record_trace, enqueue_method, POR arrays), ``ring`` the swarm's ring
-    capacity.  ``sync_every`` is only named in the table."""
+    ``pipeline`` is "v1", "v3", "v4" or "swarm"; ``stage_kw`` the
+    engine's ``build_chunk_stages`` arguments (v2, inv_fns, constraint,
+    record_trace, enqueue_method, POR arrays, v1's expand), ``ring`` the
+    swarm's ring capacity and ``swarm_pipeline`` its resolved expansion
+    ("v1" or "v2").  ``sync_every`` is only named in the table."""
 
     def __init__(self, dims, *, batch: int, lanes: int,
                  seen_capacity: int, pipeline: str = "v4", every: int = 1,
                  metrics=None, device="cuda", stage_kw: Optional[dict] = None,
                  ring: int = 16, sync_every: int = 1,
-                 enqueue_method: str = "fused"):
-        if pipeline == "v1":
-            raise NotImplementedError(
-                "the v1 stage profile (STAGES) needs the v1 pipeline, "
-                "which is not ported (ROADMAP A7)")
-        if pipeline not in ("v3", "v4", "swarm"):
-            raise ValueError(f"profiler pipeline must be v3/v4/swarm, got "
-                             f"{pipeline!r}")
+                 enqueue_method: str = "fused",
+                 swarm_pipeline: str = "v2"):
+        if pipeline not in ("v1", "v3", "v4", "swarm"):
+            raise ValueError(f"profiler pipeline must be v1/v3/v4/swarm, "
+                             f"got {pipeline!r}")
+        self.swarm_pipeline = swarm_pipeline
         self.dims = dims
         self.B, self.K = int(batch), int(lanes)
         self.seen_capacity = int(seen_capacity)
@@ -133,7 +148,7 @@ class ChunkProfiler:
         self.ring_capacity = int(ring)
         self.sync_every = int(sync_every)
         self.enqueue_method = enqueue_method
-        self.stages = {"v3": STAGES_V3, "v4": STAGES_V4,
+        self.stages = {"v1": STAGES, "v3": STAGES_V3, "v4": STAGES_V4,
                        "swarm": STAGES_SWARM}[pipeline]
         self.every = max(1, int(every))
         self.metrics = metrics
@@ -205,6 +220,7 @@ class ChunkProfiler:
 
     def _build_swarm(self):
         import numpy as np
+        from ..models.actions import build_expand
         from ..models.actions2 import build_v2
         from ..models.schema import flatten_state, unflatten_state
         from ..ops.fingerprint import build_fingerprint
@@ -213,7 +229,11 @@ class ChunkProfiler:
                                         ring_init, ring_probe, ring_push,
                                         ring_reset, walk_bits)
         dims, dev, B = self.dims, self.device, self.B
-        v2 = build_v2(dims, dev)
+        G = dims.n_instances
+        if self.swarm_pipeline == "v1":
+            v1 = build_expand(dims, dev)
+        else:
+            v2 = build_v2(dims, dev)
         fingerprint = build_fingerprint(dims, dev)
         fam = torch.as_tensor(np.repeat(
             np.arange(len(dims.family_sizes)), dims.family_sizes),
@@ -223,6 +243,11 @@ class ChunkProfiler:
 
         def expand(rows, valid):
             states = unflatten_state(rows, dims)
+            if self.swarm_pipeline == "v1":
+                # Every instance's row, the pack guard folded in.
+                cands, en, ovf = v1(states)
+                return cands, en & valid[:, None], ovf | (en
+                                                          & ~cands.pack_ok)
             en, ovf = v2.masks(states)
             return states, en & valid[:, None], ovf
 
@@ -232,7 +257,13 @@ class ChunkProfiler:
             return preferred_choice(bits, en, family_subset(mbits, fam))
 
         def latch(states, choice):
-            _h, _l, nxt = v2.lane_out(states, None, choice, hashes=False)
+            if self.swarm_pipeline == "v1":
+                lane = torch.arange(B, device=dev) * G + choice
+                nxt = unflatten_state(
+                    states.rows.index_select(0, lane), dims)
+            else:
+                _h, _l, nxt = v2.lane_out(states, None, choice,
+                                          hashes=False)
             nrows = flatten_state(nxt, dims)
             fp_hi, fp_lo = fingerprint(nxt)
             return nrows, fp_hi, fp_lo
@@ -265,13 +296,25 @@ class ChunkProfiler:
             fence("ring_probe")
             return
         st, sc = b["stages"], b[which]
+        if self.pipeline == "v1":
+            states, en, _ovf, _pruned = st.masks(rows, valid)
+            _P, _total, lane_id, kvalid = st.compact(en)
+            fence("expand")
+            kh, kl, krows, cons_ok, _inv, _ph, _pl = st.lanes(states,
+                                                              lane_id)
+            fence("fingerprint")
+            new, _fail = b["insert"](sc["seen"], kh, kl, kvalid)
+            fence("dedup_insert")
+            b["enqueue"](sc["qnext"], sc["count"], krows, new & cons_ok)
+            fence("enqueue")
+            return
         if self.pipeline == "v4":
             fo = st.front(rows, valid)
             fence("front")
         else:
             states, en, _ovf, _pruned = st.masks(rows, valid)
             fence("masks")
-            _pt, lane_id, kvalid = st.compact(en)
+            _P, _total, lane_id, kvalid = st.compact(en)
             fence("compact")
             kh, kl, krows, cons_ok, _inv, _ph, _pl = st.lanes(states,
                                                               lane_id)
@@ -384,7 +427,8 @@ class ChunkProfiler:
         return roofline.stage_traffic(self.dims, self.B, self.K,
                                       pipeline=self.pipeline,
                                       ring=self.ring_capacity,
-                                      enqueue_method=self.enqueue_method)
+                                      enqueue_method=self.enqueue_method,
+                                      swarm_pipeline=self.swarm_pipeline)
 
     def render_table(self) -> str:
         """The run-end table: each stage's mean ms, share, bound ms (its

@@ -27,45 +27,13 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+# The report reads the groups from EngineResult.family_groups; the
+# function is kept under this name too.
+from ..models.dims import family_groups  # noqa: F401
+
 #: 2^64 as a float — the fingerprint space TLC's probability formula
 #: divides by (the engines' dual 32+32-bit key is 64 bits too).
 _FP_SPACE = float(1 << 64)
-
-
-#: The base families grouped by parameter grid: the JAX package's
-#: ``models/actions.py`` ``_BASE_GROUPS`` (its v1 expansion stacks each
-#: group into one dispatch), by position in the family list.
-_BASE_GROUPS = (
-    ("server", (0, 1, 3, 5)),         # Restart/Timeout/BecomeLeader/ACI (i,)
-    ("server_pair", (2, 6)),          # RequestVote/AppendEntries (i, j)
-    ("server_value", (4,)),           # ClientRequest (i, v)
-    ("slot", (7, 8, 9)),              # Receive/Duplicate/Drop (s,)
-)
-_BASE_FAMILY_NAMES = ("Restart", "Timeout", "RequestVote", "BecomeLeader",
-                      "ClientRequest", "AdvanceCommitIndex",
-                      "AppendEntries", "Receive", "DuplicateMessage",
-                      "DropMessage")
-
-
-def family_groups(dims) -> List[dict]:
-    """``[{"group", "families", "kernels", "lanes"}]``: the base families
-    by parameter grid, each extra (variant) family a group of its own;
-    ``kernels`` the families in the group, ``lanes`` its instances.  The
-    JAX package's ``models/actions.py`` ``family_groups``, which the
-    report's ``family_groups`` and the rendered ``expansion groups``
-    line come from."""
-    names = list(dims.family_names)
-    sizes = list(dims.family_sizes)
-    if tuple(names[:10]) != _BASE_FAMILY_NAMES:
-        return [{"group": n, "families": [n], "kernels": 1,
-                 "lanes": int(s)} for n, s in zip(names, sizes)]
-    out = [{"group": gname, "families": [names[m] for m in members],
-            "kernels": len(members),
-            "lanes": int(sum(sizes[m] for m in members))}
-           for gname, members in _BASE_GROUPS]
-    out += [{"group": names[k], "families": [names[k]], "kernels": 1,
-             "lanes": int(sizes[k])} for k in range(10, len(names))]
-    return out
 
 
 def collision_probability(distinct: int, generated: int) -> float:

@@ -129,20 +129,41 @@ def _row(read: int, written: int, launches: int) -> dict:
 
 
 def stage_traffic(dims, B: int, K: int, *, pipeline: str = "v4",
-                  ring: int = 16, enqueue_method: str = "fused"
-                  ) -> Dict[str, dict]:
+                  ring: int = 16, enqueue_method: str = "fused",
+                  swarm_pipeline: str = "v2") -> Dict[str, dict]:
     """``{stage: {bytes_read, bytes_written, bytes_total, launches,
     notes}}`` for the chunk profiler's stages (``obs/profile.py``), keyed
     as its stage means.  ``launches`` counts the stage's launches of the
     port's kernels (a PyTorch stage: 0); ``enqueue_method`` names the
-    tail (fused: B2's four launches; split: B1's three and B5's two)."""
+    tail (fused: B2's four launches; split: B1's three and B5's two; v1
+    has no fused tail and takes the split one); ``swarm_pipeline`` "v1"
+    has the swarm's expand write every instance's row."""
     from ..models.schema import state_width
     sw, G = state_width(dims), dims.n_instances
+    if pipeline == "v1":
+        if enqueue_method == "fused":
+            enqueue_method = "kernel"
+        # Every [B, G] candidate row and its three masks, then B3.
+        written = B * G * sw + 3 * B * G
+        enq_l = 2 if enqueue_method == "kernel" else 0
+        return {
+            "expand": _row(B * sw + B + B * G,
+                           written + compact_bytes(B, G, K, K) - B * G, 2),
+            "fingerprint": _row(K * sw + 4 * K + B * sw,
+                                lane_bytes(dims, K) - K * sw, 0),
+            "dedup_insert": _row(insert_bytes(K, K, K) - 2 * K - 1,
+                                 2 * K + 1, 3),
+            "enqueue": _row(enqueue_bytes(K, K, sw) - K * sw - 4,
+                            K * sw + 4, enq_l),
+        }
     if pipeline == "swarm":
         # B lanes: rows in; states and the two [B, G] masks out; the
         # choice; the chosen successor's row and fingerprint; the ring.
+        expand_w = B * sw + 2 * B * G
+        if swarm_pipeline == "v1":
+            expand_w += B * G * sw + B * G
         return {
-            "expand": _row(B * sw + B, B * sw + 2 * B * G, 0),
+            "expand": _row(B * sw + B, expand_w, 0),
             "choose": _row(B * G, 8 * B, 0),
             "latch": _row(B * sw + 8 * B, B * sw + 8 * B, 0),
             "ring_probe": _row(8 * B * ring + 4 * B + 8 * B + 2 * B * G,

@@ -16,6 +16,12 @@ Invariants, as in the JAX package's ``ops/compact.py``:
   kernel runs unchanged on each shard and ``cap_prefix`` cuts its output
   to the first P parents' lanes: they are a prefix of it, because the
   lanes come in ascending flat order.
+
+``build_compactor`` is the JAX package's entry point of the same name
+and the chunk's compaction stage: the JAX lowerings "scatter" and
+"searchsorted" give identical outputs there, and both are the plan's
+compaction here (``ops/compact_cuda.py``: the kernel on the card, its
+plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -67,3 +73,36 @@ def cap_prefix(P: torch.Tensor, G: int, lane_id: torch.Tensor,
     kvalid = kvalid & (lane_id.to(torch.int64) < P * G)
     return (kvalid.sum().view(1), torch.where(kvalid, lane_id, kspread),
             kvalid)
+
+
+#: The JAX package's compaction lowerings; both map to the plan's one.
+COMPACT_METHODS = ("scatter", "searchsorted")
+
+
+def build_compactor(B: int, G: int, K: int, reduce_p=None,
+                    method: str = "scatter", device="cuda"):
+    """``compact(en) -> (P, total, lane_id, kvalid)`` of a [B, G] enabled
+    mask on ``device``, the JAX ``build_compactor``'s contract and the
+    chunk's compaction stage (``engine/chunk.py``): P the parents taken,
+    ``total`` the live lanes (0-d int32 tensors), ``lane_id`` [K] int32
+    the flat lanes in ascending order (``kspread`` in the dead slots),
+    ``kvalid`` [K] bool.  ``reduce_p`` (a function of the 0-d P) reduces
+    P before it applies, as the JAX mesh's least P over the shards does;
+    the lanes are then cut to it (``cap_prefix``).  Both ``method``
+    values give the one compaction; another raises, as in the JAX
+    package."""
+    from .compact_cuda import compact
+    if method not in COMPACT_METHODS:
+        raise ValueError(f"unknown compactor method {method!r}")
+    kspr = kspread(B, G, K, device)
+
+    def compactor(en):
+        pt, lane_id, kvalid = compact(en.contiguous(), K, kspr)
+        P, total = pt[0], pt[1]
+        if reduce_p is not None:
+            P = reduce_p(P)
+            total, lane_id, kvalid = cap_prefix(P, G, lane_id, kvalid, kspr)
+            total = total[0]
+        return P, total, lane_id, kvalid
+
+    return compactor

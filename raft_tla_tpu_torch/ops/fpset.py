@@ -114,3 +114,20 @@ def grow(s: FPSet, capacity: int, chunk: int = 1 << 20) -> FPSet:
     """Rehash ``s`` into a new table of ``capacity`` slots on its device."""
     keys = s.keys[s.keys != EMPTY]
     return _rebuild(keys, capacity, s.keys.device, chunk)
+
+
+def contains(s: FPSet, keys: torch.Tensor) -> torch.Tensor:
+    """[K] bool: which packed ``keys`` the table holds, a read-only probe
+    along the insert's probe chains; EMPTY (sentinel) keys report False.
+    The JAX package's ``contains`` is an XLA lowering, not a kernel, so
+    this plain probe is its port; it makes no host read."""
+    c = s.capacity
+    qhi, qlo = unpack(keys)
+    h1, h2 = probe_base(qhi, qlo, c)
+    found = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    open_ = keys != EMPTY
+    for r in range(PROBE_ROUNDS):
+        cur = s.keys.index_select(0, (h1 + r * h2) & (c - 1))
+        found = found | (open_ & (cur == keys))
+        open_ = open_ & (cur != EMPTY) & ~found
+    return found

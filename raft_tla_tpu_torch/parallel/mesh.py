@@ -96,20 +96,20 @@ import torch
 
 from ..engine import checkpoint as ckpt_mod
 from ..engine import chunk as chunk_mod
-from ..engine.bfs import (PHASES, PLAN_NAMES, PLANS, BFSEngine,
+from ..engine.bfs import (PHASES, PLANS, BFSEngine,
                           EngineConfig, EngineResult, ResumePoint, Violation,
                           auto_capacities, check_resume_trace, device_memory,
                           exit_condition_hit, host_rows, por_device_arrays,
-                          resolve_por)
+                          resolve_pipeline, resolve_por)
 from ..engine.chunk import (ST_COUNT, ST_DEAD, ST_OFFSET, ST_SEEN, ST_STEPS,
                             ST_TCOUNT, ST_VINV, ST_VIOL)
 from ..engine.spillpool import SpillPool
 from ..engine.trace import make_trace_store
+from ..models.actions import build_expand
 from ..models.actions2 import build_v2
-from ..models.dims import RaftDims
+from ..models.dims import RaftDims, family_groups
 from ..models.invariants import build_inv_id
 from ..models.schema import ROW_DTYPE, state_width, unflatten_state
-from ..obs import report as report_mod
 from ..obs.coverage import ActionCoverage
 from ..obs.events import RunEventLog, device_memory_stats, events_path
 from ..obs.flight import RECORDER as _FLIGHT
@@ -257,13 +257,13 @@ class MeshStep:
             wins.append((rows, valid))
             masked.append(m)
             comp.append(step.body.stages.compact(m[1]))
-        P = self.exchange.min([pt for pt, _l, _k in comp])
+        P = self.exchange.min([c[0].view(1) for c in comp])
         fronts = []
         for s in range(n):
             step = self.steps[s]
             Ps = P[s]
             states, en, ovf, pruned = masked[s]
-            _pt, lane_id, kvalid = comp[s]
+            _P, _total, lane_id, kvalid = comp[s]
             total, lane_id, kvalid = compact_mod.cap_prefix(
                 Ps, G, lane_id, kvalid, self._kspr[s])
             ptaken = step._arange_b < Ps
@@ -338,16 +338,13 @@ class MeshBFSEngine(BFSEngine):
         self._inv_id = (build_inv_id(self._inv_fns) if self._inv_fns
                         else None)
         self._constraint = constraint
-        if cfg.pipeline not in PLAN_NAMES:
-            raise ValueError(
-                f"pipeline must be 'v3', 'v4', 'auto' or 'v2', got "
-                f"{cfg.pipeline!r}: the JAX package's 'v1' plan is not "
-                "ported (ROADMAP.md A7)")
-        self._plan_name = PLAN_NAMES[cfg.pipeline]
+        self._plan_name = resolve_pipeline(cfg.pipeline)
         self._plan, self._plan_reasons, method = \
             PLANS[self._plan_name].resolve_mesh_plan(dev0,
                                                      cfg.enqueue_method)
         self._v2 = build_v2(dims, dev0)
+        v1 = self._plan_name == "v1"
+        self._expand = build_expand(dims, dev0) if v1 else None
         if cfg.checkpoint_dir is not None:
             ckpt_mod.check_dims_checkpointable(dims)
         self._por_table = resolve_por(cfg, dims, invariants or {},
@@ -409,6 +406,7 @@ class MeshBFSEngine(BFSEngine):
                 record_trace=cfg.record_trace,
                 check_deadlock=self._check_deadlock, device=d,
                 count_word=self._CUR + 3, v2=build_v2(dims, d),
+                expand=build_expand(dims, d) if v1 else None,
                 inv_fns=self._inv_fns, constraint=constraint, front=None,
                 enqueue_method=method, por_mask=por_mask,
                 por_priority=por_priority)
@@ -959,7 +957,7 @@ class MeshBFSEngine(BFSEngine):
             device=label + ": " + ", ".join(str(d) for d in devs),
             por_instances=(self._por_table.certified
                            if self._por_table else 0),
-            family_groups=report_mod.family_groups(dims))
+            family_groups=family_groups(dims))
         mt, evlog = self.metrics, self._evlog
         coverage = self.coverage = ActionCoverage(dims.family_names,
                                                   dims.family_sizes)
@@ -995,11 +993,6 @@ class MeshBFSEngine(BFSEngine):
             return [torch.zeros((QLA, sw), dtype=ROW_DTYPE, device=d)
                     for d in devs]
 
-        # A warm engine's graphs were captured on the last run's buffers,
-        # which this run allocates anew: a graph keyed on a queue that
-        # lands at the same address would write the old trace buffer and
-        # counters.  Every run captures its own.
-        self._drop_graphs()
         qcur, qnext = queues(), queues()
         self._tbufs = [torch.zeros((self._TA, chunk_mod.TRACE_ROW),
                                    dtype=torch.uint8, device=d)

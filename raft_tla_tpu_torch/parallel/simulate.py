@@ -21,6 +21,11 @@ all-gathers every fleet's restarts and latch, and the lowest latched
 fleet's accumulator (root, actions, choice) is sent from its owner, so
 every process replays the same trace; a ``max_seconds`` stop is agreed
 (``build_any``) before it ends the loop.
+
+The simulator's telemetry is the single one's, over all the fleets: one
+``MetricsRegistry`` (``metrics``) with the phase timers ``sim_chunk`` and
+``sim_fetch`` a round, the counter ``sim/steps`` and the gauge
+``sim/traces``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from ..engine.simulate import ACC_RESTARTS, ACC_VF, SimResult, Simulator
 from ..models.dims import RaftDims
 from ..models.pystate import PyState
+from ..obs.metrics import MetricsRegistry
 from ..obs.tracing import SpanTracer
 from . import multihost as mh
 from .mesh import resolve_devices
@@ -53,8 +59,9 @@ class MeshSimulator:
                  invariants: Optional[Dict[str, Callable]] = None,
                  constraint: Optional[Callable] = None,
                  batch: int = 256, depth: int = 100, chunk: int = 128,
-                 pipeline: str = "auto", devices=None):
+                 pipeline: str = "auto", devices=None, metrics=None):
         self.dims = dims
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.devices = resolve_devices(devices)
         L = len(self.devices)
         self._mp = mh.is_multiprocess()
@@ -108,14 +115,14 @@ class MeshSimulator:
                 return res
         res.traces = self.n_dev * self.batch
         phases = res.phases
-        tracer = self.tracer
+        tracer, mt = self.tracer, self.metrics
         while res.steps < num_steps:
             t = time.time()
-            with tracer.span("sim_chunk"):
+            with tracer.span("sim_chunk"), mt.phase_timer("sim_chunk"):
                 for fleet in self.fleets:
                     fleet.dispatch_chunk()
             t_s = time.time()
-            with tracer.span("sim_fetch"):
+            with tracer.span("sim_fetch"), mt.phase_timer("sim_fetch"):
                 accs = [fleet.read_chunk() for fleet in self.fleets]
             phases["dispatch"] += t_s - t
             phases["sync"] += time.time() - t_s
@@ -123,6 +130,8 @@ class MeshSimulator:
             res.chunks += 1
             res.steps += self.n_dev * self.batch * self.chunk
             res.traces += sum(restarts)
+            mt.counter("sim/steps", self.n_dev * self.batch * self.chunk)
+            mt.gauge("sim/traces", res.traces)
             if hit is not None:
                 self.fleets[0]._reconstruct(res, roots, hit)
                 break

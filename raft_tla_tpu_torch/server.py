@@ -6,8 +6,9 @@ that can open a socket — in particular the TLC module override shipped
 in ``native/tlc_override/`` (a Java operator that forwards a ``.cfg`` to
 this service and returns the result as a TLA+ record), but also ad-hoc
 drivers and notebooks.  The service holds the engines warm between
-requests (their kernels loaded, their graphs captured, their buffers
-allocated), so a repeat check of the same model skips that set-up.
+requests (their kernels loaded, their small run buffers allocated; each
+run captures its own graphs and drops them at its end), so a repeat
+check of the same model skips that set-up.
 Every request runs on the server's device (``--device``, the card by
 default; a server started for ``cuda`` without a card raises at start).
 The protocol, the op schemas, the caches, the job layer and the metric
@@ -179,9 +180,9 @@ def _cache_put(cache: "OrderedDict", key, value, name: str):
 
 
 def _release(engine) -> None:
-    """An evicted warm engine's device memory back: its captured graphs
-    first (their pool lives as long as they do), then its buffers; what
-    else it holds goes with the object."""
+    """An evicted warm engine's device memory back: its run buffers
+    (its graphs went at its run's end); what else it holds goes with the
+    object."""
     engine.release()
 
 
@@ -1117,10 +1118,13 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="raft_tla_tpu_torch.server")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8610)
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where every request runs: the card (default; "
                         "raises at start without one) or the CPU's plain "
                         "PyTorch versions")
+    p.add_argument("--platform", default=None,
+                   help="the JAX server's spelling of --device: cpu, or "
+                        "gpu/cuda for the card (tpu is refused)")
     p.add_argument("--max-request-bytes", type=int, default=None,
                    help="reject request lines larger than this "
                         f"(default {CheckerServer.max_request_bytes})")
@@ -1154,6 +1158,11 @@ def main(argv=None):
                         "process — the natural scrape target for the "
                         "long-lived service")
     args = p.parse_args(argv)
+    from .engine.check import resolve_device_flags
+    try:
+        device = resolve_device_flags(args.device, args.platform)
+    except ValueError as e:
+        p.error(str(e))
     srv = serve(args.host, args.port,
                 max_request_bytes=args.max_request_bytes,
                 idle_timeout_seconds=args.idle_timeout,
@@ -1161,7 +1170,7 @@ def main(argv=None):
                 job_queue_capacity=args.job_queue,
                 history=args.history,
                 metrics_port=args.metrics_port,
-                device=args.device)
+                device=device or "cuda")
     print(f"raft_tla_tpu_torch checker service on "
           f"{srv.server_address[0]}:{srv.server_address[1]} "
           f"({srv.platform.get('device') or srv.device})", flush=True)

@@ -2,8 +2,9 @@
 package's ``obs/profile.py``, ``roofline.py`` and ``perf.py``, on the CPU.
 
 - Stage names: v3, v4 and swarm profiles sample the JAX profiler's
-  stages (``STAGES_V3``, ``STAGES_V4``, ``STAGES_SWARM``); the v1 stages
-  refuse, naming A7.  Counts, levels, family counts and trace records are
+  stages (``STAGES_V3``, ``STAGES_V4``, ``STAGES_SWARM``), and v1 its
+  classical ``STAGES``, on a profiled v1 check whose counts, levels,
+  family counts and trace links equal the JAX v1 engine's.  Counts, levels, family counts and trace records are
   bit-identical with ``--profile-chunks 1`` on and off, and with
   ``--perf`` on (the wrappers' launch counters too).
 - The perf block has the JAX block's keys at every level (the launch
@@ -23,9 +24,14 @@ import os
 import pytest
 import torch
 
+from raft_tla_tpu.engine.bfs import BFSEngine as JEngine
+from raft_tla_tpu.engine.bfs import EngineConfig as JConfig
+from raft_tla_tpu.models.invariants import build_constraint as j_constraint
+from raft_tla_tpu.models.pystate import init_state as j_init_state
 from raft_tla_tpu.obs import perf as jperf
 from raft_tla_tpu.obs import profile as jprofile
 from raft_tla_tpu.obs import roofline as jroofline
+from raft_tla_tpu.utils.cfg import load_config as j_load_config
 from raft_tla_tpu_torch import cli
 from raft_tla_tpu_torch.engine.bfs import EngineConfig
 from raft_tla_tpu_torch.engine.check import make_swarm, run_check
@@ -67,9 +73,31 @@ def test_stage_names_are_the_jax_profilers():
     assert profile.STAGES_SWARM == jprofile.STAGES_SWARM
     assert profile.STAGES == jprofile.STAGES
     dims = load_config(BOUNDED).dims
-    with pytest.raises(NotImplementedError, match="A7"):
-        ChunkProfiler(dims, batch=8, lanes=256, seen_capacity=1 << 10,
-                      pipeline="v1", device="cpu")
+    # The v1 stages run: the JAX profiler's classical ones, sampled from
+    # a v1 check whose counts equal the unprofiled run's and the JAX v1
+    # engine's at the same size.
+    prof = ChunkProfiler(dims, batch=8, lanes=256, seen_capacity=1 << 10,
+                         pipeline="v1", device="cpu")
+    assert prof.stages == jprofile.STAGES
+    off = run_check(BOUNDED, config(pipeline="v1", max_diameter=3),
+                    device="cpu")
+    on = run_check(BOUNDED, config(pipeline="v1", max_diameter=3,
+                                   profile_chunks_every=1), device="cpu")
+    assert summary(on) == summary(off)
+    jsetup = j_load_config(BOUNDED)
+    jeng = JEngine(jsetup.dims,
+                   constraint=j_constraint(jsetup.dims, jsetup.bounds),
+                   config=JConfig(batch=64, queue_capacity=1 << 12,
+                                  seen_capacity=1 << 14, record_trace=True,
+                                  check_deadlock=False, max_diameter=3,
+                                  pipeline="v1", statespace_report=False))
+    jres = jeng.run([j_init_state(jsetup.dims)])
+    tf, tp, ta = jeng.trace.export()
+    want = (jres.distinct, jres.generated, jres.levels, jres.action_counts)
+    got = summary(on)
+    assert got[:4] == want
+    assert got[6] == sorted(zip(tf.tolist(), tp.tolist(), ta.tolist()))
+    assert tuple(on.chunk_stages)[:len(jprofile.STAGES)] == jprofile.STAGES
 
 
 @pytest.mark.parametrize("pipeline", ["v3", "v4"])

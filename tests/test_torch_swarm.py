@@ -326,11 +326,16 @@ def test_make_swarm_lanes_a_dispatch():
     assert make_swarm(noleader, walks=100, device="cpu").batch == 100
 
 
-def test_unported_options_and_the_card_raise(monkeypatch):
-    # The hunt is ported (obs/hunt.py); the v1 pipeline is not.
+def test_unported_options_and_the_card_raise(monkeypatch, jax_determinism):
+    # The hunt is ported (obs/hunt.py), and so is the v1 pipeline: its
+    # walks are the JAX determinism run's, multiset for multiset.
     port_swarm([init_state(DIMS)], depth=4, hunt=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_swarm([init_state(DIMS)], depth=4, pipeline="v1")
+    want, want_fps = jax_determinism
+    res = port_swarm([init_state(DIMS)], depth=12, pipeline="v1").run(
+        [init_state(DIMS)], seed=5, num_steps=24)
+    assert res.pipeline == "v1"
+    assert counts(res) == counts(want)
+    assert np.array_equal(sorted_fps(res), want_fps)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     setup = load_config(NOLEADER)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -5,13 +5,14 @@ in interpret mode; the port runs ``pipeline="v4"`` on the CPU, where the
 front and the tail take their plain versions.  Counts, levels,
 per-family counts and the recorded trace links must be equal.  Also the
 plan's selection: the cfg's ``PIPELINE`` directive, the CLI's
-``--pipeline``, the JAX package's plan names and the plan the port does
-not have.
+``--pipeline``, the JAX package's plan names and v1, the classical plan,
+against the same JAX run.
 """
 
 import os
 
 import pytest
+import torch
 
 from raft_tla_tpu.engine.bfs import BFSEngine as JEngine
 from raft_tla_tpu.engine.bfs import EngineConfig as JConfig
@@ -64,10 +65,25 @@ def test_v4_l5_equals_jax_v4_with_trace_links(jax_v4_l5):
 
 
 @pytest.mark.parametrize("pipeline", ["v1"])
-def test_plans_the_port_lacks_raise(pipeline):
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
-        make_engine(load_config(BOUNDED), port_config(pipeline=pipeline),
-                    device="cpu")
+def test_plans_the_port_lacks_raise(pipeline, jax_v4_l5):
+    """The classical v1 plan runs: its counts, levels, per-family counts
+    and trace links equal the JAX engine's at the same size (the JAX v4
+    run; the JAX package holds its plans equal)."""
+    jres, jlinks = jax_v4_l5
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # the suite runs in several workers
+    try:
+        res = run_check(BOUNDED, port_config(
+            pipeline=pipeline, max_diameter=5, enqueue_method="kernel"),
+            device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert res.pipeline == pipeline
+    assert (res.distinct, res.generated, res.levels) == \
+        (jres.distinct, jres.generated, jres.levels)
+    assert res.action_counts == jres.action_counts
+    tf, tp, ta = res.engine.trace.export()
+    assert set(zip(tf.tolist(), tp.tolist(), ta.tolist())) == jlinks
 
 
 @pytest.mark.parametrize("pipeline", ["auto", "v2"])
