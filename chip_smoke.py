@@ -23,6 +23,9 @@
     python3 chip_smoke.py --v1                (the L9 main paths, then the
                                                v1 pipeline's phases and
                                                the hunt's cost only)
+    python3 chip_smoke.py --analysis          (the L9 main paths, then the
+                                               static analyzer's phase
+                                               only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -2566,6 +2569,92 @@ def phase_por(torch):
          "check --por-table printed other counts: " + buf.getvalue()[:400])
     print(f"POR through the command line (v4, split tail): distinct "
           f"{distinct}, as the engine runs")
+
+
+def phase_analysis(torch, direct):
+    """The static analyzer (``analysis/``) on the card's host: ``analyze
+    configs/MCraft_bounded.cfg --json --por-artifact F`` (it traces on
+    the CPU) must exit 0 with nothing certified; then ``check --por``
+    (certified in process) and ``check --por-table F`` at MCraft_bounded
+    L9 on v3 and v4 at the main path's sizes must give the pins, apply no
+    instance, prune nothing and launch each kernel as often as the run
+    without POR (``direct``, the main paths' counts in this call): the
+    exact pre-POR body.  Then both flags through the command line."""
+    from raft_tla_tpu_torch import cli
+    from raft_tla_tpu_torch.analysis.por import load_table
+    from raft_tla_tpu_torch.engine.check import run_check
+    cfg_path = os.path.join(HERE, "configs/MCraft_bounded.cfg")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    try:
+        art = os.path.join(tmp, "por.json")
+        buf = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["analyze", cfg_path, "--json", "--por-artifact",
+                           art])
+        wall = time.time() - t
+        rep = json.loads(buf.getvalue())
+        summ = rep["passes"]["por"]["summary"]
+        print(f"analyze MCraft_bounded (torch {torch.__version__}): exit "
+              f"{rc}, {wall} s on the host, findings "
+              f"{rep['severity_counts']}, by pass "
+              f"{ {p: v['severity_counts'] for p, v in rep['passes'].items()} }"
+              f", por {summ['certified']}/{summ['n_instances']} certified, "
+              f"closure refutation {summ['closure_refutation']}, lint "
+              f"kernels {rep['passes']['lint']['summary']['kernels']}")
+        need(rc == 0 and rep["ok"], f"analyze exited {rc}: "
+             f"{rep['severity_counts']}")
+        table = load_table(art)
+        need(table.certified == 0 and summ["certified"] == 0
+             and table.fingerprint == summ["table"]["fingerprint"],
+             "the POR artifact differs from the report's table")
+        for pipeline in ("v3", "v4"):
+            for how, kw in (("por", {"por": True}),
+                            ("por-table", {"por_table": art})):
+                torch.cuda.synchronize()
+                reset_counts()
+                t = time.time()
+                res = run_check(cfg_path, bounded_config(pipeline, 9, **kw),
+                                device="cuda")
+                torch.cuda.synchronize()
+                call = time.time() - t
+                counts = read_counts()
+                pruned = sum(res.action_pruned.values())
+                print(f"check --{how} MCraft_bounded L9 {pipeline}: "
+                      f"distinct={res.distinct} generated={res.generated} "
+                      f"levels={res.levels} por_instances="
+                      f"{res.por_instances} pruned={pruned}, check "
+                      f"{res.wall_seconds} s, call {call} s (certification "
+                      f"and engine build included), launches {counts}, "
+                      f"without POR {direct[pipeline]}")
+                need(res.distinct == MCRAFT_L9_DISTINCT
+                     and res.generated == MCRAFT_L9_GENERATED
+                     and res.levels == MCRAFT_L9_LEVELS,
+                     f"check --{how} {pipeline}: counts differ from the "
+                     "pinned oracle")
+                need(res.por_instances == 0 and pruned == 0,
+                     f"check --{how} {pipeline}: {res.por_instances} "
+                     f"instances applied, {pruned} lanes pruned")
+                need(counts == direct[pipeline],
+                     f"check --{how} {pipeline}: launches {counts} differ "
+                     f"from the run without POR {direct[pipeline]}")
+        for pipeline, flag in (("v4", ["--por"]),
+                               ("v3", ["--por-table", art])):
+            buf = io.StringIO()
+            t = time.time()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["check", cfg_path, "--pipeline", pipeline,
+                               "--max-diameter", "9", "--no-trace",
+                               "--progress-interval", "0", *flag])
+            text = buf.getvalue()
+            print(f"command line: check {' '.join(flag)} --pipeline "
+                  f"{pipeline} --max-diameter 9: exit {rc} in "
+                  f"{time.time() - t} s")
+            need(rc == 0 and f"distinct states    {MCRAFT_L9_DISTINCT}\n"
+                 in text and f"states generated   {MCRAFT_L9_GENERATED}\n"
+                 in text, f"check {flag[0]} printed: {text[:400]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_counterexample(torch, pipeline):
@@ -6270,6 +6359,12 @@ def main() -> int:
         phase_chaos(torch)
         print(json.dumps({"served": served}))
         return 0
+    if sys.argv[1:] == ["--analysis"]:
+        direct = {p: phase_main_path(torch, p) for p in ("v3", "v4")}
+        t = time.time()
+        phase_analysis(torch, direct)
+        print(f"analysis phase: {time.time() - t} s")
+        return 0
     if sys.argv[1:] == ["--v1"]:
         counts = {p: phase_main_path(torch, p) for p in ("v3", "v4")}
         counts["v1"] = phase_v1(torch)
@@ -6344,6 +6439,9 @@ def main() -> int:
         phase_profile(torch, pipeline, "kernel")
     phase_resume(torch, "v4")
     phase_por(torch)
+    t = time.time()
+    phase_analysis(torch, counts)
+    print(f"analysis phase: {time.time() - t} s")
     print(f"check outputs: {phase_check_outputs(torch)} s")
     phase_observation_cost(torch)
     phase_sync_turns(torch)

@@ -1,5 +1,5 @@
-"""Command line: ``python3 -m raft_tla_tpu_torch check|explain|simulate
-<cfg>``.
+"""Command line: ``python3 -m raft_tla_tpu_torch
+check|explain|simulate|analyze <cfg>``.
 
 ``check`` runs the exhaustive check on the card (``--device cpu`` for the
 plain PyTorch versions; the cfg's PLATFORM directive when no flag is
@@ -47,9 +47,23 @@ StopAfter, ``--seed``, ``--max-log``, ``--n-msg-slots``, ``--pipeline``
 registry) and prints the JAX CLI's result block.  ``--platform`` (on
 ``check``, ``explain`` and ``simulate``) is the JAX CLI's spelling of
 ``--device``: ``cpu``, or ``gpu``/``cuda`` for the card; ``tpu`` is
-refused.  ``check --por`` (in-process certification) is refused with
-the analyzer's message (ROADMAP A8), exit 2; ``--por-table`` feeds a
-certified table.
+refused.  ``check --por`` certifies a POR table in process through the
+analyzer (``analysis/``) against the run's invariants and constraint;
+``--por-table`` feeds a certified table (an ``analyze --por-artifact``
+file of either package).
+
+``analyze [cfg]`` runs the static analysis (``analysis/``: effects,
+bounds, lint, por) over one model, the JAX CLI's subcommand with its
+flags: the cfg (omitted: the seed model, 3 servers, 2 values, no
+CONSTRAINT bounds, ``--max-log``/``--n-msg-slots`` over 8/32),
+``--json`` (the report on stdout instead of the text rendering),
+``--out`` (the JSON report to a file too), ``--allow CODE[:QUALIFIER]``,
+``--passes`` (a comma-separated subset; prerequisites are added),
+``--por-artifact`` (the POR table, which ``check --por-table`` and the
+JAX package's ``load_table`` accept), ``--shrink-lane FIELD=HI``,
+``--events-out`` and ``--metrics-out``.  Exit 0 when no un-allowlisted
+ERROR finding remains, 1 otherwise, 2 on an unknown pass.  It traces on
+the CPU whatever ``--platform`` says: analysis never runs the card.
 
 ``--engine`` (``check``, ``explain``, ``simulate``; the JAX CLI's
 choices) picks the single-device engine or the mesh (``parallel/``):
@@ -215,13 +229,13 @@ def _main(argv=None) -> int:
                    help="seconds between progress lines on stderr (0 = "
                         "none; default 60)")
     c.add_argument("--por", action="store_true",
-                   help="certify a POR table in process: needs the jaxpr "
-                        "analyzer, which is not ported (refused; pass "
-                        "--por-table)")
+                   help="certify a POR table in process (the analyzer's "
+                        "por pass against this run's invariants and "
+                        "constraint) and apply it")
     c.add_argument("--por-table", metavar="FILE",
-                   help="apply a certified POR table (the artifact of the "
-                        "JAX package's `analyze --passes por "
-                        "--por-artifact FILE`)")
+                   help="apply a certified POR table (the artifact of "
+                        "`analyze --passes por --por-artifact FILE`, of "
+                        "either package)")
     c.add_argument("--events-out",
                    help="JSONL run events (flag > cfg EVENTS_OUT > "
                         "events.jsonl next to the checkpoint directory)")
@@ -333,6 +347,50 @@ def _main(argv=None) -> int:
                         "process group exchange their trace pieces "
                         "(flag > cfg TRACE_DIR > the checkpoint "
                         "directory)")
+    a = sub.add_parser(
+        "analyze",
+        help="static model analysis (no state-space run): effect "
+             "extraction, interval lane-overflow proofs, hot-loop lint, "
+             "POR certificates")
+    a.add_argument("cfg", nargs="?", default=None,
+                   help="TLC .cfg file; omitted = the seed model "
+                        "(3 servers, 2 values, no CONSTRAINT bounds)")
+    a.add_argument("--platform", default=None,
+                   help="accepted for the JAX CLI's sake (cpu, gpu, "
+                        "cuda): analysis only traces, on the CPU")
+    a.add_argument("--n-msg-slots", type=int, default=None)
+    a.add_argument("--max-log", type=int, default=None)
+    a.add_argument("--json", action="store_true",
+                   help="print the machine-readable report to stdout "
+                        "instead of the text rendering")
+    a.add_argument("--out", default=None, metavar="FILE",
+                   help="also write the JSON report here")
+    a.add_argument("--allow", action="append", default=[],
+                   metavar="CODE[:QUALIFIER]",
+                   help="downgrade matching ERROR findings to WARNING "
+                        "(kept visible, marked allowlisted)")
+    a.add_argument("--passes", default=None,
+                   help="comma-separated subset of effects,bounds,lint,"
+                        "por (default: all); prerequisite passes are "
+                        "added automatically (por/lint pull in "
+                        "effects); an unknown pass name exits 2 with "
+                        "the valid list")
+    a.add_argument("--por-artifact", default=None, metavar="FILE",
+                   help="write the POR reduction table (versioned, "
+                        "fingerprinted ample_mask + priority) here — "
+                        "the artifact `check --por-table` consumes; "
+                        "requires the 'por' pass")
+    a.add_argument("--shrink-lane", action="append", default=[],
+                   metavar="FIELD=HI",
+                   help="testing: pretend FIELD's packed lane tops out "
+                        "at HI — the bounds pass must then name the "
+                        "witness action that overflows it")
+    a.add_argument("--events-out", default=None,
+                   help="append per-pass 'analysis' events to this "
+                        "JSONL log (obs/)")
+    a.add_argument("--metrics-out", default=None,
+                   help="write the analysis/errors + analysis/warnings "
+                        "counter snapshot here")
     # The checker service's clients (clients.py): pure sockets.
     clients.add_parsers(sub)
 
@@ -343,6 +401,14 @@ def _main(argv=None) -> int:
         return clients.run(args)
     if args.cmd == "check" and args.supervise is not None:
         return _supervise(ap, args, argv)
+    if args.cmd == "analyze":
+        # Before the launch contract and the device: analysis traces on
+        # the CPU and touches no card.
+        try:
+            resolve_device_flags(None, args.platform)
+        except ValueError as e:
+            ap.error(str(e))
+        return _run_analyze(args)
 
     try:
         args.device = resolve_device_flags(args.device, args.platform)
@@ -424,15 +490,8 @@ def _main(argv=None) -> int:
         default_state_dir=(os.path.join(ckpt_dir, ".fault_state")
                            if ckpt_dir else None),
         text=args.fault_plan)
-    try:
-        engine = make_engine(setup, cfg, device=args.device,
-                             **_engine_kw(args, setup))
-    except NotImplementedError as e:
-        if not cfg.por:
-            raise
-        # check --por: the in-process certification is the analyzer's.
-        print(f"raft_tla_tpu_torch check: error: {e}", file=sys.stderr)
-        return 2
+    engine = make_engine(setup, cfg, device=args.device,
+                         **_engine_kw(args, setup))
     resume = args.resume
     if resume == "auto":
         if not cfg.checkpoint_dir:
@@ -465,6 +524,91 @@ def _main(argv=None) -> int:
         print(format_state(res.deadlock, setup.dims))
         return 1
     return 0
+
+
+def _run_analyze(args) -> int:
+    """``analyze``: run the static-analysis passes over one model and
+    gate on ERROR findings.  Exit 0 iff no (un-allowlisted) ERROR
+    finding remains, 2 on a usage error."""
+    from .analysis import resolve_passes, run_analysis
+    from .analysis.lane_map import FIELDS
+    from .obs.events import RunEventLog
+    from .obs.metrics import MetricsRegistry
+
+    passes = None
+    if args.passes is not None:
+        try:
+            # Exit 2 (usage error), never a silent no-op run: a typo'd
+            # pass name must not report "analysis OK" on zero passes.
+            passes = resolve_passes(p.strip() for p in args.passes.split(",")
+                                    if p.strip())
+        except ValueError as e:
+            print(f"analyze: {e}", file=sys.stderr)
+            return 2
+
+    if args.cfg is not None:
+        setup = load_config(args.cfg, max_log=args.max_log,
+                            n_msg_slots=args.n_msg_slots)
+        dims, bounds = setup.dims, setup.bounds
+        # The cfg's INVARIANT list narrows the POR visibility condition
+        # to what this model actually checks.
+        invariant_names = list(setup.invariants)
+        # Randomized smoke roots say nothing about the reachable set;
+        # the bounds pass then seeds from the declared domain envelope.
+        roots = None if setup.smoke else initial_states(setup)
+    else:
+        from .models.dims import RaftDims
+        from .models.pystate import init_state
+        dims = RaftDims(n_servers=3, n_values=2,
+                        max_log=args.max_log or 8,
+                        n_msg_slots=args.n_msg_slots or 32)
+        bounds, roots, invariant_names = None, [init_state(dims)], None
+
+    lane_caps = {}
+    for spec in args.shrink_lane:
+        field, _, hi = spec.partition("=")
+        if field not in FIELDS or not hi.lstrip("-").isdigit():
+            raise SystemExit(
+                f"--shrink-lane wants FIELD=HI with FIELD in {FIELDS}, "
+                f"got {spec!r}")
+        lane_caps[field] = (0, int(hi))
+
+    metrics = MetricsRegistry()
+    with RunEventLog(args.events_out) as evlog:
+        report = run_analysis(
+            dims, bounds=bounds, init_states=roots,
+            **({"passes": passes} if passes else {}),
+            allowlist=args.allow, lane_caps=lane_caps or None,
+            invariant_names=invariant_names,
+            metrics=metrics, evlog=evlog)
+    if args.out:
+        report.write_json(args.out)
+    if args.por_artifact:
+        table = report.pass_summaries.get("por", {}).get("table")
+        if table is None:
+            print("--por-artifact requires the 'por' pass to run "
+                  "(add it to --passes)", file=sys.stderr)
+            return 2
+        unsound = any(f.code == "certificate-unsound"
+                      for f in report.findings if f.pass_name == "por")
+        if unsound:
+            # Never materialize a validly-fingerprinted artifact for a
+            # mask whose side conditions did not verify (checked on the
+            # raw code: --allow can un-gate the exit, never the file).
+            print("--por-artifact refused: the por pass reported "
+                  "certificate-unsound findings (see report)",
+                  file=sys.stderr)
+        else:
+            with open(args.por_artifact, "w") as f:
+                json.dump(table, f, indent=2, sort_keys=True)
+                f.write("\n")
+    if args.json:
+        print(json.dumps(report.to_json(), indent=2, sort_keys=True))
+    else:
+        print(report.render_text())
+    if args.metrics_out:
+        _write_metrics(args.metrics_out, metrics)
+    return 0 if report.ok else 1
 
 
 @contextlib.contextmanager

@@ -64,8 +64,8 @@ its ``.npz`` format and ``run(resume=...)`` (``engine/checkpoint.py``; a
 snapshot of either package resumes in the other), the TLCGet exit
 budgets over distinct / generated / queue (checked after each chunk),
 and the partial-order reduction fed by a certified table
-(``analysis/por.py``; ``por=True`` would certify in process through the
-jaxpr analyzer, which is not ported).
+(``analysis/por.py``; ``por=True`` certifies one in process through the
+analyzer, against this run's invariants and constraint).
 
 Observability, the JAX engine's (``obs/``): a ``MetricsRegistry`` on the
 engine (``engine.metrics``; the phase seconds mirrored from
@@ -256,8 +256,8 @@ class EngineConfig:
     # memory-maps them to files there (engine/spillpool.py).
     spill_dir: Optional[str] = None
     # Partial-order reduction: a certified analysis/por.py PorTable or
-    # the path of its artifact, admission-checked at engine build.
-    # por=True (certify in process) needs the analyzer, not ported.
+    # the path of its artifact, admission-checked at engine build;
+    # por=True without a table certifies one in process.
     por: bool = False
     por_table: Optional[object] = None
     # On running out of device memory (resilience/faults.py
@@ -432,20 +432,21 @@ def exit_condition_hit(conds, res, queue_rows) -> Optional[str]:
 
 def resolve_por(cfg: EngineConfig, dims, invariants, constraint):
     """``EngineConfig.por`` / ``por_table`` -> an admitted ``PorTable`` or
-    None (POR off).  A path loads the artifact (its fingerprint is
-    checked there); ``check_table`` then holds the table to this run's
-    model, invariants and constraint."""
-    if cfg.por and cfg.por_table is None:
-        raise NotImplementedError(
-            "por=True certifies in process through the jaxpr analyzer, "
-            "which is not ported (ROADMAP A8); pass por_table, the "
-            "artifact of the JAX package's `analyze --passes por "
-            "--por-artifact FILE`")
-    table = cfg.por_table
-    if table is None:
+    None (POR off).  Shared by the single-device and mesh engines.  A
+    path loads the artifact (its fingerprint is checked there);
+    ``por=True`` without a table certifies one in process against
+    exactly this run's invariants and constraint (the analyzer traces on
+    the CPU whatever the engine's device).  Either way ``check_table``
+    then holds the table to this run's model, invariants and
+    constraint."""
+    if not cfg.por and cfg.por_table is None:
         return None
+    table = cfg.por_table
     if isinstance(table, str):
         table = por_mod.load_table(table)
+    if table is None:
+        table = por_mod.build_table(dims, invariants=dict(invariants),
+                                    constraint=constraint)
     por_mod.check_table(table, dims, invariant_names=list(invariants),
                         has_constraint=constraint is not None)
     return table
@@ -1288,8 +1289,9 @@ class BFSEngine:
             while seen_size > seen.capacity // 2:
                 seen = fpset.grow(seen, 2 * seen.capacity)
             fr = resume.frontier
-            for i in range(Q, fr.shape[0], Q):
-                pending.append(fr[i:i + Q].cpu().numpy())
+            rest = fr[Q:].cpu().numpy()     # one host copy, then pieces
+            for i in range(0, rest.shape[0], Q):
+                pending.append(rest[i:i + Q])
             fr = fr[:Q]
             qcur[:fr.shape[0]] = fr.to(dev)
             cur_count = fr.shape[0]

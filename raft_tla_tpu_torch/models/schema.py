@@ -154,22 +154,31 @@ def check_packable(st: StateBatch, dims: RaftDims) -> None:
     """Raise if a root's field cannot round-trip the packed row: message
     column 4 admits [-128, 127], value lanes (log values, the message
     value columns) [0, 65535] when ``dims.value_bytes == 2``, every other
-    value [0, 255]."""
-    vhi = 256 ** dims.value_bytes - 1
+    value [0, 255].  The message decodes the failing lane through the
+    analyzer's lane map (``analysis/lane_map.py``): the field, for a
+    message row the slot, column and the column's meaning, the action
+    families that write the field, the packable range and how many
+    elements are out of it — the JAX package's text, byte for byte."""
+    from ..analysis import lane_map
+    caps = lane_map.lane_capacities(dims)
     for name, arr in zip(StateBatch._fields, st):
         a = np.asarray(arr)
-        lo = np.zeros(a.shape, np.int64)
-        hi = np.full(a.shape, 255, np.int64)
-        if name == "log_val":
-            hi[...] = vhi
-        if name == "msg":
-            hi[..., list(_msg_value_cols(dims))] = vhi
-            lo[..., 4], hi[..., 4] = -128, 127
-        bad = (a < lo) | (a > hi)
+        if a.size == 0:
+            continue
+        lo_col, hi_col = caps[name]     # 'msg': per-column [W] arrays
+        bad = (a < lo_col) | (a > hi_col)
         if bad.any():
             idx = tuple(int(i) for i in np.argwhere(bad)[0])
-            raise ValueError(f"value {int(a[idx])} at {name}{list(idx)} is "
-                             "outside the packable range of the row")
+            if name == "msg":
+                lo_b, hi_b = int(lo_col[idx[-1]]), int(hi_col[idx[-1]])
+            else:
+                lo_b, hi_b = int(lo_col), int(hi_col)
+            raise ValueError(
+                f"value {int(a[idx])} at "
+                f"{lane_map.describe_lane(name, idx, dims)} "
+                f"is outside the packable range [{lo_b}, {hi_b}] "
+                f"(uint8 row packing would alias it silently; "
+                f"{int(bad.sum())} offending element(s) total)")
 
 
 # -- the packed row ---------------------------------------------------------

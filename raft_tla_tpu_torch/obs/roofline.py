@@ -1,10 +1,11 @@
 """Roofline: per-stage byte floors, priced against the card's bandwidth,
 with the fusion advisor.
 
-The JAX package's ``obs/roofline.py`` takes its floors from a walk of the
-stage programs' jaxprs; the port has no jaxprs (the analyzer is ROADMAP
-A8), so its floors come from the stage tensors' shapes, under the JAX
-rule: every stage input is read once, every output written once, and
+The JAX package's ``obs/roofline.py`` takes its floors from a
+provenance walk of the stage programs' jaxprs; the port's analyzer
+(``analysis/``) walks aten graphs of the action kernels but has no such
+traffic walk yet (ROADMAP A8b), so its floors come from the stage
+tensors' shapes, under the JAX rule: every stage input is read once, every output written once, and
 intermediates are free.  The byte counts are the ones ``chip_smoke.py``
 prices each kernel's bound with (it imports them from here: one count).
 A stage's floor assumes a full batch: every one of the K compacted lanes

@@ -64,7 +64,9 @@ def test_static_scan_finds_no_jax_imports():
 
 @pytest.mark.parametrize("rel", [
     "ops/enqueue.py", "ops/enqueue_cuda.py", "engine/checkpoint.py",
-    "analysis/por.py", "analysis/__init__.py", "engine/spillpool.py",
+    "analysis/por.py", "analysis/__init__.py", "analysis/lane_map.py",
+    "analysis/report.py", "analysis/interp.py", "analysis/effects.py",
+    "analysis/bounds.py", "analysis/lint.py", "engine/spillpool.py",
     "engine/chunk.py", "engine/trace.py", "models/safety.py",
     "models/smoke.py", "models/reconfig.py", "obs/__init__.py",
     "obs/metrics.py", "obs/events.py", "obs/coverage.py", "obs/report.py",
@@ -76,7 +78,9 @@ def test_static_scan_finds_no_jax_imports():
     "resilience/supervisor.py", "serving/__init__.py", "serving/jobs.py",
     "serving/manager.py", "server.py", "clients.py"])
 def test_split_tail_modules_are_covered(rel):
-    """The modules of the split tail, the checkpoints, the POR table, the
+    """The modules of the split tail, the checkpoints, the POR table and
+    the static analyzer (lane map, report, graph evaluator, effects,
+    bounds, lint), the
     level loop's chunk, spill pool and trace store, the safety suite, the
     smoke roots, the reconfiguration variant, observability (with the
     span tracer, flight recorder, Prometheus exposition, history, chunk

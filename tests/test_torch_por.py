@@ -156,8 +156,10 @@ def test_engine_refuses_what_admission_refuses(tmp_path):
         port_engine("v3", to_port(forged_dup_table()),
                     dims=RaftDims(n_servers=3, n_values=2, max_log=4,
                                   n_msg_slots=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        port_engine("v3", por=True)
+    # por=True certifies in process (analysis/por.py): nothing on the
+    # Raft alphabet, and the table passes the same admission.
+    eng = port_engine("v3", por=True)
+    assert eng._por_table is not None and eng._por_table.certified == 0
 
 
 def test_chunk_body_rejects_malformed_por_arrays():
