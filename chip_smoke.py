@@ -5230,10 +5230,11 @@ def phase_multihost(torch, device):
 
 
 # ---------------------------------------------------------------------------
-# Observability: the native trace store measured against the
-# columnar one, the stage profiler, roofline and launch accounting, the
-# swarm's stage table, the span trace, the device-profiler capture, and a
-# running check scraped over HTTP, then stopped by SIGTERM.
+# Observability: the roofline's traffic walk on the host (its pins, its
+# seconds, a --perf engine build), the native trace store measured
+# against the columnar one, the stage profiler, roofline and launch
+# accounting, the swarm's stage table, the span trace, the device-profiler
+# capture, and a running check scraped over HTTP, then stopped by SIGTERM.
 
 def obs_trace_store(torch):
     """configs/TPUraft.cfg to L9 with trace on, once with each store: the
@@ -5308,6 +5309,156 @@ def obs_trace_store(torch):
     return drains, times
 
 
+#: The walked stage floors (``obs/roofline.py stage_traffic``) at
+#: MCraft_bounded, batch 2048, K 32,768 (the swarm: 2048 walks, its ring
+#: of 16), a stage ``(bytes read, bytes written, device ops)``: the pins
+#: of ``tests/test_torch_roofline.py``, which holds this table equal to
+#: its hand counts.  The walk runs on the host and reads no device, so
+#: the card's host must give them too.
+WALK_PINS = {
+    "v1": {"expand": (970752, 136052736, 1221),
+           "fingerprint": (15630336, 16056320, 316),
+           "dedup_insert": (688136, 163849, 6),
+           "enqueue": (46563332, 30998536, 3)},
+    "v3": {"masks": (970752, 8019968, 360),
+           "compact": (270336, 163840, 1),
+           "fingerprint": (7880704, 16056320, 2691),
+           "insert_enqueue": (47218700, 31162385, 7)},
+    "v4": {"front": (970752, 16089088, 1),
+           "insert_enqueue": (47218700, 31162385, 7)},
+    "swarm": {"expand": (970752, 8290304, 359),
+              "choose": (270336, 16384, 111),
+              "latch": (7766016, 1001472, 776),
+              "ring_probe": (1114112, 540672, 25)},
+}
+
+
+def shape_floors(dims, b, k, pipeline, enqueue_method="fused", ring=16):
+    """The stage floors the walk replaced, from the stage tensors' shapes
+    by hand (every lane live; a stage's kernel launches only), printed
+    once beside the walked ones so the reader sees what the walk
+    changed."""
+    from raft_tla_tpu_torch.models.schema import state_width
+    rl = roofline()
+    sw, g = state_width(dims), dims.n_instances
+
+    def row(read, written, launches):
+        return (read, written, launches)
+
+    if pipeline == "v1":
+        written = b * g * sw + 3 * b * g
+        return {
+            "expand": row(b * sw + b + b * g,
+                          written + rl.compact_bytes(b, g, k, k) - b * g, 2),
+            "fingerprint": row(k * sw + 4 * k + b * sw,
+                               rl.lane_bytes(dims, k) - k * sw, 0),
+            "dedup_insert": row(rl.insert_bytes(k, k, k) - 2 * k - 1,
+                                2 * k + 1, 3),
+            "enqueue": row(rl.enqueue_bytes(k, k, sw) - k * sw - 4,
+                           k * sw + 4, 2)}
+    if pipeline == "swarm":
+        return {
+            "expand": row(b * sw + b, b * sw + 2 * b * g, 0),
+            "choose": row(b * g, 8 * b, 0),
+            "latch": row(b * sw + 8 * b, b * sw + 8 * b, 0),
+            "ring_probe": row(8 * b * ring + 4 * b + 8 * b + 2 * b * g,
+                              8 * b * ring + 4 * b, 0)}
+    tail_w = k * sw + 32 * k + k + 1 + 4
+    tail = row(rl.fused_tail_bytes(k, k, k, k, sw) - tail_w, tail_w, 4)
+    if pipeline == "v4":
+        written = 3 * b * g + 8 + k * 4 + k + rl.lane_bytes(dims, k)
+        return {"front": row(rl.front_bytes(dims, b, k, k) - written,
+                             written, 3),
+                "insert_enqueue": tail}
+    return {"masks": row(b * sw + b, b * sw + 2 * b * g, 0),
+            "compact": row(b * g, rl.compact_bytes(b, g, k, k) - b * g, 2),
+            "fingerprint": row(b * sw + 4 * k + rl.salt_bytes(dims),
+                               rl.lane_bytes(dims, k), 0),
+            "insert_enqueue": tail}
+
+
+def walk_table(traffic, peak):
+    """One line a stage: walked bytes, device ops, floor ms at the card's
+    peak."""
+    return ", ".join(
+        f"({s}, read {r['bytes_read']} B, written {r['bytes_written']} B, "
+        f"total {r['bytes_total']} B, {r['launches']} device ops, floor "
+        f"{r['bytes_total'] / peak * 1e3} ms)" for s, r in traffic.items())
+
+
+def obs_walk(torch):
+    """The roofline's traffic walk on the card's host: the walked floors
+    at the CPU test's sizes equal its pins (``WALK_PINS``); each walk's
+    host seconds cold (the first in the process) and warm (memoised) at
+    the main path's sizes (v1, v3, v4 at batch 2048, the swarm at 16,384
+    walks) and TPUraft v4 at batch 8192; an engine's build seconds with
+    ``--perf`` cold and warm against the build without it, in turns."""
+    from raft_tla_tpu_torch.engine.bfs import BFSEngine
+    from raft_tla_tpu_torch.engine.check import (resolve_constraint,
+                                                 resolve_invariants)
+    from raft_tla_tpu_torch.ops.compact import choose_k
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    rl = roofline()
+    rl._WALKS.clear()
+    peak = rl.peak_bandwidth()["bytes_per_sec"]
+    bounded = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
+    tpuraft = load_config(os.path.join(HERE, "configs/TPUraft.cfg"))
+    g = bounded.dims.n_instances
+    walks = [("v1", bounded, "v1", B, K), ("v3", bounded, "v3", B, K),
+             ("v4", bounded, "v4", B, K), ("swarm", bounded, "swarm", B, g),
+             ("swarm 16384 walks", bounded, "swarm", 16384, g),
+             ("TPUraft v4", tpuraft, "v4", 8192,
+              choose_k(8192, tpuraft.dims.n_instances, None))]
+    seconds, differ = {}, []
+    print(f"walk on the host: PyTorch {torch.__version__}")
+    for label, setup, pipeline, b, k in walks:
+        got = []
+        for _turn in ("cold", "warm"):
+            t = time.perf_counter()
+            traffic = rl.stage_traffic(setup.dims, b, k, pipeline=pipeline)
+            got.append(time.perf_counter() - t)
+        seconds[label] = got
+        print(f"walk {label} (batch {b}, K {k}): cold {got[0]} s, warm "
+              f"{got[1]} s; " + walk_table(traffic, peak))
+        if label in WALK_PINS:
+            if {s: (r["bytes_read"], r["bytes_written"], r["launches"])
+                    for s, r in traffic.items()} != WALK_PINS[label]:
+                differ.append(label)
+            old = shape_floors(setup.dims, b, k, pipeline)
+            print(f"walk {label}: the replaced shape floors (read, written, "
+                  f"kernel launches) {old}")
+    need(not differ, f"the walked floors of {differ} differ from the CPU "
+         "test's pins")
+    inv, cons = resolve_invariants(bounded), resolve_constraint(bounded)
+    builds = {}
+    for pipeline in ("v4", "v3"):
+        rl._WALKS.clear()
+        for label, perf in (("off", False), ("on cold", True),
+                            ("on warm", True), ("off again", False)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng = BFSEngine(bounded.dims, inv, cons,
+                            bounded_config(pipeline, 9, perf=perf),
+                            device="cuda")
+            torch.cuda.synchronize()
+            builds[(pipeline, label)] = time.perf_counter() - t
+            if perf:
+                need({s: (r["bytes_read"], r["bytes_written"],
+                          r["launches"])
+                      for s, r in eng._perf.traffic.items()}
+                     == WALK_PINS[pipeline],
+                     f"the {pipeline} engine's walked floors differ")
+            del eng
+            torch.cuda.empty_cache()
+        print(f"engine build MCraft_bounded {pipeline} (batch {B}, queue "
+              f"{QUEUE}, seen {SEEN}): --perf off "
+              f"{builds[(pipeline, 'off')]} s, on cold "
+              f"{builds[(pipeline, 'on cold')]} s, on warm "
+              f"{builds[(pipeline, 'on warm')]} s, off again "
+              f"{builds[(pipeline, 'off again')]} s")
+    return seconds, builds
+
+
 def obs_profiled(torch):
     """MCraft_bounded L11 on v4 and L9 on v3 with the stage profiler every
     16th chunk and perf on, each against the same run with both off: the
@@ -5343,13 +5494,17 @@ def obs_profiled(torch):
         perf = on.perf
         rows = perf["roofline"]["stages"]
         launch = perf["launch"]
+        need({s: (r["bytes_read"], r["bytes_written"], r["launches"])
+              for s, r in rows.items()} == WALK_PINS[pipeline],
+             f"the {pipeline} perf block's walked floors differ from the "
+             "pins")
         print(f"stage table MCraft_bounded L{depth} {pipeline} "
               f"(--profile-chunks 16 --perf; {perf['roofline']['peak_source']}"
               f"): " + ", ".join(
-                  f"({s}, mean {r['mean_seconds'] * 1e3} ms, bound "
-                  f"{r['floor_seconds'] * 1e3} ms, {r['bandwidth_fraction']}"
-                  f" of the bound's rate, {r['launches']} kernel launches)"
-                  for s, r in rows.items()))
+                  f"({s}, mean {r['mean_seconds'] * 1e3} ms, walked "
+                  f"{r['bytes_total']} B, bound {r['floor_seconds'] * 1e3} "
+                  f"ms, {r['bandwidth_fraction']} of the card's rate, "
+                  f"{r['launches']} device ops)" for s, r in rows.items()))
         print(f"perf MCraft_bounded L{depth} {pipeline}: "
               f"{launch['launches_per_batch']} device ops a step, "
               f"{launch['launches_fixed_per_chunk']} a chunk besides, "
@@ -5403,11 +5558,15 @@ def obs_swarm(torch):
           f"{reports['cuda']['distinct_observed']}, restarts "
           f"{reports['cuda']['restarts']}, bloom {reports['cuda']['bloom']}")
     rows = on.perf["roofline"]["stages"]
+    need({s: r["launches"] for s, r in rows.items()}
+         == {s: p[2] for s, p in WALK_PINS["swarm"].items()},
+         "the swarm's walked device ops at 16,384 walks differ from 2048's")
     print(f"swarm stage table, 16,384 walks a slice (MCraft_bounded, 64 "
           f"steps): " + ", ".join(
-              f"({s}, mean {r['mean_seconds'] * 1e3} ms, bound "
-              f"{r['floor_seconds'] * 1e3} ms, {r['bandwidth_fraction']})"
-              for s, r in rows.items())
+              f"({s}, mean {r['mean_seconds'] * 1e3} ms, walked "
+              f"{r['bytes_total']} B, bound {r['floor_seconds'] * 1e3} ms, "
+              f"{r['bandwidth_fraction']} of the card's rate, "
+              f"{r['launches']} device ops)" for s, r in rows.items())
           + f"; {on.perf['launch']['launches_per_batch']} device ops a "
           f"chunk dispatch of {eng.chunk} steps; steps/s off "
           f"{off.steps_per_second}, on {on.steps_per_second}")
@@ -5523,10 +5682,11 @@ def obs_scrape_and_sigterm(torch):
 
 
 def phase_obs(torch):
-    """The observability slice's phases (``--obs``), ~90 s: the profiled
-    runs first (their torch.profiler samples leave graphs slower), after
-    the trace-store runs that need no profiler."""
+    """The observability phases (``--obs``), ~95 s: the walk (host
+    only), then the trace-store runs that need no profiler, then the
+    profiled runs (their torch.profiler samples leave graphs slower)."""
     t = time.time()
+    obs_walk(torch)
     obs_trace_store(torch)
     torch.cuda.empty_cache()
     obs_scrape_and_sigterm(torch)

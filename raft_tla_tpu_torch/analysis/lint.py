@@ -183,6 +183,20 @@ def trace_for_lint(fn, inputs, kernel: str):
                     "batch, and no CUDA-graph capture")]
 
 
+def kernel_sites():
+    """``((owner, attribute, label), ...)``: the plain version each
+    hand-written kernel's wrapper calls on a CPU tensor, where a trace
+    puts a stand-in for the kernel (this lint, and the roofline's traffic
+    walk in ``obs/roofline.py``)."""
+    from ..ops import (chunk_front_cuda, compact_cuda, enqueue_cuda,
+                       fpset_cuda, fused_tail_cuda)
+    return ((compact_cuda, "compact_plain", "compact"),
+            (fpset_cuda, "insert_plain", "fpset_insert"),
+            (fused_tail_cuda, "insert_enqueue_plain", "fused_tail"),
+            (enqueue_cuda, "enqueue_plain", "enqueue"),
+            (chunk_front_cuda.Front, "plain", "chunk_front"))
+
+
 @contextlib.contextmanager
 def kernels_as_launches(log: List[str]):
     """While tracing, each hand-written kernel's wrapper stands for one
@@ -192,13 +206,7 @@ def kernels_as_launches(log: List[str]):
     from torch.fx.experimental.proxy_tensor import \
         disable_proxy_modes_tracing
 
-    from ..ops import (chunk_front_cuda, compact_cuda, enqueue_cuda,
-                       fpset_cuda, fused_tail_cuda)
-    sites = ((compact_cuda, "compact_plain", "compact"),
-             (fpset_cuda, "insert_plain", "fpset_insert"),
-             (fused_tail_cuda, "insert_enqueue_plain", "fused_tail"),
-             (enqueue_cuda, "enqueue_plain", "enqueue"),
-             (chunk_front_cuda.Front, "plain", "chunk_front"))
+    sites = kernel_sites()
     saved = []
 
     def leaf(orig, label):

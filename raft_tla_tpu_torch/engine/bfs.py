@@ -577,8 +577,8 @@ class BFSEngine:
             from ..obs import roofline
             self._perf = perf_mod.PerfAccounting(
                 pipeline=pipeline,
-                stage_traffic=roofline.stage_traffic(
-                    dims, self._B, self._K, pipeline=pipeline,
+                stage_traffic=roofline.walked_floors(
+                    "BFSEngine", dims, self._B, self._K, pipeline=pipeline,
                     enqueue_method=self._method),
                 device=dev, metrics=self.metrics)
 

@@ -549,9 +549,10 @@ class SwarmEngine:
             from ..obs import roofline
             self._perf = perf_mod.PerfAccounting(
                 pipeline="swarm",
-                stage_traffic=roofline.stage_traffic(
-                    dims, self.batch, dims.n_instances, pipeline="swarm",
-                    ring=ring, swarm_pipeline=self.pipeline_name),
+                stage_traffic=roofline.walked_floors(
+                    "SwarmEngine", dims, self.batch, dims.n_instances,
+                    pipeline="swarm", ring=ring,
+                    swarm_pipeline=self.pipeline_name),
                 device=self.device, metrics=self.metrics)
         self._xla_chunks, self._xla_dir = xla_profile_chunks, xla_profile_dir
         self._xla_capture = None

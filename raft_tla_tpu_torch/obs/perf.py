@@ -20,13 +20,14 @@ given:
 - the dynamic half: each chunk call's (steps, seconds), fed by the host
   loop from values it already has.
 
-At run end the block joins the roofline (``obs/roofline.py``) with the
-chunk profiler's stage means (``--perf`` samples every 16th chunk when no
-cadence was chosen), asks the advisor for the top stage, and lands as
-the ``perf`` event, ``EngineResult.perf``, ``perf/*`` gauges and a
-stderr table.  Observational: the sample step changes nothing, the
-counters are put back, and counts are bit-identical with ``--perf`` on
-or off.  On the mesh ``timed_collective_probe`` times one crossing of
+At run end the block joins the roofline (``obs/roofline.py``: each
+stage's walked traffic floor and device ops, walked once when the engine
+is built) with the chunk profiler's stage means (``--perf`` samples
+every 16th chunk when no cadence was chosen), asks the advisor for the
+top stage, and lands as the ``perf`` event, ``EngineResult.perf``,
+``perf/*`` gauges and a stderr table.  Observational: the sample step
+changes nothing, the counters are put back, and counts are bit-identical
+with ``--perf`` on or off.  On the mesh ``timed_collective_probe`` times one crossing of
 the exchange (an ``all_reduce`` across processes, a ``Tensor.to`` round
 in one process) for the collectives' share.
 """
@@ -310,7 +311,7 @@ class PerfAccounting:
                 f" GB/s ({perf['roofline']['peak_source']}):")
             lines.append(f"    {'stage':14s} {'KB/batch':>10s} "
                          f"{'floor ms':>9s} {'meas ms':>9s} "
-                         f"{'of peak':>8s} {'kernels':>7s}")
+                         f"{'of peak':>8s} {'dev ops':>7s}")
             for stage, r in rows.items():
                 meas = (f"{r['mean_seconds'] * 1e3:9.4f}"
                         if r["mean_seconds"] is not None else f"{'-':>9s}")

@@ -21,14 +21,18 @@ stages are the engine's own (``engine/chunk.py build_chunk_stages``, the
 engine's predicates, constraint, POR arrays and tail), built for the
 profiler with a front of its own, a scratch seen set and a scratch
 queue (the JAX profiler's ``empty_seen``): a sample writes nothing the
-engine reads, so counts are bit-identical with profiling on or off.  The
-wrappers' launch counters are put back after a sample.  A sample is
-taken between graph replays, never inside a capture, and reading its
-events waits for the card: with ``sync_every`` > 1 each sample costs one
-host sync (the table says so).  A sleep kernel leads each sample on the
-card so that the stages run back to back while the host queues them:
-the events then time the card, not the host's launches, as far as the
-card's launch queue holds them (about a thousand launches; a PyTorch
+engine reads, so counts are bit-identical with profiling on or off.
+``build_stage_chain`` gives them as one list of ``Stage`` (a function,
+the names it reads and the names it binds), which the profiler runs and
+``obs/roofline.py`` traces for the stages' floors, as the JAX profiler
+and roofline share ``build_stage_programs*``: a measured mean and a
+walked floor join by name.  The wrappers' launch counters are put back
+after a sample.  A sample is taken between graph replays, never inside a
+capture, and reading its events waits for the card: with ``sync_every``
+> 1 each sample costs one host sync (the table says so).  A sleep kernel
+leads each sample on the card so that the stages run back to back while
+the host queues them: the events then time the card, not the host's
+launches, as far as the card's launch queue holds them (about a thousand launches; a PyTorch
 stage of more ops, v3's masks and fingerprint, is timed at the host's
 pace past that).  The JAX table's budget column holds the TPU's
 milliseconds of its planning notes, which do not carry over to the
@@ -48,7 +52,7 @@ import os
 import sys
 import time
 from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -84,40 +88,198 @@ def launches_put_back():
             m.launches = b
 
 
-def _stage_fns(dims, B: int, K: int, QP: int, device, stage_kw: dict,
-               pipeline: str) -> dict:
-    """The v1 / v3 / v4 stage functions on the engine's stages."""
+class Stage(NamedTuple):
+    """One fenced stage of the profiled chain: ``fn(*env[ins])`` gives
+    the values ``outs`` names, which the later stages read from the same
+    ``env``.  ``ChunkProfiler`` runs the chain and ``obs/roofline.py``
+    walks each stage's traced graph, so a measured mean and a walked
+    floor join by name."""
+
+    name: str
+    fn: Callable
+    ins: Tuple[str, ...]
+    outs: Tuple[str, ...]
+
+
+def build_stage_chain(dims, B: int, K: int, device, *, pipeline: str,
+                      stage_kw: Optional[dict] = None,
+                      swarm_pipeline: str = "v2") -> Tuple[Stage, ...]:
+    """The stages of ``pipeline`` in order (``STAGES``, ``STAGES_V3``,
+    ``STAGES_V4`` or ``STAGES_SWARM``).  The chain starts from ``rows``
+    [B, sw] uint8 and ``valid`` [B] bool and reads its scratch from
+    ``env`` too (``stage_scratch``); the swarm's ``choose`` reads the
+    sample number ``k``.  ``stage_kw`` are the engine's
+    ``build_chunk_stages`` arguments (``v2`` is built when it is
+    missing)."""
+    if pipeline == "swarm":
+        return _swarm_stages(dims, B, device, swarm_pipeline)
     from ..engine.chunk import build_chunk_stages
     from ..ops.chunk_front_cuda import Front
     from ..ops.fpset import pack
-    kw = dict(stage_kw)
+    from ..ops.fpset_cuda import insert
+    kw = dict(stage_kw or {})
+    if kw.get("v2") is None:
+        from ..models.actions2 import build_v2
+        kw["v2"] = build_v2(dims, device)
+    kw.setdefault("inv_fns", None)
+    kw.setdefault("constraint", None)
+    kw.setdefault("record_trace", False)
     front = None
     if pipeline == "v4":
         front = Front(dims=dims, v2=kw["v2"], inv_fns=kw["inv_fns"],
                       constraint=kw["constraint"], B=B, K=K, device=device,
                       por_mask=kw.get("por_mask"),
                       por_priority=kw.get("por_priority"))
-    if pipeline == "v1" and kw.get("expand") is None:
-        from ..models.actions import build_expand
-        kw["expand"] = build_expand(dims, device)
+    if pipeline == "v1":
+        from ..ops.pipeline_v1 import resolve_method
+        kw["enqueue_method"] = resolve_method(
+            kw.get("enqueue_method", "fused"))[0]
+        if kw.get("expand") is None:
+            from ..models.actions import build_expand
+            kw["expand"] = build_expand(dims, device)
+    QP = K
     st = build_chunk_stages(dims=dims, B=B, K=K, device=device, front=front,
                             Q=QP, **kw)
 
-    def tail(seen, qnext, count, fo):
+    def masks(rows, valid):
+        states, en, _ovf, _pruned = st.masks(rows, valid)
+        return states, en
+
+    def compact(en):
+        _P, _total, lane_id, kvalid = st.compact(en)
+        return lane_id, kvalid
+
+    def lanes(states, lane_id):
+        kh, kl, krows, cons_ok, _inv, _ph, _pl = st.lanes(states, lane_id)
+        return kh, kl, krows, cons_ok
+
+    def tail(seen, qnext, count, kh, kl, kvalid, krows, cons_ok):
         count.zero_()
-        return st.tail(seen, pack(fo.kh, fo.kl), fo.kvalid, fo.krows,
-                       fo.cons_ok, qnext, count, QP)
+        return st.tail(seen, pack(kh, kl), kvalid, krows, cons_ok, qnext,
+                       count, QP)
 
-    def insert(seen, kh, kl, kvalid):
-        from ..ops.fpset_cuda import insert as fpset_insert
-        return fpset_insert(seen, pack(kh, kl), kvalid)
+    lane_outs = ("kh", "kl", "krows", "cons_ok")
+    tail_stage = Stage("insert_enqueue", tail,
+                       ("seen", "qnext", "count", "kh", "kl", "kvalid",
+                        "krows", "cons_ok"), ("new", "fail", "queued"))
+    if pipeline == "v1":
+        def expand(rows, valid):
+            states, en = masks(rows, valid)
+            return (states,) + compact(en)
 
-    def enqueue(qnext, count, krows, enq):
-        count.zero_()
-        return st.enqueue(qnext, count, krows, enq, QP)
+        def dedup_insert(seen, kh, kl, kvalid):
+            return insert(seen, pack(kh, kl), kvalid)
 
-    return {"stages": st, "tail": tail, "insert": insert,
-            "enqueue": enqueue}
+        def enqueue(qnext, count, krows, new, cons_ok):
+            enq = new & cons_ok
+            count.zero_()
+            return st.enqueue(qnext, count, krows, enq, QP)
+
+        return (Stage("expand", expand, ("rows", "valid"),
+                      ("states", "lane_id", "kvalid")),
+                Stage("fingerprint", lanes, ("states", "lane_id"),
+                      lane_outs),
+                Stage("dedup_insert", dedup_insert,
+                      ("seen", "kh", "kl", "kvalid"), ("new", "fail")),
+                Stage("enqueue", enqueue,
+                      ("qnext", "count", "krows", "new", "cons_ok"),
+                      ("queued",)))
+    if pipeline == "v4":
+        def front_stage(rows, valid):
+            fo = st.front(rows, valid)
+            return fo.kh, fo.kl, fo.kvalid, fo.krows, fo.cons_ok
+
+        return (Stage("front", front_stage, ("rows", "valid"),
+                      ("kh", "kl", "kvalid", "krows", "cons_ok")),
+                tail_stage)
+    if pipeline == "v3":
+        return (Stage("masks", masks, ("rows", "valid"), ("states", "en")),
+                Stage("compact", compact, ("en",), ("lane_id", "kvalid")),
+                Stage("fingerprint", lanes, ("states", "lane_id"),
+                      lane_outs),
+                tail_stage)
+    raise ValueError(f"no stages for pipeline {pipeline!r}")
+
+
+def _swarm_stages(dims, B: int, device, swarm_pipeline: str):
+    """The swarm's walk step (``engine/swarm.py``) as four stages."""
+    import numpy as np
+    from ..models.actions import build_expand
+    from ..models.actions2 import build_v2
+    from ..models.schema import flatten_state, unflatten_state
+    from ..ops.fingerprint import build_fingerprint
+    from ..ops.walk_kernels import (CHOICE_STREAM, FAMILY_STREAM,
+                                    family_subset, preferred_choice,
+                                    ring_probe, ring_push, ring_reset,
+                                    walk_bits)
+    dev = torch.device(device)
+    G = dims.n_instances
+    v1 = swarm_pipeline == "v1"
+    if v1:
+        expand_v1 = build_expand(dims, dev)
+    else:
+        v2 = build_v2(dims, dev)
+    fingerprint = build_fingerprint(dims, dev)
+    fam = torch.as_tensor(np.repeat(
+        np.arange(len(dims.family_sizes)), dims.family_sizes), device=dev)
+    walk_ids = torch.arange(B, dtype=torch.int64, device=dev)
+    epoch = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    def expand(rows, valid):
+        states = unflatten_state(rows, dims)
+        if v1:
+            # Every instance's row, the pack guard folded in.
+            cands, en, ovf = expand_v1(states)
+            return cands, en & valid[:, None], ovf | (en & ~cands.pack_ok)
+        en, ovf = v2.masks(states)
+        return states, en & valid[:, None], ovf
+
+    def choose(en, k):
+        bits = walk_bits(0, walk_ids, k, CHOICE_STREAM)
+        mbits = walk_bits(0, walk_ids, epoch, FAMILY_STREAM)
+        return preferred_choice(bits, en, family_subset(mbits, fam))
+
+    def latch(states, choice):
+        if v1:
+            lane = torch.arange(B, device=dev) * G + choice
+            nxt = unflatten_state(states.rows.index_select(0, lane), dims)
+        else:
+            _h, _l, nxt = v2.lane_out(states, None, choice, hashes=False)
+        nrows = flatten_state(nxt, dims)
+        fp_hi, fp_lo = fingerprint(nxt)
+        return nrows, fp_hi, fp_lo
+
+    def ring(rh, rl, rp, fp_hi, fp_lo, en, ovf):
+        seen = ring_probe(rh, rl, fp_hi, fp_lo)
+        accept = en.any(1) & ~ovf.any(1) & ~seen
+        rh, rl, rp = ring_push(rh, rl, rp, fp_hi, fp_lo, accept)
+        return ring_reset(rh, rl, rp, ~accept)
+
+    return (Stage("expand", expand, ("rows", "valid"),
+                  ("states", "en", "ovf")),
+            Stage("choose", choose, ("en", "k"), ("choice",)),
+            Stage("latch", latch, ("states", "choice"),
+                  ("nrows", "fp_hi", "fp_lo")),
+            Stage("ring_probe", ring,
+                  ("rh", "rl", "rp", "fp_hi", "fp_lo", "en", "ovf"),
+                  ("rh", "rl", "rp")))
+
+
+def stage_scratch(dims, B: int, K: int, device, *, pipeline: str,
+                  seen_capacity: int, ring: int = 16) -> dict:
+    """The scratch a chain writes, by ``env`` name: a seen set, a queue of
+    K + max(B, K) rows and its count, or the swarm's rings.  A sample
+    writes nothing the engine reads."""
+    if pipeline == "swarm":
+        from ..ops.walk_kernels import ring_init
+        rh, rl, rp = ring_init(B, ring, device)
+        return {"rh": rh, "rl": rl, "rp": rp}
+    from ..models.schema import state_width
+    from ..ops import fpset
+    return {"seen": fpset.empty(seen_capacity, device),
+            "qnext": torch.zeros((K + max(B, K), state_width(dims)),
+                                 dtype=torch.uint8, device=device),
+            "count": torch.zeros(1, dtype=torch.int32, device=device)}
 
 
 class ChunkProfiler:
@@ -195,134 +357,33 @@ class ChunkProfiler:
         return b
 
     def _build_stages(self):
-        dev = self.device
-        if self.pipeline == "swarm":
-            return self._build_swarm()
-        from ..models.schema import state_width
-        from ..ops import fpset
-        K = self.K
-        QP = K
-        b = _stage_fns(self.dims, self.B, K, QP, dev, self.stage_kw,
-                       self.pipeline)
-        sw = state_width(self.dims)
-        pad = max(self.B, K)
-
         def scratch():
-            return {"seen": fpset.empty(self.seen_capacity, dev),
-                    "qnext": torch.zeros((QP + pad, sw), dtype=torch.uint8,
-                                         device=dev),
-                    "count": torch.zeros(1, dtype=torch.int32, device=dev)}
+            return stage_scratch(self.dims, self.B, self.K, self.device,
+                                 pipeline=self.pipeline,
+                                 seen_capacity=self.seen_capacity,
+                                 ring=self.ring_capacity)
 
         # Two scratch sets: the fenced stages and the unfenced total see
         # the same load.
-        b["staged"], b["fused"] = scratch(), scratch()
-        return b
-
-    def _build_swarm(self):
-        import numpy as np
-        from ..models.actions import build_expand
-        from ..models.actions2 import build_v2
-        from ..models.schema import flatten_state, unflatten_state
-        from ..ops.fingerprint import build_fingerprint
-        from ..ops.walk_kernels import (CHOICE_STREAM, FAMILY_STREAM,
-                                        family_subset, preferred_choice,
-                                        ring_init, ring_probe, ring_push,
-                                        ring_reset, walk_bits)
-        dims, dev, B = self.dims, self.device, self.B
-        G = dims.n_instances
-        if self.swarm_pipeline == "v1":
-            v1 = build_expand(dims, dev)
-        else:
-            v2 = build_v2(dims, dev)
-        fingerprint = build_fingerprint(dims, dev)
-        fam = torch.as_tensor(np.repeat(
-            np.arange(len(dims.family_sizes)), dims.family_sizes),
-            device=dev)
-        walk_ids = torch.arange(B, dtype=torch.int64, device=dev)
-        epoch = torch.zeros(B, dtype=torch.int64, device=dev)
-
-        def expand(rows, valid):
-            states = unflatten_state(rows, dims)
-            if self.swarm_pipeline == "v1":
-                # Every instance's row, the pack guard folded in.
-                cands, en, ovf = v1(states)
-                return cands, en & valid[:, None], ovf | (en
-                                                          & ~cands.pack_ok)
-            en, ovf = v2.masks(states)
-            return states, en & valid[:, None], ovf
-
-        def choose(en, k):
-            bits = walk_bits(0, walk_ids, k, CHOICE_STREAM)
-            mbits = walk_bits(0, walk_ids, epoch, FAMILY_STREAM)
-            return preferred_choice(bits, en, family_subset(mbits, fam))
-
-        def latch(states, choice):
-            if self.swarm_pipeline == "v1":
-                lane = torch.arange(B, device=dev) * G + choice
-                nxt = unflatten_state(
-                    states.rows.index_select(0, lane), dims)
-            else:
-                _h, _l, nxt = v2.lane_out(states, None, choice,
-                                          hashes=False)
-            nrows = flatten_state(nxt, dims)
-            fp_hi, fp_lo = fingerprint(nxt)
-            return nrows, fp_hi, fp_lo
-
-        def ring(rings, fp_hi, fp_lo, en, ovf):
-            rh, rl, rp = rings
-            seen = ring_probe(rh, rl, fp_hi, fp_lo)
-            accept = en.any(1) & ~ovf.any(1) & ~seen
-            rh, rl, rp = ring_push(rh, rl, rp, fp_hi, fp_lo, accept)
-            return ring_reset(rh, rl, rp, ~accept)
-
-        return {"expand": expand, "choose": choose, "latch": latch,
-                "ring": ring,
-                "staged": list(ring_init(B, self.ring_capacity, dev)),
-                "fused": list(ring_init(B, self.ring_capacity, dev))}
+        return {"chain": build_stage_chain(
+                    self.dims, self.B, self.K, self.device,
+                    pipeline=self.pipeline, stage_kw=self.stage_kw,
+                    swarm_pipeline=self.swarm_pipeline),
+                "staged": scratch(), "fused": scratch()}
 
     # -- sampling ----------------------------------------------------------
     def _chain(self, b, rows, valid, fence, which: str) -> None:
         """The stages in order on scratch ``which``, ``fence(stage)`` after
         each."""
-        if self.pipeline == "swarm":
-            k = self._swarm_k
-            states, en, ovf = b["expand"](rows, valid)
-            fence("expand")
-            choice = b["choose"](en, k)
-            fence("choose")
-            _nrows, hi, lo = b["latch"](states, choice)
-            fence("latch")
-            b[which][:] = b["ring"](b[which], hi, lo, en, ovf)
-            fence("ring_probe")
-            return
-        st, sc = b["stages"], b[which]
-        if self.pipeline == "v1":
-            states, en, _ovf, _pruned = st.masks(rows, valid)
-            _P, _total, lane_id, kvalid = st.compact(en)
-            fence("expand")
-            kh, kl, krows, cons_ok, _inv, _ph, _pl = st.lanes(states,
-                                                              lane_id)
-            fence("fingerprint")
-            new, _fail = b["insert"](sc["seen"], kh, kl, kvalid)
-            fence("dedup_insert")
-            b["enqueue"](sc["qnext"], sc["count"], krows, new & cons_ok)
-            fence("enqueue")
-            return
-        if self.pipeline == "v4":
-            fo = st.front(rows, valid)
-            fence("front")
-        else:
-            states, en, _ovf, _pruned = st.masks(rows, valid)
-            fence("masks")
-            _P, _total, lane_id, kvalid = st.compact(en)
-            fence("compact")
-            kh, kl, krows, cons_ok, _inv, _ph, _pl = st.lanes(states,
-                                                              lane_id)
-            fence("fingerprint")
-            fo = _Lanes(kh=kh, kl=kl, kvalid=kvalid, krows=krows,
-                        cons_ok=cons_ok)
-        b["tail"](sc["seen"], sc["qnext"], sc["count"], fo)
-        fence("insert_enqueue")
+        sc = b[which]
+        env = dict(sc, rows=rows, valid=valid, k=self._swarm_k)
+        for stage in b["chain"]:
+            out = stage.fn(*(env[k] for k in stage.ins))
+            env.update(zip(stage.outs,
+                           out if len(stage.outs) > 1 else (out,)))
+            fence(stage.name)
+        for key in sc:
+            sc[key] = env[key]
 
     def sample(self, rows, valid) -> None:
         """Profile one batch: ``rows`` [B, sw] and ``valid`` [B] bool on
@@ -421,14 +482,15 @@ class ChunkProfiler:
             "staged_sum_mean_seconds": round(staged_sum, 6),
         }
 
-    def floors(self) -> Dict[str, dict]:
-        """The stages' byte floors (``obs/roofline.py``)."""
+    def floors(self) -> Optional[Dict[str, dict]]:
+        """The stages' walked traffic floors (``obs/roofline.py``), or
+        None when the walk fails (a warning says why)."""
         from . import roofline
-        return roofline.stage_traffic(self.dims, self.B, self.K,
-                                      pipeline=self.pipeline,
-                                      ring=self.ring_capacity,
-                                      enqueue_method=self.enqueue_method,
-                                      swarm_pipeline=self.swarm_pipeline)
+        return roofline.walked_floors(
+            "ChunkProfiler", self.dims, self.B, self.K,
+            pipeline=self.pipeline, ring=self.ring_capacity,
+            enqueue_method=self.enqueue_method,
+            swarm_pipeline=self.swarm_pipeline)
 
     def render_table(self) -> str:
         """The run-end table: each stage's mean ms, share, bound ms (its
@@ -439,7 +501,7 @@ class ChunkProfiler:
         if not means:
             return "chunk profile: no samples"
         peak = roofline.peak_bandwidth(self.device)
-        rows = roofline.build_roofline(self.floors(), means, peak)
+        rows = roofline.build_roofline(self.floors() or {}, means, peak)
         if self.device.type != "cuda":
             sync = "timed by the host clock"
         elif self.sync_every > 1:
@@ -455,11 +517,12 @@ class ChunkProfiler:
         staged_sum = sum(means[s] for s in self.stages)
         for s in self.stages:
             share = means[s] / staged_sum if staged_sum else 0.0
-            r = rows[s]
-            frac = r["bandwidth_fraction"]
+            r = rows.get(s)
+            frac = r["bandwidth_fraction"] if r else None
             lines.append(
                 f"  {s:14s} {means[s] * 1e3:10.4f} {share:6.1%} "
-                f"{(r['floor_seconds'] or 0.0) * 1e3:10.4f} "
+                + (f"{(r['floor_seconds'] or 0.0) * 1e3:10.4f} " if r
+                   else f"{'-':>10s} ")
                 + (f"{frac:9.1%}" if frac is not None else f"{'-':>9s}"))
         lines.append(f"  {'sum(stages)':14s} {staged_sum * 1e3:10.4f}")
         lines.append(f"  {'fused total':14s} {means['total'] * 1e3:10.4f}"
@@ -475,14 +538,6 @@ class ChunkProfiler:
             return
         evlog.emit("chunk_profile", **self.summary())
         print(self.render_table(), file=stream or sys.stderr)
-
-
-class _Lanes:
-    """The v3 stages' outputs the tail reads, under ``FrontOut``'s
-    names."""
-
-    def __init__(self, **kw):
-        self.__dict__.update(kw)
 
 
 class ProfileCapture:

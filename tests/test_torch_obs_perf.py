@@ -10,9 +10,11 @@ package's ``obs/profile.py``, ``roofline.py`` and ``perf.py``, on the CPU.
 - The perf block has the JAX block's keys at every level (the launch
   counts are not compared: the JAX counts are pre-fusion jaxpr equations,
   the port's are device operations of a step and kernel launches).
-- The roofline's floors of the v3 and v4 stages at the main path's shapes
-  (MCraft_bounded, B 2048, K 32768), pinned by hand arithmetic from the
-  stage tensors' shapes; the peak for an unknown card and the CPU.
+- The roofline's walked floors of the v3 and v4 stages at the main path's
+  shapes (MCraft_bounded, B 2048, K 32768), pinned by hand arithmetic
+  from the stage tensors' shapes, with their device ops; the kernels'
+  hand byte counts that chip_smoke.py prices their bounds with; the peak
+  for an unknown card and the CPU.
 - The CLI's ``--perf``, ``--profile-chunks`` and ``--xla-profile``: the
   ``chunk_profile``, ``perf`` and ``xla_profile`` events and a Chrome
   trace holding the ``chunk`` steps.
@@ -193,29 +195,38 @@ def test_perf_block_keys_equal_jax():
 
 
 def test_roofline_floors_by_hand():
+    """The walked floors of the v4 and v3 stages (``obs/roofline.py``): each
+    stage input read once (or its gathered window), each output written
+    once, an input written in place counted at its extent; a kernel reads
+    and writes its operands in full.  Launches are device ops."""
     dims = load_config(BOUNDED).dims
     B, K, G, sw = 2048, 32768, 132, 473
-    salts = 4 * (2 + 2 * (7 * 3 + 2 * 3 * 3 + 2 * 3 * 3) + 2 * 12)
-    lanes = K * (sw + 8 * 5 + 1)                  # row + six scalars a lane
-    tail_written = K * sw + 32 * K + K + 1 + 4    # rows, slots, is_new,
-    tail_total = K * (8 + 1 + 1) + 1 + 32 * K + 32 * K + K + 4 + 2 * K * sw
+    seen = 8 * roofline.WALK_SEEN_CAPACITY + 8    # keys and size, int64
+    qnext = 2 * K * sw                            # K + max(B, K) rows
+    lanes = 16 * K + K * sw + K                   # kh, kl, krows, cons_ok
+    # The tail reads the queue, krows, kh, kl, kvalid, cons_ok, the seen
+    # set and the count; writes the queue and the seen set (the kernel's
+    # operands), the zeroed count, is_new, fail and the count out.
+    tail = (qnext + K * sw + 16 * K + K + K + seen + 4,
+            qnext + seen + 4 + K + 1 + 4)
     v4 = roofline.stage_traffic(dims, B, K, pipeline="v4")
-    front_w = 3 * B * G + 8 + 4 * K + K + lanes
     assert (v4["front"]["bytes_read"], v4["front"]["bytes_written"]) \
-        == (B * sw + B + salts, front_w) == (971312, 17817608)
+        == (B * sw + B, lanes + K) == (970752, 16089088)
     assert (v4["insert_enqueue"]["bytes_read"],
             v4["insert_enqueue"]["bytes_written"]) \
-        == (tail_total - tail_written, tail_written) \
-        == (16875520, 16580613)
+        == tail == (47218700, 31162385)
     v3 = roofline.stage_traffic(dims, B, K, pipeline="v3")
     assert {s: (r["bytes_read"], r["bytes_written"]) for s, r in v3.items()} \
-        == {"masks": (B * sw + B, B * sw + 2 * B * G),
-            "compact": (B * G, 4 * K + K + 8),
-            "fingerprint": (B * sw + 4 * K + salts, lanes),
-            "insert_enqueue": (tail_total - tail_written, tail_written)}
-    assert v3["masks"]["bytes_total"] == 2480128
-    assert [v4[s]["launches"] for s in v4] == [3, 4]
-    assert [v3[s]["launches"] for s in v3] == [0, 2, 0, 4]
+        == {"masks": (B * sw + B, 8 * B * sw + B * G),
+            "compact": (B * G, 4 * K + K),
+            "fingerprint": (8 * B * sw + 4 * K, lanes),
+            "insert_enqueue": tail}
+    assert v3["masks"]["bytes_total"] == 8990720
+    # The front and the compaction: one kernel each; the tail: zero_,
+    # fpset.pack's five ops and the fused tail; masks and fingerprint:
+    # their PyTorch ops.
+    assert [v4[s]["launches"] for s in v4] == [1, 7]
+    assert [v3[s]["launches"] for s in v3] == [360, 1, 2691, 7]
     # The roofline rows and the advisor carry the JAX module's keys.
     peak = {"bytes_per_sec": 3.35e12, "source": "datasheet (h100)"}
     rows = roofline.build_roofline(v4, {"front": 1e-4}, peak)
@@ -223,6 +234,34 @@ def test_roofline_floors_by_hand():
     assert rows == jrows
     assert roofline.advise(rows, 5e-6).keys() == \
         jroofline.advise(jrows, 5e-6).keys()
+
+
+SALTS = 4 * (2 + 2 * (7 * 3 + 2 * 3 * 3 + 2 * 3 * 3) + 2 * 12)
+
+
+@pytest.mark.parametrize("helper, args, want", [
+    # The mask once, kspread in the dead slots, lane_id, kvalid, (P, total).
+    ("compact_bytes", (2048, 132, 32768, 20000),
+     2048 * 132 + (32768 - 20000) * 4 + 32768 * 4 + 32768 + 8),
+    # Queries, valid, is_new, fail; a sector a distinct key and a claim.
+    ("insert_bytes", (32768, 30000, 20000),
+     32768 * 10 + 1 + 32 * 30000 + 32 * 20000),
+    ("fused_tail_bytes", (32768, 30000, 20000, 15000, 473),
+     32768 * 10 + 1 + 32 * 30000 + 32 * 20000 + 32768 + 4
+     + 2 * 15000 * 473),
+    ("enqueue_bytes", (32768, 15000, 473), 32768 + 2 * 15000 * 473 + 4),
+    ("salt_bytes", ("dims",), SALTS),
+    ("lane_bytes", ("dims", 20000), 20000 * (473 + 8 * 5 + 1)),
+    ("front_bytes", ("dims", 2048, 32768, 20000),
+     2048 * 473 + 2048 + (32768 - 20000) * 4 + SALTS + 3 * 2048 * 132 + 8
+     + 32768 * 4 + 32768 + 20000 * (473 + 8 * 5 + 1)),
+])
+def test_kernel_bound_bytes_by_hand(helper, args, want):
+    """The hand byte counts ``chip_smoke.py`` prices each kernel's bound
+    with, from a batch's live counts (MCraft_bounded's dims)."""
+    dims = load_config(BOUNDED).dims
+    args = [dims if a == "dims" else a for a in args]
+    assert getattr(roofline, helper)(*args) == want
 
 
 def test_peak_bandwidth_off_the_card(monkeypatch):
