@@ -45,10 +45,15 @@ a chunk.  What it keeps of the JAX engine:
 - ``replay``: walk the trace back to a root and re-run the successor
   function forward, matching each recorded child by fingerprint.
 
-``EngineResult.phases`` splits the wall time into the host's dispatch of
-each chunk, its waits for the device (``sync``), graph capture, trace
-drains, spills and its own bookkeeping.  ``EngineConfig.pipeline`` picks
-the chunk's plan: "v3" (the default; the masks and lane stages in
+``EngineResult.phases`` splits ``run()``'s wall time, on
+``time.perf_counter``'s clock, into disjoint phases that cover it: the
+run's set-up, the host's dispatch of each chunk, its waits for the device
+(``sync``), graph capture, trace drains, spills and uploads, its own
+bookkeeping, and the run's end (``PHASES``).
+``EngineResult.device_seconds`` is the chunks' device time between CUDA
+events (no wait added), ``alloc`` and ``gc`` the run's allocator and
+garbage-collector counters.  ``EngineConfig.pipeline`` picks the chunk's
+plan: "v3" (the default; the masks and lane stages in
 PyTorch around the compaction kernel; "auto" and "v2", the JAX
 package's names of its delta pipeline, run it too), "v4" (one front
 kernel, ``ops/chunk_front_cuda.py``) or "v1" (the classical expansion of
@@ -78,7 +83,10 @@ on a traced violation, ``counterexample.{txt,json}``
 values the level loop has already brought to the host: it adds no wait
 for the device, and no count depends on it.  Also the JAX engine's: the
 span tracer (``trace_out``: a ``run`` span, a ``level`` span a level and
-the loop's spans under the JAX names), the flight recorder armed for the
+the loop's spans under the JAX names; beyond them ``setup``, ``finish``,
+one ``capture`` a graph, ``gc`` and ``spill_wait``; the file written once,
+at the run's end, its ``ts`` on the profiler's Unix-epoch clock and the
+run's id on the ``run`` span), the flight recorder armed for the
 run (``postmortem.json`` in ``postmortem_dir``, else ``checkpoint_dir``,
 on an escaping exception, SIGTERM or an exit while armed; ``run_end``
 carries its path), the chunk profiler (``profile_chunks_every``), the
@@ -113,9 +121,9 @@ from ..models.schema import (ROW_DTYPE, StateBatch, check_packable,
 from ..analysis import por as por_mod
 from ..obs import report as report_mod
 from ..obs.coverage import ActionCoverage
-from ..obs.events import (RunEventLog, all_device_memory_stats,
-                          device_memory_stats, events_path,
-                          peak_host_rss_bytes)
+from ..obs.events import (GcWatch, RunEventLog, all_device_memory_stats,
+                          alloc_delta, device_memory_stats, events_path,
+                          next_run_id, peak_host_rss_bytes)
 from ..obs.flight import RECORDER as _FLIGHT
 from ..obs.metrics import PHASE_PREFIX, MetricsRegistry, phase_delta
 from ..obs.tracing import SpanTracer
@@ -154,9 +162,10 @@ def resolve_pipeline(pipeline: str) -> str:
                          f"got {pipeline!r}")
     return PLAN_NAMES[pipeline]
 
-#: The phases of ``EngineResult.phases``.
-PHASES = ("dispatch", "sync", "capture", "trace", "spill", "host",
-          "checkpoint")
+#: The phases of ``EngineResult.phases``, disjoint, in the order a run
+#: meets them (``EngineResult.phases`` says what each holds).
+PHASES = ("setup", "dispatch", "sync", "capture", "trace", "spill",
+          "upload", "host", "checkpoint", "loop", "finish")
 
 #: The kernel wrappers' modules, whose ``launches`` a graph replay adds to.
 KERNEL_MODULES = (compact_cuda, fpset_cuda, fused_tail_cuda,
@@ -201,7 +210,7 @@ def progress_line(res, t0: float, queue_rows: int, level_frontier: int,
     package's extras (rates, the level being expanded, the seen set's
     load factor): the text of its ``_progress_line``, whose gauges it
     also sets in ``metrics``."""
-    dt = max(time.time() - t0, 1e-9)
+    dt = max(time.perf_counter() - t0, 1e-9)
     if metrics is not None:
         metrics.gauge("engine/queue_rows", queue_rows)
         metrics.gauge("engine/level_frontier", level_frontier)
@@ -348,13 +357,36 @@ class EngineResult:
     # resolution, ops/pipeline_v3.py resolve_mesh_plan); {} otherwise.
     fused_reasons: Dict[str, str] = dataclasses.field(default_factory=dict)
     device: str = ""
-    # Host wall seconds: "dispatch" (queueing a chunk's steps), "sync"
-    # (waiting for the device at the chunk's stats read), "capture" (CUDA
-    # graph capture, off the duration clock), "trace" (device trace
-    # buffer drains), "spill" (queue drains and uploads), "host" (the
-    # loop's other bookkeeping: root ingest, growth, budgets),
-    # "checkpoint" (snapshot writes).
+    # Host seconds (time.perf_counter), disjoint, which together cover
+    # run() from its entry to the run_end event: "setup" (run()'s entry
+    # to the first chunk, less the phases nested in it: the event log,
+    # the flight recorder's arm, the run's buffers, the seen set, the
+    # roots), "dispatch" (queueing a chunk's steps), "sync" (waiting for
+    # the device at the chunk's stats read), "capture" (CUDA graph
+    # capture, off the duration clock), "trace" (device trace buffer
+    # drains), "spill" (queue drains to the host), "upload" (a spilled
+    # segment back to the device), "host" (the loop's other bookkeeping:
+    # root ingest, growth, budgets), "checkpoint" (snapshot writes),
+    # "loop" (the level loop's time outside the phases above: each
+    # chunk's control words, the level boundaries' stats and events),
+    # "finish" (the run's end: coverage, report, the graphs dropped, the
+    # span file written); "profile" too when a profiler samples.
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # The run's id, unique in the process (obs/events.py next_run_id): on
+    # the run span, the span file's metadata, run_start and run_end.
+    run_id: str = ""
+    # Device seconds of the chunks' graph replays, between two CUDA
+    # events a burst (0 on the CPU); over wall_seconds, the card's busy
+    # share without a profiler.
+    device_seconds: float = 0.0
+    # The caching allocator over the run (obs/events.py alloc_delta):
+    # retries, device_mallocs, device_frees, reserved_start and
+    # reserved_end bytes; {} on the CPU.
+    alloc: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Python's garbage collections during the run (obs/events.py
+    # GcWatch.summary): collections, seconds, gen2_collections,
+    # gen2_seconds, collected.
+    gc: Dict[str, float] = dataclasses.field(default_factory=dict)
     # Per family {generated, distinct, disabled, pruned} (obs/coverage.py).
     coverage: Dict[str, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
@@ -634,7 +666,7 @@ class BFSEngine:
         the engine's growth count) rehearses that."""
         if size <= seen.capacity // 2:
             return seen, t0
-        t = time.time()
+        t = time.perf_counter()
         cap = 2 * seen.capacity
         self._grow_attempts = getattr(self, "_grow_attempts", 0) + 1
         try:
@@ -647,7 +679,7 @@ class BFSEngine:
             grown = self._grow_from_host(seen, cap, e)
         seen = grown
         self._drop_graphs()
-        stall = time.time() - t
+        stall = time.perf_counter() - t
         res.growth_stalls.append((seen.capacity, round(stall, 3)))
         self.metrics.counter("engine/fpset_resizes")
         self._evlog.emit("fpset_resize", capacity=seen.capacity,
@@ -684,6 +716,39 @@ class BFSEngine:
         phases[name] = phases.get(name, 0.0) + seconds
         self.metrics.observe(PHASE_PREFIX + name, seconds)
 
+    # The residual phases ("setup", "loop", "finish") hold a stretch of
+    # the run less the phases timed inside it, so the phases cover run()
+    # without a timer around every statement.  One is open at a time.
+    def _open_residual(self, name: str, now: float) -> None:
+        res = self._result
+        self._residual = (name, now,
+                          sum(res.phases.values()) if res else 0.0)
+
+    def _close_residual(self, now: float) -> None:
+        """The open residual phase's seconds, up to ``now``."""
+        if self._residual is None or self._result is None:
+            return
+        name, start, base = self._residual
+        self._residual = None
+        nested = sum(self._result.phases.values()) - base
+        self._phase(name, max(0.0, now - start - nested))
+
+    def _next_residual(self, name: str) -> None:
+        """Close the open residual phase and open ``name`` at the same
+        instant."""
+        now = time.perf_counter()
+        self._close_residual(now)
+        self._open_residual(name, now)
+
+    def _start_level0(self) -> None:
+        """Level 0 begins: the ``setup`` span (``run()``'s entry to here:
+        the event log, the flight recorder, ``run_start``, a snapshot's
+        load) ends, and the first ``level`` span starts."""
+        self._lvl_t0 = time.perf_counter()
+        if self.tracer.enabled:
+            self.tracer.interval("setup", self._run_t0, self._lvl_t0,
+                                 run_id=self._run_id)
+
     def _emit_level_event(self, res, frontier_rows: int):
         """A level boundary: the report's ``level_stats`` row and the
         ``level_complete`` event (counters, per-phase seconds since the
@@ -696,7 +761,6 @@ class BFSEngine:
                                  frontier_rows=frontier_rows,
                                  distinct=res.distinct,
                                  generated=res.generated)
-            self.tracer.write()
         self._lvl_t0 = time.perf_counter()
         if self._perf is not None:
             self._perf.end_level(res.diameter)
@@ -845,16 +909,31 @@ class BFSEngine:
 
         if self.device.type != "cuda":
             return eager
+        names = self._queue_names
         return self._graph_replay(
             (qcur.data_ptr(), qnext.data_ptr(), seen.keys.data_ptr()),
-            eager, res)
+            eager, res, lambda: (f"{names.get(qcur.data_ptr(), '?')}>"
+                                 f"{names.get(qnext.data_ptr(), '?')}, "
+                                 f"seen {seen.capacity}"))
 
-    def _graph_replay(self, key, eager, res):
+    def _graph_replay(self, key, eager, res, buffers=None):
         """A replay of ``eager``'s graph for the buffers ``key`` names
-        (captured at first use), which adds the launches the capture
-        took to the wrappers' counts."""
+        (captured at first use, a ``capture`` span with the buffers,
+        ``buffers()`` where given, and the allocator's deltas over it),
+        which adds the launches the capture took to the wrappers'
+        counts."""
         if key not in self._graphs:
+            tracer = self.tracer
+            if tracer.enabled:
+                t, mem0 = time.perf_counter(), device_memory_stats(
+                    self.device)
             self._graphs[key] = self._capture(eager, res)
+            if tracer.enabled:
+                moved = alloc_delta(mem0, device_memory_stats(self.device))
+                tracer.complete(
+                    "capture", t,
+                    buffers=buffers() if buffers is not None else str(key),
+                    **{f"alloc_{k}": v for k, v in moved.items()})
         g, delta = self._graphs[key]
 
         def replay():
@@ -887,41 +966,54 @@ class BFSEngine:
         seconds spent capturing (off the duration clock).  On the card
         the steps go out in bursts of at most the batches the level has
         left, so a burst wastes no step at a level's end unless progress
-        limiting held a batch back; then a short burst follows."""
-        t = time.time()
-        run = self._runner(qcur, qnext, seen, res)
-        captured = time.time() - t
-        self._phase("capture", captured)
+        limiting held a batch back; then a short burst follows.  Two CUDA
+        events around each burst time it on the device, read after the
+        burst's stats read has waited for it (``device_seconds``)."""
+        t = time.perf_counter()
+        try:
+            run = self._runner(qcur, qnext, seen, res)
+        finally:                    # a capture that fails is timed too
+            captured = time.perf_counter() - t
+            self._phase("capture", captured)
         self._write_ctl(offset, next_count, cur_count, allowed)
         tracer = self.tracer
         t_span = time.perf_counter()
         if self.device.type != "cuda":
-            t = time.time()
+            t = time.perf_counter()
             while bool(self._step.cond(seen, self._cs)):
                 run()
                 res.steps += 1
-            self._phase("dispatch", time.time() - t)
+            t_f = time.perf_counter()
+            self._phase("dispatch", t_f - t)
+            st = self._cs.st.tolist()
             if tracer.enabled:
-                tracer.complete("chunk", t_span)
-            with self._span("stats_fetch"):
-                return self._cs.st.tolist(), captured
-        done, at = 0, offset
+                tracer.interval("chunk", t_span, t_f, batches=st[ST_STEPS])
+                tracer.complete("stats_fetch", t_f)
+            return st, captured
+        done, at, device_ms = 0, offset, 0.0
+        ev0, ev1 = self._burst_events
+        stream = torch.cuda.current_stream(self.device)
         while True:
             n = min(allowed - done, -(-(cur_count - at) // self._B))
-            t = time.time()
+            t = time.perf_counter()
+            ev0.record(stream)
             self._dispatch(run, n, seen)
+            ev1.record(stream)
             res.steps += n
-            t_s = time.time()
-            t_f = time.perf_counter()
+            t_s = time.perf_counter()
             st = self._cs.st.tolist()          # the chunk's device sync
             self._phase("dispatch", t_s - t)
-            self._phase("sync", time.time() - t_s)
+            self._phase("sync", time.perf_counter() - t_s)
+            device_ms += ev0.elapsed_time(ev1)
             if not st[self._step.CUR + 2]:
+                res.device_seconds += device_ms / 1e3
                 if tracer.enabled:
                     # One chunk span a call (its bursts included) and the
                     # last stats read, as the JAX engine's chunk call.
-                    tracer.complete("chunk", t_span)
-                    tracer.complete("stats_fetch", t_f)
+                    tracer.complete("chunk", t_span,
+                                    device_us=device_ms * 1e3,
+                                    batches=st[ST_STEPS])
+                    tracer.complete("stats_fetch", t_s)
                 return st, captured
             done, at = st[ST_STEPS], st[ST_OFFSET]
 
@@ -933,7 +1025,7 @@ class BFSEngine:
         computes."""
         pf, prof = self._perf, self._profiler
         if pf is not None and pf.wants_model(self._xla_capture):
-            t = time.time()
+            t = time.perf_counter()
 
             def idle_step():
                 self._write_idle_ctl()
@@ -941,15 +1033,15 @@ class BFSEngine:
 
             pf.measure(idle_step,
                        lambda: self._dispatch(lambda: None, 0, seen))
-            self._phase("profile", time.time() - t)
+            self._phase("profile", time.perf_counter() - t)
         if prof is not None and prof.want():
-            t = time.time()
+            t = time.perf_counter()
             B = self._B
             with self._span("profile"):
                 prof.sample(qcur[offset:offset + B],
                             (offset + torch.arange(B, device=self.device))
                             < cur_count)
-            self._phase("profile", time.time() - t)
+            self._phase("profile", time.perf_counter() - t)
 
     def _spill(self, inflight, free_q, qnext, count: int):
         """Start draining ``count`` rows of ``qnext`` to the host and
@@ -978,7 +1070,8 @@ class BFSEngine:
                 if ev is None:
                     spill_next.append(host_rows(buf[:count]))
                 else:
-                    ev.synchronize()
+                    with self._span("spill_wait"):
+                        ev.synchronize()
                     spill_next.append(self._pinned[:count].numpy(),
                                       copy=True)
             free_q.append(buf)
@@ -1001,21 +1094,29 @@ class BFSEngine:
         The run's events go to ``events_out`` (``run_start`` ...
         ``run_end``), and at its end come the coverage, the statespace
         report and, on a traced violation, the counterexample files
-        (``_finish``)."""
+        (``_finish``).  ``EngineResult.phases`` covers the call from here
+        to ``run_end``."""
+        t_entry = time.perf_counter()
         if (init_states is None) == (resume is None):
             raise ValueError("need exactly one of init_states or resume")
         cfg, mt = self.config, self.metrics
+        self._result = None
+        self._failed = []           # attempts that ran out of memory
+        self._open_residual("setup", t_entry)
+        self._run_t0 = self._lvl_t0 = t_entry
+        self._run_id = next_run_id()
+        self._gc_watch = GcWatch(self.tracer).install()
         self._evlog = evlog = RunEventLog(self._events_path())
         self._phase_base = mt.phase_seconds()
         self._collision_base = mt.counter_value("engine/fp_collisions")
         self._hbm_watermark = 0
-        self._result = None
         self.coverage = None
         for obs in (self._profiler, self._perf):
             if obs is not None:
                 obs.reset()
         if self.tracer.enabled:
             self.tracer.reset()             # one trace file, one run
+            self.tracer.metadata("run_id", run_id=self._run_id)
         # The black box, armed before the first event so run_start is in
         # its ring.
         _FLIGHT.arm(self._postmortem_path(), metrics=mt, context={
@@ -1031,13 +1132,13 @@ class BFSEngine:
                 self._xla_profile_dir(), cfg.xla_profile_chunks,
                 self.device)
             self._xla_capture.start()
-        self._run_t0 = self._lvl_t0 = time.perf_counter()
+        self._mem0 = device_memory_stats(self.device)
         evlog.emit(
             "run_start", engine=type(self).__name__, dims=repr(self.dims),
             batch=cfg.batch, sync_every=cfg.sync_every,
             record_trace=cfg.record_trace, resume=resume is not None,
-            memory=device_memory_stats(self.device),
-            trace_store=self.trace.kind, **self._run_start_fields())
+            memory=self._mem0, trace_store=self.trace.kind,
+            run_id=self._run_id, **self._run_start_fields())
         err = None
         try:
             return self._run_degradable(init_states, resume)
@@ -1045,16 +1146,7 @@ class BFSEngine:
             err = e
             raise
         finally:
-            try:
-                self._finish(err)
-            finally:
-                # The graphs were captured on this run's buffers, which the
-                # next run allocates anew (a graph keyed on a queue that
-                # lands at the same address would write the old trace
-                # buffer and counters), so every run captures its own and
-                # none outlives its run: their pool would hold the step's
-                # temporaries as long as the engine lives (``res.engine``).
-                self._drop_graphs()
+            self._finish(err)
 
     def _events_path(self) -> Optional[str]:
         """Where the run's events go (``events_out``, else next to the
@@ -1090,12 +1182,83 @@ class BFSEngine:
         return self.tracer.span(name)
 
     def _finish(self, err):
-        """The run's end, as the JAX engine's: the final coverage, the
-        counterexample files, the statespace report, the chunk profile,
-        the perf block, the capture's event, on an error the postmortem
-        dump, and ``run_end``; the flight recorder disarmed, the event log
-        closed, the trace written.  A failing render is reported and never
-        hides the run's own verdict."""
+        """The run's end (the ``finish`` phase and span), as the JAX
+        engine's: the final coverage, the counterexample files, the
+        statespace report, the chunk profile, the perf block, the
+        capture's event, on an error the postmortem dump; then the graphs
+        dropped, the run's allocator and garbage-collector counters, the
+        span file written (once a run, here, also on an error) and
+        ``run_end``; the flight recorder disarmed, the event log closed.
+        A failing render is reported and never hides the run's own
+        verdict."""
+        if self._residual is None or self._residual[0] != "finish":
+            self._next_residual("finish")
+        t_fin = self._residual[1]
+        try:
+            ce_path, pm_path = self._finish_outputs(err)
+        finally:
+            # The graphs were captured on this run's buffers, which the
+            # next run allocates anew (a graph keyed on a queue that
+            # lands at the same address would write the old trace buffer
+            # and counters), so every run captures its own and none
+            # outlives its run: their pool would hold the step's
+            # temporaries as long as the engine lives (``res.engine``).
+            self._drop_graphs()
+            self._gc_watch.remove()
+        mt, evlog, res = self.metrics, self._evlog, self._result
+        failed = [f for f in self._failed if f is not res]
+        if res is not None:
+            res.device_seconds += sum(f.device_seconds for f in failed)
+        mem = device_memory_stats(self.device)
+        alloc = alloc_delta(self._mem0, mem)
+        gcs = self._gc_watch.summary()
+        mt.counter("alloc/retries", alloc.get("retries", 0))
+        mt.counter("alloc/device_mallocs", alloc.get("device_mallocs", 0))
+        mt.counter("gc/seconds", gcs["seconds"])
+        if res is not None:
+            res.run_id, res.alloc, res.gc = self._run_id, alloc, gcs
+        tracer = self.tracer
+        if tracer.enabled:
+            tracer.complete("finish", t_fin, run_id=self._run_id)
+            tracer.complete("run", self._run_t0, run_id=self._run_id,
+                            engine=type(self).__name__,
+                            stop_reason=getattr(res, "stop_reason", None))
+            tracer.write()
+        end = dict(
+            stop_reason=(getattr(res, "stop_reason", None)
+                         if err is None else "error"),
+            error=(f"{type(err).__name__}: {err}" if err is not None
+                   else None),
+            postmortem_path=pm_path, counterexample_path=ce_path,
+            distinct=getattr(res, "distinct", None),
+            generated=getattr(res, "generated", None),
+            diameter=getattr(res, "diameter", None),
+            levels=list(getattr(res, "levels", None) or []),
+            wall_seconds=getattr(res, "wall_seconds", None),
+            growth_stalls=len(getattr(res, "growth_stalls", ())),
+            memory=mem, host_rss_peak_bytes=peak_host_rss_bytes(),
+            devices_memory=all_device_memory_stats(self.device),
+            run_id=self._run_id, alloc=alloc, gc=gcs,
+            device_seconds=getattr(res, "device_seconds", None))
+        # The phases end here: run_end carries them all, the failed
+        # attempts' too (the registry has had them since).
+        self._close_residual(time.perf_counter())
+        if res is not None:
+            for f in failed:
+                for k, v in f.phases.items():
+                    res.phases[k] = res.phases.get(k, 0.0) + v
+        evlog.emit("run_end", **end, phase_seconds=phase_delta(
+            mt.phase_seconds(), self._phase_base))
+        _FLIGHT.set_live_evlog(None)
+        _FLIGHT.disarm()        # ended or already dumped: no exit dump
+        evlog.close()
+        self._evlog = RunEventLog(None)
+
+    def _finish_outputs(self, err):
+        """What a run leaves besides ``run_end``: the coverage, the
+        counterexample, the report, the profiler's and perf's blocks, the
+        capture's event, a postmortem on an error.  Returns the
+        counterexample's and the postmortem's paths (or None)."""
         cfg, mt, evlog = self.config, self.metrics, self._evlog
         res, cov = self._result, self.coverage
         if res is not None and cov is not None:
@@ -1153,33 +1316,7 @@ class BFSEngine:
             if pm_path is not None:
                 evlog.emit("postmortem", dump={"path": pm_path,
                                                "reason": "run_error"})
-        evlog.emit(
-            "run_end",
-            stop_reason=(getattr(res, "stop_reason", None)
-                         if err is None else "error"),
-            error=(f"{type(err).__name__}: {err}" if err is not None
-                   else None),
-            postmortem_path=pm_path, counterexample_path=ce_path,
-            distinct=getattr(res, "distinct", None),
-            generated=getattr(res, "generated", None),
-            diameter=getattr(res, "diameter", None),
-            levels=list(getattr(res, "levels", None) or []),
-            wall_seconds=getattr(res, "wall_seconds", None),
-            growth_stalls=len(getattr(res, "growth_stalls", ())),
-            phase_seconds=phase_delta(mt.phase_seconds(), self._phase_base),
-            memory=device_memory_stats(self.device),
-            host_rss_peak_bytes=peak_host_rss_bytes(),
-            devices_memory=all_device_memory_stats(self.device))
-        _FLIGHT.set_live_evlog(None)
-        _FLIGHT.disarm()        # ended or already dumped: no exit dump
-        evlog.close()
-        self._evlog = RunEventLog(None)
-        if self.tracer.enabled:
-            self.tracer.complete("run", self._run_t0,
-                                 engine=type(self).__name__,
-                                 stop_reason=getattr(res, "stop_reason",
-                                                     None))
-            self.tracer.write()
+        return ce_path, pm_path
 
     def _run_degradable(self, init_states, resume) -> EngineResult:
         """The run, retried at half the batch on running out of device
@@ -1206,7 +1343,14 @@ class BFSEngine:
                         or new_batch < max(1, cfg.min_batch):
                     raise
             # Out of the handler: the failed run's tensors are released.
-            steps += self._result.steps
+            failed = self._result
+            steps += failed.steps
+            # The failed attempt keeps its seconds (run() adds them to the
+            # retry's phases); the rebuild is the retry's set-up.
+            now = time.perf_counter()
+            self._close_residual(now)
+            self._failed.append(failed)
+            self._residual = ("setup", now, 0.0)
             ck = (ckpt_mod.latest(cfg.checkpoint_dir)
                   if cfg.checkpoint_dir else None)
             if ck is not None and not user_resume \
@@ -1259,16 +1403,19 @@ class BFSEngine:
         res.phases.update(dict.fromkeys(PHASES, 0.0))
         trace = self.trace = make_trace_store(cfg.trace_store)
         res.trace_store = trace.kind
-        t_enter = time.time()
+        t_enter = time.perf_counter()
         QA = Q + self._PAD
         F = len(dims.family_sizes)
 
         def queue():
             return torch.zeros((QA, sw), dtype=ROW_DTYPE, device=dev)
 
+        self._start_level0()
         with self._span("warmup"):
             qcur, qnext = queue(), queue()
             free_q = [queue()]          # the async spill's spare
+            self._queue_names = {q.data_ptr(): f"q{i}" for i, q in
+                                 enumerate((qcur, qnext, free_q[0]))}
             self._tbuf = torch.zeros((self._TA, chunk_mod.TRACE_ROW),
                                      dtype=torch.uint8, device=dev)
             self._cs = chunk_mod.chunk_state(F, sw, dev)
@@ -1278,11 +1425,15 @@ class BFSEngine:
             self._pinned = None
             if dev.type == "cuda":
                 self._copy_stream = torch.cuda.Stream(dev)
+                self._burst_events = (torch.cuda.Event(enable_timing=True),
+                                      torch.cuda.Event(enable_timing=True))
+            if resume is None:
+                seen = fpset.empty(self._seen_cap, dev)
         inflight: List = []         # drains not yet landed
         pending = SpillPool(cfg.spill_dir)      # host segments of this level
         spill_next = SpillPool(cfg.spill_dir)   # host segments of the next
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         if resume is not None:
             seen = resume.seen
             seen_size = int(seen.size[0])
@@ -1312,12 +1463,11 @@ class BFSEngine:
             rows_all = self._root_rows(init_states, res, trace, t_enter)
             if rows_all is None:
                 return res
-            seen = fpset.empty(self._seen_cap, dev)
-            t0 = time.time()
+            t0 = time.perf_counter()
             next_count = seen_size = 0
             for base in range(0, rows_all.shape[0], B):
                 if base and cfg.max_seconds is not None \
-                        and time.time() - t0 > cfg.max_seconds:
+                        and time.perf_counter() - t0 > cfg.max_seconds:
                     res.stop_reason = "duration_budget"
                     break
                 if base and cfg.exit_conditions:
@@ -1330,7 +1480,7 @@ class BFSEngine:
                     if hit:
                         res.stop_reason = hit
                         break
-                t_h = time.time()
+                t_h = time.perf_counter()
                 rows = torch.zeros((B, sw), dtype=ROW_DTYPE, device=dev)
                 part = rows_all[base:base + B]
                 rows[:part.shape[0]] = part
@@ -1354,7 +1504,7 @@ class BFSEngine:
                     evlog.emit("spill", rows=next_count, level=0,
                                where="ingest")
                     next_count = 0
-                self._phase("host", time.time() - t_h)
+                self._phase("host", time.perf_counter() - t_h)
                 viol = new & (inv >= 0)
                 if bool(viol.any()):
                     v = int(viol.to(torch.int32).argmax())
@@ -1380,24 +1530,26 @@ class BFSEngine:
         mt.gauge("engine/seen_capacity", seen.capacity)
         mt.gauge("engine/seen_size", seen_size)
         self._batch_ema = 0.0       # measured seconds a batch
-        last_progress = time.time()
+        last_progress = time.perf_counter()
         # A resumed run does not rewrite the snapshot it loaded (without
         # trace it would replace a trace-carrying file by an empty one),
         # and its interval clock starts at the restart.
         skip_ckpt_level = resume.diameter if resume is not None else -1
-        last_ckpt = time.time() if resume is not None else float("-inf")
+        last_ckpt = (time.perf_counter() if resume is not None
+                     else float("-inf"))
+        self._next_residual("loop")
         while (cur_count > 0 or pending) and res.violation is None \
                 and res.stop_reason == "exhausted":
             if cfg.checkpoint_dir is not None \
                     and res.diameter % max(1, cfg.checkpoint_every) == 0 \
                     and res.diameter != skip_ckpt_level \
-                    and (time.time() - last_ckpt
+                    and (time.perf_counter() - last_ckpt
                          >= cfg.checkpoint_interval_seconds):
-                t_h = time.time()
+                t_h = time.perf_counter()
                 with self._span("checkpoint"):
                     self._write_checkpoint(qcur, cur_count, pending, seen,
                                            res, trace, wall=t_h - t0)
-                last_ckpt = time.time()
+                last_ckpt = time.perf_counter()
                 self._phase("checkpoint", last_ckpt - t_h)
                 evlog.emit("checkpoint", level=res.diameter,
                            distinct=res.distinct)
@@ -1414,7 +1566,8 @@ class BFSEngine:
                 while offset < cur_count:
                     allowed = self._CH
                     if cfg.max_seconds is not None:
-                        remaining = cfg.max_seconds - (time.time() - t0)
+                        remaining = cfg.max_seconds - (
+                            time.perf_counter() - t0)
                         if remaining <= 0:
                             res.stop_reason = "duration_budget"
                             break
@@ -1433,7 +1586,7 @@ class BFSEngine:
                                      chunk=calls_in_level)
                     self._observe_chunk(qcur, qnext, seen, offset,
                                         cur_count)
-                    t_call = time.time()
+                    t_call = time.perf_counter()
                     steps0 = res.steps
                     cap = self._xla_capture
                     with (cap.step() if cap is not None
@@ -1442,7 +1595,7 @@ class BFSEngine:
                             qcur, qnext, seen, cur_count, offset,
                             next_count, allowed, res)
                     t0 += captured
-                    t_h = time.time()
+                    t_h = time.perf_counter()
                     if self._perf is not None:
                         self._perf.add_chunk(res.steps - steps0,
                                              t_h - t_call - captured)
@@ -1464,19 +1617,19 @@ class BFSEngine:
                         diameter=res.diameter, frontier=cur_count,
                         offset=offset, next_count=next_count,
                         seen_size=seen_size,
-                        elapsed=round(time.time() - t0, 3))
+                        elapsed=round(time.perf_counter() - t0, 3))
                     if cfg.record_trace and st[ST_TCOUNT]:
-                        t_t = time.time()
+                        t_t = time.perf_counter()
                         with self._span("trace_flush"):
                             self._flush_trace(self._tbuf, st[ST_TCOUNT])
-                        inner = time.time() - t_t
+                        inner = time.perf_counter() - t_t
                         self._phase("trace", inner)
                     self._check_faults(st)
                     seen, t0 = self._maybe_grow(seen, st[ST_SEEN], res, t0)
                     if next_count > self._QTH \
                             and (offset < cur_count or pending):
                         # Drain to the host behind the next chunks.
-                        t_s = time.time()
+                        t_s = time.perf_counter()
                         self._resolve_spill(inflight, free_q, spill_next)
                         with self._span("spill"):
                             qnext = self._spill(inflight, free_q, qnext,
@@ -1485,8 +1638,8 @@ class BFSEngine:
                         evlog.emit("spill", rows=next_count,
                                    level=res.diameter, where="chunk_loop")
                         next_count = 0
-                        self._phase("spill", time.time() - t_s)
-                        inner += time.time() - t_s
+                        self._phase("spill", time.perf_counter() - t_s)
+                        inner += time.perf_counter() - t_s
                     # TLC's "queue" is the whole unexplored queue: the
                     # rest of this level and everything enqueued for the
                     # next, drains in flight too.
@@ -1499,30 +1652,31 @@ class BFSEngine:
                                  + sum(c for _b, c, _e in inflight)),
                         cur_count, seen_size / seen.capacity, t0,
                         last_progress)
-                    self._phase("host", time.time() - t_h - inner)
+                    self._phase("host", time.perf_counter() - t_h - inner)
                     if res.stop_reason != "exhausted":
                         break
                 if res.stop_reason != "exhausted" or not pending:
                     break
-                t_s = time.time()
+                t_s = time.perf_counter()
                 with self._span("upload"):
                     seg = np.require(pending.pop(0),
                                      requirements=["C", "W"])
                     qcur[:len(seg)] = torch.from_numpy(seg).to(dev)
                 cur_count = len(seg)
-                self._phase("spill", time.time() - t_s)
+                self._phase("upload", time.perf_counter() - t_s)
             if res.stop_reason != "exhausted":
                 break
-            t_s = time.time()
+            t_s = time.perf_counter()
             self._resolve_spill(inflight, free_q, spill_next)
-            self._phase("spill", time.time() - t_s)
+            self._phase("spill", time.perf_counter() - t_s)
             res.diameter += 1
             res.levels.append(next_count + spill_next.total_rows())
             self._emit_level_event(res, res.levels[-1])
             qcur, qnext = qnext, qcur
             cur_count = next_count
             pending, spill_next = spill_next, pending
-        res.wall_seconds = time.time() - t0
+        res.wall_seconds = time.perf_counter() - t0
+        self._next_residual("finish")
         return res
 
     def _account_chunk(self, res, st, seen_size: int, capacity: int,
@@ -1586,7 +1740,7 @@ class BFSEngine:
             evlog.emit("deadlock", level=res.diameter)
             return last_progress
         want_progress = bool(cfg.progress_interval_seconds
-                             and time.time() - last_progress
+                             and time.perf_counter() - last_progress
                              >= cfg.progress_interval_seconds)
         if not (cfg.exit_conditions or want_progress):
             return last_progress
@@ -1599,7 +1753,7 @@ class BFSEngine:
             self.coverage.feed_metrics(mt)
             evlog.emit("coverage", level=res.diameter,
                        actions=self.coverage.snapshot())
-            last_progress = time.time()
+            last_progress = time.perf_counter()
         # A violation or deadlock in the same chunk outranks a budget stop.
         hit = exit_condition_hit(cfg.exit_conditions, res, rows)
         if hit:
@@ -1626,7 +1780,7 @@ class BFSEngine:
                                           init_states[i], fp)
                 res.stop_reason = "violation"
                 res.levels.append(0)
-                res.wall_seconds = time.time() - t_enter
+                res.wall_seconds = time.perf_counter() - t_enter
                 self._evlog.emit("violation",
                                  invariant=res.violation.invariant,
                                  fingerprint=hex(fp), level=0)

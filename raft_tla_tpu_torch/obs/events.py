@@ -6,11 +6,14 @@ engines append one JSON object a line for ``run_start``,
 ``spill``, ``checkpoint``, ``degraded``, ``violation``, ``deadlock`` and
 ``run_end``, with the JAX engine's names and fields.  Every event carries
 ``ts`` (epoch seconds) and ``elapsed_seconds`` (since the log was
-opened); level and end events add the per-phase seconds and the card's
-memory (``device_memory_stats``: the CUDA caching allocator's counters
-under the JAX field names, read on the host without waiting for the
-device).  ``validate_run_events`` is the check a consumer runs on a
-file.
+opened, on ``time.perf_counter``'s clock); level and end events add the
+per-phase seconds and the card's memory (``device_memory_stats``: the
+CUDA caching allocator's counters under the JAX field names and a few of
+its own, read on the host without waiting for the device).  The
+single-device engine's ``run_start`` and ``run_end`` also carry the run's
+id (``next_run_id``), and ``run_end`` the run's allocator deltas
+(``alloc_delta``) and garbage collections (``GcWatch``).
+``validate_run_events`` is the check a consumer runs on a file.
 
 Placement: ``EngineConfig.events_out`` names the file; unset, it lands
 as ``events.jsonl`` next to the checkpoint directory, and with neither
@@ -22,6 +25,8 @@ without, is also mirrored into the flight recorder's ring
 
 from __future__ import annotations
 
+import gc
+import itertools
 import json
 import os
 import threading
@@ -82,9 +87,14 @@ def device_memory_stats(device=None) -> dict:
     """The card's memory under the JAX probe's names: ``bytes_in_use``
     (the caching allocator's allocated bytes), ``peak_bytes_in_use``
     (their peak, ``torch.cuda.max_memory_allocated``) and ``bytes_limit``
-    (the card's memory).  One read of the allocator's counters on the
-    host (``memory_stats_as_nested_dict``; the flat ``memory_stats`` costs
-    a sort of every counter), no wait for the device.  ``{}`` for a CPU
+    (the card's memory); and the allocator's own: ``reserved_bytes`` (what
+    it holds from the driver, cached blocks and released graph pools
+    included), ``alloc_retries`` (``cudaMalloc`` failures it answered by
+    freeing every cached block and retrying), ``device_mallocs`` and
+    ``device_frees`` (its ``cudaMalloc`` and ``cudaFree`` calls).  One
+    read of the allocator's counters on the host
+    (``memory_stats_as_nested_dict``; the flat ``memory_stats`` costs a
+    sort of every counter), no wait for the device.  ``{}`` for a CPU
     device, or where no card is present, as the JAX probe gives for a
     device that reports nothing."""
     try:
@@ -94,14 +104,97 @@ def device_memory_stats(device=None) -> dict:
             return {}
         idx = dev.index if dev.index is not None \
             else torch.cuda.current_device()
-        allocated = torch.cuda.memory_stats_as_nested_dict(idx)[
-            "allocated_bytes"]["all"]
+        stats = torch.cuda.memory_stats_as_nested_dict(idx)
+        allocated = stats["allocated_bytes"]["all"]
         return {"bytes_in_use": int(allocated["current"]),
                 "peak_bytes_in_use": int(allocated["peak"]),
                 "bytes_limit": int(
-                    torch.cuda.get_device_properties(idx).total_memory)}
+                    torch.cuda.get_device_properties(idx).total_memory),
+                "reserved_bytes": int(
+                    stats["reserved_bytes"]["all"]["current"]),
+                "alloc_retries": int(stats.get("num_alloc_retries", 0)),
+                "device_mallocs": int(stats.get("num_device_alloc", 0)),
+                "device_frees": int(stats.get("num_device_free", 0))}
     except Exception:
         return {}
+
+
+#: The allocator's counters ``alloc_delta`` takes the difference of.
+ALLOC_COUNTERS = ("alloc_retries", "device_mallocs", "device_frees")
+
+
+def alloc_delta(start: dict, end: dict) -> dict:
+    """What the allocator did between two ``device_memory_stats`` reads:
+    ``retries``, ``device_mallocs`` and ``device_frees`` in between, and
+    ``reserved_start`` / ``reserved_end`` bytes; ``{}`` where either read
+    has nothing (the CPU)."""
+    if not start or not end:
+        return {}
+    out = {k.replace("alloc_", ""): end[k] - start[k]
+           for k in ALLOC_COUNTERS}
+    out["reserved_start"] = start["reserved_bytes"]
+    out["reserved_end"] = end["reserved_bytes"]
+    return out
+
+
+_RUN_SEQ = itertools.count(1)
+
+
+def next_run_id() -> str:
+    """A run's id, unique in the process: ``<pid>-<sequence>``."""
+    return f"{os.getpid()}-{next(_RUN_SEQ)}"
+
+
+class GcWatch:
+    """Python's garbage collections while it is installed
+    (``gc.callbacks``): their number and pause seconds, all and those of
+    generation 2, and the objects collected; a collection of
+    ``SPAN_SECONDS`` or more is also a ``gc`` span of ``tracer`` (its
+    args: the generation and the objects collected).  The callbacks see
+    every collection of the process, whichever thread made it."""
+
+    SPAN_SECONDS = 1e-3
+
+    def __init__(self, tracer=None):
+        self.tracer = tracer
+        self.collections = self.gen2_collections = self.collected = 0
+        self.seconds = self.gen2_seconds = 0.0
+        self._t = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        now = time.perf_counter()
+        if phase == "start":
+            self._t = now
+            return
+        if self._t is None:
+            return
+        start, self._t = self._t, None
+        dt = now - start
+        gen, n = info.get("generation", 0), info.get("collected", 0)
+        self.collections += 1
+        self.seconds += dt
+        self.collected += n
+        if gen == 2:
+            self.gen2_collections += 1
+            self.gen2_seconds += dt
+        tracer = self.tracer
+        if dt >= self.SPAN_SECONDS and tracer is not None and tracer.enabled:
+            tracer.interval("gc", start, now, generation=gen, collected=n)
+
+    def install(self) -> "GcWatch":
+        gc.callbacks.append(self)
+        return self
+
+    def remove(self) -> None:
+        if self in gc.callbacks:
+            gc.callbacks.remove(self)
+
+    def summary(self) -> dict:
+        """``EngineResult.gc``."""
+        return {"collections": self.collections, "seconds": self.seconds,
+                "gen2_collections": self.gen2_collections,
+                "gen2_seconds": self.gen2_seconds,
+                "collected": self.collected}
 
 
 def all_device_memory_stats(device=None) -> list:
@@ -157,7 +250,7 @@ class RunEventLog:
     def __init__(self, path: Optional[str]):
         self.path = path
         self._f = None
-        self._t0 = time.time()
+        self._t0 = time.perf_counter()
         self._lock = threading.Lock()
         if path is not None:
             d = os.path.dirname(os.path.abspath(path))
@@ -172,12 +265,11 @@ class RunEventLog:
         """Seconds since the log was opened (the run's wall clock, which
         unlike the engines' duration clock never moves back for off-clock
         stalls)."""
-        return time.time() - self._t0
+        return time.perf_counter() - self._t0
 
     def emit(self, event: str, **fields) -> None:
-        now = time.time()
-        rec = {"event": event, "ts": round(now, 6),
-               "elapsed_seconds": round(now - self._t0, 6)}
+        rec = {"event": event, "ts": round(time.time(), 6),
+               "elapsed_seconds": round(self.elapsed(), 6)}
         rec.update(fields)
         # The flight ring first, file or not (imported here: flight is a
         # sibling module).

@@ -13,14 +13,21 @@ span; the engines add a ``run`` span, one ``level`` span a BFS level,
 and the spans of their loop under the JAX engine's names (``root_check``,
 ``warmup``, ``ingest``, ``chunk``, ``stats_fetch``, ``trace_flush``,
 ``spill``, ``upload``, ``checkpoint``, ``profile``; ``swarm_chunk`` /
-``swarm_fetch``; ``sim_chunk`` / ``sim_fetch``).  The tracer writes the
-file at every level boundary and at the run's end (an atomic rewrite).
+``swarm_fetch``; ``sim_chunk`` / ``sim_fetch``).  The single-device
+engine adds ``setup``, ``finish``, one ``capture`` a CUDA graph, a
+``gc`` span a Python collection of 1 ms or more and ``spill_wait``, and
+writes the file once, at the run's end (an atomic rewrite).
 
 Format: a JSON array of events; ``ph: "X"`` complete events carry ``ts``
 and ``dur`` in microseconds, ``ph: "i"`` instants ``s: "t"``, ``ph:
-"M"`` metadata names the process and threads.  ``ts`` is relative to
-the tracer's start; each file carries ``trace_start_unix`` for merging
-files of several processes.
+"M"`` metadata names the process, the threads, the clock and the run.
+``ts`` is on the Unix-epoch clock that ``torch.profiler`` stamps its
+events with (``CLOCK``): one ``(time.perf_counter_ns(), time.time_ns())``
+anchor taken at ``reset()``, then ``ts = anchor_unix + (perf -
+anchor_perf)``, so time is monotonic within a file and a span lines up
+with the device trace of the same process without a guessed offset.
+Each file also carries ``trace_start_unix`` for merging files of several
+processes.
 """
 
 from __future__ import annotations
@@ -32,15 +39,18 @@ import time
 from contextlib import contextmanager
 from typing import Optional
 
+#: The clock of ``ts``, named in every file's ``clock`` metadata event.
+CLOCK = "unix_epoch_us"
+
 
 class SpanTracer:
     """Thread-safe span recorder; ``SpanTracer(None)`` discards.
 
     ``path`` is where :meth:`write` serializes to by default (the
     ``--trace-out`` file); recording is in-memory, flushed by the
-    engines at every level boundary and at run end (atomic rewrite), so
-    a crash loses at most the current level's spans and the hot loop
-    never blocks on disk.
+    engines at run end (atomic rewrite; the single-device engine's
+    ``_finish`` also runs on an error), so the hot loop never blocks on
+    disk.
     """
 
     def __init__(self, path: Optional[str] = None,
@@ -61,7 +71,10 @@ class SpanTracer:
         with self._lock:
             self._events = []
             self._named_tids = set()
-        self._t0 = time.perf_counter()
+        # The anchor: perf_counter keeps time monotonic, the Unix clock
+        # puts it on the profiler's.
+        perf_ns, unix_ns = time.perf_counter_ns(), time.time_ns()
+        self._shift_us = (unix_ns - perf_ns) / 1e3
         if self.path is not None:
             # Process metadata + the epoch anchor for cross-process merge.
             self._append({"name": "process_name", "ph": "M",
@@ -69,7 +82,23 @@ class SpanTracer:
                           "args": {"name": self._process_name}})
             self._append({"name": "trace_start_unix", "ph": "M",
                           "pid": self._pid, "tid": 0,
-                          "args": {"unix_seconds": round(time.time(), 6)}})
+                          "args": {"unix_seconds": round(unix_ns / 1e9, 6)}})
+            self._append({"name": "clock", "ph": "M", "pid": self._pid,
+                          "tid": 0, "args": {
+                              "name": CLOCK, "anchor_unix_ns": unix_ns,
+                              "anchor_perf_counter_ns": perf_ns}})
+
+    def metadata(self, name: str, **args) -> None:
+        """A process-scope metadata event (``ph: "M"``), e.g. the run's
+        id."""
+        if self.path is None:
+            return
+        self._append({"name": name, "ph": "M", "pid": self._pid, "tid": 0,
+                      "args": args})
+
+    def unix_us(self, perf_counter: float) -> float:
+        """A ``time.perf_counter()`` stamp on the file's clock (``ts``)."""
+        return perf_counter * 1e6 + self._shift_us
 
     @property
     def enabled(self) -> bool:
@@ -94,7 +123,7 @@ class SpanTracer:
         return tid
 
     def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+        return self.unix_us(time.perf_counter())
 
     @contextmanager
     def span(self, name: str, **args):
@@ -115,11 +144,20 @@ class SpanTracer:
         attempts), where a ``with`` block can't bracket the region."""
         if self.path is None:
             return
-        end = time.perf_counter()
+        self.interval(name, start_perf_counter, time.perf_counter(),
+                      **args)
+
+    def interval(self, name: str, start_perf_counter: float,
+                 end_perf_counter: float, **args) -> None:
+        """Record a span between two ``time.perf_counter()`` stamps (a
+        span measured elsewhere, such as a garbage collection's)."""
+        if self.path is None:
+            return
         rec = {"name": name, "ph": "X", "pid": self._pid,
                "tid": self._tid(),
-               "ts": round((start_perf_counter - self._t0) * 1e6, 3),
-               "dur": round((end - start_perf_counter) * 1e6, 3)}
+               "ts": round(self.unix_us(start_perf_counter), 3),
+               "dur": round((end_perf_counter - start_perf_counter) * 1e6,
+                            3)}
         if args:
             rec["args"] = args
         self._append(rec)

@@ -592,19 +592,19 @@ class MeshBFSEngine(BFSEngine):
                         next_counts, allowed: int, res):
         """``BFSEngine._run_chunk`` on the mesh: the shards' state words
         read once at the end, and the capture seconds."""
-        t = time.time()
+        t = time.perf_counter()
         run = self._runner(qcur, qnext, seens, res)
-        captured = time.time() - t
+        captured = time.perf_counter() - t
         self._phase("capture", captured)
         self._write_ctl(offset, next_counts, cur_counts, allowed)
         tracer = self.tracer
         t_span = time.perf_counter()
         if self.device.type != "cuda":
-            t = time.time()
+            t = time.perf_counter()
             while bool(self._mstep.cond(seens, self._css)[0]):
                 run()
                 res.steps += 1
-            self._phase("dispatch", time.time() - t)
+            self._phase("dispatch", time.perf_counter() - t)
             if tracer.enabled:
                 tracer.complete("chunk", t_span)
             with self._span("stats_fetch"):
@@ -613,14 +613,14 @@ class MeshBFSEngine(BFSEngine):
         done, at = 0, offset
         while True:
             k = min(allowed - done, -(-(top - at) // self._B))
-            t = time.time()
+            t = time.perf_counter()
             self._dispatch(run, k, seens)
             res.steps += k
-            t_s = time.time()
+            t_s = time.perf_counter()
             t_f = time.perf_counter()
             st = self._read_stats()            # the chunk's device sync
             self._phase("dispatch", t_s - t)
-            self._phase("sync", time.time() - t_s)
+            self._phase("sync", time.perf_counter() - t_s)
             if not st[0][self._CUR + 2]:
                 if tracer.enabled:
                     tracer.complete("chunk", t_span)
@@ -647,11 +647,11 @@ class MeshBFSEngine(BFSEngine):
             # wrapper (halve the batch, resume): the per-shard rebuild has
             # no safe retry point midway, as in the JAX mesh.
             _faults.fire("oom", grow=self._grow_attempts)
-        t = time.time()
+        t = time.perf_counter()
         self._CL *= 2
         seens = [fpset.grow(s, self._CL) for s in seens]
         self._drop_graphs()
-        stall = time.time() - t
+        stall = time.perf_counter() - t
         cap = self.n_dev * self._CL
         res.growth_stalls.append((cap, round(stall, 3)))
         self.metrics.counter("engine/fpset_resizes")
@@ -699,7 +699,7 @@ class MeshBFSEngine(BFSEngine):
         """The perf launch model from one idle mesh step (its cond false
         on every shard: it changes nothing), on every controller at the
         same call."""
-        t = time.time()
+        t = time.perf_counter()
 
         def idle_step():
             self._write_idle_ctl()
@@ -707,7 +707,7 @@ class MeshBFSEngine(BFSEngine):
 
         self._perf.measure(idle_step,
                            lambda: self._dispatch(lambda: None, 0, seens))
-        self._phase("profile", time.time() - t)
+        self._phase("profile", time.perf_counter() - t)
 
     def _exchange_probe(self) -> None:
         """perf: one timed crossing of the exchange, an ``all_reduce``
@@ -780,7 +780,7 @@ class MeshBFSEngine(BFSEngine):
         for c in range(waves):
             left = sum(max(0, p.shape[0] - c * B) for p in per)
             if c and cfg.max_seconds is not None \
-                    and self._any(time.time() - t0 > cfg.max_seconds):
+                    and self._any(time.perf_counter() - t0 > cfg.max_seconds):
                 res.stop_reason = "duration_budget"
                 break
             if c and cfg.exit_conditions:
@@ -791,7 +791,7 @@ class MeshBFSEngine(BFSEngine):
                 if hit:
                     res.stop_reason = hit
                     break
-            t_h = time.time()
+            t_h = time.perf_counter()
             wave = []
             for s, dev in enumerate(self.devices):
                 part = per[self._r0 + s][c * B:(c + 1) * B].to(dev)
@@ -843,7 +843,7 @@ class MeshBFSEngine(BFSEngine):
                 evlog.emit("spill", rows=sum(counts), level=0,
                            where="ingest")
                 counts = [0] * n
-            self._phase("host", time.time() - t_h)
+            self._phase("host", time.perf_counter() - t_h)
             # (invariants, rows, fingerprints): an item a local shard.
             g, inv, row, fp = self._lowest(
                 flags, *zip(*(h or (None,) * 3 for h in found)))
@@ -896,13 +896,13 @@ class MeshBFSEngine(BFSEngine):
         timeout = self.config.trace_merge_timeout_seconds
         if timeout is None:
             timeout = 30.0 + mine / (8 << 20)
-        deadline = time.time() + timeout
+        deadline = time.perf_counter() + timeout
         for i in range(self._pc):
             if i == self._pi:
                 continue
             path = self._trace_piece_path(i)
             while not os.path.exists(path):
-                if time.time() > deadline:
+                if time.perf_counter() > deadline:
                     raise FileNotFoundError(
                         f"trace piece {path} not written within "
                         f"{timeout:.0f}s: controller {i} may still be "
@@ -986,8 +986,9 @@ class MeshBFSEngine(BFSEngine):
         res.phases.update(dict.fromkeys(PHASES, 0.0))
         trace = self.trace = make_trace_store(cfg.trace_store)
         res.trace_store = trace.kind
-        t_enter = time.time()
+        t_enter = time.perf_counter()
         QLA = QL + self._PAD
+        self._start_level0()
 
         def queues():
             return [torch.zeros((QLA, sw), dtype=ROW_DTYPE, device=d)
@@ -1001,7 +1002,7 @@ class MeshBFSEngine(BFSEngine):
         pending = SpillPool(cfg.spill_dir)      # host segments of this level
         spill_next = SpillPool(cfg.spill_dir)   # host segments of the next
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         if resume is not None:
             seens = self._shards_from_keys(resume.seen_hi, resume.seen_lo)
             fr = np.ascontiguousarray(resume.frontier).astype(
@@ -1030,7 +1031,7 @@ class MeshBFSEngine(BFSEngine):
                     self._write_trace_piece(trace)
                 return res
             seens = [fpset.empty(self._CL, d) for d in devs]
-            t0 = time.time()
+            t0 = time.perf_counter()
             counts, sizes, seens, spilled, t0 = self._ingest(
                 rows_all, seens, qnext, spill_next, res, t0)
             res.levels.append(sum(counts) + spilled)
@@ -1045,22 +1046,24 @@ class MeshBFSEngine(BFSEngine):
         mt.gauge("engine/seen_capacity", self._CL)
         mt.gauge("engine/seen_size", max(sizes))
         self._batch_ema = 0.0
-        last_progress = time.time()
+        last_progress = time.perf_counter()
         skip_ckpt_level = resume.diameter if resume is not None else -1
-        last_ckpt = time.time() if resume is not None else float("-inf")
+        last_ckpt = (time.perf_counter() if resume is not None
+                     else float("-inf"))
         carry = None           # the rest of a segment too large to upload
+        self._next_residual("loop")
         while (max(cur_counts) > 0 or self._any(bool(pending))) \
                 and res.violation is None \
                 and res.stop_reason == "exhausted":
             if cfg.checkpoint_dir is not None \
                     and res.diameter % max(1, cfg.checkpoint_every) == 0 \
                     and res.diameter != skip_ckpt_level \
-                    and self._any(time.time() - last_ckpt
+                    and self._any(time.perf_counter() - last_ckpt
                                   >= cfg.checkpoint_interval_seconds):
-                t_h = time.time()
+                t_h = time.perf_counter()
                 self._write_mesh_checkpoint(qcur, cur_counts, pending, seens,
                                             res, trace, wall=t_h - t0)
-                last_ckpt = time.time()
+                last_ckpt = time.perf_counter()
                 self._phase("checkpoint", last_ckpt - t_h)
                 evlog.emit("checkpoint", level=res.diameter,
                            distinct=res.distinct)
@@ -1077,7 +1080,8 @@ class MeshBFSEngine(BFSEngine):
                 while offset < top:
                     allowed = self._CH
                     if cfg.max_seconds is not None:
-                        remaining = cfg.max_seconds - (time.time() - t0)
+                        remaining = cfg.max_seconds - (
+                            time.perf_counter() - t0)
                         over = remaining <= 0
                         allowed = (max(1, min(
                             self._CH, int(remaining / (2 * self._batch_ema)),
@@ -1103,7 +1107,7 @@ class MeshBFSEngine(BFSEngine):
                     if pf is not None \
                             and pf.wants_model(self._xla_capture):
                         self._measure_launches(qcur, qnext, seens)
-                    t_call = time.time()
+                    t_call = time.perf_counter()
                     steps0 = res.steps
                     cap = self._xla_capture
                     with (cap.step() if cap is not None
@@ -1112,7 +1116,7 @@ class MeshBFSEngine(BFSEngine):
                             qcur, qnext, seens, cur_counts, offset,
                             next_counts, allowed, res)
                     t0 += captured
-                    t_h = time.time()
+                    t_h = time.perf_counter()
                     if pf is not None:
                         pf.add_chunk(res.steps - steps0,
                                      t_h - t_call - captured)
@@ -1135,23 +1139,23 @@ class MeshBFSEngine(BFSEngine):
                         distinct=res.distinct, generated=res.generated,
                         diameter=res.diameter, frontier=top, offset=offset,
                         next_count=sum(next_counts), seen_size=max(sizes),
-                        elapsed=round(time.time() - t0, 3))
+                        elapsed=round(time.perf_counter() - t0, 3))
                     inner = 0.0
                     if cfg.record_trace and total[ST_TCOUNT]:
-                        t_t = time.time()
+                        t_t = time.perf_counter()
                         with self._span("trace_flush"):
                             for tbuf, r in zip(self._tbufs,
                                                self._mine(st)):
                                 if r[ST_TCOUNT]:
                                     self._flush_trace(tbuf, r[ST_TCOUNT])
-                        inner = time.time() - t_t
+                        inner = time.perf_counter() - t_t
                         self._phase("trace", inner)
                     self._check_faults(total)
                     seens, t0 = self._grow_shards(seens, sizes, res, t0)
                     if max(next_counts) > self._QTH \
                             and (offset < top or self._any(
                                 bool(pending) or carry is not None)):
-                        t_s = time.time()
+                        t_s = time.perf_counter()
                         spill_next.append(self._drain(
                             qnext, self._mine(next_counts)))
                         spilled += sum(next_counts)
@@ -1159,8 +1163,8 @@ class MeshBFSEngine(BFSEngine):
                         evlog.emit("spill", rows=sum(next_counts),
                                    level=res.diameter, where="chunk_loop")
                         next_counts = [0] * n
-                        self._phase("spill", time.time() - t_s)
-                        inner += time.time() - t_s
+                        self._phase("spill", time.perf_counter() - t_s)
+                        inner += time.perf_counter() - t_s
                     # The lowest-indexed flagged shard's violation or
                     # deadlock.
                     viol = dead = None
@@ -1189,7 +1193,7 @@ class MeshBFSEngine(BFSEngine):
                                  + sum(next_counts)),
                         sum(cur_counts), max(sizes) / self._CL, t0,
                         last_progress)
-                    self._phase("host", time.time() - t_h - inner)
+                    self._phase("host", time.perf_counter() - t_h - inner)
                     if res.stop_reason != "exhausted":
                         break
                 if res.stop_reason != "exhausted" \
@@ -1197,7 +1201,7 @@ class MeshBFSEngine(BFSEngine):
                     break
                 # The next host segment, balanced across this process's
                 # shards (each controller uploads from its own pool).
-                t_s = time.time()
+                t_s = time.perf_counter()
                 if carry is None and pending:
                     carry = np.require(pending.pop(0),
                                        requirements=["C", "W"])
@@ -1214,7 +1218,7 @@ class MeshBFSEngine(BFSEngine):
                         np.ascontiguousarray(part)).to(dev)
                     local.append([len(part)])
                 cur_counts = [r[0] for r in self._gather(local)]
-                self._phase("spill", time.time() - t_s)
+                self._phase("upload", time.perf_counter() - t_s)
             if res.stop_reason != "exhausted":
                 break
             res.diameter += 1
@@ -1224,7 +1228,8 @@ class MeshBFSEngine(BFSEngine):
             qcur, qnext = qnext, qcur
             cur_counts = next_counts
             pending, spill_next = spill_next, pending
-        res.wall_seconds = time.time() - t0
+        res.wall_seconds = time.perf_counter() - t0
         if mp and cfg.record_trace:
             self._write_trace_piece(trace)
+        self._next_residual("finish")
         return res

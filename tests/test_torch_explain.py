@@ -243,9 +243,18 @@ def test_seeded_event_streams_equal_jax(seeded):
     assert "violation" in [e["event"] for e in tev]
     for t, j in zip(tev, jev):
         # run_start also names the port's trace store (the JAX run_start
-        # has no such field; its store is not chosen per run).
+        # has no such field; its store is not chosen per run).  The port's
+        # run_start and run_end carry the run's id, and run_end the run's
+        # allocator, garbage-collector and device-time counters.
         if t["event"] == "run_start":
             assert t.pop("trace_store") == "columnar"
+        if t["event"] in ("run_start", "run_end"):
+            assert t.pop("run_id") == tres.run_id
+        if t["event"] == "run_end":
+            assert t.pop("alloc") == {} and t.pop("device_seconds") == 0.0
+            assert set(t.pop("gc")) == {"collections", "seconds",
+                                        "gen2_collections", "gen2_seconds",
+                                        "collected"}
         assert set(t) == set(j), (t["event"], set(t) ^ set(j))
         assert {k: v for k, v in t.items() if k not in VOLATILE} == \
             {k: v for k, v in j.items() if k not in VOLATILE}, t["event"]

@@ -234,7 +234,9 @@ def test_oom_below_min_batch_and_other_errors_raise(monkeypatch):
 
 
 def test_progress_line_equals_jax(monkeypatch, capsys):
+    # The JAX line reads the Unix clock, the port's perf_counter.
     monkeypatch.setattr(time, "time", lambda: 1000.0)
+    monkeypatch.setattr(time, "perf_counter", lambda: 1000.0)
     res = tbfs.EngineResult(distinct=123456, generated=7654321, diameter=7)
     jres = jbfs.EngineResult(distinct=123456, generated=7654321,
                              diameter=7)

@@ -2,8 +2,9 @@
 history ledger against the JAX package's, on the CPU.
 
 - ``obs/tracing.py``: a traced check to L5 gives the JAX engine's span
-  names, one ``run`` span, a ``level`` span a level, and per level the
-  same count of each span; the file passes the JAX validator.
+  names (and the port's ``setup`` and ``finish``), one ``run`` span, a
+  ``level`` span a level, and per level the same count of each JAX span;
+  the file passes the JAX validator.
 - ``obs/flight.py``: ring eviction and the progress rate limit as the JAX
   recorder's; an invariant that raises leaves ``postmortem.json`` with
   the JAX dump's keys and its path on ``run_end``; a ``check`` child that
@@ -111,9 +112,14 @@ def test_traced_check_has_the_jax_spans(jax_traced, port_traced):
     assert (res.distinct, res.levels) == (jres.distinct, jres.levels)
     jlevels, jnames = per_level_spans(jev)
     levels, names = per_level_spans(ev)
-    assert names == jnames
+    # The JAX spans, and beyond them only the port's own: the run's
+    # set-up and end, a graph's capture (on the card) and a long
+    # garbage collection.
+    assert jnames <= names
+    assert {"setup", "finish"} <= names - jnames \
+        <= {"setup", "finish", "capture", "gc"}
     assert len(levels) == len(res.levels) == len(jlevels)
-    assert levels == jlevels
+    assert [{k: c[k] for k in c if k in jnames} for c in levels] == jlevels
     runs = [e for e in ev if e["name"] == "run"]
     assert len(runs) == 1
     # The run span holds every other span.
