@@ -26,9 +26,11 @@
     python3 chip_smoke.py --analysis          (the L9 main paths, then the
                                                static analyzer's phase
                                                only)
+    python3 chip_smoke.py --step-glue         (the step's begin and end
+                                               launches only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-It builds the port's five kernels from ``raft_tla_tpu_torch/csrc`` (one
+It builds the port's kernels from ``raft_tla_tpu_torch/csrc`` (one
 nvcc each, all at once), holds each kernel against its plain PyTorch
 version on the card at the main path's shapes (exactly: the checker
 computes integers and bytes; the chunk front on parent windows of a v3
@@ -233,11 +235,16 @@ and checked to be the wrapper's kernels and nothing else for the insert,
 the fused tail and the enqueue) and each launch's grid, registers, spill
 bytes and shared memory.  ``--enqueue-variants``, ``--front-variants``
 and ``--tail-variants`` build the designs the shipped kernels were
-measured against by source substitution and time them.
+measured against by source substitution and time them.  The step's
+begin and end launches (``--step-glue``, and in the full smoke after the
+north-star kernels) are held bit for bit against their plain versions on
+a real full batch at MCraft's and TPUraft's shapes and timed beside
+them; every checked run's launch counts include one end launch a step
+and one begin launch a step and a burst.
 
 Output: the card's name and power limit, one line per phase, the total
-seconds, then a JSON
-line ``{"kernels": [...]}`` with each kernel's launches on the main path
+seconds, then a JSON line ``{"step_glue": [...]}`` (one entry a shape),
+a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main path
 (compact on the fused v3 run, the fused tail and the front on the fused
 v4 run, the insert and the enqueue on the split v4 run, all to depth 9),
 its error against the plain version and its times beside its bound (the
@@ -1187,13 +1194,52 @@ def short_name(name):
     return (m.group(1) if m else name)[:48]
 
 
+class Bursts:
+    """The bursts of steps the single-device engine queues
+    (``BFSEngine._dispatch``, each ending in one launch of the cond),
+    counted in ``launches`` as the wrappers count theirs."""
+    launches = 0
+
+
+def count_bursts():
+    """Wrap ``BFSEngine._dispatch`` once to count its bursts, and
+    ``obs/profile.py launches_put_back`` to put the count back with the
+    wrappers' (the perf probe's burst of no step is not the run's).  The
+    mesh dispatches its own, and runs neither of the step's launches.
+    Instrumentation only."""
+    from raft_tla_tpu_torch.engine.bfs import BFSEngine
+    from raft_tla_tpu_torch.obs import profile
+    dispatch, put_back = BFSEngine._dispatch, profile.launches_put_back
+    if getattr(dispatch, "counted", False):
+        return
+
+    def counted(self, run, n, seen):
+        Bursts.launches += 1
+        return dispatch(self, run, n, seen)
+
+    @contextlib.contextmanager
+    def bursts_put_back():
+        before = Bursts.launches
+        try:
+            with put_back():
+                yield
+        finally:
+            Bursts.launches = before
+
+    counted.counted = True
+    BFSEngine._dispatch = counted
+    profile.launches_put_back = bursts_put_back
+
+
 def counters():
     from raft_tla_tpu_torch.ops import chunk_front_cuda, compact_cuda
     from raft_tla_tpu_torch.ops import enqueue_cuda, fpset_cuda
-    from raft_tla_tpu_torch.ops import fused_tail_cuda
+    from raft_tla_tpu_torch.ops import fused_tail_cuda, step_glue_cuda
+    count_bursts()
     return {"compact": compact_cuda, "fpset_insert": fpset_cuda,
             "fused_tail": fused_tail_cuda, "chunk_front": chunk_front_cuda,
-            "enqueue": enqueue_cuda}
+            "enqueue": enqueue_cuda, "step_begin": step_glue_cuda.step_begin,
+            "step_end": step_glue_cuda.step_end, "bursts": Bursts}
 
 
 def reset_counts():
@@ -1220,7 +1266,8 @@ def check_launches(pipeline, counts, steps, what, method="fused",
     kernel also appends each step's trace records.  ``inserts``, where
     given, is the exact number of insert launches outside the steps.  The
     v1 path launches as v3's with the split tail (its fused tail resolves
-    to the enqueue kernel)."""
+    to the enqueue kernel).  Every path runs the step's begin and end
+    launches."""
     if pipeline == "v1" and method == "fused":
         method = "kernel"
     front, other = (("compact", "chunk_front") if pipeline in ("v1", "v3")
@@ -1232,6 +1279,10 @@ def check_launches(pipeline, counts, steps, what, method="fused",
                                       + (steps if trace else 0))
     outside = counts["fpset_insert"] - per_step
     ok = ok and (outside > 0 if inserts is None else outside == inserts)
+    # The step's bookkeeping: one end launch a step, one begin launch a
+    # step and one more (the cond) a burst.
+    ok = (ok and counts["step_end"] == steps and counts["bursts"] > 0
+          and counts["step_begin"] == steps + counts["bursts"])
     need(ok, f"{what} ({pipeline}, {method} tail): launches {counts} over "
          f"{steps} steps")
 
@@ -3084,6 +3135,123 @@ def phase_tpuraft_kernels(torch, device, gen):
     del qa, qb, base, work, tq, tq2, engine
     torch.cuda.empty_cache()
     return err
+
+
+def full_batch(torch, engine, setup):
+    """``(rows, valid, fo, new, fail, count)`` of the last full batch
+    (every row valid) of ``engine``'s run from the cfg's initial states,
+    as the step's end launch takes them (the steps dispatched eagerly, so
+    the hook on the body sees each)."""
+    from raft_tla_tpu_torch.engine.check import initial_states
+    from raft_tla_tpu_torch.ops.chunk_front import FrontOut
+    dispatch_eagerly(engine)
+    body, got = engine._step.body, {}
+
+    def hook(rows, valid, seen, qnext, nc, mc=None, finish=None):
+        def grab(valid, fo, new, fail, count):
+            if bool(valid.all()):
+                got.update(rows=rows.clone(), valid=valid.clone(),
+                           fo=FrontOut(*(None if t is None else t.clone()
+                                         for t in fo)),
+                           new=new.clone(), fail=fail.clone(),
+                           count=count.clone())
+            return finish(valid, fo, new, fail, count)
+        return body(rows, valid, seen, qnext, nc, mc, grab)
+
+    engine._step.body = hook
+    engine.run(initial_states(setup))
+    engine._step.body = body
+    need(got, "the run dispatched no full batch")
+    return (got["rows"], got["valid"], got["fo"], got["new"], got["fail"],
+            got["count"])
+
+
+def phase_step_glue(torch):
+    """The step's begin and end launches (``ops/step_glue_cuda.py``) at
+    MCraft's (B 2048, G 132, K 32,768, 473-byte rows) and TPUraft's (B
+    8192, G 224, K 131,072, 951 bytes) shapes, on a real full batch of an
+    L8 / L6 run: each held bit for bit against its plain version on the
+    card (cond + window; finish + update), each call's only device
+    operation its own kernel, then timed: one call between two events,
+    queued back to back, the plain version's time and the byte bound.
+    Returns one row a shape."""
+    from raft_tla_tpu_torch.engine.chunk import ChunkState
+    from raft_tla_tpu_torch.engine.check import make_engine
+    from raft_tla_tpu_torch.ops import fpset, step_glue_cuda as sg
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    shapes = (("MCraft", "configs/MCraft_bounded.cfg",
+               bounded_config("v4", 8)),
+              ("TPUraft", "configs/TPUraft.cfg",
+               tpuraft_config(6, record_trace=False)))
+    out = []
+    for what, cfg, config in shapes:
+        setup = load_config(os.path.join(HERE, cfg))
+        engine = make_engine(setup, config, device="cuda")
+        rows, valid, fo, new, fail, count = full_batch(torch, engine, setup)
+        step = engine._step
+        glue = step.glue
+        Bx, Kx, Gx, sw = glue.B, glue.K, glue.G, glue.sw
+        seen = fpset.empty(1 << 20, "cuda")
+        seen.size.fill_(123456)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        qcur = torch.randint(0, 256, (3 * Bx, sw), generator=gen,
+                             dtype=torch.uint8, device="cuda")
+        cs = ChunkState(*(t.clone() for t in engine._cs))
+        cs.st.zero_()
+        cs.st[step.CUR], cs.st[step.CUR + 1] = 2 * Bx, 10**6
+        cs.st[0] = Bx + 3                    # a start aligned to 1 byte
+        a = step.cond(seen, cs)
+        need(bool(a), f"{what}: the cond of the timed state fails")
+
+        def plain_begin():
+            return step.window(qcur, cs, step.cond(seen, cs))
+
+        def kernel_begin():
+            return sg.step_begin(glue, qcur, seen, cs.st)[1:]
+
+        def plain_end(c):
+            step.update(step.body.stages.finish(valid, fo, new, fail,
+                                                count),
+                        rows, a, seen, engine._tbuf, c)
+
+        def kernel_end(c):
+            sg.step_end(glue, a, rows, valid, fo, new, fail, count, seen, c)
+
+        err = max_abs(torch, zip(kernel_begin(), plain_begin()))
+        want, got = (ChunkState(*(t.clone() for t in cs)) for _ in range(2))
+        plain_end(want)
+        kernel_end(got)
+        err = max(err, max_abs(torch, zip(got, want)))
+        need(err == 0.0, f"{what}: the step's launches differ from their "
+             f"plain versions by {err}")
+        launch_check(torch, f"{what} step_begin", kernel_begin,
+                     ["step_begin_kernel"])
+        work = ChunkState(*(t.clone() for t in cs))
+        launch_check(torch, f"{what} step_end", lambda: kernel_end(work),
+                     ["step_end_kernel"])
+        n_new = int(new.sum())
+        begin_bytes = 2 * Bx * sw + Bx
+        end_bytes = 2 * Bx * Gx + Bx + Kx + 12 * n_new
+        row = {"shape": what, "B": Bx, "G": Gx, "K": Kx, "sw": sw,
+               "new_lanes": n_new, "max_abs_err": err,
+               "launch_info": sg.launch_info(Bx, sw, Kx)}
+        for name, kfn, pfn, nbytes in (
+                ("step_begin", kernel_begin, plain_begin, begin_bytes),
+                ("step_end", lambda: kernel_end(work),
+                 lambda: plain_end(work), end_bytes)):
+            row[name] = {
+                "ms": cuda_ms(torch, kfn, 20),
+                "queued_ms": queued_ms(torch, kfn, QUEUED_REPS,
+                                       QUEUED_SAMPLES),
+                "plain_ms": cuda_ms(torch, pfn, 20),
+                "plain_queued_ms": queued_ms(torch, pfn, QUEUED_REPS,
+                                             QUEUED_SAMPLES),
+                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        print(f"step glue at {what}'s shapes: {json.dumps(row)}")
+        out.append(row)
+        del engine, step, work, want, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_north_star(torch):
@@ -6500,6 +6668,9 @@ def main() -> int:
     if sys.argv[1:] == ["--tail-variants"]:
         tail_variants(torch, device)
         return 0
+    if sys.argv[1:] == ["--step-glue"]:
+        print(json.dumps({"step_glue": phase_step_glue(torch)}))
+        return 0
     if sys.argv[1:] == ["--outputs"]:
         print(f"check outputs: {phase_check_outputs(torch)} s")
         phase_observation_cost(torch)
@@ -6561,6 +6732,7 @@ def main() -> int:
     # after those have come back empty.
     phase_tpuraft_kernels(torch, device, gen)
     torch.cuda.empty_cache()
+    glue_rows = phase_step_glue(torch)
     front_row = next(r for r in rows if r["name"] == "chunk_front")
     for shape in ("MCraft", "TPUraft"):
         front_row["max_abs_err"] = max(
@@ -6649,6 +6821,7 @@ def main() -> int:
         row["served"] = served[row["name"]]
         row["v1"] = v1_counts[row["name"]]
     print(f"chip_smoke: {time.time() - t_smoke} s in all")
+    print(json.dumps({"step_glue": glue_rows}))
     print(json.dumps({"kernels": [
         {k: r[k] for k in ROW_KEYS + tuple(
             x for x in ("reconfig", "mesh", "multihost", "served", "v1")

@@ -130,7 +130,7 @@ from ..obs.tracing import SpanTracer
 from ..ops import chunk_front_cuda, compact_cuda, enqueue_cuda
 from ..ops import compact as compact_mod
 from ..ops import fpset, fpset_cuda, fused_tail_cuda, pipeline_v3
-from ..ops import pipeline_v1, pipeline_v4
+from ..ops import pipeline_v1, pipeline_v4, step_glue_cuda
 from ..ops.chunk_front_cuda import Front
 from ..ops.fingerprint import build_fingerprint
 from ..ops.fpset import pack
@@ -167,9 +167,11 @@ def resolve_pipeline(pipeline: str) -> str:
 PHASES = ("setup", "dispatch", "sync", "capture", "trace", "spill",
           "upload", "host", "checkpoint", "loop", "finish")
 
-#: The kernel wrappers' modules, whose ``launches`` a graph replay adds to.
+#: The kernel wrappers' modules (the step's two launches: the wrappers
+#: themselves), whose ``launches`` a graph replay adds to.
 KERNEL_MODULES = (compact_cuda, fpset_cuda, fused_tail_cuda,
-                  chunk_front_cuda, enqueue_cuda)
+                  chunk_front_cuda, enqueue_cuda, step_glue_cuda.step_begin,
+                  step_glue_cuda.step_end)
 
 
 def host_rows(rows: torch.Tensor) -> np.ndarray:
@@ -858,7 +860,8 @@ class BFSEngine:
         on a side stream.  The engine's first capture follows one eager
         step whose cond is false (it loads every kernel and changes
         nothing).  The wrappers' launch counts the capture took are given
-        back, and returned as what each replay launches."""
+        back, and returned as what each replay launches; a capture that
+        fails gives them back too (what it recorded never runs)."""
         if not self._warm:
             self._write_idle_ctl()
             fn()
@@ -867,12 +870,14 @@ class BFSEngine:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = [m.launches for m in KERNEL_MODULES]
-        g = capture_graph(fn, self.device, self._pool)
         delta = []
-        for m, b in zip(KERNEL_MODULES, before):
-            if m.launches != b:
-                delta.append((m, m.launches - b))
-                m.launches = b
+        try:
+            g = capture_graph(fn, self.device, self._pool)
+        finally:
+            for m, b in zip(KERNEL_MODULES, before):
+                if m.launches != b:
+                    delta.append((m, m.launches - b))
+                    m.launches = b
         return g, delta
 
     def _write_idle_ctl(self):
@@ -956,8 +961,7 @@ class BFSEngine:
         """Queue n steps and the cond after them (no host wait)."""
         for _ in range(n):
             run()
-        more = self._step.cond(seen, self._cs)
-        self._cs.st.narrow(0, self._step.CUR + 2, 1).copy_(more)
+        self._step.more(seen, self._cs)
 
     def _run_chunk(self, qcur, qnext, seen, cur_count: int, offset: int,
                    next_count: int, allowed: int, res) -> Tuple[list, float]:

@@ -33,16 +33,20 @@ batch whose cond is false is still dispatched but changes nothing.  So
 the host can queue up to ``sync_every`` steps (``engine/bfs.py``
 captures one as a CUDA graph and replays it) and read the state once.
 The batch's rows are gathered from the level queue at the device offset
-by one ``index_select`` launch rather than read by the front at that
-offset: the gather serves the v3 plan's PyTorch front and the v4 front
-kernel alike and leaves the kernel's [B, sw] input as it was, for B rows
-(7.8 MB at TPUraft's batch, a few microseconds of a ~1.5 ms batch).  The
-tails take the queue count by device pointer.  The trace records of the
-batch's new states (child and parent fingerprint halves, action: five
-int32, a 20-byte row) are appended in lane order to a device trace
-buffer through the enqueue kernel, which already appends rows of any
-width exactly (a scatter would need K trash rows and a scan of its
-own); the host drains the buffer once a chunk.
+rather than read by the front at that offset: the gather serves the v3
+plan's PyTorch front and the v4 front kernel alike and leaves the
+kernel's [B, sw] input as it was, for B rows (7.8 MB at TPUraft's batch,
+a few microseconds of a ~1.5 ms batch).  On the card the step's
+bookkeeping is two launches (``ops/step_glue_cuda.py``): the cond and
+the window before the front, the batch's counters into the state after
+the tail.  ``ChunkStep.cond``, ``window``, ``update`` and the ``finish``
+stage are their plain versions, which the step runs on the CPU and the
+mesh runs on every device.  The tails take the queue count by device
+pointer.  The trace records of the batch's new states (child and parent
+fingerprint halves, action: five int32, a 20-byte row) are appended in
+lane order to a device trace buffer through the enqueue kernel, which
+already appends rows of any width exactly (a scatter would need K trash
+rows and a scan of its own); the host drains the buffer once a chunk.
 
 The same body as the JAX package's ``engine/chunk.py`` on its v1, v2
 and fused-front branches with either tail, so every counter, the queue
@@ -55,14 +59,17 @@ mesh passes its ``compactor`` and ``insert_fn`` to the same body.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..models.invariants import build_inv_id
-from ..models.schema import flatten_state, gather_states, unflatten_state
+from ..models.schema import (flatten_state, gather_states, state_width,
+                             unflatten_state)
 from ..ops import compact as compact_mod
+from ..ops import step_glue_cuda
 from ..ops.chunk_front import FrontOut, por_keep
 from ..ops.enqueue import enqueue_scatter, enqueue_window
 from ..ops.enqueue_cuda import enqueue
@@ -135,6 +142,15 @@ class ChunkStages(NamedTuple):
     finish: Callable
 
 
+def family_of_instance(dims) -> np.ndarray:
+    """[G] int64: the action family of each grid instance."""
+    fam = np.zeros(dims.n_instances, np.int64)
+    for f, (off, sz) in enumerate(zip(dims.family_offsets,
+                                      dims.family_sizes)):
+        fam[off:off + sz] = f
+    return fam
+
+
 def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
                        record_trace: bool, device, front=None,
                        enqueue_method: str = "fused", Q: int = 0,
@@ -164,11 +180,7 @@ def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
     fingerprint = (build_fingerprint(dims, device) if expand is not None
                    else None)
     inv_id = build_inv_id(inv_fns) if inv_fns else None
-    fam_np = np.zeros(G, np.int64)
-    for f, (off, sz) in enumerate(zip(dims.family_offsets,
-                                      dims.family_sizes)):
-        fam_np[off:off + sz] = f
-    fam_of_g = torch.as_tensor(fam_np, device=device)
+    fam_of_g = torch.as_tensor(family_of_instance(dims), device=device)
     F = len(dims.family_sizes)
     arange_b = torch.arange(B, device=device)
     no_pruned = torch.zeros(F, dtype=torch.int64, device=device)
@@ -325,21 +337,23 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
     int32 tensors on ``device`` (both or neither) turn the reduction on.
     ``expand`` (``models/actions.py build_expand``) runs the v1 plan: the
     full expansion in place of the masks and the gathered rows hashed in
-    full in place of the delta lanes, with a split tail.  The body's
-    stages are ``body.stages`` (``ChunkStages``)."""
+    full in place of the delta lanes, with a split tail.  ``finish``,
+    where given, takes the place of the ``finish`` stage (``ChunkStep``
+    passes its launch there on the card).  The body's stages are
+    ``body.stages`` (``ChunkStages``)."""
     stages = build_chunk_stages(
         dims=dims, v2=v2, inv_fns=inv_fns, constraint=constraint, B=B, K=K,
         record_trace=record_trace, device=device, front=front,
         enqueue_method=enqueue_method, Q=Q, por_mask=por_mask,
         por_priority=por_priority, expand=expand)
 
-    def body(rows, valid, seen, qnext, next_count, max_count=None) \
-            -> BatchOut:
+    def body(rows, valid, seen, qnext, next_count, max_count=None,
+             finish=None) -> BatchOut:
         fo = stages.front(rows, valid)
         new, fail, count = stages.tail(seen, pack(fo.kh, fo.kl), fo.kvalid,
                                        fo.krows, fo.cons_ok, qnext,
                                        next_count, max_count)
-        return stages.finish(valid, fo, new, fail, count)
+        return (finish or stages.finish)(valid, fo, new, fail, count)
 
     body.stages = stages
     return body
@@ -374,10 +388,14 @@ class ChunkStep:
     failure or (when checked) deadlock yet, and room in the trace buffer
     for a batch.  Otherwise it leaves every tensor as it was.  The step
     makes no host wait.  ``body`` is the per-batch function of
-    ``build_chunk_body``; the step looks it up on each call.  Its parts,
-    ``cond``, ``window`` and ``update``, are what the mesh runs around
-    the body's stages on each shard; there ``count_word`` names the word
-    holding the shard's own row count, the level's largest in ``CUR``."""
+    ``build_chunk_body``; the step looks it up on each call.  On CPU
+    tensors the step runs its parts, ``cond``, ``window``, the body and
+    ``update``; on the card the begin and end launches of
+    ``ops/step_glue_cuda.py`` take the place of all but the body (whose
+    ``finish`` stage the end launch replaces).  The parts are what the
+    mesh runs around the body's stages on each shard; there
+    ``count_word`` names the word holding the shard's own row count, the
+    level's largest in ``CUR``."""
 
     def __init__(self, *, dims, B: int, K: int, Q: int, QTH: int, TQ: int,
                  record_trace: bool, check_deadlock: bool, device,
@@ -404,6 +422,19 @@ class ChunkStep:
         self._idx = torch.tensor(idx, dtype=torch.int64, device=device)
         self._lim = torch.tensor(lim, dtype=torch.int32, device=device)
         self._arange_b = torch.arange(B, device=device)
+        self._glue_kw = dict(
+            B=B, K=K, sw=state_width(dims),
+            family_of=family_of_instance(dims), words=idx, lims=[0, 0] + lim,
+            cur=self.CUR, count_word=self.count_word,
+            por=body.get("por_mask") is not None, device=device)
+
+    @functools.cached_property
+    def glue(self) -> step_glue_cuda.StepGlue:
+        """What the begin and end launches share, made at the step's
+        first call on the card (an eager one: the engine captures its
+        graphs after one), so a step whose parts the mesh runs one by one
+        never makes it."""
+        return step_glue_cuda.StepGlue(**self._glue_kw)
 
     def cond(self, seen, cs: ChunkState) -> torch.Tensor:
         """[1] bool: whether the next step runs a batch."""
@@ -445,20 +476,50 @@ class ChunkStep:
         cs.drow.copy_(torch.where(take_d, rows.index_select(0, dpos)[0],
                                   cs.drow))
         if self.record_trace:
-            trows = torch.stack([out.kh, out.kl, out.parent_hi,
-                                 out.parent_lo, out.actions], 1)
-            trows = trows.to(torch.int32).view(torch.uint8)
-            tc = enqueue(tbuf, st.narrow(0, ST_TCOUNT, 1), trows, out.new,
-                         self.TQ)
-            st.narrow(0, ST_TCOUNT, 1).copy_(tc.view(1))
+            self.append_trace(tbuf, st, out.kh, out.kl, out.parent_hi,
+                              out.parent_lo, out.actions, out.new)
         head = st.narrow(0, 0, N)
         head.add_((out.delta * a).to(torch.int32))
         st.narrow(0, ST_COUNT, 1).copy_(out.count.view(1))
         st.narrow(0, ST_SEEN, 1).copy_(seen.size)
 
+    def append_trace(self, tbuf, st, kh, kl, parent_hi, parent_lo, actions,
+                     new):
+        """The trace records of the batch's new states, in lane order,
+        through the enqueue kernel; ``ST_TCOUNT`` set to the new count."""
+        trows = torch.stack([kh, kl, parent_hi, parent_lo, actions], 1)
+        trows = trows.to(torch.int32).view(torch.uint8)
+        tc = enqueue(tbuf, st.narrow(0, ST_TCOUNT, 1), trows, new, self.TQ)
+        st.narrow(0, ST_TCOUNT, 1).copy_(tc.view(1))
+
+    def more(self, seen, cs: ChunkState) -> None:
+        """The cond into the control word a burst of steps ends with
+        (``CUR`` + 2): one launch of the begin kernel on the card."""
+        if cs.st.device.type == "cpu":
+            cs.st.narrow(0, self.CUR + 2, 1).copy_(self.cond(seen, cs))
+        else:
+            step_glue_cuda.step_cond(self.glue, seen, cs.st)
+
     def __call__(self, qcur, seen, qnext, tbuf, cs: ChunkState) -> None:
-        a = self.cond(seen, cs)
-        rows, valid = self.window(qcur, cs, a)
-        out = self.body(rows, valid, seen, qnext,
-                        cs.st.narrow(0, ST_COUNT, 1), self.Q)
-        self.update(out, rows, a, seen, tbuf, cs)
+        next_count = cs.st.narrow(0, ST_COUNT, 1)
+        if qcur.device.type == "cpu":
+            a = self.cond(seen, cs)
+            rows, valid = self.window(qcur, cs, a)
+            out = self.body(rows, valid, seen, qnext, next_count, self.Q)
+            self.update(out, rows, a, seen, tbuf, cs)
+            return
+        # On the card: cond + window in one launch, finish + update in
+        # one, then the trace append; the wrappers raise on any other
+        # device.
+        glue = self.glue
+        a, rows, valid = step_glue_cuda.step_begin(glue, qcur, seen, cs.st)
+
+        def finish(valid, fo, new, fail, count):
+            step_glue_cuda.step_end(glue, a, rows, valid, fo, new, fail,
+                                    count, seen, cs)
+            if self.record_trace:
+                self.append_trace(tbuf, cs.st, fo.kh, fo.kl, fo.parent_hi,
+                                  fo.parent_lo,
+                                  fo.lane_id.to(torch.int64) % glue.G, new)
+
+        self.body(rows, valid, seen, qnext, next_count, self.Q, finish)

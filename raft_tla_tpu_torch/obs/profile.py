@@ -68,11 +68,10 @@ SLEEP_CALIBRATION = 10_000_000
 
 
 def kernel_modules():
-    """The kernel wrappers' modules, whose ``launches`` count launches."""
-    from ..ops import (chunk_front_cuda, compact_cuda, enqueue_cuda,
-                       fpset_cuda, fused_tail_cuda)
-    return (compact_cuda, fpset_cuda, fused_tail_cuda, chunk_front_cuda,
-            enqueue_cuda)
+    """The kernel wrappers' modules, whose ``launches`` count launches
+    (``engine/bfs.py KERNEL_MODULES``)."""
+    from ..engine.bfs import KERNEL_MODULES
+    return KERNEL_MODULES
 
 
 @contextmanager
