@@ -409,6 +409,10 @@ class EngineResult:
     chunk_stages: Dict[str, float] = dataclasses.field(default_factory=dict)
     # The performance block (obs/perf.py) with perf on, else {}.
     perf: Dict = dataclasses.field(default_factory=dict)
+    # The invariants the run evaluated, in the cfg's order.
+    invariants: List[str] = dataclasses.field(default_factory=list)
+    # The v4 front of the engine (BFSEngine.front_info), {} on other plans.
+    front: Dict = dataclasses.field(default_factory=dict)
 
     @property
     def states_per_second(self) -> float:
@@ -568,6 +572,7 @@ class BFSEngine:
             front = Front(dims=dims, v2=self._v2, inv_fns=self._inv_fns,
                           constraint=constraint, B=B, K=K, device=dev,
                           por_mask=por_mask, por_priority=por_priority)
+        self._front, self._front_info = front, None
         self._step = chunk_mod.ChunkStep(
             dims=dims, B=B, K=K, Q=Q, QTH=self._QTH, TQ=self._TQ,
             record_trace=cfg.record_trace,
@@ -742,14 +747,29 @@ class BFSEngine:
         self._close_residual(now)
         self._open_residual(name, now)
 
+    def front_info(self) -> dict:
+        """The engine's v4 front (``Front.record``: its build, its
+        predicates' codes, each launch's registers, spill and shared bytes
+        and blocks an SM), made at the first call after a build; {} on
+        the other plans."""
+        if self._front_info is None:
+            self._front_info = ({} if self._front is None
+                                else self._front.record())
+        return self._front_info
+
     def _start_level0(self) -> None:
         """Level 0 begins: the ``setup`` span (``run()``'s entry to here:
         the event log, the flight recorder, ``run_start``, a snapshot's
-        load) ends, and the first ``level`` span starts."""
+        load; its args carry the engine's front) ends, and the first
+        ``level`` span starts.  The result takes the invariants' names and
+        the front here."""
+        res = self._result
+        res.invariants = list(self.inv_names)
+        res.front = self.front_info()
         self._lvl_t0 = time.perf_counter()
         if self.tracer.enabled:
             self.tracer.interval("setup", self._run_t0, self._lvl_t0,
-                                 run_id=self._run_id)
+                                 run_id=self._run_id, front=res.front)
 
     def _emit_level_event(self, res, frontier_rows: int):
         """A level boundary: the report's ``level_stats`` row and the
@@ -1226,7 +1246,8 @@ class BFSEngine:
             tracer.complete("finish", t_fin, run_id=self._run_id)
             tracer.complete("run", self._run_t0, run_id=self._run_id,
                             engine=type(self).__name__,
-                            stop_reason=getattr(res, "stop_reason", None))
+                            stop_reason=getattr(res, "stop_reason", None),
+                            invariants=list(self.inv_names))
             tracer.write()
         end = dict(
             stop_reason=(getattr(res, "stop_reason", None)
@@ -1243,7 +1264,8 @@ class BFSEngine:
             memory=mem, host_rss_peak_bytes=peak_host_rss_bytes(),
             devices_memory=all_device_memory_stats(self.device),
             run_id=self._run_id, alloc=alloc, gc=gcs,
-            device_seconds=getattr(res, "device_seconds", None))
+            device_seconds=getattr(res, "device_seconds", None),
+            invariants=list(self.inv_names))
         # The phases end here: run_end carries them all, the failed
         # attempts' too (the registry has had them since).
         self._close_residual(time.perf_counter())

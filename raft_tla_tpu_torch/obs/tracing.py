@@ -150,14 +150,15 @@ class SpanTracer:
     def interval(self, name: str, start_perf_counter: float,
                  end_perf_counter: float, **args) -> None:
         """Record a span between two ``time.perf_counter()`` stamps (a
-        span measured elsewhere, such as a garbage collection's)."""
+        span measured elsewhere, such as a garbage collection's).  Its end
+        is the end stamp on the file's clock, ``ts + dur`` exactly, so a
+        span that ends at a stamp never passes one that starts there."""
         if self.path is None:
             return
+        ts = round(self.unix_us(start_perf_counter), 3)
+        end = round(self.unix_us(end_perf_counter), 3)
         rec = {"name": name, "ph": "X", "pid": self._pid,
-               "tid": self._tid(),
-               "ts": round(self.unix_us(start_perf_counter), 3),
-               "dur": round((end_perf_counter - start_perf_counter) * 1e6,
-                            3)}
+               "tid": self._tid(), "ts": ts, "dur": end - ts}
         if args:
             rec["args"] = args
         self._append(rec)

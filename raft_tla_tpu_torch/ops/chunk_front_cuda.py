@@ -256,6 +256,29 @@ class Front:
             got[name] = out[0]
         return got
 
+    def record(self) -> dict:
+        """What this front runs: ``build``, the lanes launch's build
+        (``typeok``: TypeOK and NoLeaderElected; ``suite``: with the safety
+        suite's device code; ``reconfig``: the variant's), ``predicates``,
+        the codes in the run's order, and on the card ``launches``: each
+        launch's registers, local bytes a thread (spills), shared bytes
+        (static and dynamic) and, for masks and lanes, blocks an SM."""
+        out = {"build": ("reconfig" if self.reconfig
+                         else "suite" if self.suite else "typeok"),
+               "predicates": list(self._codes), "launches": {}}
+        if self._kspread.device.type != "cuda":
+            return out
+        occupancy = self.occupancy()
+        for name, info in self.launch_info().items():
+            launch = {"registers": info["registers"],
+                      "spill_bytes": info["local_bytes"],
+                      "shared_bytes": (info["static_smem"]
+                                       + info["dynamic_smem"])}
+            if name in occupancy:
+                launch["blocks_per_sm"] = occupancy[name]
+            out["launches"][name] = launch
+        return out
+
     def __call__(self, rows, valid) -> FrontOut:
         global launches
         if rows.device.type == "cpu":

@@ -390,6 +390,8 @@ class MeshBFSEngine(BFSEngine):
         QL = max(-(-(-(-qreq // n)) // B) * B, K)
         self._CL = compact_mod.pow2(max(-(-sreq // n), 8 * K))
         self._sw, self._B, self._G, self._Q, self._K = sw, B, G, QL, K
+        # No front on the mesh (v4 resolves to v3's arrangement).
+        self._front, self._front_info = None, None
         self._PAD = max(B, K)
         self._QTH = QL - K
         self._TQ = QL + K if cfg.record_trace else 0
