@@ -28,6 +28,9 @@
                                                only)
     python3 chip_smoke.py --step-glue         (the step's begin and end
                                                launches only)
+    python3 chip_smoke.py --warm              (a warm engine's kept
+                                               graphs and run buffers
+                                               only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -66,8 +69,12 @@ the fused tail and the trace append held and timed at the shapes of
 the oracle's 24,753,442 distinct, 84,522,610 generated and ten levels,
 an L9 state replayed from the trace; a profile to L6; the split tail to
 L8, a 2^20-row queue spilling to files to L8, v3 to L6,
-``configs/raft5_bounded.cfg`` with capacities from the card to L8; and a
-run capped (``set_per_process_memory_fraction``) between what batch 4096
+``configs/raft5_bounded.cfg`` with capacities from the card to L8; a
+warm engine's kept graphs and run buffers (``phase_warm_engine``:
+MCraft_bounded L9 three times on one engine, its kept graphs' device ops
+under the profiler, the ``tpuraft.bfs_l8`` cell's engine 300 times with
+no capture after the first run, no degradation and flat reserved bytes);
+and a run capped (``set_per_process_memory_fraction``) between what batch 4096
 and batch 8192 need, which must degrade to 4096 and give the L8 counts.
 The safety suite (``models/safety.py``, device code in the front's
 lanes launch): the front with it held exactly against ``front_plain`` at
@@ -3401,6 +3408,135 @@ def phase_oom(torch):
     return res.degraded
 
 
+#: The port's kernels a v4 step's graph launches (``csrc/``), by name.
+GRAPH_KERNELS = ("step_begin_kernel", "masks_kernel", "compact_scan_kernel",
+                 "lanes_kernel", "probe_claim_kernel", "own_kernel",
+                 "resolve_kernel", "enqueue_tiles_kernel", "step_end_kernel")
+
+
+def phase_warm_engine(torch, tpuraft_runs=300):
+    """A warm engine keeps its graphs and run buffers between runs.
+    MCraft_bounded L9 on v4 three times on one engine: the first run
+    captures the two queue orders' graphs, the second and third capture
+    none and replay one at every chunk, on the first run's buffers, with
+    its counts and exact launch counts.  Then one run under
+    torch.profiler on the kept graphs beside one whose graphs are
+    captured under it: the same launches of each of the port's kernels
+    (a graph captured before the profiler started shows in its trace).
+    Then
+    the ``tpuraft.bfs_l8`` cell's engine ``tpuraft_runs`` times in this
+    process: the pinned counts and exact launches every run, no capture
+    after the first, no degradation, the reserved bytes flat."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    setup = load_config(os.path.join(HERE, "configs/MCraft_bounded.cfg"))
+    engine = make_engine(setup, bounded_config("v4", 9), device="cuda")
+    roots = initial_states(setup)
+    first = None
+    for i in range(3):
+        torch.cuda.synchronize()
+        reset_counts()
+        res = engine.run(roots)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        got = (res.distinct, res.generated, res.levels, res.action_counts)
+        bufs = [t.data_ptr() for t in (*engine._queues, engine._seen.keys,
+                                       engine._tbuf, engine._cs.st)]
+        print(f"warm MCraft_bounded L9 v4, run {i + 1}: graphs captured "
+              f"{res.graph_captures}, hits {res.graph_hits}, chunks "
+              f"{res.chunks}, check {res.wall_seconds} s, capture phase "
+              f"{res.phases['capture']} s, launches {counts}")
+        need(got[:3] == (MCRAFT_L9_DISTINCT, MCRAFT_L9_GENERATED,
+                         MCRAFT_L9_LEVELS),
+             f"warm run {i + 1}: {got[:3]} differ from the pins")
+        check_launches("v4", counts, res.steps,
+                       f"warm MCraft_bounded L9 run {i + 1}", inserts=1)
+        if first is None:
+            first, ptrs = got, bufs
+            need(res.graph_captures == 2
+                 and res.graph_hits == res.chunks - 2,
+                 f"the first run captured {res.graph_captures} graphs and "
+                 f"hit {res.graph_hits} times in {res.chunks} chunks")
+        else:
+            need(got == first and bufs == ptrs,
+                 f"warm run {i + 1} differs from the first run, or ran on "
+                 "other buffers")
+            need(res.graph_captures == 0 and res.graph_hits == res.chunks,
+                 f"warm run {i + 1} captured {res.graph_captures} graphs, "
+                 f"hit {res.graph_hits} times in {res.chunks} chunks")
+
+    def profiled(recapture):
+        if recapture:
+            engine._drop_graphs()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r = engine.run(roots)
+            torch.cuda.synchronize()
+        return r, collections.Counter(
+            short_name(e.name) for e in prof.events()
+            if e.device_type == DeviceType.CUDA)
+
+    (r_kept, kept), (r_new, new) = profiled(False), profiled(True)
+    print(f"warm MCraft_bounded L9 v4 under torch.profiler: kept graphs "
+          f"(captured {r_kept.graph_captures}) {sum(kept.values())} device "
+          f"ops, {sum(kept.values()) / r_kept.batches} a batch; graphs "
+          f"captured under the profiler ({r_new.graph_captures}) "
+          f"{sum(new.values())}; by name {dict(kept)}; only in the "
+          f"recaptured run {dict(new - kept)}, only in the kept one "
+          f"{dict(kept - new)}")
+    need(r_kept.graph_captures == 0 and r_new.graph_captures == 2
+         and all(kept[k] == new[k] > 0 for k in GRAPH_KERNELS),
+         f"the kept graphs' kernels {dict(kept)} differ from those of "
+         f"graphs captured under the profiler {dict(new)}")
+    engine.release()
+    del engine
+    torch.cuda.empty_cache()
+    with open(os.path.join(HERE, "portbench/configs/tpuraft.json")) as f:
+        conf = json.load(f)
+    setup = load_config(os.path.join(HERE, conf["cfg"]))
+    engine = make_engine(setup, EngineConfig(**conf["engine"],
+                                             max_diameter=8),
+                         device="cuda")
+    roots = initial_states(setup)
+    reserved, walls, capture_s, captures, degraded = [], [], [], [], []
+    for i in range(tpuraft_runs):
+        reset_counts()
+        res = engine.run(roots)
+        torch.cuda.synchronize()
+        need(res.distinct == TPURAFT_DISTINCT[8]
+             and res.generated == TPURAFT_GENERATED[8]
+             and res.levels == TPURAFT_LEVELS[:9],
+             f"TPUraft L8 run {i + 1}: {res.distinct} / {res.generated} / "
+             f"{res.levels} differ from the pins")
+        check_launches("v4", read_counts(), res.steps,
+                       f"warm TPUraft L8 run {i + 1}", inserts=1)
+        reserved.append(torch.cuda.memory_reserved())
+        walls.append(res.wall_seconds)
+        capture_s.append(res.phases["capture"])
+        captures.append(res.graph_captures)
+        degraded += res.degraded
+    print(f"warm TPUraft L8, {tpuraft_runs} runs on one engine: graphs "
+          f"captured {captures[0]} in the first run, {sum(captures[1:])} "
+          f"after; degraded {degraded}; batch {engine.config.batch}; check "
+          f"median {statistics.median(walls[1:])} s, max {max(walls[1:])} "
+          f"s; capture phase mean {statistics.mean(capture_s[1:])} s; "
+          f"reserved bytes after run 1, 2, last: {reserved[0]}, "
+          f"{reserved[1]}, {reserved[-1]} (max {max(reserved)})")
+    need(not degraded and engine.config.batch == conf["engine"]["batch"]
+         and not any(captures[1:]),
+         f"the warm TPUraft engine degraded ({degraded}) or captured "
+         f"again ({captures})")
+    need(max(reserved[1:]) == reserved[1],
+         f"reserved device memory grew after the second run: "
+         f"{sorted(set(reserved))}")
+    engine.release()
+    del engine
+    torch.cuda.empty_cache()
+
+
 # -- the safety suite (models/safety.py) and the SmokeInit roots -------------
 
 SAFETY_SUITE = ("MessagesInv", "LeaderVotesQuorum", "CandidateTermNotInLog",
@@ -6069,7 +6205,7 @@ def serve_tpuraft_under_load(torch, addr, srv):
           f"{res['growth_stalls']}, job {st}; polls {dict(polls)}, watch "
           f"lines {snaps}; CUDA pids during the run {pids_seen} (watch "
           f"client pid {watcher.pid}); a warm TPUraft engine holds {warm} "
-          "bytes (allocated, reserved; its graphs went at the run's end)")
+          "bytes (allocated, reserved; its graphs and run buffers kept)")
     need(polls["stats"] >= 10 and polls["/jobs"] >= 10,
          f"too few polls during the run: {dict(polls)}")
     return warm
@@ -6267,8 +6403,8 @@ def phase_serve(torch, direct):
         print(f"eviction of {n} warm engines (cap lowered to 1 for one "
               f"request): (allocated, reserved) {before} -> {after} bytes, "
               f"evictions {ev}")
-        # The engines dropped their graphs' pools at their runs' ends:
-        # eviction gives back their buffers.
+        # Eviction gives back each engine's graphs and the run buffers
+        # they were captured on.
         need(ev == n and after[0] < before[0] and after[1] <= before[1],
              f"{ev} evictions of {n}; allocated {before} -> {after}")
         mem["after eviction"] = after
@@ -6456,9 +6592,9 @@ def v1_check(torch, pipeline, depth, what, **kw):
 
 
 def release_device(torch):
-    """Give the allocator's cache back (an engine drops its graphs and
-    their pool at the end of each run); the card's allocated and reserved
-    bytes printed."""
+    """Give the allocator's cache back (what engines no longer referenced
+    held: their graphs' pools and run buffers); the card's allocated and
+    reserved bytes printed."""
     torch.cuda.empty_cache()
     print(f"device memory: allocated {torch.cuda.memory_allocated()} B, "
           f"reserved {torch.cuda.memory_reserved()} B")
@@ -6702,6 +6838,11 @@ def main() -> int:
         print(f"hunt on over off: {phase_hunt_cost(torch)}")
         print(json.dumps({"v1": counts["v1"]}))
         return 0
+    if sys.argv[1:] == ["--warm"]:
+        t = time.time()
+        phase_warm_engine(torch)
+        print(f"warm engine phase: {time.time() - t} s")
+        return 0
     if sys.argv[1:] == ["--reconfig"]:
         t = time.time()
         print(f"reconfig front: {phase_reconfig_front(torch, device)}")
@@ -6806,6 +6947,7 @@ def main() -> int:
     phase_profile(torch, "v4", cfg_name="TPUraft.cfg",
                   config=tpuraft_config(6, record_trace=True))
     phase_tpuraft_more(torch)
+    phase_warm_engine(torch)
     phase_oom(torch)
     torch.cuda.empty_cache()
     phase_obs(torch)

@@ -17,7 +17,10 @@ a chunk.  What it keeps of the JAX engine:
   the card.  On the card the step is captured once as a CUDA graph for
   each set of buffers it runs on (the two level queues, the async
   spill's spare, the seen set; captured again after a growth) and
-  replayed up to ``sync_every`` times; the host reads the packed counters
+  replayed up to ``sync_every`` times.  The buffers and the graphs are
+  the engine's: allocated and captured at its first run, reset in place
+  at each later one (``_run_buffers``), so a warm engine's run replays
+  the graphs an earlier run captured; the host reads the packed counters
   once, drains the device trace buffer to the trace store and handles
   spill, growth, violation, deadlock, budgets and progress, as the JAX
   loop does after each chunk.  On the CPU the same step runs eagerly
@@ -362,8 +365,8 @@ class EngineResult:
     # Host seconds (time.perf_counter), disjoint, which together cover
     # run() from its entry to the run_end event: "setup" (run()'s entry
     # to the first chunk, less the phases nested in it: the event log,
-    # the flight recorder's arm, the run's buffers, the seen set, the
-    # roots), "dispatch" (queueing a chunk's steps), "sync" (waiting for
+    # the flight recorder's arm, the run's buffers allocated or reset,
+    # the roots), "dispatch" (queueing a chunk's steps), "sync" (waiting for
     # the device at the chunk's stats read), "capture" (CUDA graph
     # capture, off the duration clock), "trace" (device trace buffer
     # drains), "spill" (queue drains to the host), "upload" (a spilled
@@ -371,9 +374,14 @@ class EngineResult:
     # root ingest, growth, budgets), "checkpoint" (snapshot writes),
     # "loop" (the level loop's time outside the phases above: each
     # chunk's control words, the level boundaries' stats and events),
-    # "finish" (the run's end: coverage, report, the graphs dropped, the
-    # span file written); "profile" too when a profiler samples.
+    # "finish" (the run's end: coverage, report, the span file written);
+    # "profile" too when a profiler samples.
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # The chunks' CUDA graphs this run captured, and the chunks that
+    # replayed one an earlier chunk or run had captured (both 0 on the
+    # CPU): a warm engine's run captures none.
+    graph_captures: int = 0
+    graph_hits: int = 0
     # The run's id, unique in the process (obs/events.py next_run_id): on
     # the run span, the span file's metadata, run_start and run_end.
     run_id: str = ""
@@ -667,8 +675,9 @@ class BFSEngine:
 
     def _maybe_grow(self, seen, size: int, res, t0):
         """Double the table past half full (off the duration clock); the
-        graphs captured on the old table go with it.  A growth that runs
-        out of device memory is retried once from the host keys
+        grown table is the engine's from here on, later runs included,
+        and the graphs captured on the old one go with it.  A growth that
+        runs out of device memory is retried once from the host keys
         (``_grow_from_host``); the ``oom`` fault site (param ``grow``,
         the engine's growth count) rehearses that."""
         if size <= seen.capacity // 2:
@@ -684,8 +693,7 @@ class BFSEngine:
             if not (self.config.degrade_on_oom and is_resource_exhausted(e)):
                 raise
             grown = self._grow_from_host(seen, cap, e)
-        seen = grown
-        self._drop_graphs()
+        seen = self._keep_seen(grown)
         stall = time.perf_counter() - t
         res.growth_stalls.append((seen.capacity, round(stall, 3)))
         self.metrics.counter("engine/fpset_resizes")
@@ -910,18 +918,77 @@ class BFSEngine:
         self._graphs.clear()
         self._pool = None
 
-    #: What a run leaves on the device besides the graphs (``release``).
-    _RUN_BUFFERS = ("_cs", "_tbuf", "_ctl", "_pinned")
+    #: What the engine keeps on its device besides the graphs, from its
+    #: first run to ``release``: every buffer a graph reads or writes.
+    _RUN_BUFFERS = ("_queues", "_seen", "_tbuf", "_cs", "_ctl", "_pinned",
+                    "_copy_stream", "_burst_events", "_queue_names")
 
     def release(self) -> None:
         """Give back what the engine holds on its device (the checker
         service calls it on a warm engine it evicts, the OOM degradation
         mid-run): the captured graphs first, whose memory pool lives as
-        long as they do (a finished run has dropped them), then the run's
-        buffers."""
+        long as they do, then the buffers they were captured on."""
         self._drop_graphs()
         for name in self._RUN_BUFFERS:
             self.__dict__.pop(name, None)
+
+    def _run_buffers(self, fresh_table: bool):
+        """The run's three queues ``(qcur, qnext, the spill's spare)`` and
+        its seen table (None when ``fresh_table`` is false: a resumed run
+        brings its own, ``_keep_seen``).  The engine's first run allocates
+        them with the trace buffer, the chunk state and the control words;
+        every later run gets the same tensors back, in the same order, so
+        its chunks hit the graphs an earlier run captured.  The reset is
+        what the run's semantics read: the table emptied here; the chunk
+        state's words, the trace count among them, and the control words
+        are written whole at every chunk's start (``_write_ctl``), and the
+        violating and deadlocked rows are read only when that chunk set
+        their flags.  Queue and trace rows past their live counts are
+        left as the last run wrote them: the window gathers rows past the
+        level's count only as invalid parents, whose lanes the masks
+        drop, and nothing else reads them (within a run they hold an
+        older level's rows anyway)."""
+        dev = self.device
+        if "_queues" not in self.__dict__:
+            F = len(self.dims.family_sizes)
+            bufs = dict(
+                _queues=tuple(torch.zeros((self._Q + self._PAD, self._sw),
+                                          dtype=ROW_DTYPE, device=dev)
+                              for _ in range(3)),
+                _seen=None, _pinned=None,
+                _tbuf=torch.zeros((self._TA, chunk_mod.TRACE_ROW),
+                                  dtype=torch.uint8, device=dev),
+                _cs=chunk_mod.chunk_state(F, self._sw, dev),
+                _ctl=torch.zeros(chunk_mod.state_words(F), dtype=torch.int32,
+                                 pin_memory=dev.type == "cuda"))
+            bufs["_queue_names"] = {q.data_ptr(): f"q{i}" for i, q in
+                                    enumerate(bufs["_queues"])}
+            if dev.type == "cuda":
+                bufs["_copy_stream"] = torch.cuda.Stream(dev)
+                bufs["_burst_events"] = (
+                    torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            self.__dict__.update(bufs)      # all of them, or none
+        elif dev.type == "cuda":
+            # A drain the last run left in flight reads a queue this run
+            # writes.
+            torch.cuda.current_stream(dev).wait_stream(self._copy_stream)
+        if not fresh_table:
+            return self._queues, None
+        if self._seen is None:
+            self._seen = fpset.empty(self._seen_cap, dev)
+        else:
+            fpset.clear(self._seen)
+        return self._queues, self._seen
+
+    def _keep_seen(self, seen):
+        """``seen`` as the engine's table from here on (a growth's, a
+        resumed run's); the graphs captured on another table go, since a
+        graph writes the table it was captured on."""
+        if seen is not self.__dict__.get("_seen"):
+            self._drop_graphs()
+            self._seen = seen
+        return seen
 
     def _runner(self, qcur, qnext, seen, res):
         """One step on these buffers: a graph replay on the card (captured
@@ -946,13 +1013,20 @@ class BFSEngine:
         (captured at first use, a ``capture`` span with the buffers,
         ``buffers()`` where given, and the allocator's deltas over it),
         which adds the launches the capture took to the wrappers'
-        counts."""
-        if key not in self._graphs:
+        counts.  Each call counts a capture or a hit
+        (``EngineResult.graph_captures`` / ``graph_hits``, the registry's
+        ``engine/graph_captures`` / ``engine/graph_hits``)."""
+        if key in self._graphs:
+            res.graph_hits += 1
+            self.metrics.counter("engine/graph_hits")
+        else:
             tracer = self.tracer
             if tracer.enabled:
                 t, mem0 = time.perf_counter(), device_memory_stats(
                     self.device)
             self._graphs[key] = self._capture(eager, res)
+            res.graph_captures += 1
+            self.metrics.counter("engine/graph_captures")
             if tracer.enabled:
                 moved = alloc_delta(mem0, device_memory_stats(self.device))
                 tracer.complete(
@@ -1209,30 +1283,32 @@ class BFSEngine:
         """The run's end (the ``finish`` phase and span), as the JAX
         engine's: the final coverage, the counterexample files, the
         statespace report, the chunk profile, the perf block, the
-        capture's event, on an error the postmortem dump; then the graphs
-        dropped, the run's allocator and garbage-collector counters, the
-        span file written (once a run, here, also on an error) and
-        ``run_end``; the flight recorder disarmed, the event log closed.
-        A failing render is reported and never hides the run's own
-        verdict."""
+        capture's event, on an error the postmortem dump; then the run's
+        allocator and garbage-collector counters, the span file written
+        (once a run, here, also on an error) and ``run_end``; the flight
+        recorder disarmed, the event log closed.  A failing render is
+        reported and never hides the run's own verdict."""
         if self._residual is None or self._residual[0] != "finish":
             self._next_residual("finish")
         t_fin = self._residual[1]
         try:
             ce_path, pm_path = self._finish_outputs(err)
         finally:
-            # The graphs were captured on this run's buffers, which the
-            # next run allocates anew (a graph keyed on a queue that
-            # lands at the same address would write the old trace buffer
-            # and counters), so every run captures its own and none
-            # outlives its run: their pool would hold the step's
-            # temporaries as long as the engine lives (``res.engine``).
-            self._drop_graphs()
             self._gc_watch.remove()
+        # The graphs stay for the next run.  Every buffer a graph reads or
+        # writes is the engine's (``_RUN_BUFFERS``): it lives as long as
+        # the graph (``release`` and a growth drop the graphs first) and
+        # is reset in place before a run (``_run_buffers``).  What a run
+        # hands back is on the host (the violation and deadlock decoded,
+        # the trace store filled from copies of the trace buffer), so no
+        # graph can write a buffer that an earlier run's ``EngineResult``
+        # or trace store still reads.
         mt, evlog, res = self.metrics, self._evlog, self._result
         failed = [f for f in self._failed if f is not res]
         if res is not None:
             res.device_seconds += sum(f.device_seconds for f in failed)
+            res.graph_captures += sum(f.graph_captures for f in failed)
+            res.graph_hits += sum(f.graph_hits for f in failed)
         mem = device_memory_stats(self.device)
         alloc = alloc_delta(self._mem0, mem)
         gcs = self._gc_watch.summary()
@@ -1247,7 +1323,10 @@ class BFSEngine:
             tracer.complete("run", self._run_t0, run_id=self._run_id,
                             engine=type(self).__name__,
                             stop_reason=getattr(res, "stop_reason", None),
-                            invariants=list(self.inv_names))
+                            invariants=list(self.inv_names),
+                            graph_captures=getattr(res, "graph_captures",
+                                                   None),
+                            graph_hits=getattr(res, "graph_hits", None))
             tracer.write()
         end = dict(
             stop_reason=(getattr(res, "stop_reason", None)
@@ -1265,6 +1344,8 @@ class BFSEngine:
             devices_memory=all_device_memory_stats(self.device),
             run_id=self._run_id, alloc=alloc, gc=gcs,
             device_seconds=getattr(res, "device_seconds", None),
+            graph_captures=getattr(res, "graph_captures", None),
+            graph_hits=getattr(res, "graph_hits", None),
             invariants=list(self.inv_names))
         # The phases end here: run_end carries them all, the failed
         # attempts' too (the registry has had them since).
@@ -1430,31 +1511,10 @@ class BFSEngine:
         trace = self.trace = make_trace_store(cfg.trace_store)
         res.trace_store = trace.kind
         t_enter = time.perf_counter()
-        QA = Q + self._PAD
-        F = len(dims.family_sizes)
-
-        def queue():
-            return torch.zeros((QA, sw), dtype=ROW_DTYPE, device=dev)
-
         self._start_level0()
         with self._span("warmup"):
-            qcur, qnext = queue(), queue()
-            free_q = [queue()]          # the async spill's spare
-            self._queue_names = {q.data_ptr(): f"q{i}" for i, q in
-                                 enumerate((qcur, qnext, free_q[0]))}
-            self._tbuf = torch.zeros((self._TA, chunk_mod.TRACE_ROW),
-                                     dtype=torch.uint8, device=dev)
-            self._cs = chunk_mod.chunk_state(F, sw, dev)
-            self._ctl = torch.zeros(chunk_mod.state_words(F),
-                                    dtype=torch.int32,
-                                    pin_memory=dev.type == "cuda")
-            self._pinned = None
-            if dev.type == "cuda":
-                self._copy_stream = torch.cuda.Stream(dev)
-                self._burst_events = (torch.cuda.Event(enable_timing=True),
-                                      torch.cuda.Event(enable_timing=True))
-            if resume is None:
-                seen = fpset.empty(self._seen_cap, dev)
+            (qcur, qnext, spare), seen = self._run_buffers(resume is None)
+            free_q = [spare]            # the async spill's spare
         inflight: List = []         # drains not yet landed
         pending = SpillPool(cfg.spill_dir)      # host segments of this level
         spill_next = SpillPool(cfg.spill_dir)   # host segments of the next
@@ -1465,6 +1525,7 @@ class BFSEngine:
             seen_size = int(seen.size[0])
             while seen_size > seen.capacity // 2:
                 seen = fpset.grow(seen, 2 * seen.capacity)
+            seen = self._keep_seen(seen)
             fr = resume.frontier
             rest = fr[Q:].cpu().numpy()     # one host copy, then pieces
             for i in range(0, rest.shape[0], Q):

@@ -363,7 +363,8 @@ def run_check(cfg_path: str, engine_config: Optional[EngineConfig] = None,
     """Parse the cfg, build the engine, run it (from the cfg's initial
     states, the smoke roots drawn from ``seed``, or from ``resume``: a
     snapshot's path or a ``Checkpoint``); the engine rides on the result
-    as ``res.engine`` (for ``replay``), holding no graphs after its run."""
+    as ``res.engine`` (for ``replay``), its graphs and run buffers given
+    back (``release``): a one-shot check keeps nothing warm."""
     setup = load_config(cfg_path)
     engine = make_engine(setup, engine_config, device=device,
                          engine_cls=engine_cls, devices=devices)
@@ -371,6 +372,7 @@ def run_check(cfg_path: str, engine_config: Optional[EngineConfig] = None,
         res = engine.run(initial_states(setup, seed=seed))
     else:
         res = engine.run(resume=resume)
+    engine.release()
     res.engine = engine
     return res
 

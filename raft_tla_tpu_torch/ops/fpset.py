@@ -58,6 +58,15 @@ def empty(capacity: int, device) -> FPSet:
                  owner=owner)
 
 
+def clear(s: FPSet) -> None:
+    """Empty ``s`` in place, as ``empty`` makes a table of its capacity:
+    every slot free, the size 0, the owner scratch all ``NO_OWNER``."""
+    s.keys.fill_(EMPTY)
+    s.size.zero_()
+    if s.owner is not None:
+        s.owner.fill_(NO_OWNER)
+
+
 def pack(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """int64 tensors holding uint32 lanes -> int64 packed keys."""
     hs = torch.where(hi >= 1 << 31, hi - (1 << 32), hi)

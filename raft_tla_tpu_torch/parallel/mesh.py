@@ -448,6 +448,15 @@ class MeshBFSEngine(BFSEngine):
 
     _RUN_BUFFERS = ("_css", "_tbufs", "_ctl", "_st_groups")
 
+    def _finish(self, err):
+        """``BFSEngine._finish``, the graphs dropped first: the mesh's
+        queues, tables and states are its run's own (``_run_impl``
+        allocates them anew), so a graph captured on them must not
+        outlive the run (a queue that lands at the same address would
+        key it to the next run's other buffers)."""
+        self._drop_graphs()
+        BFSEngine._finish(self, err)
+
     def _rebuild_at_batch(self, new_batch: int) -> None:
         """The mesh again at a smaller batch (OOM degradation)."""
         self.release()

@@ -180,9 +180,9 @@ def _cache_put(cache: "OrderedDict", key, value, name: str):
 
 
 def _release(engine) -> None:
-    """An evicted warm engine's device memory back: its run buffers
-    (its graphs went at its run's end); what else it holds goes with the
-    object."""
+    """An evicted warm engine's device memory back: its graphs and the
+    run buffers they were captured on, kept between its jobs; what else
+    it holds goes with the object."""
     engine.release()
 
 

@@ -245,14 +245,16 @@ def test_seeded_event_streams_equal_jax(seeded):
         # run_start also names the port's trace store (the JAX run_start
         # has no such field; its store is not chosen per run).  The port's
         # run_start and run_end carry the run's id, and run_end the run's
-        # allocator, garbage-collector and device-time counters, and the
-        # invariants it evaluated.
+        # allocator, garbage-collector, device-time and CUDA graph
+        # counters (no graph on the CPU), and the invariants it
+        # evaluated.
         if t["event"] == "run_start":
             assert t.pop("trace_store") == "columnar"
         if t["event"] in ("run_start", "run_end"):
             assert t.pop("run_id") == tres.run_id
         if t["event"] == "run_end":
             assert t.pop("alloc") == {} and t.pop("device_seconds") == 0.0
+            assert (t.pop("graph_captures"), t.pop("graph_hits")) == (0, 0)
             assert t.pop("invariants") == tres.invariants
             assert set(t.pop("gc")) == {"collections", "seconds",
                                         "gen2_collections", "gen2_seconds",

@@ -32,7 +32,7 @@ from raft_tla_tpu.resilience import faults as jfaults
 from raft_tla_tpu.utils.cfg import load_config as j_load_config
 from raft_tla_tpu_torch.engine import checkpoint as ckpt_mod
 from raft_tla_tpu_torch.engine.bfs import BFSEngine, EngineConfig
-from raft_tla_tpu_torch.engine.check import run_check
+from raft_tla_tpu_torch.engine.check import initial_states, run_check
 from raft_tla_tpu_torch.engine.spillpool import SpillPool
 from raft_tla_tpu_torch.ops import fpset
 from raft_tla_tpu_torch.parallel.mesh import MeshBFSEngine
@@ -316,21 +316,139 @@ def test_mesh_growth_oom_degrades(tmp_path):
     assert res.engine.config.batch == 32 and len(res.degraded) == 1
 
 
-def test_every_run_captures_its_own_graphs():
-    """A warm engine's graphs belong to the buffers of the run that
-    captured them: the next run starts with none."""
-    eng = BFSEngine(load_config(BOUNDED).dims, config=config(max_diameter=2),
-                    device="cpu")
-    from raft_tla_tpu_torch.engine.check import initial_states
+# -- C8 under kept buffers: a warm engine's graphs and run buffers --------
+
+def one_grant(st):
+    """No server holds two vote grants: first broken at depth 8 of
+    MCraft_bounded, mid-level, after the queue has spilled."""
+    g = st.votes_gran
+    return sum((g >> b) & 1 for b in range(st.term.shape[1])).le(1).all(1)
+
+
+def warm_engine(violating=False, **kw):
+    """MCraft_bounded on the CPU with its cfg's invariants and constraint
+    (and ``one_grant`` when ``violating``), trace on; a 4,096-row queue,
+    so deep runs spill."""
+    from raft_tla_tpu_torch.engine.check import (resolve_constraint,
+                                                 resolve_invariants)
+    setup = load_config(BOUNDED)
+    inv = resolve_invariants(setup)
+    if violating:
+        inv = {**inv, "OneGrant": one_grant}
+    base = dict(seen_capacity=1 << 15, max_diameter=8 if violating else 6,
+                record_trace=True)
+    base.update(kw)
+    return BFSEngine(setup.dims, invariants=inv,
+                     constraint=resolve_constraint(setup),
+                     config=config(**base), device="cpu")
+
+
+def answer(eng, res):
+    """What a run answers: counts, levels, families, the violation's state
+    and its replayed trace, the trace store's links."""
+    v = res.violation
+    fps, parents, actions = eng.trace.export()
+    return (res.distinct, res.generated, res.levels, res.action_counts,
+            res.stop_reason,
+            v and (v.invariant, v.fingerprint, repr(v.state),
+                   repr(eng.replay(v.fingerprint))),
+            sorted(zip(fps.tolist(), parents.tolist(), actions.tolist())))
+
+
+def kept_pointers(eng):
+    return [t.data_ptr() for t in (*eng._queues, eng._seen.keys,
+                                   eng._seen.size, eng._tbuf, eng._cs.st,
+                                   eng._ctl)]
+
+
+def resume_l3(eng, tmp_path):
+    """A level-3 snapshot of a fresh engine's run, resumed by ``eng``."""
+    ck = str(tmp_path / "ck")
+    writer = warm_engine(max_diameter=3, checkpoint_dir=ck,
+                         checkpoint_interval_seconds=0.0)
+    writer.run(initial_states(load_config(BOUNDED)))
+    eng.run(resume=eng.resume_point(
+        ckpt_mod.load(ckpt_mod.latest(ck))))
+
+
+@pytest.mark.parametrize("before", ["second_run", "violation", "growth",
+                                    "release", "resume"])
+def test_a_warm_engine_equals_a_fresh_one(before, tmp_path):
+    """C8's point under kept buffers: a warm engine's run, on the buffers
+    and graphs an earlier run left, answers as a fresh engine's does,
+    whatever that run was: a whole run (on the same buffers), a run that
+    stopped on a violation mid-level after spilling, one that grew the
+    seen table (kept, larger), one followed by ``release``, or a resumed
+    run (whose table the engine keeps)."""
+    violating = before == "violation"
+    kw = dict(seen_capacity=1 << 10) if before == "growth" else {}
     roots = initial_states(load_config(BOUNDED))
-    eng.run(roots)
-    eng._graphs[("stale",)] = None
-    eng._pool = "stale"
+    fresh = warm_engine(violating, **kw)
+    want = answer(fresh, fresh.run(roots))
+    eng = warm_engine(violating, **kw)
+    if before == "resume":
+        resume_l3(eng, tmp_path)
+        table = eng._seen
+    else:
+        first = eng.run(roots)
+        assert answer(eng, first) == want
+        ptrs = kept_pointers(eng)
+        if before == "growth":
+            assert len(first.growth_stalls) == 2
+        if before == "release":
+            eng.release()
     res = eng.run(roots)
-    assert not eng._graphs and eng._pool is None
-    assert res.distinct == 22
+    assert answer(eng, res) == want
+    if before == "second_run":
+        assert kept_pointers(eng) == ptrs
+    if before == "growth":
+        assert not res.growth_stalls and eng._seen.capacity == 1 << 15
+    if before == "resume":
+        assert eng._seen is table
+    assert res.graph_captures == res.graph_hits == 0     # none on the CPU
+
+
+def test_release_frees_the_kept_buffers():
+    """``release`` gives back every buffer a run keeps: the queues, the
+    seen table, the trace buffer, the chunk state and control words; the
+    graphs go first."""
+    import gc
+    import weakref
+    eng = warm_engine(max_diameter=2)
+    eng.run(initial_states(load_config(BOUNDED)))
+    kept = [weakref.ref(t) for t in (*eng._queues, eng._seen.keys,
+                                     eng._tbuf, eng._cs.st, eng._ctl)]
+    eng._graphs[("sentinel",)] = None
     eng.release()
-    assert not hasattr(eng, "_tbuf") and not hasattr(eng, "_cs")
+    gc.collect()
+    assert not eng._graphs and eng._pool is None
+    assert not any(hasattr(eng, n) for n in eng._RUN_BUFFERS)
+    assert all(r() is None for r in kept)
+
+
+def test_the_graph_cache_counts_captures_and_hits(monkeypatch):
+    """Each chunk's lookup counts a capture or a hit, on the result and in
+    the registry: the first lookup of a buffer set captures, the next
+    hit, a growth's new table captures again."""
+    from raft_tla_tpu_torch.engine import bfs
+    from raft_tla_tpu_torch.engine.bfs import EngineResult
+    eng = warm_engine(max_diameter=2)
+    eng._warm = True
+    monkeypatch.setattr(bfs, "capture_graph",
+                        lambda fn, device, pool: object())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
+    res = EngineResult()
+    for key in (("q1", "q0"), ("q0", "q1"), ("q1", "q0"), ("q1", "q0")):
+        eng._graph_replay(key, lambda: None, res)
+    assert (res.graph_captures, res.graph_hits) == (2, 2)
+    seen = fpset.empty(1 << 10, "cpu")
+    eng._keep_seen(seen)
+    assert not eng._graphs
+    eng._graph_replay(("q1", "q0"), lambda: None, res)
+    assert (res.graph_captures, res.graph_hits) == (3, 2)
+    mt = eng.metrics
+    assert (mt.counter_value("engine/graph_captures"),
+            mt.counter_value("engine/graph_hits")) == (3, 2)
 
 
 # -- the supervisor through the port's CLI --------------------------------
