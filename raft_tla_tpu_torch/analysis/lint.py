@@ -23,17 +23,19 @@ Three halves, one pass:
   lane silently loses bits).
 
 - **Host-loop AST lint**: the steady-state loop (``engine/chunk.py``,
-  and ``engine/bfs.py``'s ``_run_impl`` with the chunk call, the
-  dispatch and the spill it runs) must fetch device data only at
-  sanctioned sync points; any other blocking read (``.item()``,
-  ``.tolist()``, ``.cpu()``, ``.numpy()``, ``torch.cuda.synchronize()``,
-  an event's ``.synchronize()``, ``np.asarray``/``np.array``) inside a
-  loop serializes the dispatch queue.  Sanctioned means: timed as the
-  loop's ``sync`` phase (the statements from the timer's start to the
-  ``_phase("sync", ...)`` call that reads it), inside a ``with
-  ...span(...)`` or ``phase_timer(...)`` block (every such sync is
-  visible in the trace or the phase breakdown), or inside a branch that
-  exits the loop (violation / deadlock reporting runs once).
+  and ``engine/bfs.py``'s ``_run_impl``, the level loop of both engines,
+  with the roots' ingest, the chunk call, the dispatch, the spill and
+  the other per-shard steps it calls, ``BFS_LOOP_SCOPE``) must fetch
+  device data only at sanctioned sync points; any other blocking read
+  (``.item()``, ``.tolist()``, ``.cpu()``, ``.numpy()``,
+  ``torch.cuda.synchronize()``, an event's ``.synchronize()``,
+  ``np.asarray``/``np.array``) inside a loop serializes the dispatch
+  queue.  Sanctioned means: timed as the loop's ``sync`` phase (the
+  statements from the timer's start to the ``_phase("sync", ...)`` call
+  that reads it), inside a ``with ...span(...)`` or ``phase_timer(...)``
+  block (every such sync is visible in the trace or the phase
+  breakdown), or inside a branch that exits the loop (violation /
+  deadlock reporting runs once).
 
 - **Read-set self-check**: analyzer-vs-analyzer consistency — any state
   lane a kernel graph demonstrably reads (consumed by a non-moving op on
@@ -523,21 +525,25 @@ def scan_host_loops(path: str, scope: Optional[Sequence[str]] = None
                     ) -> List[Finding]:
     """AST lint one file for blocking device reads inside loops outside
     sanctioned sync points.  ``scope`` restricts the scan to the named
-    function defs (at any nesting depth); None scans the whole module."""
+    function defs (at any nesting depth); None scans the whole module.
+    A named def with no loop of its own is a step the loop calls, and
+    is scanned as inside a loop."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), filename=path)
-    roots: List[Sequence[ast.stmt]] = []
+    roots: List[Tuple[Sequence[ast.stmt], bool]] = []
     if scope is None:
-        roots.append(tree.body)
+        roots.append((tree.body, False))
     else:
         want = set(scope)
         for n in ast.walk(tree):
             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)) \
                     and n.name in want:
-                roots.append(n.body)
+                roots.append((n.body, not any(
+                    isinstance(m, (ast.While, ast.For, ast.AsyncFor))
+                    for m in ast.walk(n))))
     hits: List[Tuple[int, str]] = []
-    for body in roots:
-        _scan_block(body, in_loop=False, sanctioned=False, hits=hits)
+    for body, in_loop in roots:
+        _scan_block(body, in_loop=in_loop, sanctioned=False, hits=hits)
     # One finding a line (``x.cpu().numpy()`` is one read).
     hits = sorted({ln: kind for ln, kind in reversed(hits)}.items())
     rel = os.path.relpath(path, start=os.getcwd()) \
@@ -551,9 +557,15 @@ def scan_host_loops(path: str, scope: Optional[Sequence[str]] = None
         for ln, kind in hits]
 
 
-#: The level loop's methods the host-loop scan covers in engine/bfs.py.
+#: The level loop's methods the host-loop scan covers in engine/bfs.py:
+#: the loop, the roots' ingest, and the steps on one shard it calls.
 BFS_LOOP_SCOPE = ("_run_impl", "_run_chunk", "_dispatch", "_spill",
-                  "_resolve_spill")
+                  "_resolve_spill", "_ingest", "_ingest_wave", "_spill_sync",
+                  "_land_spills", "_resume_source", "_run_buffers",
+                  "_resume_into", "_device_name", "_seen_capacity",
+                  "_chunk_call", "_flush_rows", "_flagged", "_host_left",
+                  "_host_rows", "_upload", "_write_checkpoint", "_budget",
+                  "_sample_skew")
 
 
 def _default_targets() -> List[Tuple[str, Optional[Tuple[str, ...]]]]:

@@ -48,6 +48,11 @@ a chunk.  What it keeps of the JAX engine:
 - ``replay``: walk the trace back to a root and re-run the successor
   function forward, matching each recorded child by fingerprint.
 
+The level loop (``_run_impl``, the roots' ``_ingest``) is the mesh's
+too (``parallel/mesh.py``): it holds counts, seen sizes and stats words
+as lists with one entry a shard, and what one shard does at each of its
+steps is a method the mesh overrides for n.
+
 ``EngineResult.phases`` splits ``run()``'s wall time, on
 ``time.perf_counter``'s clock, into disjoint phases that cover it: the
 run's set-up, the host's dispatch of each chunk, its waits for the device
@@ -519,7 +524,8 @@ class BFSEngine:
                  device="cuda"):
         # Re-entered at a smaller batch by OOM degradation
         # (_rebuild_at_batch): everything below is rebuilt but the
-        # registry and the open event log.
+        # registry and the open event log.  The mesh sizes its shards'
+        # tables and builds their step in the methods it overrides.
         self.dims = dims
         self.config = cfg = config or EngineConfig()
         self.device = dev = resolve_device(device)
@@ -527,7 +533,7 @@ class BFSEngine:
             self.metrics = (cfg.metrics if cfg.metrics is not None
                             else MetricsRegistry())
             self._evlog = RunEventLog(None)
-            self.tracer = SpanTracer(cfg.trace_out)
+            self.tracer = SpanTracer(self._trace_out())
             self.metrics.tracer = self.tracer
             self._xla_capture = None
         self.inv_names = list((invariants or {}).keys())
@@ -537,34 +543,19 @@ class BFSEngine:
         self._constraint = constraint
         self._plan_name = resolve_pipeline(cfg.pipeline)
         self._v2 = build_v2(dims, dev)
-        self._fingerprint = build_fingerprint(dims, dev)
-        self._plan = PLANS[self._plan_name].resolve_plan(dev,
-                                                          cfg.enqueue_method)
-        # v1 has no fused tail: "fused" resolves to the enqueue kernel.
-        self._expand, self._method, self._plan_reasons = None, \
-            cfg.enqueue_method, {}
-        if self._plan_name == "v1":
-            self._expand = build_expand(dims, dev)
-            self._method, self._plan_reasons = pipeline_v1.resolve_method(
-                cfg.enqueue_method)
+        self._expand = (build_expand(dims, dev) if self._plan_name == "v1"
+                        else None)
+        self._plan, self._plan_reasons, self._method = self._resolve_plan()
         if cfg.checkpoint_dir is not None:
             ckpt_mod.check_dims_checkpointable(dims)
         self._por_table = resolve_por(cfg, dims, invariants or {},
                                       constraint)
-        por_mask, por_priority = por_device_arrays(self._por_table, dev)
         self._check_deadlock = (True if cfg.check_deadlock is None
                                 else cfg.check_deadlock)
         sw = state_width(dims)
         B, G = cfg.batch, dims.n_instances
         K = compact_mod.choose_k(B, G, cfg.compact_lanes)
-        qreq, sreq = cfg.queue_capacity, cfg.seen_capacity
-        if qreq is None or sreq is None:
-            auto_q, auto_s = auto_capacities(sw, B, cfg.record_trace,
-                                             device_memory(dev))
-            qreq = auto_q if qreq is None else qreq
-            sreq = auto_s if sreq is None else sreq
-        self._seen_cap = max(sreq, 8 * K)
-        Q = max(-(-qreq // B) * B, K)
+        Q = self._size_tables(sw, B, K)
         self._sw, self._B, self._G, self._Q, self._K = sw, B, G, Q, K
         self._PAD = max(B, K)
         self._QTH = Q - K
@@ -575,26 +566,63 @@ class BFSEngine:
         self._TQ = Q + K if cfg.record_trace else 0
         self._TA = self._TQ + K if cfg.record_trace else 1
         self._CH = max(1, cfg.sync_every)
-        front = None
-        if self._plan_name == "v4":
-            front = Front(dims=dims, v2=self._v2, inv_fns=self._inv_fns,
-                          constraint=constraint, B=B, K=K, device=dev,
-                          por_mask=por_mask, por_priority=por_priority)
-        self._front, self._front_info = front, None
-        self._step = chunk_mod.ChunkStep(
-            dims=dims, B=B, K=K, Q=Q, QTH=self._QTH, TQ=self._TQ,
-            record_trace=cfg.record_trace,
-            check_deadlock=self._check_deadlock, device=dev,
-            v2=self._v2, inv_fns=self._inv_fns, constraint=constraint,
-            front=front, enqueue_method=self._method,
-            por_mask=por_mask, por_priority=por_priority,
-            expand=self._expand)
         self._graphs: Dict[tuple, tuple] = {}
         self._pool = None
         self._warm = False
         self.trace = make_trace_store(cfg.trace_store)
+        self._build_step()
+
+    def _trace_out(self) -> Optional[str]:
+        """The span file (``trace_out``)."""
+        return self.config.trace_out
+
+    def _resolve_plan(self):
+        """``(fused_stages, fused_reasons, enqueue_method)`` of the plan
+        on the engine's device; v1 has no fused tail: "fused" resolves to
+        the enqueue kernel."""
+        method, reasons = self.config.enqueue_method, {}
+        if self._plan_name == "v1":
+            method, reasons = pipeline_v1.resolve_method(method)
+        return (PLANS[self._plan_name].resolve_plan(
+            self.device, self.config.enqueue_method), reasons, method)
+
+    def _size_tables(self, sw: int, B: int, K: int) -> int:
+        """The queue's rows Q (a multiple of B, at least K) and the seen
+        table's first capacity, as configured or from the card's
+        memory."""
+        cfg = self.config
+        qreq, sreq = cfg.queue_capacity, cfg.seen_capacity
+        if qreq is None or sreq is None:
+            auto_q, auto_s = auto_capacities(sw, B, cfg.record_trace,
+                                             device_memory(self.device))
+            qreq = auto_q if qreq is None else qreq
+            sreq = auto_s if sreq is None else sreq
+        self._seen_cap = max(sreq, 8 * K)
+        return max(-(-qreq // B) * B, K)
+
+    def _build_step(self) -> None:
+        """The chunk step (v4: behind its front kernel), the fingerprint
+        and the observers on the engine's device."""
+        cfg, dims, dev, B, K = (self.config, self.dims, self.device,
+                                self._B, self._K)
+        por_mask, por_priority = por_device_arrays(self._por_table, dev)
+        self._fingerprint = build_fingerprint(dims, dev)
+        front = None
+        if self._plan_name == "v4":
+            front = Front(dims=dims, v2=self._v2, inv_fns=self._inv_fns,
+                          constraint=self._constraint, B=B, K=K, device=dev,
+                          por_mask=por_mask, por_priority=por_priority)
+        self._front, self._front_info = front, None
+        self._step = chunk_mod.ChunkStep(
+            dims=dims, B=B, K=K, Q=self._Q, QTH=self._QTH, TQ=self._TQ,
+            record_trace=cfg.record_trace,
+            check_deadlock=self._check_deadlock, device=dev,
+            v2=self._v2, inv_fns=self._inv_fns, constraint=self._constraint,
+            front=front, enqueue_method=self._method,
+            por_mask=por_mask, por_priority=por_priority,
+            expand=self._expand)
         self._build_observers(dict(
-            v2=self._v2, inv_fns=self._inv_fns, constraint=constraint,
+            v2=self._v2, inv_fns=self._inv_fns, constraint=self._constraint,
             record_trace=cfg.record_trace,
             enqueue_method=self._method, por_mask=por_mask,
             por_priority=por_priority, expand=self._expand))
@@ -630,27 +658,6 @@ class BFSEngine:
                 device=dev, metrics=self.metrics)
 
     # ------------------------------------------------------------------
-    def _absorb(self, rows, valid, seen, qnext, next_count: int):
-        """Root ingest: fingerprint full rows, insert, enqueue the novel
-        constraint-passing ones.  Returns (n_new, count, fail, new, fph,
-        fpl, inv)."""
-        cands = unflatten_state(rows, self.dims)
-        fph, fpl = self._fingerprint(cands)
-        new, fail = insert(seen, pack(fph, fpl), valid)
-        if self._inv_id is not None:
-            inv = self._inv_id(cands)
-        else:
-            inv = torch.full(new.shape, -1, dtype=torch.int64,
-                             device=self.device)
-        if self._constraint is not None:
-            enq = new & self._constraint(cands)
-        else:
-            enq = new
-        idx = enq.nonzero().squeeze(1)
-        qnext[next_count:next_count + idx.shape[0]] = rows[idx]
-        return (int(new.sum()), next_count + idx.shape[0], bool(fail), new,
-                fph, fpl, inv)
-
     def _record(self, new, kh, kl):
         """Root records: parent 0, action -1."""
         if not self.config.record_trace:
@@ -846,15 +853,16 @@ class BFSEngine:
             trace=(ck.trace_fps, ck.trace_parents, ck.trace_actions),
             roots=dict(ck.roots))
 
-    def _write_checkpoint(self, qcur, cur_count, pending, seen, res, trace,
+    def _write_checkpoint(self, qcur, cur_counts, pending, seen, res, trace,
                           wall):
         """Snapshot the level boundary: this level's frontier (device rows,
         then the host segments), the seen keys, counters and trace."""
-        seen_hi, seen_lo = fpset.to_host_keys(seen)
-        self._save_checkpoint(
-            np.concatenate([host_rows(qcur[:cur_count]),
-                            *pending.segments()]),
-            seen_hi, seen_lo, res, trace, wall)
+        with self._span("checkpoint"):
+            seen_hi, seen_lo = fpset.to_host_keys(seen)
+            self._save_checkpoint(
+                np.concatenate([host_rows(qcur[:cur_counts[0]]),
+                                *pending.segments()]),
+                seen_hi, seen_lo, res, trace, wall)
 
     def _save_checkpoint(self, frontier, seen_hi, seen_lo, res, trace,
                          wall, path: Optional[str] = None):
@@ -921,7 +929,8 @@ class BFSEngine:
     #: What the engine keeps on its device besides the graphs, from its
     #: first run to ``release``: every buffer a graph reads or writes.
     _RUN_BUFFERS = ("_queues", "_seen", "_tbuf", "_cs", "_ctl", "_pinned",
-                    "_copy_stream", "_burst_events", "_queue_names")
+                    "_copy_stream", "_burst_events", "_queue_names",
+                    "_free_q", "_inflight")
 
     def release(self) -> None:
         """Give back what the engine holds on its device (the checker
@@ -933,9 +942,10 @@ class BFSEngine:
             self.__dict__.pop(name, None)
 
     def _run_buffers(self, fresh_table: bool):
-        """The run's three queues ``(qcur, qnext, the spill's spare)`` and
-        its seen table (None when ``fresh_table`` is false: a resumed run
-        brings its own, ``_keep_seen``).  The engine's first run allocates
+        """The run's queues ``(qcur, qnext)`` and seen table (None when
+        ``fresh_table`` is false: a resumed run brings its own,
+        ``_keep_seen``); the third queue is the async spill's spare
+        (``_free_q``).  The engine's first run allocates
         them with the trace buffer, the chunk state and the control words;
         every later run gets the same tensors back, in the same order, so
         its chunks hit the graphs an earlier run captured.  The reset is
@@ -949,37 +959,40 @@ class BFSEngine:
         drop, and nothing else reads them (within a run they hold an
         older level's rows anyway)."""
         dev = self.device
-        if "_queues" not in self.__dict__:
-            F = len(self.dims.family_sizes)
-            bufs = dict(
-                _queues=tuple(torch.zeros((self._Q + self._PAD, self._sw),
-                                          dtype=ROW_DTYPE, device=dev)
-                              for _ in range(3)),
-                _seen=None, _pinned=None,
-                _tbuf=torch.zeros((self._TA, chunk_mod.TRACE_ROW),
-                                  dtype=torch.uint8, device=dev),
-                _cs=chunk_mod.chunk_state(F, self._sw, dev),
-                _ctl=torch.zeros(chunk_mod.state_words(F), dtype=torch.int32,
-                                 pin_memory=dev.type == "cuda"))
-            bufs["_queue_names"] = {q.data_ptr(): f"q{i}" for i, q in
-                                    enumerate(bufs["_queues"])}
-            if dev.type == "cuda":
-                bufs["_copy_stream"] = torch.cuda.Stream(dev)
-                bufs["_burst_events"] = (
-                    torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            self.__dict__.update(bufs)      # all of them, or none
-        elif dev.type == "cuda":
-            # A drain the last run left in flight reads a queue this run
-            # writes.
-            torch.cuda.current_stream(dev).wait_stream(self._copy_stream)
-        if not fresh_table:
-            return self._queues, None
-        if self._seen is None:
-            self._seen = fpset.empty(self._seen_cap, dev)
-        else:
-            fpset.clear(self._seen)
-        return self._queues, self._seen
+        with self._span("warmup"):
+            if "_queues" not in self.__dict__:
+                F = len(self.dims.family_sizes)
+                bufs = dict(
+                    _queues=tuple(torch.zeros(
+                        (self._Q + self._PAD, self._sw), dtype=ROW_DTYPE,
+                        device=dev) for _ in range(3)),
+                    _seen=None, _pinned=None,
+                    _tbuf=torch.zeros((self._TA, chunk_mod.TRACE_ROW),
+                                      dtype=torch.uint8, device=dev),
+                    _cs=chunk_mod.chunk_state(F, self._sw, dev),
+                    _ctl=torch.zeros(chunk_mod.state_words(F),
+                                     dtype=torch.int32,
+                                     pin_memory=dev.type == "cuda"))
+                bufs["_queue_names"] = {q.data_ptr(): f"q{i}" for i, q in
+                                        enumerate(bufs["_queues"])}
+                if dev.type == "cuda":
+                    bufs["_copy_stream"] = torch.cuda.Stream(dev)
+                    bufs["_burst_events"] = (
+                        torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                self.__dict__.update(bufs)      # all of them, or none
+            elif dev.type == "cuda":
+                # A drain the last run left in flight reads a queue this
+                # run writes.
+                torch.cuda.current_stream(dev).wait_stream(
+                    self._copy_stream)
+            if fresh_table and self._seen is None:
+                self._seen = fpset.empty(self._seen_cap, dev)
+            elif fresh_table:
+                fpset.clear(self._seen)
+        qcur, qnext, spare = self._queues
+        self._free_q, self._inflight = [spare], []
+        return qcur, qnext, self._seen if fresh_table else None
 
     def _keep_seen(self, seen):
         """``seen`` as the engine's table from here on (a growth's, a
@@ -994,11 +1007,7 @@ class BFSEngine:
         """One step on these buffers: a graph replay on the card (captured
         at first use; a capture that fails raises), the step itself on the
         CPU."""
-        step, tbuf, cs = self._step, self._tbuf, self._cs
-
-        def eager():
-            step(qcur, seen, qnext, tbuf, cs)
-
+        eager = self._eager(qcur, qnext, seen)
         if self.device.type != "cuda":
             return eager
         names = self._queue_names
@@ -1007,6 +1016,11 @@ class BFSEngine:
             eager, res, lambda: (f"{names.get(qcur.data_ptr(), '?')}>"
                                  f"{names.get(qnext.data_ptr(), '?')}, "
                                  f"seen {seen.capacity}"))
+
+    def _eager(self, qcur, qnext, seen):
+        """One step on these buffers, run as it is."""
+        step, tbuf, cs = self._step, self._tbuf, self._cs
+        return lambda: step(qcur, seen, qnext, tbuf, cs)
 
     def _graph_replay(self, key, eager, res, buffers=None):
         """A replay of ``eager``'s graph for the buffers ``key`` names
@@ -1116,7 +1130,7 @@ class BFSEngine:
             done, at = st[ST_STEPS], st[ST_OFFSET]
 
     def _observe_chunk(self, qcur, qnext, seen, offset: int,
-                       cur_count: int) -> None:
+                       cur_counts) -> None:
         """Before a chunk call (between graph replays): the launch model
         at the first call with perf on, and the profiler's sample of the
         batch the call expands first.  Neither changes what the engine
@@ -1124,10 +1138,11 @@ class BFSEngine:
         pf, prof = self._perf, self._profiler
         if pf is not None and pf.wants_model(self._xla_capture):
             t = time.perf_counter()
+            step = self._eager(qcur, qnext, seen)
 
             def idle_step():
                 self._write_idle_ctl()
-                self._step(qcur, seen, qnext, self._tbuf, self._cs)
+                step()
 
             pf.measure(idle_step,
                        lambda: self._dispatch(lambda: None, 0, seen))
@@ -1138,32 +1153,42 @@ class BFSEngine:
             with self._span("profile"):
                 prof.sample(qcur[offset:offset + B],
                             (offset + torch.arange(B, device=self.device))
-                            < cur_count)
+                            < cur_counts[0])
             self._phase("profile", time.perf_counter() - t)
 
-    def _spill(self, inflight, free_q, qnext, count: int):
-        """Start draining ``count`` rows of ``qnext`` to the host and
-        return the spare queue to go on with.  On the card the copy runs
-        on a copy stream into pinned memory, behind the next chunks."""
-        ev = None
-        if self.device.type == "cuda":
-            if self._pinned is None:
-                self._pinned = torch.empty(qnext.shape, dtype=qnext.dtype,
-                                           pin_memory=True)
-            cur = torch.cuda.current_stream(self.device)
-            self._copy_stream.wait_stream(cur)
-            with torch.cuda.stream(self._copy_stream):
-                self._pinned[:count].copy_(qnext[:count], non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(self._copy_stream)
-        inflight.append((qnext, count, ev))
-        return free_q.pop()
+    def _spill(self, qnext, counts, spill_next):
+        """Land the drain in flight, start draining the ``counts[0]``
+        rows of ``qnext`` to the host and return the spare queue to go
+        on with.  On the card the copy runs on a copy stream into pinned
+        memory, behind the next chunks."""
+        self._resolve_spill(spill_next)
+        with self._span("spill"):
+            count, ev = counts[0], None
+            if self.device.type == "cuda":
+                if self._pinned is None:
+                    self._pinned = torch.empty(
+                        qnext.shape, dtype=qnext.dtype, pin_memory=True)
+                cur = torch.cuda.current_stream(self.device)
+                self._copy_stream.wait_stream(cur)
+                with torch.cuda.stream(self._copy_stream):
+                    self._pinned[:count].copy_(qnext[:count],
+                                               non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(self._copy_stream)
+            self._inflight.append((qnext, count, ev))
+            return self._free_q.pop()
 
-    def _resolve_spill(self, inflight, free_q, spill_next):
+    def _spill_sync(self, qnext, counts, spill_next):
+        """The ingest's drain: the ``counts[0]`` rows of ``qnext`` to the
+        host pool at once."""
+        with self._span("spill"):
+            spill_next.append(host_rows(qnext[:counts[0]]))
+
+    def _resolve_spill(self, spill_next):
         """Land the drain in flight in the spill pool; its queue becomes
         the spare."""
-        while inflight:
-            buf, count, ev = inflight.pop(0)
+        while self._inflight:
+            buf, count, ev = self._inflight.pop(0)
             with self._span("spill"):
                 if ev is None:
                     spill_next.append(host_rows(buf[:count]))
@@ -1172,7 +1197,13 @@ class BFSEngine:
                         ev.synchronize()
                     spill_next.append(self._pinned[:count].numpy(),
                                       copy=True)
-            free_q.append(buf)
+            self._free_q.append(buf)
+
+    def _land_spills(self, spill_next):
+        """The level's end: the drain in flight lands in the pool."""
+        t_s = time.perf_counter()
+        self._resolve_spill(spill_next)
+        self._phase("spill", time.perf_counter() - t_s)
 
     # ------------------------------------------------------------------
     def run(self, init_states: Optional[List[PyState]] = None,
@@ -1491,48 +1522,32 @@ class BFSEngine:
             device=self.device)
 
     def _run_impl(self, init_states, resume) -> EngineResult:
-        dims, cfg, dev = self.dims, self.config, self.device
-        sw, B, Q = self._sw, self._B, self._Q
+        """The level loop of both engines (the module doc)."""
+        dims, cfg = self.dims, self.config
         res = self._result = EngineResult(
             pipeline=self._plan_name, fused_stages=dict(self._plan),
             fused_reasons=dict(self._plan_reasons),
-            device=str(dev), por_instances=(self._por_table.certified
-                                            if self._por_table else 0),
+            device=self._device_name(),
+            por_instances=(self._por_table.certified
+                           if self._por_table else 0),
             family_groups=family_groups(dims))
         mt, evlog = self.metrics, self._evlog
         coverage = self.coverage = ActionCoverage(dims.family_names,
                                                   dims.family_sizes)
-        if isinstance(resume, str):
-            resume = ckpt_mod.load(resume)
-        if isinstance(resume, ckpt_mod.Checkpoint):
-            check_resume_trace(cfg, resume)
-            resume = self.resume_point(resume)
+        resume = self._resume_source(resume)
         res.phases.update(dict.fromkeys(PHASES, 0.0))
         trace = self.trace = make_trace_store(cfg.trace_store)
         res.trace_store = trace.kind
         t_enter = time.perf_counter()
         self._start_level0()
-        with self._span("warmup"):
-            (qcur, qnext, spare), seen = self._run_buffers(resume is None)
-            free_q = [spare]            # the async spill's spare
-        inflight: List = []         # drains not yet landed
+        qcur, qnext, seen = self._run_buffers(resume is None)
         pending = SpillPool(cfg.spill_dir)      # host segments of this level
         spill_next = SpillPool(cfg.spill_dir)   # host segments of the next
 
         t0 = time.perf_counter()
         if resume is not None:
-            seen = resume.seen
-            seen_size = int(seen.size[0])
-            while seen_size > seen.capacity // 2:
-                seen = fpset.grow(seen, 2 * seen.capacity)
-            seen = self._keep_seen(seen)
-            fr = resume.frontier
-            rest = fr[Q:].cpu().numpy()     # one host copy, then pieces
-            for i in range(0, rest.shape[0], Q):
-                pending.append(rest[i:i + Q])
-            fr = fr[:Q]
-            qcur[:fr.shape[0]] = fr.to(dev)
-            cur_count = fr.shape[0]
+            seen, cur_counts, sizes = self._resume_into(resume, qcur,
+                                                        pending, trace)
             res.distinct, res.generated = resume.distinct, resume.generated
             res.diameter, res.levels = resume.diameter, list(resume.levels)
             res.action_counts = dict(resume.action_counts)
@@ -1543,79 +1558,26 @@ class BFSEngine:
             # Duration accumulates across restarts: wall_seconds, the rate
             # and the max_seconds budget all measure total checking time.
             t0 -= resume.wall_seconds
-            if cfg.record_trace and resume.trace is not None:
-                trace.add_batch(*resume.trace)
-                trace.roots.update(resume.roots)
         else:
             rows_all = self._root_rows(init_states, res, trace, t_enter)
             if rows_all is None:
                 return res
             t0 = time.perf_counter()
-            next_count = seen_size = 0
-            for base in range(0, rows_all.shape[0], B):
-                if base and cfg.max_seconds is not None \
-                        and time.perf_counter() - t0 > cfg.max_seconds:
-                    res.stop_reason = "duration_budget"
-                    break
-                if base and cfg.exit_conditions:
-                    # "queue" during ingest: enqueued rows, spilled rows
-                    # and the roots not yet ingested.
-                    hit = exit_condition_hit(
-                        cfg.exit_conditions, res,
-                        next_count + spill_next.total_rows()
-                        + rows_all.shape[0] - base)
-                    if hit:
-                        res.stop_reason = hit
-                        break
-                t_h = time.perf_counter()
-                rows = torch.zeros((B, sw), dtype=ROW_DTYPE, device=dev)
-                part = rows_all[base:base + B]
-                rows[:part.shape[0]] = part
-                valid = torch.arange(B, device=dev) < part.shape[0]
-                with self._span("ingest"):
-                    n_new, next_count, fail, new, fph, fpl, inv = \
-                        self._absorb(rows, valid, seen, qnext, next_count)
-                res.distinct += n_new
-                with self._span("trace_flush"):
-                    self._record(new, fph, fpl)
-                if fail:
-                    raise RuntimeError("seen-set probe failure during "
-                                       "ingest; raise seen_capacity")
-                mt.counter("engine/distinct", n_new)
-                seen_size = int(seen.size[0])
-                seen, t0 = self._maybe_grow(seen, seen_size, res, t0)
-                if next_count > self._QTH:
-                    with self._span("spill"):
-                        spill_next.append(host_rows(qnext[:next_count]))
-                    res.spills += 1
-                    evlog.emit("spill", rows=next_count, level=0,
-                               where="ingest")
-                    next_count = 0
-                self._phase("host", time.perf_counter() - t_h)
-                viol = new & (inv >= 0)
-                if bool(viol.any()):
-                    v = int(viol.to(torch.int32).argmax())
-                    res.violation = Violation(
-                        self.inv_names[int(inv[v])],
-                        self._decode_row(rows[v]),
-                        (int(fph[v]) << 32) | int(fpl[v]))
-                    res.stop_reason = "violation"
-                    evlog.emit("violation", invariant=res.violation.invariant,
-                               fingerprint=hex(res.violation.fingerprint),
-                               level=0)
-                    break
-            res.levels.append(next_count + spill_next.total_rows())
-            mt.gauge("engine/seen_capacity", seen.capacity)
-            mt.gauge("engine/seen_size", seen_size)
+            counts, sizes, seen, spilled, t0 = self._ingest(
+                rows_all, seen, qnext, pending, spill_next, res, t0)
+            res.levels.append(sum(counts) + spilled)
+            mt.gauge("engine/seen_capacity", self._seen_capacity(seen))
+            mt.gauge("engine/seen_size", max(sizes))
+            self._sample_skew(res, counts, sizes)
             self._emit_level_event(res, res.levels[-1])
             qcur, qnext = qnext, qcur
-            cur_count = next_count
+            cur_counts = counts
             pending, spill_next = spill_next, pending
 
         # The seen-set gauges, kept current a chunk (the progress line's
         # load and each level_stats row read them).
-        mt.gauge("engine/seen_capacity", seen.capacity)
-        mt.gauge("engine/seen_size", seen_size)
+        mt.gauge("engine/seen_capacity", self._seen_capacity(seen))
+        mt.gauge("engine/seen_size", max(sizes))
         self._batch_ema = 0.0       # measured seconds a batch
         last_progress = time.perf_counter()
         # A resumed run does not rewrite the snapshot it loaded (without
@@ -1625,17 +1587,17 @@ class BFSEngine:
         last_ckpt = (time.perf_counter() if resume is not None
                      else float("-inf"))
         self._next_residual("loop")
-        while (cur_count > 0 or pending) and res.violation is None \
+        while (max(cur_counts) > 0 or self._host_left(pending)) \
+                and res.violation is None \
                 and res.stop_reason == "exhausted":
             if cfg.checkpoint_dir is not None \
                     and res.diameter % max(1, cfg.checkpoint_every) == 0 \
                     and res.diameter != skip_ckpt_level \
-                    and (time.perf_counter() - last_ckpt
-                         >= cfg.checkpoint_interval_seconds):
+                    and self._any(time.perf_counter() - last_ckpt
+                                  >= cfg.checkpoint_interval_seconds):
                 t_h = time.perf_counter()
-                with self._span("checkpoint"):
-                    self._write_checkpoint(qcur, cur_count, pending, seen,
-                                           res, trace, wall=t_h - t0)
+                self._write_checkpoint(qcur, cur_counts, pending, seen, res,
+                                       trace, wall=t_h - t0)
                 last_ckpt = time.perf_counter()
                 self._phase("checkpoint", last_ckpt - t_h)
                 evlog.emit("checkpoint", level=res.diameter,
@@ -1644,24 +1606,27 @@ class BFSEngine:
                     and res.diameter >= cfg.max_diameter:
                 res.stop_reason = "diameter_budget"
                 break
-            next_count = 0
+            next_counts = [0] * self.n_dev
+            spilled = 0             # rows of the next level in host pools
             # Budgeted runs start each level with a one- or two-batch
             # probe and double the chunk from there (the JAX loop's ramp).
             calls_in_level = 0
             while True:
                 offset = 0
-                while offset < cur_count:
+                top = max(cur_counts)
+                while offset < top:
                     allowed = self._CH
                     if cfg.max_seconds is not None:
                         remaining = cfg.max_seconds - (
                             time.perf_counter() - t0)
-                        if remaining <= 0:
-                            res.stop_reason = "duration_budget"
-                            break
                         allowed = (max(1, min(
                             self._CH, int(remaining / (2 * self._batch_ema)),
                             2 << min(calls_in_level, 9)))
                             if self._batch_ema else 1)
+                        over, allowed = self._budget(remaining <= 0, allowed)
+                        if over:
+                            res.stop_reason = "duration_budget"
+                            break
                     calls_in_level += 1
                     if _faults.ACTIVE:
                         # The JAX loop's sites: "kill" dies here (mid-
@@ -1672,21 +1637,22 @@ class BFSEngine:
                         _faults.fire("oom", level=res.diameter,
                                      chunk=calls_in_level)
                     self._observe_chunk(qcur, qnext, seen, offset,
-                                        cur_count)
+                                        cur_counts)
                     t_call = time.perf_counter()
                     steps0 = res.steps
                     cap = self._xla_capture
                     with (cap.step() if cap is not None
                           else contextlib.nullcontext()):
-                        st, captured = self._run_chunk(
-                            qcur, qnext, seen, cur_count, offset,
-                            next_count, allowed, res)
+                        rows, captured = self._chunk_call(
+                            qcur, qnext, seen, cur_counts, offset,
+                            next_counts, allowed, res)
                     t0 += captured
                     t_h = time.perf_counter()
                     if self._perf is not None:
                         self._perf.add_chunk(res.steps - steps0,
                                              t_h - t_call - captured)
                     res.chunks += 1
+                    st = rows[0]
                     steps = st[ST_STEPS]
                     if steps:
                         per = (t_h - t_call - captured) / steps
@@ -1694,77 +1660,244 @@ class BFSEngine:
                                            max(per, 0.5 * self._batch_ema
                                                + 0.5 * per))
                     res.batches += steps
-                    offset, next_count = st[ST_OFFSET], st[ST_COUNT]
-                    seen_size = st[ST_SEEN]
-                    self._account_chunk(res, st, seen_size, seen.capacity,
-                                        next_count)
+                    offset = st[ST_OFFSET]
+                    next_counts = [r[ST_COUNT] for r in rows]
+                    sizes = [r[ST_SEEN] for r in rows]
+                    if len(rows) > 1:       # the words summed over shards
+                        st = [sum(col) for col in zip(*rows)]
+                    self._account_chunk(res, st, max(sizes),
+                                        self._seen_capacity(seen),
+                                        sum(next_counts))
                     inner = 0.0     # trace and spill, timed on their own
                     _FLIGHT.progress(
                         distinct=res.distinct, generated=res.generated,
-                        diameter=res.diameter, frontier=cur_count,
-                        offset=offset, next_count=next_count,
-                        seen_size=seen_size,
+                        diameter=res.diameter, frontier=top, offset=offset,
+                        next_count=sum(next_counts), seen_size=max(sizes),
                         elapsed=round(time.perf_counter() - t0, 3))
                     if cfg.record_trace and st[ST_TCOUNT]:
                         t_t = time.perf_counter()
                         with self._span("trace_flush"):
-                            self._flush_trace(self._tbuf, st[ST_TCOUNT])
+                            self._flush_rows(rows)
                         inner = time.perf_counter() - t_t
                         self._phase("trace", inner)
                     self._check_faults(st)
-                    seen, t0 = self._maybe_grow(seen, st[ST_SEEN], res, t0)
-                    if next_count > self._QTH \
-                            and (offset < cur_count or pending):
-                        # Drain to the host behind the next chunks.
+                    seen, t0 = self._maybe_grow(seen, max(sizes), res, t0)
+                    if max(next_counts) > self._QTH \
+                            and (offset < top or self._host_left(pending)):
+                        # Drain to the host (on one card behind the next
+                        # chunks).
                         t_s = time.perf_counter()
-                        self._resolve_spill(inflight, free_q, spill_next)
-                        with self._span("spill"):
-                            qnext = self._spill(inflight, free_q, qnext,
-                                                next_count)
+                        qnext = self._spill(qnext, next_counts, spill_next)
+                        spilled += sum(next_counts)
                         res.spills += 1
-                        evlog.emit("spill", rows=next_count,
+                        evlog.emit("spill", rows=sum(next_counts),
                                    level=res.diameter, where="chunk_loop")
-                        next_count = 0
+                        next_counts = [0] * self.n_dev
                         self._phase("spill", time.perf_counter() - t_s)
                         inner += time.perf_counter() - t_s
                     # TLC's "queue" is the whole unexplored queue: the
                     # rest of this level and everything enqueued for the
                     # next, drains in flight too.
+                    viol, dead = self._flagged(rows)
                     last_progress = self._verdict(
-                        res, (st[ST_VINV], self._cs) if st[ST_VIOL] else None,
-                        self._cs if st[ST_DEAD] else None,
-                        lambda: (max(0, cur_count - offset)
-                                 + pending.total_rows() + next_count
-                                 + spill_next.total_rows()
-                                 + sum(c for _b, c, _e in inflight)),
-                        cur_count, seen_size / seen.capacity, t0,
-                        last_progress)
+                        res, viol, dead,
+                        lambda: (sum(max(0, c - offset) for c in cur_counts)
+                                 + sum(next_counts)
+                                 + self._host_rows(pending, spill_next)),
+                        sum(cur_counts), max(sizes) / self._seen_capacity(
+                            seen), t0, last_progress)
                     self._phase("host", time.perf_counter() - t_h - inner)
                     if res.stop_reason != "exhausted":
                         break
-                if res.stop_reason != "exhausted" or not pending:
+                if res.stop_reason != "exhausted" \
+                        or not self._host_left(pending):
                     break
                 t_s = time.perf_counter()
-                with self._span("upload"):
-                    seg = np.require(pending.pop(0),
-                                     requirements=["C", "W"])
-                    qcur[:len(seg)] = torch.from_numpy(seg).to(dev)
-                cur_count = len(seg)
+                cur_counts = self._upload(qcur, pending)
                 self._phase("upload", time.perf_counter() - t_s)
             if res.stop_reason != "exhausted":
                 break
-            t_s = time.perf_counter()
-            self._resolve_spill(inflight, free_q, spill_next)
-            self._phase("spill", time.perf_counter() - t_s)
+            self._land_spills(spill_next)
             res.diameter += 1
-            res.levels.append(next_count + spill_next.total_rows())
+            res.levels.append(sum(next_counts) + spilled)
+            self._sample_skew(res, next_counts, sizes)
             self._emit_level_event(res, res.levels[-1])
             qcur, qnext = qnext, qcur
-            cur_count = next_count
+            cur_counts = next_counts
             pending, spill_next = spill_next, pending
         res.wall_seconds = time.perf_counter() - t0
         self._next_residual("finish")
         return res
+
+    def _ingest(self, rows_all, seen, qnext, pending, spill_next, res, t0):
+        """The roots in B-sized waves, round-robin across the shards (one
+        shard: in order), each wave through ``_ingest_wave``, with the
+        budgets, growth and spill between waves.  Returns every shard's
+        next-level count and seen size, the table, the rows drained to
+        the host pool and t0."""
+        cfg, n, B = self.config, self.n_dev, self._B
+        mt, evlog = self.metrics, self._evlog
+        per = [rows_all[i::n] for i in range(n)]
+        waves = max(-(-p.shape[0] // B) for p in per)
+        counts, sizes, spilled = [0] * n, [0] * n, 0
+        for c in range(waves):
+            if c and cfg.max_seconds is not None \
+                    and self._any(time.perf_counter() - t0 > cfg.max_seconds):
+                res.stop_reason = "duration_budget"
+                break
+            if c and cfg.exit_conditions:
+                # "queue" during ingest: enqueued rows, spilled rows and
+                # the roots not yet ingested.
+                hit = exit_condition_hit(
+                    cfg.exit_conditions, res,
+                    sum(counts) + self._host_rows(pending, spill_next)
+                    + sum(max(0, p.shape[0] - c * B) for p in per))
+                if hit:
+                    res.stop_reason = hit
+                    break
+            t_h = time.perf_counter()
+            n_new, counts, sizes, fail, bad = self._ingest_wave(
+                [p[c * B:(c + 1) * B] for p in per], seen, qnext, counts)
+            res.distinct += n_new
+            if fail:
+                raise RuntimeError("seen-set probe failure during "
+                                   "ingest; raise seen_capacity")
+            mt.counter("engine/distinct", n_new)
+            seen, t0 = self._maybe_grow(seen, max(sizes), res, t0)
+            if max(counts) > self._QTH:
+                self._spill_sync(qnext, counts, spill_next)
+                spilled += sum(counts)
+                res.spills += 1
+                evlog.emit("spill", rows=sum(counts), level=0,
+                           where="ingest")
+                counts = [0] * n
+            self._phase("host", time.perf_counter() - t_h)
+            if bad is not None:
+                inv, row, fp = bad
+                res.violation = Violation(self.inv_names[inv],
+                                          self._decode_row(row), fp)
+                res.stop_reason = "violation"
+                evlog.emit("violation", invariant=res.violation.invariant,
+                           fingerprint=hex(fp), level=0)
+                break
+        return counts, sizes, seen, spilled, t0
+
+    # -- the loop's steps on one shard (the mesh overrides each) ---------
+    #: The run's shards; the cross-process agreement of a host fact that
+    #: steers the loop (one process agrees with itself).
+    n_dev = 1
+    _any = bool
+
+    @staticmethod
+    def _budget(over: bool, allowed: int):
+        """The duration budget's stop and chunk size, agreed."""
+        return over, allowed
+
+    def _device_name(self) -> str:
+        return str(self.device)
+
+    def _resume_source(self, resume):
+        """``run(resume=...)`` as this engine's ``ResumePoint``."""
+        if isinstance(resume, str):
+            resume = ckpt_mod.load(resume)
+        if isinstance(resume, ckpt_mod.Checkpoint):
+            check_resume_trace(self.config, resume)
+            resume = self.resume_point(resume)
+        return resume
+
+    def _resume_into(self, resume, qcur, pending, trace):
+        """A resume point's table (grown to at most half full), frontier
+        (Q rows on the device, the rest in host segments) and trace.
+        Returns the table, the counts and the seen sizes."""
+        seen = resume.seen
+        seen_size = int(seen.size[0])
+        while seen_size > seen.capacity // 2:
+            seen = fpset.grow(seen, 2 * seen.capacity)
+        seen = self._keep_seen(seen)
+        Q, fr = self._Q, resume.frontier
+        rest = fr[Q:].cpu().numpy()     # one host copy, then pieces
+        for i in range(0, rest.shape[0], Q):
+            pending.append(rest[i:i + Q])
+        fr = fr[:Q]
+        qcur[:fr.shape[0]] = fr.to(self.device)
+        if self.config.record_trace and resume.trace is not None:
+            trace.add_batch(*resume.trace)
+            trace.roots.update(resume.roots)
+        return seen, [fr.shape[0]], [seen_size]
+
+    def _ingest_wave(self, parts, seen, qnext, counts):
+        """One wave of roots (``parts``: a shard's rows each) fingerprinted,
+        inserted and the novel constraint-passing ones enqueued.  Returns
+        the new keys, the counts, the seen sizes, whether a probe failed
+        and the first new violating root as (invariant index, row,
+        fingerprint) or None."""
+        B, dev, part = self._B, self.device, parts[0]
+        rows = torch.zeros((B, self._sw), dtype=ROW_DTYPE, device=dev)
+        rows[:part.shape[0]] = part
+        valid = torch.arange(B, device=dev) < part.shape[0]
+        with self._span("ingest"):
+            cands = unflatten_state(rows, self.dims)
+            fph, fpl = self._fingerprint(cands)
+            new, fail = insert(seen, pack(fph, fpl), valid)
+            enq = new
+            if self._constraint is not None:
+                enq = new & self._constraint(cands)
+            idx = enq.nonzero().squeeze(1)
+            count = counts[0] + idx.shape[0]
+            qnext[counts[0]:count] = rows[idx]
+            n_new, fail = int(new.sum()), bool(fail)
+        with self._span("trace_flush"):
+            self._record(new, fph, fpl)
+        bad = None
+        if self._inv_id is not None:
+            inv = self._inv_id(cands)
+            viol = new & (inv >= 0)
+            if bool(viol.any()):
+                v = int(viol.to(torch.int32).argmax())
+                bad = (int(inv[v]), rows[v],
+                       (int(fph[v]) << 32) | int(fpl[v]))
+        return n_new, [count], [int(seen.size[0])], fail, bad
+
+    def _seen_capacity(self, seen) -> int:
+        return seen.capacity
+
+    def _chunk_call(self, qcur, qnext, seen, cur_counts, offset: int,
+                    next_counts, allowed: int, res):
+        """``_run_chunk``: its state words as the rows, one a shard."""
+        st, captured = self._run_chunk(qcur, qnext, seen, cur_counts[0],
+                                       offset, next_counts[0], allowed, res)
+        return [st], captured
+
+    def _flush_rows(self, rows):
+        self._flush_trace(self._tbuf, rows[0][ST_TCOUNT])
+
+    def _flagged(self, rows):
+        """The violation ``(invariant index, ChunkState)`` and the
+        deadlocked ``ChunkState`` the chunk stopped on, else None."""
+        st, cs = rows[0], self._cs
+        return ((st[ST_VINV], cs) if st[ST_VIOL] else None,
+                cs if st[ST_DEAD] else None)
+
+    def _host_left(self, pending) -> bool:
+        """Whether host segments of this level wait (on any process)."""
+        return bool(pending)
+
+    def _host_rows(self, pending, spill_next) -> int:
+        """The queue's rows on the host: both pools and drains in
+        flight."""
+        return (pending.total_rows() + spill_next.total_rows()
+                + sum(c for _b, c, _e in self._inflight))
+
+    def _upload(self, qcur, pending):
+        """The next host segment to the device; returns the counts."""
+        with self._span("upload"):
+            seg = np.require(pending.pop(0), requirements=["C", "W"])
+            qcur[:len(seg)] = torch.from_numpy(seg).to(self.device)
+        return [len(seg)]
+
+    def _sample_skew(self, res, counts, sizes) -> None:
+        """The mesh's shard balance at a level boundary; one device has
+        none."""
 
     def _account_chunk(self, res, st, seen_size: int, capacity: int,
                        next_count: int):

@@ -40,8 +40,9 @@ cards has been measured).  The host reads one packed stats tensor a
 chunk; sums and maxima over the shards are taken there.  The violation
 and the deadlock come from the lowest-indexed flagged shard.
 
-The level loop is ``BFSEngine``'s (whose run wrapper, degradation,
-events, report, counterexample files and ``replay`` it inherits), with
+The level loop is ``BFSEngine._run_impl`` (whose run wrapper,
+degradation, events, report, counterexample files and ``replay`` it
+inherits); the mesh overrides the steps it calls for one shard, with
 the JAX mesh's rules: roots ingested round-robin across the shards in
 B-sized waves; per-shard capacities ``QL = max(ceil(ceil(qreq/n)/B)·B,
 K)`` and ``CL = pow2(max(ceil(sreq/n), 8K))`` (automatic sizes divide
@@ -84,8 +85,6 @@ not degraded, under a group.
 
 from __future__ import annotations
 
-import contextlib
-import dataclasses
 import glob
 import os
 import time
@@ -96,25 +95,16 @@ import torch
 
 from ..engine import checkpoint as ckpt_mod
 from ..engine import chunk as chunk_mod
-from ..engine.bfs import (PHASES, PLANS, BFSEngine,
-                          EngineConfig, EngineResult, ResumePoint, Violation,
-                          auto_capacities, check_resume_trace, device_memory,
-                          exit_condition_hit, host_rows, por_device_arrays,
-                          resolve_pipeline, resolve_por)
-from ..engine.chunk import (ST_COUNT, ST_DEAD, ST_OFFSET, ST_SEEN, ST_STEPS,
+from ..engine.bfs import (PLANS, BFSEngine, EngineConfig, EngineResult,
+                          ResumePoint, auto_capacities, check_resume_trace,
+                          device_memory, host_rows, por_device_arrays)
+from ..engine.chunk import (ST_COUNT, ST_DEAD, ST_OFFSET, ST_STEPS,
                             ST_TCOUNT, ST_VINV, ST_VIOL)
-from ..engine.spillpool import SpillPool
-from ..engine.trace import make_trace_store
 from ..models.actions import build_expand
 from ..models.actions2 import build_v2
-from ..models.dims import RaftDims, family_groups
-from ..models.invariants import build_inv_id
-from ..models.schema import ROW_DTYPE, state_width, unflatten_state
-from ..obs.coverage import ActionCoverage
-from ..obs.events import RunEventLog, device_memory_stats, events_path
-from ..obs.flight import RECORDER as _FLIGHT
-from ..obs.metrics import MetricsRegistry
-from ..obs.tracing import SpanTracer
+from ..models.dims import RaftDims
+from ..models.schema import ROW_DTYPE, unflatten_state
+from ..obs.events import device_memory_stats, events_path
 from ..ops import compact as compact_mod
 from ..ops import fpset
 from ..ops.chunk_front import FrontOut
@@ -303,8 +293,7 @@ class MeshBFSEngine(BFSEngine):
                  invariants: Optional[Dict[str, Callable]] = None,
                  constraint: Optional[Callable] = None,
                  config: Optional[EngineConfig] = None, devices=None):
-        self.dims = dims
-        self.config = cfg = config or EngineConfig()
+        cfg = config or EngineConfig()
         self.devices = devs = resolve_devices(devices)
         L = len(devs)
         self._mp = mp = mh.is_multiprocess()
@@ -319,38 +308,6 @@ class MeshBFSEngine(BFSEngine):
             self._pc, self._pi = 1, 0
         self._L, self._r0 = L, self._pi * L
         self.n_dev = n = self._pc * L
-        self.device = dev0 = devs[0]
-        if not hasattr(self, "metrics"):
-            self.metrics = (cfg.metrics if cfg.metrics is not None
-                            else MetricsRegistry())
-            self._evlog = RunEventLog(None)
-            # One trace file a controller under a process group.
-            trace_out = cfg.trace_out
-            if trace_out is not None and self._pc > 1:
-                root, ext = os.path.splitext(trace_out)
-                trace_out = (f"{root}.p{self._pi}of{self._pc}"
-                             f"{ext or '.json'}")
-            self.tracer = SpanTracer(trace_out)
-            self.metrics.tracer = self.tracer
-            self._xla_capture = None
-        self.inv_names = list((invariants or {}).keys())
-        self._inv_fns = list((invariants or {}).values())
-        self._inv_id = (build_inv_id(self._inv_fns) if self._inv_fns
-                        else None)
-        self._constraint = constraint
-        self._plan_name = resolve_pipeline(cfg.pipeline)
-        self._plan, self._plan_reasons, method = \
-            PLANS[self._plan_name].resolve_mesh_plan(dev0,
-                                                     cfg.enqueue_method)
-        self._v2 = build_v2(dims, dev0)
-        v1 = self._plan_name == "v1"
-        self._expand = build_expand(dims, dev0) if v1 else None
-        if cfg.checkpoint_dir is not None:
-            ckpt_mod.check_dims_checkpointable(dims)
-        self._por_table = resolve_por(cfg, dims, invariants or {},
-                                      constraint)
-        self._check_deadlock = (True if cfg.check_deadlock is None
-                                else cfg.check_deadlock)
         if mp:
             # Host facts that steer a collective are agreed first
             # (multihost.py rule 4); a queue budget totals the pools.
@@ -361,21 +318,36 @@ class MeshBFSEngine(BFSEngine):
                 c == "queue" for c, _t in cfg.exit_conditions) else None)
             self._exchange = mh.GroupExchange(devs, n)
         else:
-            self._any = bool
             self._pool_sum = None
             self._exchange = ListExchange(devs)
-        sw = state_width(dims)
-        B, G = cfg.batch, dims.n_instances
-        K = compact_mod.choose_k(B, G, cfg.compact_lanes)
+        BFSEngine.__init__(self, dims, invariants, constraint, cfg, devs[0])
+
+    def _trace_out(self):
+        """One trace file a controller under a process group."""
+        trace_out = self.config.trace_out
+        if trace_out is not None and self._pc > 1:
+            root, ext = os.path.splitext(trace_out)
+            trace_out = f"{root}.p{self._pi}of{self._pc}{ext or '.json'}"
+        return trace_out
+
+    def _resolve_plan(self):
+        return PLANS[self._plan_name].resolve_mesh_plan(
+            self.device, self.config.enqueue_method)
+
+    def _size_tables(self, sw: int, B: int, K: int) -> int:
+        """Per-shard capacities ``QL = max(ceil(ceil(qreq/n)/B)·B, K)`` and
+        ``CL = pow2(max(ceil(sreq/n), 8K))``; automatic sizes divide each
+        card's budget among the shards on it, those of every process on
+        that card."""
+        cfg, devs, n = self.config, self.devices, self.n_dev
         qreq, sreq = cfg.queue_capacity, cfg.seen_capacity
         if qreq is None or sreq is None:
-            # Each card's budget divided among the shards on it, those of
-            # every process on that card.
             cards = (sum(mh.all_gather_objects(
-                [mh.card_key(d) for d in devs]), []) if mp else None)
+                [mh.card_key(d) for d in devs]), []) if self._mp else None)
             per = []
             for d in dict.fromkeys(devs):
-                m = cards.count(mh.card_key(d)) if mp else devs.count(d)
+                m = cards.count(mh.card_key(d)) if self._mp \
+                    else devs.count(d)
                 limit = device_memory(d)
                 q, s = auto_capacities(sw, B, cfg.record_trace,
                                        None if limit is None else limit // m)
@@ -383,20 +355,18 @@ class MeshBFSEngine(BFSEngine):
                     q, s = -(-q // m), -(-s // m)
                 per.append((q, s))
             q, s = min(q for q, _s in per), min(s for _q, s in per)
-            if mp:
+            if self._mp:
                 q, s = self._agree_min(q), self._agree_min(s)
             qreq = q * n if qreq is None else qreq
             sreq = s * n if sreq is None else sreq
-        QL = max(-(-(-(-qreq // n)) // B) * B, K)
         self._CL = compact_mod.pow2(max(-(-sreq // n), 8 * K))
-        self._sw, self._B, self._G, self._Q, self._K = sw, B, G, QL, K
-        # No front on the mesh (v4 resolves to v3's arrangement).
-        self._front, self._front_info = None, None
-        self._PAD = max(B, K)
-        self._QTH = QL - K
-        self._TQ = QL + K if cfg.record_trace else 0
-        self._TA = self._TQ + K if cfg.record_trace else 1
-        self._CH = max(1, cfg.sync_every)
+        return max(-(-(-(-qreq // n)) // B) * B, K)
+
+    def _build_step(self) -> None:
+        """Each shard's ``ChunkStep`` (one a device) under one
+        ``MeshStep``, the fingerprints, and perf's launch accounting."""
+        cfg, dims, devs = self.config, self.dims, self.devices
+        B, G, K, v1 = self._B, self._G, self._K, self._plan_name == "v1"
         F = len(dims.family_sizes)
         self._CUR = chunk_mod.N_SCALARS + 3 * F
         self._W = chunk_mod.state_words(F) + 1
@@ -404,30 +374,28 @@ class MeshBFSEngine(BFSEngine):
         for d in dict.fromkeys(devs):
             por_mask, por_priority = por_device_arrays(self._por_table, d)
             by_dev[d] = chunk_mod.ChunkStep(
-                dims=dims, B=B, K=K, Q=QL, QTH=self._QTH, TQ=self._TQ,
+                dims=dims, B=B, K=K, Q=self._Q, QTH=self._QTH, TQ=self._TQ,
                 record_trace=cfg.record_trace,
                 check_deadlock=self._check_deadlock, device=d,
                 count_word=self._CUR + 3, v2=build_v2(dims, d),
                 expand=build_expand(dims, d) if v1 else None,
-                inv_fns=self._inv_fns, constraint=constraint, front=None,
-                enqueue_method=method, por_mask=por_mask,
-                por_priority=por_priority)
+                inv_fns=self._inv_fns, constraint=self._constraint,
+                front=None, enqueue_method=self._method,
+                por_mask=por_mask, por_priority=por_priority)
             self._fps[d] = build_fingerprint(dims, d)
             kspr[d] = compact_mod.kspread(B, G, K, d)
-        self._fingerprint = self._fps[dev0]
+        self._fingerprint = self._fps[self.device]
         self._steps = [by_dev[d] for d in devs]
         self._mstep = MeshStep(self._steps, devs, G,
                                [kspr[d] for d in devs], self._exchange)
+        # No front on the mesh (v4 resolves to v3's arrangement).
+        self._front, self._front_info = None, None
         # One CUDA graph for the whole step when every shard is on one
         # card and in this process; eager steps across cards, across
         # processes and on the CPU.
-        self._graphable = (dev0.type == "cuda" and len(set(devs)) == 1
-                           and not mp)
-        self._graphs: Dict[tuple, tuple] = {}
-        self._pool = None
-        self._warm = False
+        self._graphable = (self.device.type == "cuda"
+                           and len(set(devs)) == 1 and not self._mp)
         self._last_skew = None
-        self.trace = make_trace_store(cfg.trace_store)
         # The chunk profiler is a one-device instrument, as in the JAX
         # mesh; perf keeps launch accounting and the exchange's probe.
         self._profiler = None
@@ -436,7 +404,7 @@ class MeshBFSEngine(BFSEngine):
             from ..obs import perf as perf_mod
             self._perf = perf_mod.PerfAccounting(
                 pipeline=self._plan_name, stage_traffic=None,
-                device=dev0, metrics=self.metrics,
+                device=self.device, metrics=self.metrics,
                 collectives_per_batch=EXCHANGE_CROSSINGS)
 
     def _postmortem_path(self):
@@ -450,32 +418,24 @@ class MeshBFSEngine(BFSEngine):
 
     def _finish(self, err):
         """``BFSEngine._finish``, the graphs dropped first: the mesh's
-        queues, tables and states are its run's own (``_run_impl``
+        queues, tables and states are its run's own (``_run_buffers``
         allocates them anew), so a graph captured on them must not
         outlive the run (a queue that lands at the same address would
         key it to the next run's other buffers)."""
         self._drop_graphs()
         BFSEngine._finish(self, err)
 
-    def _rebuild_at_batch(self, new_batch: int) -> None:
-        """The mesh again at a smaller batch (OOM degradation)."""
-        self.release()
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
-        MeshBFSEngine.__init__(
-            self, self.dims,
-            invariants=dict(zip(self.inv_names, self._inv_fns)),
-            constraint=self._constraint,
-            config=dataclasses.replace(self.config, batch=new_batch),
-            devices=self.devices)
-
     def _run_degradable(self, init_states, resume) -> EngineResult:
         """Under a process group an out-of-memory error is raised, not
         degraded: a retry on one controller would leave the others
-        waiting in a collective."""
+        waiting in a collective.  Every controller takes the same exit
+        and writes its trace piece there."""
         if not self._mp:
             return BFSEngine._run_degradable(self, init_states, resume)
-        return self._run_impl(init_states, resume)
+        res = self._run_impl(init_states, resume)
+        if self.config.record_trace:
+            self._write_trace_piece(self.trace)
+        return res
 
     # -- the controllers -------------------------------------------------
     def _mine(self, xs: list) -> list:
@@ -498,12 +458,6 @@ class MeshBFSEngine(BFSEngine):
             return mh.lowest_flagged(flags, *values)
         g = next((s for s, f in enumerate(flags) if f), None)
         return (g,) + tuple(None if g is None else v[g] for v in values)
-
-    def _pool_rows(self, local: int) -> int:
-        """Rows in the host pools: this process's, totalled over the group
-        when a queue budget reads them."""
-        return self._pool_sum(local) if self._pool_sum is not None \
-            else local
 
     def _events_path(self):
         """One event log a controller under a process group."""
@@ -579,12 +533,12 @@ class MeshBFSEngine(BFSEngine):
     def _write_idle_ctl(self):
         self._write_ctl(0, [0] * self.n_dev, [0] * self.n_dev, 0)
 
-    def _runner(self, qcur, qnext, seens, res):
+    def _eager(self, qcur, qnext, seens):
         step, tbufs, css = self._mstep, self._tbufs, self._css
+        return lambda: step(qcur, seens, qnext, tbufs, css)
 
-        def eager():
-            step(qcur, seens, qnext, tbufs, css)
-
+    def _runner(self, qcur, qnext, seens, res):
+        eager = self._eager(qcur, qnext, seens)
         if not self._graphable:
             return eager
         return self._graph_replay(
@@ -599,10 +553,10 @@ class MeshBFSEngine(BFSEngine):
         for cs, m in zip(self._css, more):
             cs.st.narrow(0, self._CUR + 2, 1).copy_(m)
 
-    def _run_mesh_chunk(self, qcur, qnext, seens, cur_counts, offset: int,
-                        next_counts, allowed: int, res):
-        """``BFSEngine._run_chunk`` on the mesh: the shards' state words
-        read once at the end, and the capture seconds."""
+    def _chunk_call(self, qcur, qnext, seens, cur_counts, offset: int,
+                    next_counts, allowed: int, res):
+        """``BFSEngine._run_chunk`` on the mesh: every global shard's state
+        words read once at the end, and the capture seconds."""
         t = time.perf_counter()
         run = self._runner(qcur, qnext, seens, res)
         captured = time.perf_counter() - t
@@ -647,10 +601,11 @@ class MeshBFSEngine(BFSEngine):
         return (np.concatenate(segs) if segs
                 else np.zeros((0, self._sw), np.uint8))
 
-    def _grow_shards(self, seens, sizes, res, t0):
-        """Past half load on any shard, every shard at double capacity
-        (off the duration clock; the graphs go with the old tables)."""
-        if max(sizes) <= self._CL // 2:
+    def _maybe_grow(self, seens, size: int, res, t0):
+        """Past half load on any shard (``size``: the largest), every
+        shard at double capacity (off the duration clock; the graphs go
+        with the old tables)."""
+        if size <= self._CL // 2:
             return seens, t0
         self._grow_attempts = getattr(self, "_grow_attempts", 0) + 1
         if _faults.ACTIVE:
@@ -706,20 +661,6 @@ class MeshBFSEngine(BFSEngine):
         if self._perf is not None:
             self._exchange_probe()
 
-    def _measure_launches(self, qcur, qnext, seens) -> None:
-        """The perf launch model from one idle mesh step (its cond false
-        on every shard: it changes nothing), on every controller at the
-        same call."""
-        t = time.perf_counter()
-
-        def idle_step():
-            self._write_idle_ctl()
-            self._mstep(qcur, seens, qnext, self._tbufs, self._css)
-
-        self._perf.measure(idle_step,
-                           lambda: self._dispatch(lambda: None, 0, seens))
-        self._phase("profile", time.perf_counter() - t)
-
     def _exchange_probe(self) -> None:
         """perf: one timed crossing of the exchange, an ``all_reduce``
         across processes (an agreement round), a ``Tensor.to`` round over
@@ -742,17 +683,15 @@ class MeshBFSEngine(BFSEngine):
             perf_mod.timed_collective_probe(fn, *args,
                                             warm=not self._mp))
 
-    def _write_mesh_checkpoint(self, qcur, cur_counts, pending, seens, res,
-                               trace, wall):
+    def _write_checkpoint(self, qcur, cur_counts, pending, seens, res,
+                          trace, wall):
         """The single engine's snapshot: this level's frontier (device
         rows of every shard, then the host segments) and the union of
         the shards' keys.  Under a process group each controller writes
         its piece (``checkpoint.piece_path``): its shards, its pool, its
         trace records; ``checkpoint.load`` merges the group."""
-        keys = np.concatenate([s.keys.cpu().numpy() for s in seens])
-        keys = keys[keys != EMPTY].view(np.uint64)
-        hi = (keys >> np.uint64(32)).astype(np.uint32)
-        lo = (keys & np.uint64(MASK32)).astype(np.uint32)
+        hi, lo = (np.concatenate(k) for k in zip(
+            *(fpset.to_host_keys(s) for s in seens)))
         order = np.lexsort((lo, hi))
         path = (ckpt_mod.piece_path(self.config.checkpoint_dir, res.diameter,
                                     self._pi, self._pc)
@@ -776,98 +715,66 @@ class MeshBFSEngine(BFSEngine):
                                      self._CL, dev)
                 for d, dev in enumerate(self.devices, self._r0)]
 
-    def _ingest(self, rows_all, seens, qnext, spill_next, res, t0):
-        """The roots, round-robin across the global shards in B-sized
-        waves (each process uploads its own shards' share):
-        fingerprinted, inserted through the routed insert, the novel
-        constraint-passing ones enqueued on their shard.  Returns every
-        shard's next-level count, the seen sizes, the tables, the rows
-        drained to the host pool and t0."""
-        cfg, n, B, sw = self.config, self.n_dev, self._B, self._sw
-        mt, evlog = self.metrics, self._evlog
-        per = [rows_all[i::n] for i in range(n)]
-        waves = max(-(-p.shape[0] // B) for p in per)
-        counts, sizes, spilled = [0] * n, [0] * n, 0
-        for c in range(waves):
-            left = sum(max(0, p.shape[0] - c * B) for p in per)
-            if c and cfg.max_seconds is not None \
-                    and self._any(time.perf_counter() - t0 > cfg.max_seconds):
-                res.stop_reason = "duration_budget"
-                break
-            if c and cfg.exit_conditions:
-                hit = exit_condition_hit(
-                    cfg.exit_conditions, res,
-                    sum(counts) + self._pool_rows(spill_next.total_rows())
-                    + left)
-                if hit:
-                    res.stop_reason = hit
-                    break
-            t_h = time.perf_counter()
-            wave = []
-            for s, dev in enumerate(self.devices):
-                part = per[self._r0 + s][c * B:(c + 1) * B].to(dev)
-                rows = torch.zeros((B, sw), dtype=ROW_DTYPE, device=dev)
-                rows[:part.shape[0]] = part
-                valid = torch.arange(B, device=dev) < part.shape[0]
-                cands = unflatten_state(rows, self.dims)
-                fph, fpl = self._fps[dev](cands)
-                wave.append((rows, valid, cands, fph, fpl))
-            new, fail = route_insert(
-                seens, [pack(w[3], w[4]) for w in wave],
-                [w[1] for w in wave], self._exchange)
-            local, flags, found = [], [], []
-            for s, (rows, _v, cands, fph, fpl) in enumerate(wave):
-                enq = new[s]
-                if self._constraint is not None:
-                    enq = enq & self._constraint(cands)
-                idx = enq.nonzero().squeeze(1)
-                at = counts[self._r0 + s]
-                qnext[s][at:at + idx.shape[0]] = rows[idx]
-                local.append([int(new[s].sum()), idx.shape[0],
-                              int(seens[s].size[0]), int(bool(fail[s]))])
-                self._record(new[s], fph, fpl)
-                hit = None
-                if self._inv_id is not None and (self._mp
-                                                 or not any(flags)):
-                    ids = self._inv_id(cands)
-                    bad = new[s] & (ids >= 0)
-                    if bool(bad.any()):
-                        v = int(bad.to(torch.int32).argmax())
-                        hit = (int(ids[v]), rows[v],
-                               (int(fph[v]) << 32) | int(fpl[v]))
-                flags.append(hit is not None)
-                found.append(hit)
-            glob = self._gather(local)
-            n_new = sum(r[0] for r in glob)
-            res.distinct += n_new
-            mt.counter("engine/distinct", n_new)
-            counts = [k + r[1] for k, r in zip(counts, glob)]
-            if any(r[3] for r in glob):
-                raise RuntimeError("seen-set probe failure during "
-                                   "ingest; raise seen_capacity")
-            sizes = [r[2] for r in glob]
-            seens, t0 = self._grow_shards(seens, sizes, res, t0)
-            if max(counts) > self._QTH:
-                spill_next.append(self._drain(qnext, self._mine(counts)))
-                spilled += sum(counts)
-                res.spills += 1
-                evlog.emit("spill", rows=sum(counts), level=0,
-                           where="ingest")
-                counts = [0] * n
-            self._phase("host", time.perf_counter() - t_h)
-            # (invariants, rows, fingerprints): an item a local shard.
-            g, inv, row, fp = self._lowest(
-                flags, *zip(*(h or (None,) * 3 for h in found)))
-            if g is not None:
-                viol = Violation(self.inv_names[int(inv)],
-                                 self._decode_row(torch.as_tensor(row)),
-                                 int(fp))
-                res.violation = viol
-                res.stop_reason = "violation"
-                evlog.emit("violation", invariant=viol.invariant,
-                           fingerprint=hex(viol.fingerprint), level=0)
-                break
-        return counts, sizes, seens, spilled, t0
+    def _ingest_wave(self, parts, seens, qnext, counts):
+        """``BFSEngine._ingest_wave`` over the shards: each process
+        uploads its own shards' parts, the keys go through the routed
+        insert, and the novel constraint-passing roots are enqueued on
+        the shard that holds them.  The violating root is the lowest
+        flagged shard's."""
+        B, sw = self._B, self._sw
+        wave = []
+        for s, dev in enumerate(self.devices):
+            part = parts[self._r0 + s].to(dev)
+            rows = torch.zeros((B, sw), dtype=ROW_DTYPE, device=dev)
+            rows[:part.shape[0]] = part
+            valid = torch.arange(B, device=dev) < part.shape[0]
+            cands = unflatten_state(rows, self.dims)
+            fph, fpl = self._fps[dev](cands)
+            wave.append((rows, valid, cands, fph, fpl))
+        new, fail = route_insert(
+            seens, [pack(w[3], w[4]) for w in wave],
+            [w[1] for w in wave], self._exchange)
+        local, flags, found = [], [], []
+        for s, (rows, _v, cands, fph, fpl) in enumerate(wave):
+            enq = new[s]
+            if self._constraint is not None:
+                enq = enq & self._constraint(cands)
+            idx = enq.nonzero().squeeze(1)
+            at = counts[self._r0 + s]
+            qnext[s][at:at + idx.shape[0]] = rows[idx]
+            local.append([int(new[s].sum()), idx.shape[0],
+                          int(seens[s].size[0]), int(bool(fail[s]))])
+            self._record(new[s], fph, fpl)
+            hit = None
+            if self._inv_id is not None and (self._mp or not any(flags)):
+                ids = self._inv_id(cands)
+                bad = new[s] & (ids >= 0)
+                if bool(bad.any()):
+                    v = int(bad.to(torch.int32).argmax())
+                    hit = (int(ids[v]), rows[v],
+                           (int(fph[v]) << 32) | int(fpl[v]))
+            flags.append(hit is not None)
+            found.append(hit)
+        glob = self._gather(local)
+        # (invariants, rows, fingerprints): an item a local shard.
+        g, inv, row, fp = self._lowest(
+            flags, *zip(*(h or (None,) * 3 for h in found)))
+        return (sum(r[0] for r in glob),
+                [k + r[1] for k, r in zip(counts, glob)],
+                [r[2] for r in glob], any(r[3] for r in glob),
+                None if g is None else (int(inv), torch.as_tensor(row),
+                                        int(fp)))
+
+    def _spill_sync(self, qnext, counts, spill_next):
+        """This process's shards drained into its host pool."""
+        spill_next.append(self._drain(qnext, self._mine(counts)))
+
+    def _spill(self, qnext, counts, spill_next):
+        self._spill_sync(qnext, counts, spill_next)
+        return qnext
+
+    def _land_spills(self, spill_next):
+        """Nothing in flight: the mesh drains at once."""
 
     # -- the trace across controllers -----------------------------------
     def _trace_piece_path(self, i: int) -> str:
@@ -934,54 +841,40 @@ class MeshBFSEngine(BFSEngine):
             self._trace_merged = True
         return BFSEngine.replay(self, fp)
 
-    # ------------------------------------------------------------------
-    def _resume_checkpoint(self, resume):
-        """A snapshot's path or a ``Checkpoint`` -> the ``Checkpoint``.
-        Under a process group the controllers resume the same level: the
-        least any of them found (a directory listing can lag on a shared
-        filesystem), as a piece group of any writer count or one file."""
-        if not isinstance(resume, str):
-            return resume
-        ck = ckpt_mod.load(resume)
-        if not self._mp:
-            return ck
-        agreed = self._agree_min(ck.diameter)
-        if agreed == ck.diameter:
-            return ck
-        d = os.path.dirname(os.path.abspath(resume))
-        group = sorted(glob.glob(os.path.join(
-            d, f"level_{agreed:05d}.p0of*.npz")))
-        return ckpt_mod.load(group[0] if group else os.path.join(
-            d, f"level_{agreed:05d}.npz"))
-
-    def _run_impl(self, init_states, resume) -> EngineResult:
-        dims, cfg = self.dims, self.config
-        n, L, sw, QL, devs = self.n_dev, self._L, self._sw, self._Q, \
-            self.devices
-        mp = self._mp
-        label = (f"mesh of {n} over {self._pc} processes "
+    # -- the level loop's steps over the shards (BFSEngine._run_impl) ---
+    def _device_name(self) -> str:
+        label = (f"mesh of {self.n_dev} over {self._pc} processes "
                  f"({self._exchange.transport}), process {self._pi}"
-                 if mp else f"mesh of {n}")
-        res = self._result = EngineResult(
-            pipeline=self._plan_name, fused_stages=dict(self._plan),
-            fused_reasons=dict(self._plan_reasons),
-            device=label + ": " + ", ".join(str(d) for d in devs),
-            por_instances=(self._por_table.certified
-                           if self._por_table else 0),
-            family_groups=family_groups(dims))
-        mt, evlog = self.metrics, self._evlog
-        coverage = self.coverage = ActionCoverage(dims.family_names,
-                                                  dims.family_sizes)
+                 if self._mp else f"mesh of {self.n_dev}")
+        return label + ": " + ", ".join(str(d) for d in self.devices)
+
+    def _resume_source(self, resume):
+        """A snapshot's path or a ``Checkpoint`` -> the ``Checkpoint``,
+        held to the engine's dims and trace recording.  Under a process
+        group the controllers resume the same level: the least any of
+        them found (a directory listing can lag on a shared filesystem),
+        as a piece group of any writer count or one file; a traced run
+        agrees its id."""
+        cfg = self.config
         if isinstance(resume, ResumePoint):
             raise TypeError("the mesh resumes from a snapshot's path or a "
                             "Checkpoint, not a single engine's ResumePoint")
+        if isinstance(resume, str):
+            path, resume = resume, ckpt_mod.load(resume)
+            agreed = (self._agree_min(resume.diameter) if self._mp
+                      else resume.diameter)
+            if agreed != resume.diameter:
+                d = os.path.dirname(os.path.abspath(path))
+                group = sorted(glob.glob(os.path.join(
+                    d, f"level_{agreed:05d}.p0of*.npz")))
+                resume = ckpt_mod.load(group[0] if group else os.path.join(
+                    d, f"level_{agreed:05d}.npz"))
         if resume is not None:
-            ck = resume = self._resume_checkpoint(resume)
-            if ck.dims != dims:
-                raise ValueError(
-                    f"checkpoint dims {ck.dims} != engine dims {dims}")
-            check_resume_trace(cfg, ck)
-        if mp and cfg.record_trace:
+            if resume.dims != self.dims:
+                raise ValueError(f"checkpoint dims {resume.dims} != engine "
+                                 f"dims {self.dims}")
+            check_resume_trace(cfg, resume)
+        if self._mp and cfg.record_trace:
             if not (cfg.trace_dir or cfg.checkpoint_dir):
                 raise NotImplementedError(
                     "multi-host trace recording needs trace_dir (or "
@@ -994,253 +887,92 @@ class MeshBFSEngine(BFSEngine):
                     "minimal-depth trace")
             self._trace_run_id = self._agree_min(
                 int(time.time() * 1000) & 0x7FFFFFFF)
-        res.phases.update(dict.fromkeys(PHASES, 0.0))
-        trace = self.trace = make_trace_store(cfg.trace_store)
-        res.trace_store = trace.kind
-        t_enter = time.perf_counter()
-        QLA = QL + self._PAD
-        self._start_level0()
+        return resume
 
-        def queues():
-            return [torch.zeros((QLA, sw), dtype=ROW_DTYPE, device=d)
-                    for d in devs]
-
-        qcur, qnext = queues(), queues()
+    def _run_buffers(self, fresh_table: bool):
+        """Each shard's queues, trace buffer and chunk state, the run's
+        own, and its empty table when ``fresh_table``."""
+        devs, shape = self.devices, (self._Q + self._PAD, self._sw)
+        qcur, qnext = ([torch.zeros(shape, dtype=ROW_DTYPE, device=d)
+                        for d in devs] for _ in range(2))
         self._tbufs = [torch.zeros((self._TA, chunk_mod.TRACE_ROW),
                                    dtype=torch.uint8, device=d)
                        for d in devs]
-        self._alloc_state(sw)
-        pending = SpillPool(cfg.spill_dir)      # host segments of this level
-        spill_next = SpillPool(cfg.spill_dir)   # host segments of the next
+        self._alloc_state(self._sw)
+        self._carry = None     # the rest of a segment too large to upload
+        seens = ([fpset.empty(self._CL, d) for d in devs] if fresh_table
+                 else None)
+        return qcur, qnext, seens
 
-        t0 = time.perf_counter()
-        if resume is not None:
-            seens = self._shards_from_keys(resume.seen_hi, resume.seen_lo)
-            fr = np.ascontiguousarray(resume.frontier).astype(
-                np.uint8, casting="safe")
-            # Each controller takes its slice; segments of what one
-            # upload takes.
-            fr = fr[self._pi::self._pc]
-            for i in range(0, fr.shape[0], L * QL):
-                pending.append(fr[i:i + L * QL])
-            cur_counts = [0] * n
-            sizes = self._gather([[int(s.size[0])] for s in seens])
-            sizes = [r[0] for r in sizes]
-            res.distinct, res.generated = resume.distinct, resume.generated
-            res.diameter, res.levels = resume.diameter, list(resume.levels)
-            res.action_counts = dict(resume.action_counts)
-            coverage.seed_generated(resume.action_counts)
-            t0 -= resume.wall_seconds
-            if cfg.record_trace and resume.trace_fps.size:
-                trace.add_batch(resume.trace_fps, resume.trace_parents,
-                                resume.trace_actions)
-                trace.roots.update(resume.roots)
-        else:
-            rows_all = self._root_rows(init_states, res, trace, t_enter)
-            if rows_all is None:
-                if mp and cfg.record_trace:
-                    self._write_trace_piece(trace)
-                return res
-            seens = [fpset.empty(self._CL, d) for d in devs]
-            t0 = time.perf_counter()
-            counts, sizes, seens, spilled, t0 = self._ingest(
-                rows_all, seens, qnext, spill_next, res, t0)
-            res.levels.append(sum(counts) + spilled)
-            mt.gauge("engine/seen_capacity", self._CL)
-            mt.gauge("engine/seen_size", max(sizes))
-            self._sample_skew(res, counts, sizes)
-            self._emit_level_event(res, res.levels[-1])
-            qcur, qnext = qnext, qcur
-            cur_counts = counts
-            pending, spill_next = spill_next, pending
+    def _resume_into(self, ck, qcur, pending, trace):
+        """The snapshot's keys sharded by owner, this controller's slice
+        of its frontier (``fr[i::m]``) in host segments of what one
+        upload takes, and its trace records."""
+        seens = self._shards_from_keys(ck.seen_hi, ck.seen_lo)
+        fr = np.ascontiguousarray(ck.frontier).astype(np.uint8,
+                                                       casting="safe")
+        fr, cap = fr[self._pi::self._pc], self._L * self._Q
+        for i in range(0, fr.shape[0], cap):
+            pending.append(fr[i:i + cap])
+        sizes = self._gather([[int(s.size[0])] for s in seens])
+        if self.config.record_trace and ck.trace_fps.size:
+            trace.add_batch(ck.trace_fps, ck.trace_parents,
+                            ck.trace_actions)
+            trace.roots.update(ck.roots)
+        return seens, [0] * self.n_dev, [r[0] for r in sizes]
 
-        mt.gauge("engine/seen_capacity", self._CL)
-        mt.gauge("engine/seen_size", max(sizes))
-        self._batch_ema = 0.0
-        last_progress = time.perf_counter()
-        skip_ckpt_level = resume.diameter if resume is not None else -1
-        last_ckpt = (time.perf_counter() if resume is not None
-                     else float("-inf"))
-        carry = None           # the rest of a segment too large to upload
-        self._next_residual("loop")
-        while (max(cur_counts) > 0 or self._any(bool(pending))) \
-                and res.violation is None \
-                and res.stop_reason == "exhausted":
-            if cfg.checkpoint_dir is not None \
-                    and res.diameter % max(1, cfg.checkpoint_every) == 0 \
-                    and res.diameter != skip_ckpt_level \
-                    and self._any(time.perf_counter() - last_ckpt
-                                  >= cfg.checkpoint_interval_seconds):
-                t_h = time.perf_counter()
-                self._write_mesh_checkpoint(qcur, cur_counts, pending, seens,
-                                            res, trace, wall=t_h - t0)
-                last_ckpt = time.perf_counter()
-                self._phase("checkpoint", last_ckpt - t_h)
-                evlog.emit("checkpoint", level=res.diameter,
-                           distinct=res.distinct)
-            if cfg.max_diameter is not None \
-                    and res.diameter >= cfg.max_diameter:
-                res.stop_reason = "diameter_budget"
-                break
-            next_counts = [0] * n
-            spilled = 0
-            calls_in_level = 0
-            while True:
-                offset = 0
-                top = max(cur_counts)
-                while offset < top:
-                    allowed = self._CH
-                    if cfg.max_seconds is not None:
-                        remaining = cfg.max_seconds - (
-                            time.perf_counter() - t0)
-                        over = remaining <= 0
-                        allowed = (max(1, min(
-                            self._CH, int(remaining / (2 * self._batch_ema)),
-                            2 << min(calls_in_level, 9)))
-                            if self._batch_ema else 1)
-                        if mp:
-                            # An input of the collective steps: one round
-                            # trip agrees the stop and the least budget.
-                            over, allowed = self._budget(over, allowed)
-                            allowed = max(1, allowed)
-                        if over:
-                            res.stop_reason = "duration_budget"
-                            break
-                    calls_in_level += 1
-                    if _faults.ACTIVE:
-                        # The single loop's sites (resilience/): mid-level
-                        # kill and simulated out-of-memory.
-                        _faults.fire("kill", level=res.diameter,
-                                     chunk=calls_in_level)
-                        _faults.fire("oom", level=res.diameter,
-                                     chunk=calls_in_level)
-                    pf = self._perf
-                    if pf is not None \
-                            and pf.wants_model(self._xla_capture):
-                        self._measure_launches(qcur, qnext, seens)
-                    t_call = time.perf_counter()
-                    steps0 = res.steps
-                    cap = self._xla_capture
-                    with (cap.step() if cap is not None
-                          else contextlib.nullcontext()):
-                        st, captured = self._run_mesh_chunk(
-                            qcur, qnext, seens, cur_counts, offset,
-                            next_counts, allowed, res)
-                    t0 += captured
-                    t_h = time.perf_counter()
-                    if pf is not None:
-                        pf.add_chunk(res.steps - steps0,
-                                     t_h - t_call - captured)
-                    res.chunks += 1
-                    r0 = st[0]
-                    steps = r0[ST_STEPS]
-                    if steps:
-                        per = (t_h - t_call - captured) / steps
-                        self._batch_ema = (per if not self._batch_ema else
-                                           max(per, 0.5 * self._batch_ema
-                                               + 0.5 * per))
-                    res.batches += steps
-                    offset = r0[ST_OFFSET]
-                    next_counts = [r[ST_COUNT] for r in st]
-                    sizes = [r[ST_SEEN] for r in st]
-                    total = [sum(col) for col in zip(*st)]
-                    self._account_chunk(res, total, max(sizes), self._CL,
-                                        sum(next_counts))
-                    _FLIGHT.progress(
-                        distinct=res.distinct, generated=res.generated,
-                        diameter=res.diameter, frontier=top, offset=offset,
-                        next_count=sum(next_counts), seen_size=max(sizes),
-                        elapsed=round(time.perf_counter() - t0, 3))
-                    inner = 0.0
-                    if cfg.record_trace and total[ST_TCOUNT]:
-                        t_t = time.perf_counter()
-                        with self._span("trace_flush"):
-                            for tbuf, r in zip(self._tbufs,
-                                               self._mine(st)):
-                                if r[ST_TCOUNT]:
-                                    self._flush_trace(tbuf, r[ST_TCOUNT])
-                        inner = time.perf_counter() - t_t
-                        self._phase("trace", inner)
-                    self._check_faults(total)
-                    seens, t0 = self._grow_shards(seens, sizes, res, t0)
-                    if max(next_counts) > self._QTH \
-                            and (offset < top or self._any(
-                                bool(pending) or carry is not None)):
-                        t_s = time.perf_counter()
-                        spill_next.append(self._drain(
-                            qnext, self._mine(next_counts)))
-                        spilled += sum(next_counts)
-                        res.spills += 1
-                        evlog.emit("spill", rows=sum(next_counts),
-                                   level=res.diameter, where="chunk_loop")
-                        next_counts = [0] * n
-                        self._phase("spill", time.perf_counter() - t_s)
-                        inner += time.perf_counter() - t_s
-                    # The lowest-indexed flagged shard's violation or
-                    # deadlock.
-                    viol = dead = None
-                    if any(r[ST_VIOL] for r in st):
-                        g, vrow, vfp = self._lowest(
-                            [r[ST_VIOL] for r in self._mine(st)],
-                            [cs.vrow for cs in self._css],
-                            [cs.vfp for cs in self._css])
-                        viol = (st[g][ST_VINV], chunk_mod.ChunkState(
-                            None, torch.as_tensor(vrow),
-                            torch.as_tensor(vfp), None))
-                    if self._check_deadlock and any(r[ST_DEAD] for r in st):
-                        _g, drow = self._lowest(
-                            [r[ST_DEAD] for r in self._mine(st)],
-                            [cs.drow for cs in self._css])
-                        dead = chunk_mod.ChunkState(None, None, None,
-                                                    torch.as_tensor(drow))
-                    last_progress = self._verdict(
-                        res, viol, dead,
-                        lambda: (sum(max(0, c - offset) for c in cur_counts)
-                                 + self._pool_rows(
-                                     pending.total_rows()
-                                     + (len(carry) if carry is not None
-                                        else 0)
-                                     + spill_next.total_rows())
-                                 + sum(next_counts)),
-                        sum(cur_counts), max(sizes) / self._CL, t0,
-                        last_progress)
-                    self._phase("host", time.perf_counter() - t_h - inner)
-                    if res.stop_reason != "exhausted":
-                        break
-                if res.stop_reason != "exhausted" \
-                        or not self._any(carry is not None or bool(pending)):
-                    break
-                # The next host segment, balanced across this process's
-                # shards (each controller uploads from its own pool).
-                t_s = time.perf_counter()
-                if carry is None and pending:
-                    carry = np.require(pending.pop(0),
-                                       requirements=["C", "W"])
-                piece = (carry if carry is not None
-                         else np.zeros((0, sw), np.uint8))
-                cap = L * QL
-                piece, carry = piece[:cap], (piece[cap:] if len(piece) > cap
-                                             else None)
-                share = -(-len(piece) // L)
-                local = []
-                for s, dev in enumerate(devs):
-                    part = piece[s * share:(s + 1) * share]
-                    qcur[s][:len(part)] = torch.from_numpy(
-                        np.ascontiguousarray(part)).to(dev)
-                    local.append([len(part)])
-                cur_counts = [r[0] for r in self._gather(local)]
-                self._phase("upload", time.perf_counter() - t_s)
-            if res.stop_reason != "exhausted":
-                break
-            res.diameter += 1
-            res.levels.append(sum(next_counts) + spilled)
-            self._sample_skew(res, next_counts, sizes)
-            self._emit_level_event(res, res.levels[-1])
-            qcur, qnext = qnext, qcur
-            cur_counts = next_counts
-            pending, spill_next = spill_next, pending
-        res.wall_seconds = time.perf_counter() - t0
-        if mp and cfg.record_trace:
-            self._write_trace_piece(trace)
-        self._next_residual("finish")
-        return res
+    def _seen_capacity(self, seens) -> int:
+        return self._CL
+
+    def _flush_rows(self, rows):
+        for tbuf, r in zip(self._tbufs, self._mine(rows)):
+            if r[ST_TCOUNT]:
+                self._flush_trace(tbuf, r[ST_TCOUNT])
+
+    def _flagged(self, rows):
+        """The lowest-indexed flagged shard's violation and deadlock."""
+        viol = dead = None
+        if any(r[ST_VIOL] for r in rows):
+            g, vrow, vfp = self._lowest(
+                [r[ST_VIOL] for r in self._mine(rows)],
+                [cs.vrow for cs in self._css], [cs.vfp for cs in self._css])
+            viol = (rows[g][ST_VINV], chunk_mod.ChunkState(
+                None, torch.as_tensor(vrow), torch.as_tensor(vfp), None))
+        if self._check_deadlock and any(r[ST_DEAD] for r in rows):
+            _g, drow = self._lowest([r[ST_DEAD] for r in self._mine(rows)],
+                                    [cs.drow for cs in self._css])
+            dead = chunk_mod.ChunkState(None, None, None,
+                                        torch.as_tensor(drow))
+        return viol, dead
+
+    def _host_left(self, pending) -> bool:
+        return self._any(bool(pending) or self._carry is not None)
+
+    def _host_rows(self, pending, spill_next) -> int:
+        """Rows in the host pools: this process's, totalled over the group
+        when a queue budget reads them."""
+        local = (pending.total_rows() + spill_next.total_rows()
+                 + (len(self._carry) if self._carry is not None else 0))
+        return self._pool_sum(local) if self._pool_sum is not None \
+            else local
+
+    def _upload(self, qcur, pending):
+        """The next host segment, balanced across this process's shards
+        (each controller uploads from its own pool); the rest of a
+        segment larger than they hold is carried to the next upload."""
+        if self._carry is None and pending:
+            self._carry = np.require(pending.pop(0),
+                                     requirements=["C", "W"])
+        piece = (self._carry if self._carry is not None
+                 else np.zeros((0, self._sw), np.uint8))
+        L, cap = self._L, self._L * self._Q
+        piece, self._carry = piece[:cap], (piece[cap:] if len(piece) > cap
+                                           else None)
+        share = -(-len(piece) // L)
+        local = []
+        for s, dev in enumerate(self.devices):
+            part = piece[s * share:(s + 1) * share]
+            qcur[s][:len(part)] = torch.from_numpy(
+                np.ascontiguousarray(part)).to(dev)
+            local.append([len(part)])
+        return [r[0] for r in self._gather(local)]

@@ -11,7 +11,9 @@ root against the JAX ``MeshBFSEngine`` at n = 2 (violation fingerprint,
 state and replay); spill, growth, disk spill, order independence and a
 POR table; snapshots crossing both ways with the JAX single engine and
 from n = 2 to n = 3; the distinct budget, progress lines and skew
-events; ``check --engine mesh --device cpu``; ``MeshSimulator``.
+events; the budgets between the roots' waves, the duration ramp and a
+deadlock against the single engine; ``check --engine mesh --device cpu``;
+``MeshSimulator``.
 
 The dryrun model's 46,553 / 31 pin takes ~23 s of CPU here, more than
 this file's budget allows; ``chip_smoke.py`` pins it on the card, and
@@ -380,6 +382,82 @@ def test_distinct_budget_and_progress_lines(capfd):
     mesh(2, progress_interval_seconds=1e-6).run([init_state(DIMS)])
     err = capfd.readouterr().err
     assert "progress:" in err and "queue" in err
+
+
+def thirteen_roots():
+    """The initial state and twelve candidates and voters of terms 1-2:
+    four waves of roots at batch 4."""
+    s = init_state(DIMS)
+    out = [s]
+    for t in (1, 2):
+        for r in range(3):
+            terms = tuple(t if i == r else 1 for i in range(3))
+            out.append(dataclasses.replace(
+                s, role=tuple(int(i == r) for i in range(3)),
+                current_term=terms))
+            out.append(dataclasses.replace(
+                s, current_term=terms,
+                voted_for=tuple(r + 1 if i == r else 0 for i in range(3))))
+    return out
+
+
+@pytest.mark.parametrize("n,kw,stop", [
+    (1, dict(batch=4, max_seconds=0.0), "duration_budget"),
+    (1, dict(batch=4, exit_conditions=(("distinct", 5),)), "distinct_budget"),
+    (1, dict(batch=4, queue_capacity=4, exit_conditions=(("queue", 6),)),
+     "queue_budget"),
+    (2, dict(max_seconds=1e6), "diameter_budget"),
+])
+def test_ingest_budgets_and_the_ramp_equal_the_single_engine(n, kw, stop):
+    """The level loop's budget branches on the mesh: a stop between the
+    roots' waves (the first three cases stop at level 0, the third after
+    a spill), and a duration budget's chunk ramp, against the single
+    engine's counts from the same roots."""
+    roots = thirteen_roots()
+    want = BFSEngine(DIMS, constraint=build_constraint(DIMS, BOUNDS),
+                     config=small(**kw), device="cpu").run(roots)
+    got = mesh(n, **kw).run(roots)
+    assert got.stop_reason == want.stop_reason == stop
+    assert counts(got) == counts(want)
+    assert (got.diameter == 0) == (stop != "diameter_budget")
+    if n == 1:                  # a shard's queue is Q / n rows
+        assert got.spills == want.spills
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_deadlock_equals_the_single_engine(monkeypatch, n):
+    """The model with one more guard (no action once a term reaches 2):
+    the mesh stops on a deadlock at the single engine's level; at n = 1
+    on its state and counts, at n = 2 on the lowest flagged shard's."""
+    import raft_tla_tpu_torch.engine.bfs as tbfs
+    import raft_tla_tpu_torch.parallel.mesh as tmesh
+    build = tbfs.build_v2
+
+    def build_v2(dims, device):
+        v2 = build(dims, device)
+
+        def guarded(st):
+            en, ovf = v2.masks(st)
+            live = (st.term.max(1).values < 2)[:, None]
+            return en & live, ovf & live
+
+        return v2._replace(masks=guarded)
+
+    monkeypatch.setattr(tbfs, "build_v2", build_v2)
+    monkeypatch.setattr(tmesh, "build_v2", build_v2)
+    kw = dict(check_deadlock=True, max_diameter=None)
+    want = BFSEngine(DIMS, constraint=build_constraint(DIMS, BOUNDS),
+                     config=small(**kw), device="cpu").run(
+                         [init_state(DIMS)])
+    eng = mesh(n, **kw)
+    got = eng.run([init_state(DIMS)])
+    assert got.stop_reason == want.stop_reason == "deadlock"
+    assert got.diameter == want.diameter
+    assert max(got.deadlock.current_term) == 2
+    assert not eng.successors(got.deadlock)[0].any()
+    if n == 1:
+        assert got.deadlock == want.deadlock
+        assert counts(got) == counts(want)
 
 
 def test_skew_events_and_level_rows(tmp_path):
