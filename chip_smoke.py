@@ -31,6 +31,9 @@
     python3 chip_smoke.py --warm              (a warm engine's kept
                                                graphs and run buffers
                                                only)
+    python3 chip_smoke.py --lanes-halves      (B4's lanes launches, the
+                                               keys and the build, timed
+                                               apart only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -77,13 +80,15 @@ no capture after the first run, no degradation and flat reserved bytes);
 and a run capped (``set_per_process_memory_fraction``) between what batch 4096
 and batch 8192 need, which must degrade to 4096 and give the L8 counts.
 The safety suite (``models/safety.py``, device code in the front's
-lanes launch): the front with it held exactly against ``front_plain`` at
+build launch): the front with it held exactly against ``front_plain`` at
 MCraft_bounded's and TPUraft's shapes on a real window (where it holds),
 random states and the nine crafted violating states, with
 MCraft_safety.cfg's ten in order and each of the nine alone (each must be
-the first failing id on a crafted lane), and its lanes launch timed
-against the TypeOK-only build; ``configs/MCraft_safety.cfg`` as written
-to L11 on v4 with both tails and to L9 on v3 (MCraft_bounded's pinned
+the first failing id on a crafted lane), and its lanes launches (keys
+and build) timed against the TypeOK-only build; B4's two lanes launches
+timed apart as the step runs them, the build on the new lanes of a real
+batch, at both shapes with both lists; ``configs/MCraft_safety.cfg`` as
+written to L11 on v4 with both tails and to L9 on v3 (MCraft_bounded's pinned
 counts); an ``Init <- SmokeInit`` check equal to its JAX pin
 (``tests/test_torch_safety_engine.py``); and TPUraft.cfg with the suite
 in place of TypeOK to L8 (the oracle's counts), in turns with TypeOK
@@ -1075,8 +1080,10 @@ def phase_front(torch, device):
          "a front launch runs on one block")
     need(info["masks_kernel"]["dynamic_smem"]
          == chunk_front_cuda.masks_smem(dims)
-         and info["lanes_kernel"]["dynamic_smem"]
-         == chunk_front_cuda.lanes_smem(dims),
+         and info["lanes_kernel.keys"]["dynamic_smem"]
+         == chunk_front_cuda.keys_smem(dims)
+         and info["lanes_kernel.build"]["dynamic_smem"]
+         == chunk_front_cuda.build_smem(dims),
          "check_dims counts other shared memory than the launches take")
     del windows, pool, cases, out
     return row
@@ -2149,9 +2156,10 @@ FRONT_VARIANTS = [
     ("lanes in their own order", [(
         "    const int l = t < nl ? order[t] : -1;",
         "    const int l = t < nl ? t : -1;")]),
-    ("no successors (timing only)", [(
-        "for (int r = t_lo + warp; r < t_hi; r += kWarps) {",
-        "for (int r = t_lo + warp; r < 0; r += kWarps) {")]),
+    ("no successors (timing only)", [
+        ("const bool f0 = l0 < total && mask[l0];", "const bool f0 = false;"),
+        ("const bool f1 = l1 < total && mask[l1];",
+         "const bool f1 = false;")]),
     ("no predicates (timing only)", [
         ("const bool cons = rtt::bounded_space_warp(st, bounds, lane);",
          "const bool cons = true;"),
@@ -2180,7 +2188,6 @@ def front_variants(torch, device):
     front = chunk_front_cuda.Front(**kw)
     want = front.plain(rows, valid)
     src = (build.CSRC / "chunk_front.cu").read_text()
-    argtypes = chunk_front_cuda._lib().chunk_front_launch.argtypes
     tmp = tempfile.mkdtemp(prefix="chip_smoke_front_")
     real_lib = chunk_front_cuda._lib
     try:
@@ -2200,13 +2207,16 @@ def front_variants(torch, device):
         for name, so, proc in procs:
             need(proc.wait() == 0, f"nvcc failed on the {name} variant")
         for name, so, _proc in procs + procs[:1]:
-            lib = ctypes.CDLL(so)
-            lib.chunk_front_launch.restype = ctypes.c_int
-            lib.chunk_front_launch.argtypes = argtypes
+            lib = chunk_front_cuda.bind(ctypes.CDLL(so))
             chunk_front_cuda._lib = lambda lib=lib: lib
             err = front_err(torch, front(rows, valid), want)
-            us = [device_ops(torch, lambda: front(rows, valid))
-                  for _ in range(5)]
+            # The two lanes launches by their halves (keys, then build).
+            us = [[(n + (".build" if n == "lanes_kernel" and any(
+                      m == n for m, _t in ops[:i]) else ".keys"
+                         if n == "lanes_kernel" else ""), t)
+                   for i, (n, t) in enumerate(ops)]
+                  for ops in (device_ops(torch, lambda: front(rows, valid))
+                              for _ in range(5))]
             by = {k: sorted(dict(u)[k] for u in us) for k in dict(us[0])}
             info = lib.chunk_front_kernel_info
             out = (ctypes.c_int * len(build.INFO_KEYS))()
@@ -2214,10 +2224,11 @@ def front_variants(torch, device):
             info.argtypes = [ctypes.c_int] * 8 + [
                 ctypes.POINTER(ctypes.c_int)]
             d = kw["dims"]
-            build.check(info(2, d.n_servers, d.n_values, d.max_log,
-                             d.n_msg_slots, 0, B, K, out), "kernel_info")
-            print(f"front variant {name}: lanes launch "
-                  f"{dict(zip(build.INFO_KEYS, out))}")
+            for code, half in ((2, "keys"), (3, "build")):
+                build.check(info(code, d.n_servers, d.n_values, d.max_log,
+                                 d.n_msg_slots, 0, B, K, out), "kernel_info")
+                print(f"front variant {name}: {half} launch "
+                      f"{dict(zip(build.INFO_KEYS, out))}")
             print(f"front variant {name}: max_abs_err {err}, queued "
                   f"{queued_ms(torch, lambda: front(rows, valid))} ms, "
                   f"device microseconds {by}")
@@ -3154,7 +3165,8 @@ def full_batch(torch, engine, setup):
     dispatch_eagerly(engine)
     body, got = engine._step.body, {}
 
-    def hook(rows, valid, seen, qnext, nc, mc=None, finish=None):
+    def hook(rows, valid, seen, qnext, nc, mc=None, finish=None,
+             built=None):
         def grab(valid, fo, new, fail, count):
             if bool(valid.all()):
                 got.update(rows=rows.clone(), valid=valid.clone(),
@@ -3163,7 +3175,7 @@ def full_batch(torch, engine, setup):
                            new=new.clone(), fail=fail.clone(),
                            count=count.clone())
             return finish(valid, fo, new, fail, count)
-        return body(rows, valid, seen, qnext, nc, mc, grab)
+        return body(rows, valid, seen, qnext, nc, mc, grab, built)
 
     engine._step.body = hook
     engine.run(initial_states(setup))
@@ -3623,11 +3635,12 @@ def state_window(torch, dims, states, b, device):
 
 
 def lanes_us(torch, front, rows, valid):
-    """Device microseconds of the front's lanes launch, under the
-    profiler (None when it sees no device time)."""
+    """Device microseconds of the front's lanes launches, the keys and
+    the build over every live lane, under the profiler (None when it sees
+    no device time)."""
     ops = device_ops(torch, lambda: front(rows, valid))
     us = [t for n, t in ops if n == "lanes_kernel"]
-    return us[0] if us else None
+    return dict(keys=us[0], build=us[1]) if len(us) == 2 else None
 
 
 def phase_safety_front(torch, device, shape):
@@ -3640,9 +3653,9 @@ def phase_safety_front(torch, device, shape):
     smoke domains (models/smoke.py) and the nine crafted violating states.
     Eleven lists: MCraft_safety.cfg's ten in its order and each of the
     nine alone; each of the nine must be the first failing id on some lane
-    of the crafted window in both.  Then the lanes launch with the suite
-    and with TypeOK alone on the real window: its device microseconds, its
-    registers and spill bytes, and blocks an SM."""
+    of the crafted window in both.  Then the lanes launches (keys and
+    build) with the suite and with TypeOK alone on the real window: their
+    device microseconds, registers and spill bytes, and blocks an SM."""
     from raft_tla_tpu_torch.engine.check import (initial_states,
                                                  make_engine,
                                                  resolve_constraint,
@@ -3731,8 +3744,10 @@ def phase_safety_front(torch, device, shape):
               f"queued front {queued_ms(torch, lambda: fr(rows, valid))} "
               f"ms a call")
     for what, fr in (("TypeOK", plain), ("the suite", full)):
-        print(f"safety front {shape}, {what}: lanes launch "
-              f"{fr.launch_info()['lanes_kernel']}, blocks an SM "
+        info = fr.launch_info()
+        print(f"safety front {shape}, {what}: keys launch "
+              f"{info['lanes_kernel.keys']}, build launch "
+              f"{info['lanes_kernel.build']}, blocks an SM "
               f"{fr.occupancy()}")
     del kinds, real
     torch.cuda.empty_cache()
@@ -3798,6 +3813,72 @@ def phase_safety_tpuraft(torch):
         del engine
     print("TPUraft L8 v4 fused, TypeOK and the suite in turns, as (list, "
           "check seconds): " + ", ".join(walls))
+
+
+def phase_lanes_halves(torch):
+    """B4's lanes work in its two halves, as the v4 step runs them, at
+    MCraft's (batch 2048, 473-byte rows) and TPUraft's (batch 8192, 951
+    bytes) shapes with TypeOK and with the suite: the fullest batch of a
+    v4 check (MCraft L10, TPUraft L7; its steps dispatched eagerly), then
+    the keys launch on it, the build launch on the lanes its insert found
+    new and on every live lane (a front called alone), each the median
+    of its device microseconds under the profiler, with each launch's
+    registers, spill and shared bytes and blocks an SM.  The check's
+    ``built`` must be its distinct states less the root."""
+    from raft_tla_tpu_torch.engine.bfs import EngineConfig
+    from raft_tla_tpu_torch.engine.check import initial_states, make_engine
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    for cfg, depth, batch, queue in (("MCraft", 10, B, QUEUE),
+                                     ("TPUraft", 7, 8192, 4194304)):
+        for label, names in (("TypeOK", ["TypeOK"]),
+                             ("the suite", ["TypeOK", *SAFETY_SUITE])):
+            setup = dataclasses.replace(load_config(os.path.join(
+                HERE, "configs", "TPUraft.cfg" if cfg == "TPUraft"
+                else "MCraft_bounded.cfg")), invariants=names)
+            engine = make_engine(setup, EngineConfig(
+                batch=batch, queue_capacity=queue, seen_capacity=SEEN,
+                max_diameter=depth, pipeline="v4", record_trace=False),
+                device="cuda")
+            dispatch_eagerly(engine)
+            body, best = engine._step.body, {}
+
+            def hook(rows, valid, seen, qnext, nc, mc=None, finish=None,
+                     built=None, body=body, best=best):
+                def grab(valid, fo, new, fail, count):
+                    if int(fo.total) > best.get("total", -1):
+                        best.update(total=int(fo.total), rows=rows.clone(),
+                                    valid=valid.clone(), new=new.clone())
+                    return finish(valid, fo, new, fail, count)
+                return body(rows, valid, seen, qnext, nc, mc, grab, built)
+
+            engine._step.body = hook
+            res = engine.run(initial_states(setup))
+            engine._step.body = body
+            need(res.built == res.distinct - 1,
+                 f"{cfg} L{depth} built {res.built} of {res.distinct}")
+            front = body.stages.front
+            rows, valid, new = best["rows"], best["valid"], best["new"]
+            fo, edits = front.keys(rows, valid)
+            us = {}
+            for half, fn in (
+                    ("keys", lambda: front.keys(rows, valid)),
+                    ("build of the new lanes",
+                     lambda: front.build(rows, fo, edits, new)),
+                    ("build of every live lane",
+                     lambda: front.build(rows, fo, edits, fo.kvalid))):
+                got = sorted(t for _ in range(7) for n, t in device_ops(
+                    torch, fn) if n == "lanes_kernel")
+                us[half] = got[len(got) // 2] if got else "not measured"
+            info = front.launch_info()
+            print(f"lanes halves {cfg} [{batch},{front.sw}], {label}: "
+                  f"{best['total']} live lanes, {int(new.sum())} new; "
+                  f"device microseconds {us}; keys launch "
+                  f"{info['lanes_kernel.keys']}, build launch "
+                  f"{info['lanes_kernel.build']}, blocks an SM "
+                  f"{front.occupancy()}")
+            engine.release()
+            del engine, fo, edits, best
+            torch.cuda.empty_cache()
 
 
 def phase_smoke_init(torch):
@@ -5897,7 +5978,8 @@ def obs_cli(torch):
                                         "trace_flush", "root_check")),
              "the trace misses the run, level or phase spans")
         want = {"v4": {"B1": "resolve_kernel<false>",
-                       "B2": "resolve_kernel<true>", "B4": "lanes_kernel",
+                       "B2": "enqueue_tiles_kernel<false>",
+                       "B4": "lanes_kernel",
                        "B5": "enqueue_count_kernel"},
                 "v3": {"B3": "count_kernel"}}
         for pipeline, kernels in want.items():
@@ -6838,6 +6920,9 @@ def main() -> int:
         print(f"hunt on over off: {phase_hunt_cost(torch)}")
         print(json.dumps({"v1": counts["v1"]}))
         return 0
+    if sys.argv[1:] == ["--lanes-halves"]:
+        phase_lanes_halves(torch)
+        return 0
     if sys.argv[1:] == ["--warm"]:
         t = time.time()
         phase_warm_engine(torch)
@@ -6944,6 +7029,7 @@ def main() -> int:
     print(f"walk tier phases: {time.time() - t} s")
     phase_north_star(torch)
     phase_safety_tpuraft(torch)
+    phase_lanes_halves(torch)
     phase_profile(torch, "v4", cfg_name="TPUraft.cfg",
                   config=tpuraft_config(6, record_trace=True))
     phase_tpuraft_more(torch)

@@ -189,14 +189,18 @@ def kernel_sites():
     """``((owner, attribute, label), ...)``: the plain version each
     hand-written kernel's wrapper calls on a CPU tensor, where a trace
     puts a stand-in for the kernel (this lint, and the roofline's traffic
-    walk in ``obs/roofline.py``)."""
+    walk in ``obs/roofline.py``).  The front's keys half shares the whole
+    front's label; its build half, which runs inside the tail, has its
+    own."""
     from ..ops import (chunk_front_cuda, compact_cuda, enqueue_cuda,
                        fpset_cuda, fused_tail_cuda)
     return ((compact_cuda, "compact_plain", "compact"),
             (fpset_cuda, "insert_plain", "fpset_insert"),
             (fused_tail_cuda, "insert_enqueue_plain", "fused_tail"),
             (enqueue_cuda, "enqueue_plain", "enqueue"),
-            (chunk_front_cuda.Front, "plain", "chunk_front"))
+            (chunk_front_cuda.Front, "plain", "chunk_front"),
+            (chunk_front_cuda.Front, "keys_plain", "chunk_front"),
+            (chunk_front_cuda.Front, "build_plain", "chunk_front_build"))
 
 
 @contextlib.contextmanager

@@ -1,11 +1,13 @@
-// The v4 chunk front: masks -> POR -> compaction -> delta fingerprints,
-// successor rows, constraint, invariant id and parent fingerprints.
+// The v4 chunk front: masks -> POR -> compaction -> delta fingerprints
+// and parent fingerprints (the keys), then, after the seen-set insert,
+// successor rows, constraint and invariant id of the lanes it found new.
 //
 // Replaces raft_tla_tpu/ops/chunk_front_pallas.py `_front_kernel` (built by
 // `build_front`), which loads the B-row parent window into VMEM once and
 // replays the traced model in one grid-less program, with a sequential
-// `fori_loop` for the compaction.  On Hopper the three stages become three
-// launches on one stream, with no host round trip between them:
+// `fori_loop` for the compaction, building every compacted lane's
+// successor.  On Hopper the front is four launches on one stream, with no
+// host round trip between them, in two halves around the insert:
 //
 //   1. masks_kernel: one warp per parent row.  The row is decoded into ints
 //      in shared memory; lanes take the G instances in strides of 32
@@ -17,51 +19,72 @@
 //      scratch.
 //   2. compact_scan_kernel: B3's multi-block scan and write (compact.cuh),
 //      16 rows a block, each block clearing its own rows >= P in en/ovf.
-//   3. lanes_kernel: a block of 8 warps takes a run of kRun = 64
-//      consecutive compacted lanes (lane < total).  Compacted lanes come in
-//      ascending flat order, so a run spans a handful of parents (about 16
-//      lanes a parent on the main path): the block lists the run's distinct
-//      parents and decodes EACH ONCE into shared memory (up to kCap at a
-//      time; a run with more, as under POR, takes several rounds).  Then a
-//      THREAD PER LANE does `lane_out`'s scalar work once (instance decode,
-//      receive_ctx, the AdvanceCommitIndex quorum, the message row, the
-//      send's equal-row and free-slot search), writes the lane's ordered
-//      edit list (position, value) into shared memory, summing each
-//      ordered-part edit's fingerprint delta against the value the position
-//      holds just before it, and writes the fingerprints.  Then the warps
-//      materialise the successors, a warp a lane: the parent's ints with
-//      the edits overlaid (the last edit of a position wins, which is the
+//   3. lanes_kernel<.., kBuild = false>, the keys: a block of 8 warps takes
+//      a run of kRun = 64 consecutive compacted lanes (lane < total).
+//      Compacted lanes come in ascending flat order, so a run spans a
+//      handful of parents (about 16 lanes a parent on the main path): the
+//      block lists the run's distinct parents and decodes EACH ONCE into
+//      shared memory (up to kCap at a time; a run with more, as under POR,
+//      takes several rounds).  Then a THREAD PER LANE does `lane_out`'s
+//      scalar work once (instance decode, receive_ctx, the
+//      AdvanceCommitIndex quorum, the message row, the send's equal-row and
+//      free-slot search), writes the lane's ordered edit list (position,
+//      value) into shared memory, summing each ordered-part edit's
+//      fingerprint delta against the value the position holds just before
+//      it, and writes the fingerprints.  The run's edit records (the list,
+//      the bag's row operations and the message row) are copied out to a
+//      [K] device buffer for the build.
+//   -- the seen-set insert (fused_tail.cu / fpset.cu) gives is_new --
+//   4. lanes_kernel<.., kBuild = true>, the build: a block per 64-lane tile
+//      takes the tile's lanes whose flag is set (is_new in the step; every
+//      live lane for a front called alone), a warp a lane: the parent's
+//      row staged as bytes and decoded into ints, the lane's edits overlaid
+//      from its record (the last edit of a position wins, which is the
 //      in-order result), the constraint and the invariants on those ints,
 //      and the row as bytes (ints wrap mod 256 only here), stored as
 //      16-byte words with the unaligned head and tail as bytes.  The
-//      invariants are the run's list of predicate codes, evaluated in
-//      order until one fails (raft_model.cuh `first_failing_warp`); a
-//      list that names one of the nine safety predicates takes the
-//      launch's second build (kSuite), so the TypeOK-only build carries
-//      none of their code.
+//      invariants are the run's list of predicate codes, evaluated in order
+//      until one fails (raft_model.cuh `first_failing_warp`); a list that
+//      names one of the nine safety predicates takes the build's suite
+//      build (kSuite), so the TypeOK-only build carries none of their code.
+//      The block writes the tile's count of built lanes whose constraint
+//      holds (the fused tail's copy takes its rows by those counts) and
+//      adds the lanes it built to a counter word.
+//
+// Both halves are instantiations of one template, so a trace names both
+// `lanes_kernel`.  The build runs on the lanes the seen set finds new, so
+// every state entering the seen set gets its row, constraint and first
+// failing invariant exactly once, as TLC evaluates each distinct state;
+// the 2 to 3 successors a distinct state is generated as are hashed and
+// never built.
 //
 // The joint-consensus reconfiguration variant (models/reconfig.py) has
-// builds of its own of the masks and lanes launches (kReconfig): 12
-// families (the targets ride in Dims), the config scan and the joint
-// quorum, the two appends (three ordered positions each), rows with the
-// value high-byte planes, the widened TypeOK.  Those builds take TypeOK,
-// NoLeaderElected and BoundedSpace; a list with a safety predicate is
-// refused for the variant (cudaErrorInvalidValue, and ValueError in the
-// wrapper when the front is built).
+// builds of its own of all three model launches (kReconfig): 12 families
+// (the targets ride in Dims), the config scan and the joint quorum, the two
+// appends (three ordered positions each), rows with the value high-byte
+// planes, the widened TypeOK.  Those builds take TypeOK, NoLeaderElected
+// and BoundedSpace; a list with a safety predicate is refused for the
+// variant (cudaErrorInvalidValue, and ValueError in the wrapper when the
+// front is built).
 //
-// Dead compacted lanes (lane >= total) are left unwritten in kh, kl, krows,
-// cons_ok, inv, parent_hi and parent_lo: nothing downstream reads them (the
-// fused tail reads only enqueued lanes; violations and trace links go
-// through is_new, which is false there).
+// Written lanes.  The keys write kh, kl, parent_hi, parent_lo and the edit
+// record on every live compacted lane (lane < total) and leave dead lanes
+// unwritten.  The build writes krows, cons_ok and inv on the live lanes of
+// its flags only, and leaves every other lane unwritten: the engine reads
+// them only through is_new (the fused tail's copy takes is_new & cons_ok,
+// violations are is_new & inv >= 0, the violating row is taken at one of
+// those lanes).
 //
-// Bound on the H100: bytes.  The function reads the B parent rows and
-// writes the three [B, G] masks, lane_id/kvalid, and each live lane's row
-// and scalars: about 19 MB for a full main-path window (B=2048, K=32768,
-// ~32,700 live lanes), under 6 us at 3.35 TB/s.  What is left: the guards
-// still loop over the message slots per instance in the masks launch, the
-// scalar phase runs 64 threads of a block's 256 with the ten families
-// diverging, and the three launches could become two (the scan folded into
-// the lanes launch).  chip_smoke.py times each launch.
+// Bound on the H100: bytes.  The keys read the B parent rows and write the
+// three [B, G] masks, lane_id/kvalid, each live lane's scalars and its
+// edit record (~166 B at MCraft's dims, ~214 B at TPUraft's); the build
+// reads a built lane's parent row and record and writes its row.  At a
+// full main-path window (B=2048, K=32768, ~11,600 lanes new) about 21 MB,
+// 6 us at 3.35 TB/s.  What is left: the guards still loop over the message
+// slots per instance in the masks launch, the scalar phase runs 64 threads
+// of a block's 256 with the ten families diverging, and a built lane
+// decodes its parent again (the keys decoded it once for the run).
+// chip_smoke.py times each launch.
 
 #include <climits>
 
@@ -192,38 +215,63 @@ masks_kernel(Dims d, const uint8_t* __restrict__ rows,
 }
 
 constexpr int kRun = 64;  // compacted lanes a lanes block takes
-constexpr int kCap = 8;   // parent rows it holds decoded at once
+constexpr int kCap = 8;   // parent rows the keys hold decoded at once
 constexpr int kMeta = 9;  // per-lane and per-parent int arrays, kRun each
 
 // (position, value) edits one lane can make (lane_out): 11 + 2N
 // ordered-part positions and two message counts.  The bag's rows change
-// by row operations (Edits below), not by edits.
+// by row operations (Edits below), not by edits.  The build takes one a
+// lane of a warp.
 __host__ __device__ inline int max_edits(const Dims& d) {
   return 13 + 2 * d.N;
 }
+static_assert(13 + 2 * rtt::kMaxN <= 32, "an edit a lane of a warp");
 
-// The lanes launch's dynamic shared memory (all of it; the kernel has no
-// static shared memory), in this order: kCap decoded parents, a decoded
-// successor and a byte row a warp, each lane's edit values, positions and
-// message row, the kMeta arrays, the block scan's 32 ints and 16 family
-// counts.  ops/chunk_front_cuda.py `lanes_smem` computes the same total.
-struct LanesSmem {
-  int row_ints, stage_bytes, E;
-  int stg, bst, val, pos, msg, meta, bytes;
+// The keys launch's dynamic shared memory (all of it; the kernel has no
+// static shared memory), in this order: kCap decoded parents, each lane's
+// edit values, positions and message row, the kMeta arrays, the block
+// scan's 32 ints and 16 family counts.  ops/chunk_front_cuda.py
+// `keys_smem` computes the same total.
+struct KeysSmem {
+  int row_ints, E;
+  int val, pos, msg, meta, bytes;
 };
 
-__host__ __device__ inline LanesSmem lanes_smem(const Dims& d) {
-  LanesSmem s;
+__host__ __device__ inline KeysSmem keys_smem(const Dims& d) {
+  KeysSmem s;
   s.row_ints = align16(d.sw * 4) / 4;
-  s.stage_bytes = align16(d.sw + 16);
   s.E = max_edits(d);
-  s.stg = kCap * s.row_ints * 4;
-  s.bst = s.stg + kWarps * s.row_ints * 4;
-  s.val = s.bst + kWarps * s.stage_bytes;
+  s.val = kCap * s.row_ints * 4;
   s.pos = s.val + align16(kRun * s.E * 4);
   s.msg = s.pos + align16(kRun * s.E * 2);
   s.meta = s.msg + align16(kRun * d.W * 4);
   s.bytes = s.meta + (kMeta * kRun + 32 + 16) * 4;
+  return s;
+}
+
+// The build launch's: `cap` decoded parents, a decoded successor and a
+// byte row a warp, then three int arrays of kRun, the block scan's 32 ints
+// and a count a warp.  `cap` is as many parents (up to kCap, at least
+// one) as leave the block within kBuildBudget, so 4 blocks fit an SM.
+// ops/chunk_front_cuda.py `build_smem` computes the same.
+constexpr int kBuildBudget = 55 * 1024;
+
+struct BuildSmem {
+  int row_ints, stage_bytes, cap;
+  int stg, bst, meta, bytes;
+};
+
+__host__ __device__ inline BuildSmem build_smem(const Dims& d) {
+  BuildSmem s;
+  s.row_ints = align16(d.sw * 4) / 4;
+  s.stage_bytes = align16(d.sw + 16);
+  const int rest = kWarps * (s.row_ints * 4 + s.stage_bytes) +
+                   (3 * kRun + 32 + kWarps) * 4;
+  s.cap = min(kCap, max(1, (kBuildBudget - rest) / (s.row_ints * 4)));
+  s.stg = s.cap * s.row_ints * 4;
+  s.bst = s.stg + kWarps * s.row_ints * 4;
+  s.meta = s.bst + kWarps * s.stage_bytes;
+  s.bytes = s.meta + (3 * kRun + 32 + kWarps) * 4;
   return s;
 }
 
@@ -236,6 +284,27 @@ struct LaneOut {
   int64_t* phi;
   int64_t* plo;
 };
+
+// The lanes' edit records, from the keys to the build, in one [K] buffer
+// of 4 + 6 E + 4 W bytes a lane (ops/chunk_front_cuda.py
+// `edit_record_bytes`): meta (the list's length n, the cleared slot + 1
+// << 8, the written slot + 1 << 17), then the lists' values [K, E], the
+// message rows [K, W] and the lists' positions [K, E] (int16).
+struct EditRecs {
+  int32_t* meta;
+  int32_t* val;
+  int32_t* msg;
+  int16_t* pos;
+};
+
+inline EditRecs edit_recs(const Dims& d, void* base, int K) {
+  EditRecs r;
+  r.meta = (int32_t*)base;
+  r.val = r.meta + K;
+  r.msg = r.val + (size_t)K * max_edits(d);
+  r.pos = (int16_t*)(r.msg + (size_t)K * d.W);
+  return r;
+}
 
 // One lane's edits over its parent's decoded ints: the ordered-part and
 // count positions as an ordered (position, value) list, and the bag's rows
@@ -483,16 +552,17 @@ __device__ __forceinline__ void put_hi(const Dims& d, int* sv, uint8_t* bo,
   }
 }
 
-// Compacted lane q's successor, by one warp: the parent's ints `pv` with
-// the lane's edits `ed` applied into `sv`, the constraint and the
-// invariants (`n_inv` codes of 4 bits in `inv_list`) on them, and the row
-// as bytes through the warp's staging row `bs`.  kReconfig writes each
-// value's high byte into its plane beside it.
+// Compacted lane q's successor, by one warp: the parent's ints `pv` copied
+// into `sv` and as bytes into the warp's staging row `bs`, the lane's edit
+// record overlaid on both, the constraint and the invariants (`n_inv`
+// codes of 4 bits in `inv_list`) on the ints, and the bytes stored as row
+// q.  kReconfig writes each value's high byte into its plane beside it.
+// Returns the constraint (in every lane).
 template <bool kSuite, bool kReconfig>
-__device__ __forceinline__ void successor(
-    const Dims& d, const int* pv, const Edits& ed, int* sv, uint8_t* bs,
-    int row_ints, const rtt::Bounds& bounds, unsigned long long inv_list,
-    int n_inv, const LaneOut& out, int q, int lane) {
+__device__ __forceinline__ bool build_lane(
+    const Dims& d, const int* pv, const EditRecs& rec, int* sv, uint8_t* bs,
+    const rtt::Bounds& bounds, unsigned long long inv_list, int n_inv,
+    const LaneOut& out, int q, int lane) {
   // Row q sits at any byte offset: its bytes are staged in `bs` at the
   // same offset mod 16, beside the ints (copied 16 bytes a lane).
   uint8_t* row = out.krows + (size_t)q * d.sw;
@@ -507,33 +577,41 @@ __device__ __forceinline__ void successor(
     if (p + 2 < d.sw) bo[p + 2] = (uint8_t)v.z;
     if (p + 3 < d.sw) bo[p + 3] = (uint8_t)v.w;
   }
+  // The record: edit e in lane e; the last edit of each position is its
+  // in-order result.
+  const int meta = __ldg(rec.meta + q);
+  const int n = meta & 0xFF, clr = ((meta >> 8) & 0x1FF) - 1,
+            wr = ((meta >> 17) & 0x1FF) - 1;
+  const size_t e0 = (size_t)q * max_edits(d);
+  const int pe = lane < n ? __ldg(rec.pos + e0 + lane) : -1;
+  const int ve = lane < n ? __ldg(rec.val + e0 + lane) : 0;
+  bool last = lane < n;
+  for (int f = 1; f < n; ++f) {
+    const int pf = __shfl_sync(0xffffffffu, pe, f);
+    last = last && (f <= lane || pf != pe);
+  }
   __syncwarp();
-  // The list: the last edit of each position is its in-order result.
-  for (int e = lane; e < ed.n; e += 32) {
-    const int p = ed.pos[e];
-    bool last = true;
-    for (int f = e + 1; f < ed.n && last; ++f) last = ed.pos[f] != p;
-    if (last) {
-      sv[p] = ed.val[e];
-      bo[p] = (uint8_t)(ed.val[e] & 0xFF);
-      if constexpr (kReconfig) put_hi(d, sv, bo, p, ed.val[e]);
-    }
+  if (last) {
+    sv[pe] = ve;
+    bo[pe] = (uint8_t)(ve & 0xFF);
+    if constexpr (kReconfig) put_hi(d, sv, bo, pe, ve);
   }
   // The bag's rows: the clear, then the new row.
-  if (ed.clr >= 0)
+  if (clr >= 0)
     for (int c = lane; c < d.W; c += 32) {
-      const int p = d.o_msg + ed.clr * d.W + c;
+      const int p = d.o_msg + clr * d.W + c;
       sv[p] = 0;
       bo[p] = 0;
       if constexpr (kReconfig) put_hi(d, sv, bo, p, 0);
     }
   __syncwarp();
-  if (ed.wr >= 0)
+  if (wr >= 0)
     for (int c = lane; c < d.W; c += 32) {
-      const int p = d.o_msg + ed.wr * d.W + c;
-      sv[p] = ed.m[c];
-      bo[p] = (uint8_t)(ed.m[c] & 0xFF);
-      if constexpr (kReconfig) put_hi(d, sv, bo, p, ed.m[c]);
+      const int p = d.o_msg + wr * d.W + c;
+      const int m = __ldg(rec.msg + (size_t)q * d.W + c);
+      sv[p] = m;
+      bo[p] = (uint8_t)(m & 0xFF);
+      if constexpr (kReconfig) put_hi(d, sv, bo, p, m);
     }
   __syncwarp();
   const St st{d, sv};
@@ -557,26 +635,19 @@ __device__ __forceinline__ void successor(
     out.inv[q] = inv;
   }
   __syncwarp();
+  return cons;
 }
 
-// At least 4 blocks an SM (64 registers a thread): the scalar and the
-// successor phases of one block overlap those of the others.  kSuite
-// builds the safety suite's predicates in (raft_model.cuh
-// `first_failing_warp`); the launcher takes that build only for a list
-// that names one of them.
-template <bool kSuite, bool kReconfig>
-__global__ void __launch_bounds__(kThreads, 4)
-lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
-             const int32_t* __restrict__ pt,
-             const int32_t* __restrict__ lane_id,
-             const uint32_t* __restrict__ scratch,
-             const uint32_t* __restrict__ salts, rtt::Bounds bounds,
-             unsigned long long inv_list, int n_inv, LaneOut out) {
+// The keys of a run of kRun compacted lanes (see the header, launch 3).
+template <bool kReconfig>
+__device__ __forceinline__ void keys_run(
+    const Dims& d, const uint8_t* __restrict__ rows,
+    const int32_t* __restrict__ pt, const int32_t* __restrict__ lane_id,
+    const uint32_t* __restrict__ scratch, const uint32_t* __restrict__ salts,
+    const LaneOut& out, const EditRecs& rec) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const LanesSmem S = lanes_smem(d);
+  const KeysSmem S = keys_smem(d);
   int* par = reinterpret_cast<int*>(smem);
-  int* stg = reinterpret_cast<int*>(smem + S.stg);
-  uint8_t* bst = smem + S.bst;
   int* ed_val = reinterpret_cast<int*>(smem + S.val);
   int16_t* ed_pos = reinterpret_cast<int16_t*>(smem + S.pos);
   int* ed_msg = reinterpret_cast<int*>(smem + S.msg);
@@ -636,7 +707,7 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
   __syncthreads();
 
   // 2. Rounds of up to kCap parents: decode each once, a thread per lane
-  //    for the scalars, a warp per lane for the successor.
+  //    for the scalars.
   const rtt::Salts k{salts, d.D, d.W};
   for (int p0 = 0; p0 < np; p0 += kCap) {
     const int pn = min(kCap, np - p0);
@@ -658,16 +729,123 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
       wr[l] = ed.wr;
     }
     __syncthreads();
-    for (int r = t_lo + warp; r < t_hi; r += kWarps) {
-      const int* pv = par + (ps[r] - p0) * S.row_ints;
-      const Edits ed{pv, ed_pos + r * S.E, ed_val + r * S.E,
-                     ed_msg + r * d.W, n_ed[r], clr[r], wr[r]};
-      successor<kSuite, kReconfig>(d, pv, ed, stg + warp * S.row_ints,
-                        bst + warp * S.stage_bytes, S.row_ints, bounds,
-                        inv_list, n_inv, out, q0 + r, lane);
+  }
+
+  // 3. The run's edit records, for the build: the shared lists copied out
+  //    whole (a lane's list and message row past its length unread).
+  const size_t e0 = (size_t)q0 * S.E, m0 = (size_t)q0 * d.W;
+  for (int i = t; i < nl * S.E; i += kThreads) {
+    rec.val[e0 + i] = ed_val[i];
+    rec.pos[e0 + i] = ed_pos[i];
+  }
+  for (int i = t; i < nl * d.W; i += kThreads) rec.msg[m0 + i] = ed_msg[i];
+  if (t < nl)
+    rec.meta[q0 + t] = n_ed[t] | (clr[t] + 1) << 8 | (wr[t] + 1) << 17;
+}
+
+// The build of one 64-lane tile (see the header, launch 4).  `mask`, the
+// flags of the lanes to build, may be written by the launch before this
+// one (the insert's resolve), so it is read after the wait and through no
+// __restrict__ pointer; everything else was written before that launch.
+template <bool kSuite, bool kReconfig>
+__device__ __forceinline__ void build_tile(
+    const Dims& d, const uint8_t* __restrict__ rows,
+    const int32_t* __restrict__ pt, const int32_t* __restrict__ lane_id,
+    const rtt::Bounds& bounds, unsigned long long inv_list, int n_inv,
+    const LaneOut& out, const EditRecs& rec, const uint8_t* mask,
+    int* tile_count, int* built) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const BuildSmem S = build_smem(d);
+  rtt::grid_dependency_wait();
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  int* par = reinterpret_cast<int*>(smem);
+  int* sv = reinterpret_cast<int*>(smem + S.stg) + warp * S.row_ints;
+  uint8_t* bs = smem + S.bst + warp * S.stage_bytes;
+  int* lb = reinterpret_cast<int*>(smem + S.meta);  // lane -> parent row
+  int* ps = lb + kRun;    // lane -> parent slot in the tile
+  int* pb = ps + kRun;    // parent slot -> row
+  int* scan = pb + kRun;
+  int* kept = scan + 32;
+  const int total = *pt;  // the build's `pt` is the total alone
+  const int q0 = blockIdx.x * kRun;
+  // 1. The tile's lanes to build as a mask (bit i: lane q0 + i), in every
+  //    warp, and their distinct parents in ascending order (compacted
+  //    lanes ascend in flat order, so a parent's lanes are adjacent).
+  const int l0 = q0 + lane, l1 = q0 + 32 + lane;
+  const bool f0 = l0 < total && mask[l0];
+  const bool f1 = l1 < total && mask[l1];
+  const unsigned long long f =
+      (unsigned long long)__ballot_sync(0xffffffffu, f1) << 32 |
+      __ballot_sync(0xffffffffu, f0);
+  const bool mine = t < kRun && ((f >> t) & 1);
+  if (t < kRun) lb[t] = mine ? lane_id[q0 + t] / d.G : -1;
+  __syncthreads();
+  int head = 0;
+  if (mine) {
+    const unsigned long long before = t ? f & (~0ull >> (64 - t)) : 0ull;
+    head = !before || lb[63 - __clzll((long long)before)] != lb[t];
+  }
+  int np;
+  const int slot = rtt::block_exclusive_scan(head, &np, scan);
+  if (head) pb[slot] = lb[t];
+  if (mine) ps[t] = slot + head - 1;
+  __syncthreads();
+
+  // 2. Rounds of up to S.cap parents: decode each once, a warp per lane
+  //    of the round for its successor, the round's lanes dealt to the
+  //    warps in turn.
+  int ok = 0;
+  for (int p0 = 0; p0 < np; p0 += S.cap) {
+    const int pn = min(S.cap, np - p0);
+    for (int w = warp; w < pn; w += kWarps)
+      rtt::decode_row<kReconfig>(d, rows + (size_t)pb[p0 + w] * d.sw,
+                                 par + w * S.row_ints, lane);
+    __syncthreads();
+    int j = 0;
+    for (unsigned long long rest = f; rest; rest &= rest - 1) {
+      const int i = __ffsll((long long)rest) - 1;
+      const int s = ps[i] - p0;
+      if (s < 0 || s >= pn || j++ % kWarps != warp) continue;
+      ok += build_lane<kSuite, kReconfig>(
+          d, par + s * S.row_ints, rec, sv, bs, bounds, inv_list, n_inv,
+          out, q0 + i, lane);
     }
     __syncthreads();
   }
+  if (lane == 0) kept[warp] = ok;
+  __syncthreads();
+  if (t == 0) {
+    int c = 0;
+    for (int w = 0; w < kWarps; ++w) c += kept[w];
+    if (tile_count) tile_count[blockIdx.x] = c;
+    if (built && f) atomicAdd(built, __popcll(f));
+  }
+  rtt::launch_dependents();
+}
+
+// Both halves of B4's lanes work: kBuild = false, the keys of a run of
+// kRun lanes (`pt` is the compaction's [P, total]); kBuild = true, the
+// build of a tile of kRun lanes (`pt` points at the total).  At least
+// 4 blocks an SM (64 registers a thread): one block's scalar or predicate
+// phase overlaps the others' loads.  kSuite builds the safety suite's
+// predicates in (raft_model.cuh `first_failing_warp`); the launcher takes
+// that build only for a list that names one of them, and the keys only
+// without it.
+template <bool kSuite, bool kReconfig, bool kBuild>
+__global__ void __launch_bounds__(kThreads, 4)
+lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
+             const int32_t* __restrict__ pt,
+             const int32_t* __restrict__ lane_id,
+             const uint32_t* __restrict__ scratch,
+             const uint32_t* __restrict__ salts, rtt::Bounds bounds,
+             unsigned long long inv_list, int n_inv, LaneOut out,
+             EditRecs rec, const uint8_t* mask, int* tile_count,
+             int* built) {
+  if constexpr (kBuild)
+    build_tile<kSuite, kReconfig>(d, rows, pt, lane_id, bounds, inv_list,
+                                  n_inv, out, rec, mask, tile_count, built);
+  else
+    keys_run<kReconfig>(d, rows, pt, lane_id, scratch, salts, out, rec);
 }
 
 int masks_blocks(int B) { return (B + kWarps - 1) / kWarps; }
@@ -700,32 +878,44 @@ bool dims_ok(int N, int V, int L, int M, int T) {
          (T == 0 || N <= 7);
 }
 
+// Dims and invariant list of one call, checked: cudaErrorInvalidValue for
+// dims or predicates this kernel does not take.
+int call_dims(int N, int V, int L, int M, const int* targets, int n_targets,
+              const int* inv_codes, int n_inv, Dims* d,
+              unsigned long long* inv_list, bool* suite) {
+  if (!dims_ok(N, V, L, M, n_targets) ||
+      (n_targets > 0 && targets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int e;
+  if ((e = pack_invariants(inv_codes, n_inv, inv_list, suite))) return e;
+  if (n_targets > 0 && *suite) return (int)cudaErrorInvalidValue;
+  *d = rtt::make_dims(N, V, L, M, n_targets, targets);
+  return 0;
+}
+
 }  // namespace
 
-// One front call: three launches on `stream`.  `inv_codes` is a host
-// array of `n_inv` predicate codes in the run's order; `targets` a host
-// array of the reconfig variant's `n_targets` target configs (0 for the
-// spec).  Returns a cudaError_t (cudaErrorInvalidValue for dims or
-// predicates this kernel does not take).
+// The front's keys: launches 1-3 on `stream` (masks, compaction, keys),
+// `edits` a buffer of K edit records (EditRecs).  `targets` is a host array
+// of the reconfig variant's `n_targets` target configs (0 for the spec).
+// Returns a cudaError_t (cudaErrorInvalidValue for dims this kernel does
+// not take).
 extern "C" int chunk_front_launch(
     int N, int V, int L, int M, const int* targets, int n_targets,
     const void* rows, const void* valid, int B, int K, const void* kspread,
     const void* por_mask, const void* por_pri, const void* salts,
-    const int* inv_codes, int n_inv, int max_term, int max_log_len,
-    int max_msg_count, int max_in_flight, void* scratch, void* counts,
-    void* en, void* ovf, void* pruned, void* pt, void* lane_id, void* kvalid,
-    void* kh, void* kl, void* krows, void* cons, void* inv, void* phi,
-    void* plo, void* stream) {
-  if (!dims_ok(N, V, L, M, n_targets) || B < 1 ||
-      (n_targets > 0 && targets == nullptr))
-    return (int)cudaErrorInvalidValue;
+    void* scratch, void* counts, void* en, void* ovf, void* pruned, void* pt,
+    void* lane_id, void* kvalid, void* kh, void* kl, void* phi, void* plo,
+    void* edits, void* stream) {
+  Dims d;
   unsigned long long inv_list;
   bool suite;
   int e;
-  if ((e = pack_invariants(inv_codes, n_inv, &inv_list, &suite))) return e;
+  if ((e = call_dims(N, V, L, M, targets, n_targets, nullptr, 0, &d,
+                     &inv_list, &suite)))
+    return e;
+  if (B < 1) return (int)cudaErrorInvalidValue;
   const bool reconfig = n_targets > 0;
-  if (reconfig && suite) return (int)cudaErrorInvalidValue;
-  const Dims d = rtt::make_dims(N, V, L, M, n_targets, targets);
   cudaStream_t st = (cudaStream_t)stream;
 
   const size_t smem_a = (size_t)kWarps * masks_warp_bytes(d);
@@ -745,38 +935,83 @@ extern "C" int chunk_front_launch(
       (uint8_t*)kvalid, (uint8_t*)en, (uint8_t*)ovf);
   if ((e = (int)cudaGetLastError())) return e;
 
-  const size_t smem_c = lanes_smem(d).bytes;
-  auto lanes = reconfig ? lanes_kernel<false, true>
-               : suite  ? lanes_kernel<true, false>
-                        : lanes_kernel<false, false>;
-  if ((e = rtt::allow_smem(lanes, smem_c))) return e;
-  const rtt::Bounds bounds{max_term, max_log_len, max_msg_count,
-                           max_in_flight};
-  const LaneOut out{(int64_t*)kh,  (int64_t*)kl,  (uint8_t*)krows,
-                    (uint8_t*)cons, (int64_t*)inv, (int64_t*)phi,
-                    (int64_t*)plo};
-  lanes<<<lanes_blocks(K), kThreads, smem_c, st>>>(
+  const size_t smem_c = keys_smem(d).bytes;
+  auto keys = reconfig ? lanes_kernel<false, true, false>
+                       : lanes_kernel<false, false, false>;
+  if ((e = rtt::allow_smem(keys, smem_c))) return e;
+  const LaneOut out{(int64_t*)kh, (int64_t*)kl, nullptr, nullptr, nullptr,
+                    (int64_t*)phi, (int64_t*)plo};
+  keys<<<lanes_blocks(K), kThreads, smem_c, st>>>(
       d, (const uint8_t*)rows, (const int32_t*)pt, (const int32_t*)lane_id,
-      (const uint32_t*)scratch, (const uint32_t*)salts, bounds, inv_list,
-      n_inv, out);
+      (const uint32_t*)scratch, (const uint32_t*)salts, rtt::Bounds{}, 0ull,
+      0, out, edit_recs(d, edits, K), nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
+}
+
+// The front's build: launch 4 on `stream`, a programmatic dependent of the
+// launch before it, over the live lanes whose byte in `mask` is set (a
+// [K] flag array, which that launch may write).  Writes krows, cons and
+// inv there, the per-tile counts of built lanes whose constraint holds
+// into `tile_count` (K / 64 ints) and adds the lanes built to *built;
+// either may be null.  `inv_codes` is a host array of `n_inv` predicate
+// codes in the run's order.  Returns a cudaError_t
+// (cudaErrorInvalidValue for dims or predicates this kernel does not
+// take).
+extern "C" int chunk_front_build(
+    int N, int V, int L, int M, const int* targets, int n_targets,
+    const void* rows, int K, const void* total, const void* lane_id,
+    const int* inv_codes, int n_inv, int max_term, int max_log_len,
+    int max_msg_count, int max_in_flight, void* edits, const void* mask,
+    void* tile_count, void* built, void* krows, void* cons, void* inv,
+    void* stream) {
+  Dims d;
+  unsigned long long inv_list;
+  bool suite;
+  int e;
+  if ((e = call_dims(N, V, L, M, targets, n_targets, inv_codes, n_inv, &d,
+                     &inv_list, &suite)))
+    return e;
+  const size_t smem = build_smem(d).bytes;
+  auto build = n_targets > 0 ? lanes_kernel<false, true, true>
+               : suite       ? lanes_kernel<true, false, true>
+                             : lanes_kernel<false, false, true>;
+  if ((e = rtt::allow_smem(build, smem))) return e;
+  const LaneOut out{nullptr, nullptr, (uint8_t*)krows, (uint8_t*)cons,
+                    (int64_t*)inv, nullptr, nullptr};
+  return (int)rtt::launch_smem(
+      build, lanes_blocks(K), kThreads, smem, (cudaStream_t)stream, true, d,
+      (const uint8_t*)rows, (const int32_t*)total, (const int32_t*)lane_id,
+      (const uint32_t*)nullptr, (const uint32_t*)nullptr,
+      rtt::Bounds{max_term, max_log_len, max_msg_count, max_in_flight},
+      inv_list, n_inv, out, edit_recs(d, edits, K), (const uint8_t*)mask,
+      (int*)tile_count, (int*)built);
 }
 
 namespace {
 
-// The builds of one call, for chip_smoke.py: 0 masks, 1 compaction, 2
-// lanes, 3 lanes with the safety suite, 4 masks of the reconfig variant,
-// 5 lanes of the reconfig variant.
+// The builds of one front, for chip_smoke.py and Front.record: 0 masks,
+// 1 compaction, 2 keys, 3 build, 4 build with the safety suite, 5 masks,
+// 6 keys and 7 build of the reconfig variant.
 template <typename F>
 int with_build(int which, F f) {
   switch (which) {
     case 0: return f(masks_kernel<false>);
-    case 2: return f(lanes_kernel<false, false>);
-    case 3: return f(lanes_kernel<true, false>);
-    case 4: return f(masks_kernel<true>);
-    case 5: return f(lanes_kernel<false, true>);
+    case 2: return f(lanes_kernel<false, false, false>);
+    case 3: return f(lanes_kernel<false, false, true>);
+    case 4: return f(lanes_kernel<true, false, true>);
+    case 5: return f(masks_kernel<true>);
+    case 6: return f(lanes_kernel<false, true, false>);
+    case 7: return f(lanes_kernel<false, true, true>);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared bytes of build `which` (with_build's codes, but the
+// compaction).
+size_t build_smem_bytes(int which, const Dims& d) {
+  if (which == 0 || which == 5) return (size_t)kWarps * masks_warp_bytes(d);
+  if (which == 2 || which == 6) return keys_smem(d).bytes;
+  return build_smem(d).bytes;
 }
 
 }  // namespace
@@ -784,14 +1019,12 @@ int with_build(int which, F f) {
 // Blocks of build `which` (with_build's codes, but the compaction) that
 // one SM holds at these dims (`n_targets` of the reconfig variant, 0 for
 // the spec), as the occupancy calculator gives them (its shared memory,
-// registers and threads), into *out, for chip_smoke.py.
+// registers and threads), into *out.
 extern "C" int chunk_front_occupancy(int which, int N, int V, int L, int M,
                                      int n_targets, int* out) {
   if (!dims_ok(N, V, L, M, n_targets)) return (int)cudaErrorInvalidValue;
   const Dims d = rtt::make_dims(N, V, L, M, n_targets);
-  const size_t smem = which == 0 || which == 4
-                          ? (size_t)kWarps * masks_warp_bytes(d)
-                          : lanes_smem(d).bytes;
+  const size_t smem = build_smem_bytes(which, d);
   return with_build(which, [&](auto kernel) {
     int e;
     if ((e = rtt::allow_smem(kernel, smem))) return e;
@@ -800,7 +1033,8 @@ extern "C" int chunk_front_occupancy(int which, int N, int V, int L, int M,
   });
 }
 
-// Launch `which` of one front call (with_build's codes) for chip_smoke.py.
+// Launch `which` of one front call (with_build's codes) into out[7]
+// (rtt::kernel_info).
 extern "C" int chunk_front_kernel_info(int which, int N, int V, int L, int M,
                                        int n_targets, int B, int K,
                                        int* out) {
@@ -809,11 +1043,10 @@ extern "C" int chunk_front_kernel_info(int which, int N, int V, int L, int M,
   if (which == 1)
     return rtt::kernel_info(rtt::compact_scan_kernel, rtt::scan_blocks(B),
                             rtt::kScanThreads, 0, out);
-  const bool masks = which == 0 || which == 4;
+  const int grid =
+      which == 0 || which == 5 ? masks_blocks(B) : lanes_blocks(K);
   return with_build(which, [&](auto kernel) {
-    return masks ? rtt::kernel_info(kernel, masks_blocks(B), kThreads,
-                                    (size_t)kWarps * masks_warp_bytes(d), out)
-                 : rtt::kernel_info(kernel, lanes_blocks(K), kThreads,
-                                    lanes_smem(d).bytes, out);
+    return rtt::kernel_info(kernel, grid, kThreads,
+                            build_smem_bytes(which, d), out);
   });
 }

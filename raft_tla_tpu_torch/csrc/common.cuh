@@ -65,16 +65,17 @@ __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
-// Host side: launch `kernel` on `stream`, as a programmatic dependent of
-// the launch before it when `dependent` is set.  Returns a cudaError_t.
+// Host side: launch `kernel` with `smem` bytes of dynamic shared memory
+// on `stream`, as a programmatic dependent of the launch before it when
+// `dependent` is set.  Returns a cudaError_t.
 template <typename... KArgs, typename... Args>
-inline cudaError_t launch(void (*kernel)(KArgs...), int grid, int block,
-                          cudaStream_t stream, bool dependent,
-                          Args... args) {
+inline cudaError_t launch_smem(void (*kernel)(KArgs...), int grid, int block,
+                               size_t smem, cudaStream_t stream,
+                               bool dependent, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(block);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -83,6 +84,14 @@ inline cudaError_t launch(void (*kernel)(KArgs...), int grid, int block,
   cfg.numAttrs = dependent ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, (KArgs)args...);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// launch_smem without dynamic shared memory.
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch(void (*kernel)(KArgs...), int grid, int block,
+                          cudaStream_t stream, bool dependent,
+                          Args... args) {
+  return launch_smem(kernel, grid, block, 0, stream, dependent, args...);
 }
 
 // Host side: let `kernel` take `bytes` of dynamic shared memory, opting in

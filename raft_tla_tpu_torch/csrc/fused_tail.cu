@@ -8,7 +8,11 @@
 //
 //   1-3. probe/claim, own and resolve: fpset.cuh's insert passes (the same
 //      device code as csrc/fpset.cu); resolve also writes, for each tile of
-//      64 lanes, how many of its lanes have is_new & enq_ok;
+//      64 lanes, how many of its lanes have is_new & enq_ok.  On the v4
+//      step the rows and enq_ok exist only after the insert: there the
+//      front's build (chunk_front.cu, launch 4) runs between resolve and
+//      the copy, on the new lanes, and writes those counts itself
+//      (fpset_insert_launch, the build, then fused_tail_copy);
 //   4. enqueue_tiles_kernel<false> (enqueue.cuh, also the split tail's
 //      tile launch): a block per 64-lane tile reads its flags as a mask,
 //      copies the rows of each run of enqueued lanes into shared memory
@@ -41,6 +45,24 @@
 static_assert(rtt::kCopyTile == rtt::kTailTile,
               "resolve counts the tiles of the copy");
 
+// The fused tail's launch 4 alone, a programmatic dependent of the launch
+// before it, for a v4 step that builds its successors between the insert
+// (csrc/fpset.cu's, whose resolve writes no tile counts) and this copy:
+// chunk_front.cu's build writes krows and enq_ok on the new lanes and the
+// per-tile counts.
+extern "C" int fused_tail_copy(const void* is_new, const void* enq_ok,
+                               const void* tile_count, int n,
+                               const void* krows, int sw, void* qnext,
+                               const void* next_count, void* count_out,
+                               void* stream) {
+  return (int)rtt::launch(
+      rtt::enqueue_tiles_kernel<false>, rtt::copy_tiles(n),
+      rtt::kCopyThreads, (cudaStream_t)stream, true, (const uint8_t*)is_new,
+      (const uint8_t*)enq_ok, (const int*)tile_count, n,
+      (const uint8_t*)krows, sw, (uint8_t*)qnext, (const int*)next_count,
+      (int*)count_out);
+}
+
 extern "C" int fused_tail_launch(const void* q, const void* valid,
                                  const void* enq_ok, int n, void* table,
                                  long long capacity, void* owner, void* slot,
@@ -48,17 +70,12 @@ extern "C" int fused_tail_launch(const void* q, const void* valid,
                                  void* tile_count, const void* krows, int sw,
                                  void* qnext, const void* next_count,
                                  void* count_out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = rtt::launch_insert(q, valid, n, table, capacity, owner,
                                      slot, is_new, size, fail, enq_ok,
-                                     tile_count, s);
+                                     tile_count, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  return (int)rtt::launch(
-      rtt::enqueue_tiles_kernel<false>, rtt::copy_tiles(n),
-      rtt::kCopyThreads, s, true, (const uint8_t*)is_new,
-      (const uint8_t*)enq_ok, (const int*)tile_count, n,
-      (const uint8_t*)krows, sw, (uint8_t*)qnext, (const int*)next_count,
-      (int*)count_out);
+  return fused_tail_copy(is_new, enq_ok, tile_count, n, krows, sw, qnext,
+                         next_count, count_out, stream);
 }
 
 // Launch `which` of one fused tail of n lanes (0 probe/claim, 1 own, 2

@@ -387,6 +387,12 @@ class EngineResult:
     # CPU): a warm engine's run captures none.
     graph_captures: int = 0
     graph_hits: int = 0
+    # The successors the v4 step's build launch built after the seen-set
+    # insert: one a lane the insert found new, so also the states the
+    # invariants were evaluated on in the steps (distinct less the roots
+    # on a run with no insert failure).  0 on the plans that build every
+    # compacted lane before the insert (v1, v3, the mesh).
+    built: int = 0
     # The run's id, unique in the process (obs/events.py next_run_id): on
     # the run span, the span file's metadata, run_start and run_end.
     run_id: str = ""
@@ -1357,7 +1363,8 @@ class BFSEngine:
                             invariants=list(self.inv_names),
                             graph_captures=getattr(res, "graph_captures",
                                                    None),
-                            graph_hits=getattr(res, "graph_hits", None))
+                            graph_hits=getattr(res, "graph_hits", None),
+                            built=getattr(res, "built", None))
             tracer.write()
         end = dict(
             stop_reason=(getattr(res, "stop_reason", None)
@@ -1377,6 +1384,7 @@ class BFSEngine:
             device_seconds=getattr(res, "device_seconds", None),
             graph_captures=getattr(res, "graph_captures", None),
             graph_hits=getattr(res, "graph_hits", None),
+            built=getattr(res, "built", None),
             invariants=list(self.inv_names))
         # The phases end here: run_end carries them all, the failed
         # attempts' too (the registry has had them since).
@@ -1907,8 +1915,11 @@ class BFSEngine:
         mt = self.metrics
         res.distinct += st[ST_NEW]
         res.generated += st[ST_GEN]
+        built = st[chunk_mod.built_word(F)]
+        res.built += built
         mt.counter("engine/distinct", st[ST_NEW])
         mt.counter("engine/generated", st[ST_GEN])
+        mt.counter("engine/built", built)
         mt.gauge("engine/seen_size", seen_size)
         mt.gauge("engine/seen_capacity", capacity)
         mt.gauge("engine/next_count", next_count)

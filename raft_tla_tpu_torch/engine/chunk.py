@@ -5,8 +5,12 @@ One batch: B rows off the level queue -> guards-only masks over the B*G
 lanes (``models/actions2.py``) -> compaction of the enabled lanes to K
 slots (kernel) -> delta fingerprints and sparse successors on the K lanes
 -> constraint, invariant id and packed rows -> the tail -> the batch's
-counters.  On the v4 plan everything before the tail is one front call
-(``ops/chunk_front_cuda.py``).  On the v1 plan (``ops/pipeline_v1.py``)
+counters.  On the v4 plan the front (``ops/chunk_front_cuda.py``) runs
+in two halves around the tail's insert: its keys (masks, compaction,
+fingerprints) before it, and after it the build of the successor rows,
+constraint and invariant id on the lanes the insert found new, and on
+no other lane (what ``finish`` and the enqueue read of a lane is read
+only where it is new).  On the v1 plan (``ops/pipeline_v1.py``)
 the masks are ``models/actions.py``'s full expansion, which builds every
 lane's successor row with its pack guard (folded into the overflow), and
 the K compacted rows are gathered from it and hashed in full, the
@@ -28,7 +32,10 @@ counts, the trace count and the chunk's accumulated counters, in the
 JAX package's packed-stats layout (``ST_*``, then per family the
 generated, the novel and the POR-pruned counts), followed by control
 words: two the host writes before a chunk, the level's row count and the
-step limit, and the cond after the chunk's last step.  The step first evaluates the loop's ``cond`` on the card; a
+step limit, the cond after the chunk's last step, and the successors the
+v4 front's build launch built (``built_word``; the lanes the insert found
+new, so also the states its invariants were evaluated on).  The step
+first evaluates the loop's ``cond`` on the card; a
 batch whose cond is false is still dispatched but changes nothing.  So
 the host can queue up to ``sync_every`` steps (``engine/bfs.py``
 captures one as a CUDA graph and replays it) and read the state once.
@@ -82,7 +89,8 @@ from ..ops.pipeline_v3 import ENQUEUE_METHODS
 # The chunk state's int32 words: the JAX package's packed chunk stats
 # (engine/bfs.py ``chunk``), then 3F family counts, then three control
 # words: the level's rows and the step limit, which the host writes, and
-# the cond after the chunk's last step (``ChunkStep.CUR`` + 0, 1, 2).
+# the cond after the chunk's last step (``ChunkStep.CUR`` + 0, 1, 2), then
+# the successors built (``CUR`` + 3, ``built_word``).
 (ST_OFFSET, ST_STEPS, ST_COUNT, ST_SEEN, ST_TCOUNT, ST_GEN, ST_NEW, ST_OVF,
  ST_DEAD, ST_VIOL, ST_VINV, ST_FAIL, ST_EXPANDED) = range(13)
 N_SCALARS = 13
@@ -91,9 +99,16 @@ N_SCALARS = 13
 TRACE_ROW = 20
 
 
+def built_word(n_families: int) -> int:
+    """The word of ``ChunkState.st`` that counts the successors the v4
+    front's build launch built (it adds them itself; 0 on the plans that
+    build every compacted lane's successor before the insert)."""
+    return N_SCALARS + 3 * n_families + 3
+
+
 def state_words(n_families: int) -> int:
     """Length of ``ChunkState.st``."""
-    return N_SCALARS + 3 * n_families + 3
+    return built_word(n_families) + 1
 
 
 class BatchOut(NamedTuple):
@@ -125,11 +140,14 @@ class ChunkStages(NamedTuple):
       parent_hi, parent_lo)``: fingerprints, rows, constraint, invariant
       id and (with trace recording) parent fingerprints of the K lanes;
     - ``front(rows, valid) -> FrontOut``: the three above with the
-      progress limit, or the v4 front's one call;
+      progress limit, or the v4 front's one call (which the body runs as
+      its keys and build halves around the insert);
     - ``enqueue(qnext, next_count, krows, enq, max_count) -> count``: the
       split tail's append;
     - ``tail(seen, keys, kvalid, krows, cons_ok, qnext, next_count,
       max_count) -> (new, fail, count)``: the fused or the split tail;
+      ``cons_ok`` is the flags, or the v4 front's build, which the tail
+      calls with the insert's ``new`` before it enqueues;
     - ``finish(valid, front_out, new, fail, count) -> BatchOut``: the
       batch's counters."""
 
@@ -274,6 +292,8 @@ def build_chunk_stages(*, dims, v2, inv_fns, constraint, B: int, K: int,
         # The constraint and the rows depend only on the candidates, so
         # every value below equals the fused branch's.
         new, fail = insert(seen, keys, kvalid)
+        if callable(cons_ok):
+            cons_ok = cons_ok(new)
         return new, fail, enqueue_split(qnext, next_count, krows,
                                         new & cons_ok, max_count)
 
@@ -322,8 +342,8 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
                      record_trace: bool, device, front=None,
                      enqueue_method: str = "fused", Q: int = 0,
                      por_mask=None, por_priority=None, expand=None):
-    """Returns ``body(rows, valid, seen, qnext, next_count, max_count) ->
-    BatchOut``.
+    """Returns ``body(rows, valid, seen, qnext, next_count, max_count,
+    finish, built) -> BatchOut``.
 
     ``rows`` [B, sw] uint8 parents, ``valid`` [B] bool; the tail writes
     the enqueued successors into ``qnext`` from row ``next_count`` on (a
@@ -331,7 +351,9 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
     grows ``seen`` in place.  ``front`` (the v4 plan's
     ``ops/chunk_front_cuda.py`` ``Front``, built for the same predicates
     and POR arrays) replaces the masks, compaction and lane stages with
-    one front call.  ``enqueue_method`` picks the tail ("fused", or split
+    its keys before the insert and its build of the new lanes after it;
+    ``built`` ([1] int32), where given, counts the lanes built.
+    ``enqueue_method`` picks the tail ("fused", or split
     with "kernel", "scatter", "window"); "scatter" needs ``Q``, the first
     of its K trash rows.  ``por_mask`` [G] bool and ``por_priority`` [G]
     int32 tensors on ``device`` (both or neither) turn the reduction on.
@@ -348,11 +370,18 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
         por_priority=por_priority, expand=expand)
 
     def body(rows, valid, seen, qnext, next_count, max_count=None,
-             finish=None) -> BatchOut:
-        fo = stages.front(rows, valid)
+             finish=None, built=None) -> BatchOut:
+        if front is None:
+            fo = stages.front(rows, valid)
+            enq_ok = fo.cons_ok
+        else:
+            fo, edits = front.keys(rows, valid)
+
+            def enq_ok(new, tile_count=None):
+                return front.build(rows, fo, edits, new, tile_count, built)
         new, fail, count = stages.tail(seen, pack(fo.kh, fo.kl), fo.kvalid,
-                                       fo.krows, fo.cons_ok, qnext,
-                                       next_count, max_count)
+                                       fo.krows, enq_ok, qnext, next_count,
+                                       max_count)
         return (finish or stages.finish)(valid, fo, new, fail, count)
 
     body.stages = stages
@@ -408,6 +437,7 @@ class ChunkStep:
         F = len(dims.family_sizes)
         self.N = N_SCALARS + 3 * F
         self.CUR = self.N
+        self.BUILT = built_word(F)
         self.count_word = self.CUR if count_word is None else count_word
         # cond as lhs <= rhs over these words (the first two against the
         # control words less one).
@@ -505,7 +535,8 @@ class ChunkStep:
         if qcur.device.type == "cpu":
             a = self.cond(seen, cs)
             rows, valid = self.window(qcur, cs, a)
-            out = self.body(rows, valid, seen, qnext, next_count, self.Q)
+            out = self.body(rows, valid, seen, qnext, next_count, self.Q,
+                            None, cs.st.narrow(0, self.BUILT, 1))
             self.update(out, rows, a, seen, tbuf, cs)
             return
         # On the card: cond + window in one launch, finish + update in
@@ -522,4 +553,5 @@ class ChunkStep:
                                   fo.parent_lo,
                                   fo.lane_id.to(torch.int64) % glue.G, new)
 
-        self.body(rows, valid, seen, qnext, next_count, self.Q, finish)
+        self.body(rows, valid, seen, qnext, next_count, self.Q, finish,
+                  cs.st.narrow(0, self.BUILT, 1))

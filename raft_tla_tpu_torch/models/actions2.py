@@ -442,12 +442,14 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
     idxs = torch.arange(1, L + 1, device=device)
 
     def lane_out(st: StateBatch, ph: ParentHash, g: torch.Tensor,
-                 hashes: bool = True):
+                 hashes: bool = True, successors: bool = True):
         """Delta fingerprint + sparse successor for grid instance ``g[x]``
         of parent row x.  Only meaningful on enabled lanes.  With
         ``hashes=False`` the fingerprint is not computed (``ph`` may be
         None) and ``hi``, ``lo`` are None: the walk tiers hash the one
-        successor they take in full, as the JAX package's do."""
+        successor they take in full, as the JAX package's do.  With
+        ``successors=False`` the successor is not built and is None: the
+        v4 front's keys hash every lane and build only the new ones."""
         g = g.unsqueeze(1)                                   # [X, 1]
         fam = fam_t[g]
         # Reads clamp, as JAX gathers do: a slot family's p1 is a slot
@@ -630,6 +632,8 @@ def build_v2(dims: RaftDims, device) -> V2Pipeline:
                           (ph.msum1.unsqueeze(1) + dm[1]) & MASK32,
                           consts[1][2])
             lo = remap_sentinel(hi, lo)
+        if not successors:
+            return hi.squeeze(1), lo.squeeze(1), None
 
         # ---- sparse successor construction ----
         term_o = _w(term_wr, _set1(st.term, term_tgt, term_new), st.term)

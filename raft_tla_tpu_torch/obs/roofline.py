@@ -437,6 +437,9 @@ _LEAF_SCHEMAS = {
                "Tensor enq) -> Tensor",
     "chunk_front": "chunk_front(Tensor rows, Tensor valid, int K, int G, "
                    "int sw) -> (" + ", ".join(["Tensor"] * 13) + ")",
+    "chunk_front_build": "chunk_front_build(Tensor rows, Tensor lane_id, "
+                         "Tensor mask, Tensor(a!) krows, "
+                         "Tensor(b!) cons_ok, Tensor(c!) inv) -> ()",
 }
 
 
@@ -456,6 +459,8 @@ def _leaf_outputs(name, *a):
         return empty(a[2].shape[0], b8), empty((), b8), empty(1, i32)
     if name == "enqueue":
         return empty(1, i32)
+    if name == "chunk_front_build":
+        return None
     rows, _valid, K, G, sw = a
     B = rows.shape[0]
     return (empty((B, G), b8), empty((B, G), b8), empty((B, G), b8),
@@ -520,9 +525,14 @@ def _leaves():
                         krows=krows, cons_ok=cons_ok, inv=inv, parent_hi=ph,
                         parent_lo=pl)
 
+    def build(self, rows, out, mask, built=None):
+        ops.chunk_front_build(rows, out.lane_id, mask, out.krows,
+                              out.cons_ok, out.inv)
+        return out.cons_ok
+
     return {"compact": compact, "fpset_insert": insert,
             "fused_tail": fused_tail, "enqueue": enqueue,
-            "chunk_front": front}
+            "chunk_front": front, "chunk_front_build": build}
 
 
 @contextlib.contextmanager

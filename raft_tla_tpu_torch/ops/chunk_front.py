@@ -27,6 +27,13 @@ enabled certified lane (``por_mask``) only the lane of least
 move to ``pruned``.  The CUDA kernel (``csrc/chunk_front.cu``) leaves the
 seven per-lane outputs ``kh``..``parent_lo`` unwritten on dead lanes
 (``lane >= total``), so they are compared on live lanes only.
+
+The front comes in two halves around the seen-set insert, as the kernel
+runs it: ``keys_plain`` gives every output but the successors
+(``krows``, ``cons_ok`` and ``inv`` hold zeros, False and -1), and
+``build_plain`` writes those three on the live lanes of a mask, in place.
+``front_plain`` is the keys and the build over every live lane; the v4
+step builds only the lanes the insert found new (``engine/chunk.py``).
 """
 
 from __future__ import annotations
@@ -73,10 +80,11 @@ def por_keep(en, por_mask, por_priority):
                        torch.ones_like(en))
 
 
-def front_plain(rows, valid, *, dims, v2, K, kspread, constraint=None,
-                inv_id=None, por_mask=None, por_priority=None) -> FrontOut:
-    """Plain version: the v3 body's stages (``engine/chunk.py``) plus the
-    POR step, on all K lanes."""
+def keys_plain(rows, valid, *, dims, v2, K, kspread, por_mask=None,
+               por_priority=None) -> FrontOut:
+    """Plain version of the keys half: ``front_plain``'s outputs but the
+    successors, which hold zeros (``krows``), False (``cons_ok``) and -1
+    (``inv``) on every lane until ``build_plain`` writes them."""
     B = rows.shape[0]
     G = dims.n_instances
     dev = rows.device
@@ -100,18 +108,47 @@ def front_plain(rows, valid, *, dims, v2, K, kspread, constraint=None,
     pidx = lane // G
     ph = v2.parent_hash(states)
     kph = type(ph)(*(f.index_select(0, pidx) for f in ph))
-    kh, kl, kstates = v2.lane_out(gather_states(states, pidx), kph, lane % G)
-    if constraint is not None:
-        cons_ok = constraint(kstates)
-    else:
-        cons_ok = torch.ones(K, dtype=torch.bool, device=dev)
-    if inv_id is not None:
-        inv = inv_id(kstates)
-    else:
-        inv = torch.full((K,), -1, dtype=torch.int64, device=dev)
+    kh, kl, _ = v2.lane_out(gather_states(states, pidx), kph, lane % G,
+                            successors=False)
     php, plp = v2.parent_fp(ph)
     return FrontOut(en=en, ovf=ovf, pruned=pruned, P=pt[0], total=pt[1],
                     lane_id=lane_id, kvalid=kvalid, kh=kh, kl=kl,
-                    krows=flatten_state(kstates, dims), cons_ok=cons_ok,
-                    inv=inv,
+                    krows=torch.zeros((K, rows.shape[1]), dtype=torch.uint8,
+                                      device=dev),
+                    cons_ok=torch.zeros(K, dtype=torch.bool, device=dev),
+                    inv=torch.full((K,), -1, dtype=torch.int64, device=dev),
                     parent_hi=php[pidx], parent_lo=plp[pidx])
+
+
+def build_plain(rows, fo: FrontOut, mask, *, dims, v2, constraint=None,
+                inv_id=None, built=None):
+    """Plain version of the build half: the successors of the live lanes
+    of ``mask`` ([K] bool) written into ``fo.krows``, ``fo.cons_ok`` and
+    ``fo.inv`` in place (the constraint True and the id -1 without them);
+    ``built`` ([1] int32), where given, counts those lanes.  Returns
+    ``fo.cons_ok``."""
+    G = dims.n_instances
+    idx = (mask & fo.kvalid).nonzero().squeeze(1)
+    if built is not None:
+        built.add_(idx.shape[0])
+    if idx.shape[0] == 0:
+        return fo.cons_ok
+    lane = fo.lane_id.index_select(0, idx).to(torch.int64)
+    states = unflatten_state(rows, dims)
+    _, _, succ = v2.lane_out(gather_states(states, lane // G), None,
+                             lane % G, hashes=False)
+    fo.krows[idx] = flatten_state(succ, dims)
+    fo.cons_ok[idx] = constraint(succ) if constraint is not None else True
+    if inv_id is not None:
+        fo.inv[idx] = inv_id(succ)
+    return fo.cons_ok
+
+
+def front_plain(rows, valid, *, dims, v2, K, kspread, constraint=None,
+                inv_id=None, por_mask=None, por_priority=None) -> FrontOut:
+    """Plain version: the keys, then the build over every live lane."""
+    fo = keys_plain(rows, valid, dims=dims, v2=v2, K=K, kspread=kspread,
+                    por_mask=por_mask, por_priority=por_priority)
+    build_plain(rows, fo, fo.kvalid, dims=dims, v2=v2,
+                constraint=constraint, inv_id=inv_id)
+    return fo

@@ -15,6 +15,14 @@ card by the kernel:
   in lane order;
 - ``count`` ([] int32 device tensor) is ``next_count`` plus that number.
 
+``enq_ok`` may instead be a build: a callable ``enq_ok(is_new,
+tile_count)`` that the tail calls between the insert and the copy (the
+v4 step's successor build, ``Front.build``).  It writes ``krows`` on the
+lanes of ``is_new`` and returns the [n] bool flags, which only those
+lanes need hold; on the card it also writes ``tile_count``, each 64-lane
+tile's count of ``is_new & enq_ok``, which the copy reads (``None`` on
+the CPU).  Rows and flags of the other lanes are never read.
+
 The JAX kernel also writes every other lane's row to a per-lane trash slot
 past the live region; that region is not part of the contract and is left
 untouched.  ``insert_enqueue`` launches the kernel for CUDA tensors and
@@ -29,6 +37,7 @@ import functools
 import torch
 
 from ..utils import build
+from . import fpset_cuda
 from .enqueue import count_arg
 from .fpset import FPSet
 from .fpset_cuda import check_queries, insert_plain
@@ -42,6 +51,8 @@ def insert_enqueue_plain(seen: FPSet, keys, valid, krows, enq_ok, qnext,
     """Plain version: the sequential insert, then the enqueued rows copied
     in lane order."""
     is_new, fail = insert_plain(seen, keys, valid)
+    if callable(enq_ok):
+        enq_ok = enq_ok(is_new, None)
     nc = int(next_count)
     enq = (is_new & enq_ok).nonzero().squeeze(1)
     qnext[nc:nc + enq.shape[0]] = krows[enq]
@@ -88,13 +99,16 @@ def _lib():
         fn.argtypes = [p, p, p, i, p, ll, p, p, p, p, p, p, p, i, p, p, p, p]
         lib.fused_tail_geometry.restype = None
         lib.fused_tail_geometry.argtypes = [p]
+        lib.fused_tail_copy.restype = ctypes.c_int
+        lib.fused_tail_copy.argtypes = [p, p, p, i, p, i, p, p, p, p]
     return lib
 
 
 def check_tail(seen: FPSet, keys, valid, krows, enq_ok, qnext, next_count,
                max_count=None) -> torch.Tensor:
-    """Raise on arguments the fused tail does not take (on any device);
-    ``next_count`` as an int32 [1] tensor otherwise."""
+    """Raise on arguments the fused tail does not take (on any device;
+    a build in place of ``enq_ok`` is checked by ``check_flags`` when it
+    returns); ``next_count`` as an int32 [1] tensor otherwise."""
     if krows.dim() != 2 or qnext.dim() != 2:
         raise ValueError("insert_enqueue: rows must be [n, sw] / [Q, sw]")
     n, sw = krows.shape
@@ -103,23 +117,35 @@ def check_tail(seen: FPSet, keys, valid, krows, enq_ok, qnext, next_count,
     check_queries(seen, keys, valid)
     if (krows.dtype != torch.uint8 or qnext.dtype != torch.uint8
             or qnext.shape[1] != sw or not krows.is_contiguous()
-            or not qnext.is_contiguous() or enq_ok.dtype != torch.bool
-            or enq_ok.shape != (n,) or keys.shape != (n,)):
+            or not qnext.is_contiguous() or keys.shape != (n,)):
         raise ValueError("insert_enqueue: rows must be contiguous uint8 "
                          "[n, sw] / [Q, sw], keys int64 [n], enq_ok bool [n]")
     dev = keys.device
-    if krows.device != dev or enq_ok.device != dev or qnext.device != dev:
+    if krows.device != dev or qnext.device != dev:
         raise ValueError("insert_enqueue: arguments on different devices")
+    if not callable(enq_ok):
+        check_flags(enq_ok, n, dev)
     if qnext.shape[0] >= 1 << 31:
         raise ValueError("insert_enqueue: at most 2^31 - 1 queue rows")
     return nc
+
+
+def check_flags(enq_ok, n: int, dev) -> None:
+    """Raise unless ``enq_ok`` is [n] bool on ``dev``."""
+    if (not isinstance(enq_ok, torch.Tensor) or enq_ok.dtype != torch.bool
+            or enq_ok.shape != (n,)):
+        raise ValueError("insert_enqueue: rows must be contiguous uint8 "
+                         "[n, sw] / [Q, sw], keys int64 [n], enq_ok bool [n]")
+    if enq_ok.device != dev:
+        raise ValueError("insert_enqueue: arguments on different devices")
 
 
 def insert_enqueue(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor,
                    krows: torch.Tensor, enq_ok: torch.Tensor,
                    qnext: torch.Tensor, next_count, max_count=None):
     """``(is_new, fail, count)``; see the module contract.  On the card:
-    four launches, and no other device operation."""
+    four launches, and no other device operation (with a build, its own
+    launch between the third and the fourth)."""
     global launches
     nc = check_tail(seen, keys, valid, krows, enq_ok, qnext, next_count,
                     max_count)
@@ -129,7 +155,9 @@ def insert_enqueue(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor,
     if krows.device.type != "cuda":
         raise ValueError(f"insert_enqueue: unsupported device {krows.device}")
     keys, valid = keys.contiguous(), valid.contiguous()
-    enq_ok = enq_ok.contiguous()
+    deferred = enq_ok if callable(enq_ok) else None
+    if deferred is None:
+        enq_ok = enq_ok.contiguous()
     n, sw = krows.shape
     tile, widest = geometry()
     if sw > widest:
@@ -141,13 +169,30 @@ def insert_enqueue(seen: FPSet, keys: torch.Tensor, valid: torch.Tensor,
     fail = torch.empty((), dtype=torch.bool, device=dev)
     tile_count = torch.empty(tiles(n, tile), dtype=torch.int32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    err = _lib().fused_tail_launch(
-        keys.data_ptr(), valid.data_ptr(), enq_ok.data_ptr(), n,
-        seen.keys.data_ptr(), seen.capacity, seen.owner.data_ptr(),
-        slot.data_ptr(), is_new.data_ptr(), seen.size.data_ptr(),
-        fail.data_ptr(), tile_count.data_ptr(), krows.data_ptr(), sw,
-        qnext.data_ptr(), nc.data_ptr(), count.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "fused_tail_launch")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
+    if deferred is None:
+        err = lib.fused_tail_launch(
+            keys.data_ptr(), valid.data_ptr(), enq_ok.data_ptr(), n,
+            seen.keys.data_ptr(), seen.capacity, seen.owner.data_ptr(),
+            slot.data_ptr(), is_new.data_ptr(), seen.size.data_ptr(),
+            fail.data_ptr(), tile_count.data_ptr(), krows.data_ptr(), sw,
+            qnext.data_ptr(), nc.data_ptr(), count.data_ptr(), stream)
+        build.check(err, "fused_tail_launch")
+    else:
+        # The insert's three passes (resolve writing no tile counts), the
+        # build, then the copy.
+        build.check(fpset_cuda._lib().fpset_insert_launch(
+            keys.data_ptr(), valid.data_ptr(), n, seen.keys.data_ptr(),
+            seen.capacity, seen.owner.data_ptr(), slot.data_ptr(),
+            is_new.data_ptr(), seen.size.data_ptr(), fail.data_ptr(),
+            stream), "fpset_insert_launch")
+        enq_ok = deferred(is_new, tile_count)
+        check_flags(enq_ok, n, dev)
+        build.check(lib.fused_tail_copy(
+            is_new.data_ptr(), enq_ok.contiguous().data_ptr(),
+            tile_count.data_ptr(), n, krows.data_ptr(), sw,
+            qnext.data_ptr(), nc.data_ptr(), count.data_ptr(), stream),
+            "fused_tail_copy")
     launches += 1
     return is_new, fail, count[0]

@@ -4,14 +4,15 @@ The v4 pipeline is the v2 delta pipeline with both halves of the chunk
 body as kernels:
 
     masks        \\
-    compact       }  ops/chunk_front_cuda.py   one front call
-    fingerprint  /   (masks, POR, compaction, lanes: three launches)
-    insert       \\   ops/fused_tail_cuda.py    fused kernel
-    enqueue      /
+    compact       }  ops/chunk_front_cuda.py   the front's keys (masks,
+    fingerprint  /   POR, compaction, lanes' keys: three launches)
+    insert       \\   ops/fused_tail_cuda.py    fused kernel, with the
+    enqueue      /   front's build of the new lanes' successors between
+                     the insert and the copy (one launch)
 
 With a split tail (``EngineConfig.enqueue_method`` other than "fused")
 the insert and the enqueue are separate stages, as ``ops/pipeline_v3.py``
-says.
+says, and the front's build runs between them.
 
 On the mesh the front cannot run: its compaction happens inside the
 launch, and a P shared across shards cannot be computed there.  So v4

@@ -369,7 +369,9 @@ class MeshBFSEngine(BFSEngine):
         B, G, K, v1 = self._B, self._G, self._K, self._plan_name == "v1"
         F = len(dims.family_sizes)
         self._CUR = chunk_mod.N_SCALARS + 3 * F
-        self._W = chunk_mod.state_words(F) + 1
+        # The shard's own row count, past the single engine's words.
+        self._OWN = chunk_mod.state_words(F)
+        self._W = self._OWN + 1
         by_dev, self._fps, kspr = {}, {}, {}
         for d in dict.fromkeys(devs):
             por_mask, por_priority = por_device_arrays(self._por_table, d)
@@ -377,7 +379,7 @@ class MeshBFSEngine(BFSEngine):
                 dims=dims, B=B, K=K, Q=self._Q, QTH=self._QTH, TQ=self._TQ,
                 record_trace=cfg.record_trace,
                 check_deadlock=self._check_deadlock, device=d,
-                count_word=self._CUR + 3, v2=build_v2(dims, d),
+                count_word=self._OWN, v2=build_v2(dims, d),
                 expand=build_expand(dims, d) if v1 else None,
                 inv_fns=self._inv_fns, constraint=self._constraint,
                 front=None, enqueue_method=self._method,
@@ -511,8 +513,8 @@ class MeshBFSEngine(BFSEngine):
                                       dtype=torch.int32)
         h[:, CUR] = max(cur_counts)
         h[:, CUR + 1] = max_steps
-        h[:, CUR + 3] = torch.tensor(self._mine(cur_counts),
-                                     dtype=torch.int32)
+        h[:, self._OWN] = torch.tensor(self._mine(cur_counts),
+                                       dtype=torch.int32)
         for st, shards in self._st_groups:
             src = h if len(shards) == self._L else h[shards]
             st.copy_(src, non_blocking=True)

@@ -515,8 +515,12 @@ def test_lint_clean_on_the_real_engine(lint_result):
     # Each step's hand-written kernels stand for their launches.
     assert kernels["chunk_step_v3"]["launches"] == ["compact", "fused_tail",
                                                     "enqueue"]
+    # v4: the front's keys, the fused tail with the front's build of the
+    # new lanes inside it, the trace append.
     assert kernels["chunk_step_v4"]["launches"] == ["chunk_front",
-                                                    "fused_tail", "enqueue"]
+                                                    "fused_tail",
+                                                    "chunk_front_build",
+                                                    "enqueue"]
     assert kernels["fpset_insert"]["launches"] == ["fpset_insert"]
     assert summary["host_files"] == ["chunk.py", "bfs.py"]
     assert summary["read_set_mismatches"] == 0

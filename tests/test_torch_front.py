@@ -40,6 +40,7 @@ from tests.test_torch_schema_fp import to_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOUNDED = os.path.join(REPO, "configs/MCraft_bounded.cfg")
+TPURAFT = os.path.join(REPO, "configs/TPUraft.cfg")
 
 
 @pytest.fixture(scope="module")
@@ -194,32 +195,40 @@ def test_front_rejects_what_the_kernel_cannot_run(rig):
     chunk_front_cuda.check_dims(noleader.dims)
 
 
-def test_check_dims_raises_exactly_past_the_shared_memory():
+@pytest.mark.parametrize("n,log", [(3, 16), (8, 8), (5, 8)])
+def test_check_dims_raises_exactly_past_the_shared_memory(n, log):
     """``check_dims`` accepts the main path's and the other-dims phase's
-    dims and raises exactly where the masks or the lanes launch would need
-    more than 232,448 bytes of shared memory a block (chip_smoke.py holds
-    ``lanes_smem`` against the launcher's own figure on the card)."""
+    dims and raises exactly where the masks, keys or build launch would
+    need more than 232,448 bytes of shared memory a block (chip_smoke.py
+    holds ``keys_smem`` and ``build_smem`` against the launcher's own
+    figures on the card), along a series of slot counts that crosses
+    it."""
     main = load_config(BOUNDED).dims
-    # sw = 473, W = 12, 19 edits a lane: 16 rows of 1,904 B of ints, 8 byte
-    # rows of 496 B, 64 lanes' 19 edits of 4 + 2 B and 12-int message rows,
-    # 624 ints.
-    assert chunk_front_cuda.lanes_smem(main) == (
-        16 * 1904 + 8 * 496 + 64 * 19 * 6 + 64 * 12 * 4 + 624 * 4)
+    # sw = 473, W = 12, 19 edits a lane.  Keys: 8 rows of 1,904 B of
+    # ints, 64 lanes' 19 edits of 4 + 2 B and 12-int message rows, 624
+    # ints.  Build: 8 parents and 8 successors of ints, 8 byte rows of
+    # 496 B, 232 ints; at TPUraft's dims (951 B rows) 4 parents.
+    assert chunk_front_cuda.keys_smem(main) == (
+        8 * 1904 + 64 * 19 * 6 + 64 * 12 * 4 + 624 * 4)
+    assert chunk_front_cuda.build_smem(main) == (
+        16 * 1904 + 8 * 496 + 232 * 4)
+    assert chunk_front_cuda.build_smem(load_config(TPURAFT).dims) == (
+        12 * 3808 + 8 * 976 + 232 * 4)
     for d in (main, RaftDims(n_servers=3, n_values=2, max_log=4,
                              n_msg_slots=40),
               RaftDims(n_servers=5, n_values=1, max_log=2, n_msg_slots=64)):
         chunk_front_cuda.check_dims(d)
     outcomes = set()
-    for n, log in ((3, 16), (8, 4), (5, 8)):
-        for m in range(1, chunk_front_cuda.MAX_SLOTS + 1):
-            d = RaftDims(n_servers=n, n_values=2, max_log=log, n_msg_slots=m)
-            over = max(chunk_front_cuda.masks_smem(d),
-                       chunk_front_cuda.lanes_smem(d)) \
-                > chunk_front_cuda.MAX_SMEM
-            outcomes.add(over)
-            if over:
-                with pytest.raises(ValueError, match="exceed the kernel"):
-                    chunk_front_cuda.check_dims(d)
-            else:
+    for m in range(1, chunk_front_cuda.MAX_SLOTS + 1):
+        d = RaftDims(n_servers=n, n_values=2, max_log=log, n_msg_slots=m)
+        over = max(chunk_front_cuda.masks_smem(d),
+                   chunk_front_cuda.keys_smem(d),
+                   chunk_front_cuda.build_smem(d)) \
+            > chunk_front_cuda.MAX_SMEM
+        outcomes.add(over)
+        if over:
+            with pytest.raises(ValueError, match="exceed the kernel"):
                 chunk_front_cuda.check_dims(d)
+        else:
+            chunk_front_cuda.check_dims(d)
     assert outcomes == {False, True}

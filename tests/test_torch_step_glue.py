@@ -445,7 +445,8 @@ def plain_glue(engine):
         a = step.cond(seen, cs)
         rows, valid = step.window(qcur, cs, a)
         out = step.body(rows, valid, seen, qnext,
-                        cs.st.narrow(0, ST_COUNT, 1), step.Q)
+                        cs.st.narrow(0, ST_COUNT, 1), step.Q, None,
+                        cs.st.narrow(0, step.BUILT, 1))
         step.update(out, rows, a, seen, tbuf, cs)
 
     def more(seen, cs):
@@ -573,7 +574,8 @@ def test_each_step_equals_the_plain_step(card):
             a = step.cond(pseen, pcs)
             rows, valid = step.window(qcur, pcs, a)
             out = step.body(rows, valid, pseen, pq,
-                            pcs.st.narrow(0, ST_COUNT, 1), step.Q)
+                            pcs.st.narrow(0, ST_COUNT, 1), step.Q, None,
+                            pcs.st.narrow(0, step.BUILT, 1))
             step.update(out, rows, a, pseen, ptb, pcs)
             step(qcur, seen, qnext, tbuf, cs)
             got = (*cs, qnext, tbuf, seen.keys.sort().values, seen.size)
