@@ -34,6 +34,9 @@
     python3 chip_smoke.py --lanes-halves      (B4's lanes launches, the
                                                keys and the build, timed
                                                apart only)
+    python3 chip_smoke.py --reconfig-suite    (the reconfiguration
+                                               variant's build with the
+                                               safety suite only)
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's kernels from ``raft_tla_tpu_torch/csrc`` (one
@@ -4147,6 +4150,191 @@ def phase_reconfig_front(torch, device):
     return row
 
 
+def phase_reconfig_suite_front(torch, device):
+    """B4's ``reconfig_suite`` build (the variant's build launch with the
+    safety suite, ``lanes_kernel<true, true, true>``; the keys are the
+    variant's TypeOK keys) at reconfig3's shapes (474-byte rows, G 114,
+    batch 2048, K 32,768) with TypeOK and the nine in MCraft_safety.cfg's
+    order.  First reconfig3 with the ten checked to L12 on v4 through
+    ``make_engine`` (its steps dispatched eagerly so a hook keeps the
+    fullest batch): the JAX pins of counts, levels and families, no
+    violation, ``built`` the distinct states less the root and ``joint``
+    the reference profile's (``portbench/reference/profiles/
+    reconfig3_safety.json``, where it is there).  Then the front exact
+    against ``front_plain`` on that batch, on a window of the leader
+    roots' states to D8 (config entries in logs and messages, both extra
+    families), on 2,048 ``models/reconfig.py random_states`` parents in
+    one window (config values, some invalid, in a third of the entries:
+    the suite fails there) and on the leader window with every config
+    value aliased to a client value's low byte; the build's two counter
+    words (lanes, joint) against the plain build's on each; the keys and
+    the build of the new lanes and of every live lane on the fullest
+    batch (median device microseconds of 7 under the profiler); and the
+    launches' registers, spills, shared bytes and blocks an SM, the
+    spec's suite build beside them."""
+    from raft_tla_tpu_torch.engine.check import (initial_states,
+                                                 make_engine,
+                                                 resolve_constraint,
+                                                 resolve_invariants)
+    from raft_tla_tpu_torch.models.actions2 import build_v2
+    from raft_tla_tpu_torch.models.reconfig import (final_value,
+                                                    joint_value,
+                                                    random_states)
+    from raft_tla_tpu_torch.models.schema import (encode_state,
+                                                  flatten_state,
+                                                  stack_states,
+                                                  unflatten_state)
+    from raft_tla_tpu_torch.ops import chunk_front_cuda
+    from raft_tla_tpu_torch.utils.cfg import load_config
+    base = load_config(os.path.join(HERE, "configs/reconfig3.cfg"))
+    setup = dataclasses.replace(base, invariants=["TypeOK", *SAFETY_SUITE])
+    dims = setup.dims
+    t = time.time()
+    engine = make_engine(setup, reconfig_config("v4", 12), device="cuda")
+    dispatch_eagerly(engine)
+    body, best = engine._step.body, {}
+
+    def hook(rows, valid, seen, qnext, nc, mc=None, finish=None,
+             built=None):
+        def grab(valid, fo, new, fail, count):
+            if int(fo.total) > best.get("total", -1):
+                best.update(total=int(fo.total), rows=rows.clone(),
+                            valid=valid.clone(), new=new.clone())
+            return finish(valid, fo, new, fail, count)
+        return body(rows, valid, seen, qnext, nc, mc, grab, built)
+
+    engine._step.body = hook
+    res = engine.run(initial_states(setup))
+    engine._step.body = body
+    print(f"reconfig3 + suite L12 v4 (eager steps): distinct={res.distinct} "
+          f"generated={res.generated} levels={res.levels} built={res.built} "
+          f"joint={res.joint} violation={res.violation} families "
+          f"{res.action_counts}; {time.time() - t} s; front {res.front}")
+    need(res.violation is None and res.deadlock is None
+         and (res.distinct, res.generated, res.levels, res.action_counts)
+         == (RECONFIG_DISTINCT[12], RECONFIG_GENERATED[12], RECONFIG_LEVELS,
+             RECONFIG_L12_FAMILIES), "reconfig3 with the suite to L12 "
+         "differs from the TypeOK pins")
+    need(res.built == res.distinct - 1 and res.joint > 0
+         and res.front["build"] == "reconfig_suite",
+         f"reconfig3 + suite: built {res.built}, joint {res.joint}, build "
+         f"{res.front.get('build')}")
+    prof = os.path.join(HERE, "portbench/reference/profiles/"
+                        "reconfig3_safety.json")
+    if os.path.exists(prof):
+        with open(prof) as f:
+            want_joint = json.load(f)["joint"][12]
+        need(res.joint == want_joint, f"joint {res.joint}, the reference "
+             f"profile {want_joint}")
+    front = body.stages.front
+    need(front.build_name == "reconfig_suite", "not the reconfig_suite build")
+    fullest = (best["rows"], best["valid"])
+    new = best["new"]
+    engine.release()
+    del engine
+    torch.cuda.empty_cache()
+    pool, _res = captured_windows(torch, base, leader_roots(dims), 8)
+    rows = torch.cat([r[v] for r, v in pool])[:B].contiguous()
+    need(rows.shape[0] == B, f"the leader pool has {rows.shape[0]} rows")
+    leader = (rows, torch.ones(B, dtype=torch.bool, device=device))
+    parents = random_states(dims, B, seed=20261019)
+    rand = (flatten_state(stack_states([encode_state(s, dims)
+                                        for s in parents], "cpu"),
+                          dims).to(device),
+            torch.ones(B, dtype=torch.bool, device=device))
+    alias = {joint_value(7, 3): joint_value(7, 1),
+             joint_value(3, 7): joint_value(1, 7),
+             final_value(3): final_value(1), final_value(7): joint_value(3, 1)}
+    lst = unflatten_state(leader[0], dims)
+    lv, msg = lst.log_val.clone(), lst.msg.clone()
+    for a, b in alias.items():
+        lv[lv == a] = b
+        msg[msg == a] = b
+    trap = (flatten_state(lst._replace(log_val=lv, msg=msg), dims),
+            leader[1])
+    err = 0.0
+    for name, (r, v) in (("L12 fullest batch", fullest),
+                         ("leader roots D6-8", leader),
+                         ("random reconfig parents", rand),
+                         ("low-byte alias", trap)):
+        got = front(r, v)
+        want = front.plain(r, v)
+        e = front_err(torch, got, want)
+        total = int(got.total)
+        fo, edits = front.keys(r, v)
+        words = torch.zeros(2, dtype=torch.int32, device=device)
+        front.build(r, fo, edits, fo.kvalid, None, words)
+        pfo = front.keys_plain(r, v)
+        pwords = torch.zeros(2, dtype=torch.int32, device=device)
+        front.build_plain(r, pfo, pfo.kvalid, pwords)
+        first = collections.Counter(got.inv[:total].tolist())
+        print(f"reconfig suite front {name} window [{B},{front.sw}]: P="
+              f"{int(got.P)} total={total} lanes by family "
+              f"{family_lanes(dims, got)} first failing by index "
+              f"{dict(sorted(first.items()))} built/joint "
+              f"{words.tolist()} (plain {pwords.tolist()}) max_abs_err={e}")
+        need(e == 0.0 and torch.equal(words, pwords), f"the reconfig_suite "
+             f"front differs from front_plain on the {name} window")
+        if name == "random reconfig parents":
+            need(len(set(first) - {-1}) >= 8, "the random parents fail "
+                 f"too few predicates: {first}")
+        err = max(err, e)
+    # The nine in reverse on the random window: LeaderCompleteness and
+    # MoreUpToDateCorrect, rarely first in the cfg's order, lead there.
+    invs = resolve_invariants(setup)
+    rev = chunk_front_cuda.Front(
+        dims=dims, v2=build_v2(dims, device),
+        inv_fns=[invs[n] for n in reversed(SAFETY_SUITE)],
+        constraint=resolve_constraint(setup), B=B, K=K, device=device)
+    got, want = rev(*rand), rev.plain(*rand)
+    e = front_err(torch, got, want)
+    first = collections.Counter(got.inv[:int(got.total)].tolist())
+    print(f"reconfig suite front, the nine reversed, random window: first "
+          f"failing by index {dict(sorted(first.items()))} max_abs_err={e}")
+    need(e == 0.0 and first.get(0, 0) > 0, "the reversed reconfig_suite "
+         "front differs from front_plain, or LeaderCompleteness never "
+         "fails first")
+    err = max(err, e)
+    rows, valid = fullest
+    fo, edits = front.keys(rows, valid)
+    us = {}
+    for half, fn in (("keys", lambda: front.keys(rows, valid)),
+                     ("build of the new lanes",
+                      lambda: front.build(rows, fo, edits, new)),
+                     ("build of every live lane",
+                      lambda: front.build(rows, fo, edits, fo.kvalid))):
+        got = sorted(t for _ in range(7) for n, t in device_ops(
+            torch, fn) if n == "lanes_kernel")
+        us[half] = got[len(got) // 2] if got else "not measured"
+    nbytes = roofline().front_bytes(dims, B, K, best["total"])
+    row = dict(
+        launches=None, max_abs_err=err,
+        ms=cuda_ms(torch, lambda: front(rows, valid), 50),
+        queued_ms=queued_ms(torch, lambda: front(rows, valid)),
+        plain_ms=cuda_ms(torch, lambda: front.plain(rows, valid), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, lanes_us=us, launch_info=front.launch_info(),
+        occupancy=front.occupancy())
+    print(f"reconfig suite front [{B},{front.sw}] -> K={K}, the L12 "
+          f"fullest batch ({best['total']} live lanes, {int(new.sum())} "
+          f"new): one call {row['ms']} ms, queued {row['queued_ms']} ms, "
+          f"plain {row['plain_ms']} ms, bound {row['bound_ms']} ms "
+          f"({nbytes} bytes); lanes_kernel device microseconds {us}")
+    print(f"reconfig suite front launches: {row['launch_info']}; blocks an "
+          f"SM {row['occupancy']}")
+    spec = load_config(os.path.join(HERE, "configs/MCraft_safety.cfg"))
+    sinv = resolve_invariants(spec)
+    fr = chunk_front_cuda.Front(
+        dims=spec.dims, v2=build_v2(spec.dims, device),
+        inv_fns=list(sinv.values()), constraint=resolve_constraint(spec),
+        B=B, K=K, device=device)
+    print(f"spec front, the suite: launches {fr.launch_info()}; blocks an "
+          f"SM {fr.occupancy()}")
+    del pool, fo, edits, best, fullest, leader, rand, trap
+    torch.cuda.empty_cache()
+    return row
+
+
 def reconfig_check(torch, roots_of, depth, what, pipeline, method="fused",
                    **kw):
     """reconfig3.cfg as written (its invariants, constraint, dims) on the
@@ -6928,6 +7116,12 @@ def main() -> int:
         phase_warm_engine(torch)
         print(f"warm engine phase: {time.time() - t} s")
         return 0
+    if sys.argv[1:] == ["--reconfig-suite"]:
+        t = time.time()
+        print(f"reconfig suite front: "
+              f"{phase_reconfig_suite_front(torch, device)}")
+        print(f"reconfig suite phase: {time.time() - t} s")
+        return 0
     if sys.argv[1:] == ["--reconfig"]:
         t = time.time()
         print(f"reconfig front: {phase_reconfig_front(torch, device)}")
@@ -6964,8 +7158,10 @@ def main() -> int:
         front_row["max_abs_err"] = max(
             front_row["max_abs_err"], phase_safety_front(torch, device, shape))
     front_row["reconfig"] = phase_reconfig_front(torch, device)
+    front_row["reconfig_suite"] = phase_reconfig_suite_front(torch, device)
     front_row["max_abs_err"] = max(front_row["max_abs_err"],
-                                   front_row["reconfig"]["max_abs_err"])
+                                   front_row["reconfig"]["max_abs_err"],
+                                   front_row["reconfig_suite"]["max_abs_err"])
     print(f"kernel phases: {time.time() - t} s")
     # The two paths in turns (v3, v4, then v4, v3 at L11): host times
     # spread between calls, so they are compared within this one.

@@ -49,7 +49,9 @@
 //      build (kSuite), so the TypeOK-only build carries none of their code.
 //      The block writes the tile's count of built lanes whose constraint
 //      holds (the fused tail's copy takes its rows by those counts) and
-//      adds the lanes it built to a counter word.
+//      adds the lanes it built to a counter word; the reconfig builds add
+//      those with a joint configuration (raft_model.cuh `joint_warp`) to a
+//      second.
 //
 // Both halves are instantiations of one template, so a trace names both
 // `lanes_kernel`.  The build runs on the lanes the seen set finds new, so
@@ -62,10 +64,11 @@
 // builds of its own of all three model launches (kReconfig): 12 families
 // (the targets ride in Dims), the config scan and the joint quorum, the two
 // appends (three ordered positions each), rows with the value high-byte
-// planes, the widened TypeOK.  Those builds take TypeOK, NoLeaderElected
-// and BoundedSpace; a list with a safety predicate is refused for the
-// variant (cudaErrorInvalidValue, and ValueError in the wrapper when the
-// front is built).
+// planes, the widened TypeOK.  Its build launch comes in two builds as the
+// spec's does: TypeOK and NoLeaderElected, or with the safety suite
+// (lanes_kernel<true, true, true>), which reads the decoded values whole,
+// config entries included.  The keys run no predicate, so one keys build
+// serves both.
 //
 // Written lanes.  The keys write kh, kl, parent_hi, parent_lo and the edit
 // record on every live compacted lane (lane < total) and leave dead lanes
@@ -556,13 +559,15 @@ __device__ __forceinline__ void put_hi(const Dims& d, int* sv, uint8_t* bo,
 // into `sv` and as bytes into the warp's staging row `bs`, the lane's edit
 // record overlaid on both, the constraint and the invariants (`n_inv`
 // codes of 4 bits in `inv_list`) on the ints, and the bytes stored as row
-// q.  kReconfig writes each value's high byte into its plane beside it.
-// Returns the constraint (in every lane).
+// q.  kReconfig writes each value's high byte into its plane beside it,
+// keeps the whole value in `sv` (what the predicates read) and sets
+// *joint where some server's latest config entry is joint.  Returns the
+// constraint (in every lane).
 template <bool kSuite, bool kReconfig>
 __device__ __forceinline__ bool build_lane(
     const Dims& d, const int* pv, const EditRecs& rec, int* sv, uint8_t* bs,
     const rtt::Bounds& bounds, unsigned long long inv_list, int n_inv,
-    const LaneOut& out, int q, int lane) {
+    const LaneOut& out, int q, int lane, bool* joint) {
   // Row q sits at any byte offset: its bytes are staged in `bs` at the
   // same offset mod 16, beside the ints (copied 16 bytes a lane).
   uint8_t* row = out.krows + (size_t)q * d.sw;
@@ -618,6 +623,7 @@ __device__ __forceinline__ bool build_lane(
   const bool cons = rtt::bounded_space_warp(st, bounds, lane);
   const int inv =
       rtt::first_failing_warp<kSuite, kReconfig>(st, inv_list, n_inv, lane);
+  if constexpr (kReconfig) *joint = rtt::joint_warp(st, lane);
   // The whole 16-byte words of the destination as uint4, its head and
   // tail as bytes.
   uint8_t* base = row - off;
@@ -747,13 +753,15 @@ __device__ __forceinline__ void keys_run(
 // flags of the lanes to build, may be written by the launch before this
 // one (the insert's resolve), so it is read after the wait and through no
 // __restrict__ pointer; everything else was written before that launch.
+// The reconfig builds add the lanes built with a joint configuration to
+// *joint, a warp at a time (they are few).
 template <bool kSuite, bool kReconfig>
 __device__ __forceinline__ void build_tile(
     const Dims& d, const uint8_t* __restrict__ rows,
     const int32_t* __restrict__ pt, const int32_t* __restrict__ lane_id,
     const rtt::Bounds& bounds, unsigned long long inv_list, int n_inv,
     const LaneOut& out, const EditRecs& rec, const uint8_t* mask,
-    int* tile_count, int* built) {
+    int* tile_count, int* built, int* joint) {
   extern __shared__ __align__(16) uint8_t smem[];
   const BuildSmem S = build_smem(d);
   rtt::grid_dependency_wait();
@@ -794,7 +802,7 @@ __device__ __forceinline__ void build_tile(
   // 2. Rounds of up to S.cap parents: decode each once, a warp per lane
   //    of the round for its successor, the round's lanes dealt to the
   //    warps in turn.
-  int ok = 0;
+  int ok = 0, joint_n = 0;
   for (int p0 = 0; p0 < np; p0 += S.cap) {
     const int pn = min(S.cap, np - p0);
     for (int w = warp; w < pn; w += kWarps)
@@ -806,12 +814,16 @@ __device__ __forceinline__ void build_tile(
       const int i = __ffsll((long long)rest) - 1;
       const int s = ps[i] - p0;
       if (s < 0 || s >= pn || j++ % kWarps != warp) continue;
+      bool is_joint = false;
       ok += build_lane<kSuite, kReconfig>(
           d, par + s * S.row_ints, rec, sv, bs, bounds, inv_list, n_inv,
-          out, q0 + i, lane);
+          out, q0 + i, lane, &is_joint);
+      joint_n += is_joint;
     }
     __syncthreads();
   }
+  if constexpr (kReconfig)
+    if (joint && lane == 0 && joint_n) atomicAdd(joint, joint_n);
   if (lane == 0) kept[warp] = ok;
   __syncthreads();
   if (t == 0) {
@@ -829,8 +841,8 @@ __device__ __forceinline__ void build_tile(
 // 4 blocks an SM (64 registers a thread): one block's scalar or predicate
 // phase overlaps the others' loads.  kSuite builds the safety suite's
 // predicates in (raft_model.cuh `first_failing_warp`); the launcher takes
-// that build only for a list that names one of them, and the keys only
-// without it.
+// that build only for a list that names one of them, and the keys, which
+// run no predicate, only without it.
 template <bool kSuite, bool kReconfig, bool kBuild>
 __global__ void __launch_bounds__(kThreads, 4)
 lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
@@ -840,10 +852,11 @@ lanes_kernel(Dims d, const uint8_t* __restrict__ rows,
              const uint32_t* __restrict__ salts, rtt::Bounds bounds,
              unsigned long long inv_list, int n_inv, LaneOut out,
              EditRecs rec, const uint8_t* mask, int* tile_count,
-             int* built) {
+             int* built, int* joint) {
   if constexpr (kBuild)
     build_tile<kSuite, kReconfig>(d, rows, pt, lane_id, bounds, inv_list,
-                                  n_inv, out, rec, mask, tile_count, built);
+                                  n_inv, out, rec, mask, tile_count, built,
+                                  joint);
   else
     keys_run<kReconfig>(d, rows, pt, lane_id, scratch, salts, out, rec);
 }
@@ -888,7 +901,6 @@ int call_dims(int N, int V, int L, int M, const int* targets, int n_targets,
     return (int)cudaErrorInvalidValue;
   int e;
   if ((e = pack_invariants(inv_codes, n_inv, inv_list, suite))) return e;
-  if (n_targets > 0 && *suite) return (int)cudaErrorInvalidValue;
   *d = rtt::make_dims(N, V, L, M, n_targets, targets);
   return 0;
 }
@@ -944,7 +956,7 @@ extern "C" int chunk_front_launch(
   keys<<<lanes_blocks(K), kThreads, smem_c, st>>>(
       d, (const uint8_t*)rows, (const int32_t*)pt, (const int32_t*)lane_id,
       (const uint32_t*)scratch, (const uint32_t*)salts, rtt::Bounds{}, 0ull,
-      0, out, edit_recs(d, edits, K), nullptr, nullptr, nullptr);
+      0, out, edit_recs(d, edits, K), nullptr, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -952,8 +964,9 @@ extern "C" int chunk_front_launch(
 // launch before it, over the live lanes whose byte in `mask` is set (a
 // [K] flag array, which that launch may write).  Writes krows, cons and
 // inv there, the per-tile counts of built lanes whose constraint holds
-// into `tile_count` (K / 64 ints) and adds the lanes built to *built;
-// either may be null.  `inv_codes` is a host array of `n_inv` predicate
+// into `tile_count` (K / 64 ints), adds the lanes built to *built and,
+// for the reconfig variant, those with a joint configuration to *joint;
+// each may be null.  `inv_codes` is a host array of `n_inv` predicate
 // codes in the run's order.  Returns a cudaError_t
 // (cudaErrorInvalidValue for dims or predicates this kernel does not
 // take).
@@ -962,8 +975,8 @@ extern "C" int chunk_front_build(
     const void* rows, int K, const void* total, const void* lane_id,
     const int* inv_codes, int n_inv, int max_term, int max_log_len,
     int max_msg_count, int max_in_flight, void* edits, const void* mask,
-    void* tile_count, void* built, void* krows, void* cons, void* inv,
-    void* stream) {
+    void* tile_count, void* built, void* joint, void* krows, void* cons,
+    void* inv, void* stream) {
   Dims d;
   unsigned long long inv_list;
   bool suite;
@@ -972,7 +985,8 @@ extern "C" int chunk_front_build(
                      &inv_list, &suite)))
     return e;
   const size_t smem = build_smem(d).bytes;
-  auto build = n_targets > 0 ? lanes_kernel<false, true, true>
+  auto build = n_targets > 0 ? (suite ? lanes_kernel<true, true, true>
+                                       : lanes_kernel<false, true, true>)
                : suite       ? lanes_kernel<true, false, true>
                              : lanes_kernel<false, false, true>;
   if ((e = rtt::allow_smem(build, smem))) return e;
@@ -984,14 +998,14 @@ extern "C" int chunk_front_build(
       (const uint32_t*)nullptr, (const uint32_t*)nullptr,
       rtt::Bounds{max_term, max_log_len, max_msg_count, max_in_flight},
       inv_list, n_inv, out, edit_recs(d, edits, K), (const uint8_t*)mask,
-      (int*)tile_count, (int*)built);
+      (int*)tile_count, (int*)built, (int*)joint);
 }
 
 namespace {
 
 // The builds of one front, for chip_smoke.py and Front.record: 0 masks,
 // 1 compaction, 2 keys, 3 build, 4 build with the safety suite, 5 masks,
-// 6 keys and 7 build of the reconfig variant.
+// 6 keys and 7 build of the reconfig variant, 8 its build with the suite.
 template <typename F>
 int with_build(int which, F f) {
   switch (which) {
@@ -1002,6 +1016,7 @@ int with_build(int which, F f) {
     case 5: return f(masks_kernel<true>);
     case 6: return f(lanes_kernel<false, true, false>);
     case 7: return f(lanes_kernel<false, true, true>);
+    case 8: return f(lanes_kernel<true, true, true>);
     default: return (int)cudaErrorInvalidValue;
   }
 }

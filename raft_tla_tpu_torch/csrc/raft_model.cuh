@@ -19,7 +19,9 @@
 //     values: the row's high-byte planes are added on decode, so a value
 //     position of the decoded ints holds the whole value (a plane position
 //     holds its raw byte), and a write of a value position writes its
-//     plane too.
+//     plane too.  So the safety suite, which reads values only through
+//     St::lv and St::msg at value positions, compares whole values, config
+//     entries included, in the variant's suite build (kSuite, kReconfig).
 // Values are ints, as the PyTorch version's int64 fields are: a successor
 // value that does not fit its uint8 lane is kept whole for the hash and the
 // predicates and wraps only when the row is written, as flatten_state does.
@@ -420,6 +422,15 @@ __device__ __forceinline__ Config config_scan(const St& st, int i) {
   return Config{(enc >> 8) & 0xFF, enc & 0xFF, kk + 1};
 }
 
+// Whether some server's latest config entry is joint (C_old,new): the
+// states in which BecomeLeader and AdvanceCommitIndex take majorities of
+// both configurations.  By a whole warp, a server a lane.
+__device__ __forceinline__ bool joint_warp(const St& st, int lane) {
+  bool joint = false;
+  for (int i = lane; i < st.d.N; i += 32) joint |= config_scan(st, i).old_m > 0;
+  return __any_sync(0xffffffffu, joint);
+}
+
 // Is the server bitmask `member` a quorum from server i's view: the
 // spec's simple majority, or under kReconfig the joint rule (majorities
 // of C_old and of C_new under a joint entry, of C_new under a final one).
@@ -809,7 +820,7 @@ __device__ __forceinline__ bool pair_ok(const St& st, int code, int i, int j,
 
 // One predicate of the suite (codes 3..11) on one state; `P` and `have_p`
 // cache the committed-prefix relation across the run's list.  A code
-// outside the suite fails: chunk_front_launch admits none.
+// outside the suite fails: chunk_front_build admits none.
 __device__ __forceinline__ bool safety_warp(const St& st, int code,
                                             unsigned long long& P,
                                             bool& have_p, int lane) {
@@ -851,8 +862,9 @@ __device__ __forceinline__ bool safety_warp(const St& st, int code,
 // The index in the run's list of the first predicate that fails on one
 // state, -1 where all hold, by a whole warp.  `list` holds `n` codes of 4
 // bits, the first in the low bits.  kSuite = false is the build for lists
-// of TypeOK and NoLeaderElected only (chunk_front_launch picks it), which
-// keeps the suite's code out of that build; kReconfig widens TypeOK.
+// of TypeOK and NoLeaderElected only (chunk_front_build picks it), which
+// keeps the suite's code out of that build; kReconfig widens TypeOK, and
+// the suite reads the variant's decoded values whole (see the header).
 template <bool kSuite, bool kReconfig = false>
 __device__ __forceinline__ int first_failing_warp(const St& st,
                                                   unsigned long long list,

@@ -393,6 +393,12 @@ class EngineResult:
     # on a run with no insert failure).  0 on the plans that build every
     # compacted lane before the insert (v1, v3, the mesh).
     built: int = 0
+    # Of those, the successors in which some server's latest config entry
+    # is joint (C_old,new: BecomeLeader and AdvanceCommitIndex take
+    # majorities of both configurations there), counted by the
+    # reconfiguration variant's build launches; 0 for the spec and on the
+    # other plans.
+    joint: int = 0
     # The run's id, unique in the process (obs/events.py next_run_id): on
     # the run span, the span file's metadata, run_start and run_end.
     run_id: str = ""
@@ -1364,7 +1370,9 @@ class BFSEngine:
                             graph_captures=getattr(res, "graph_captures",
                                                    None),
                             graph_hits=getattr(res, "graph_hits", None),
-                            built=getattr(res, "built", None))
+                            built=getattr(res, "built", None),
+                            joint=getattr(res, "joint", None),
+                            front_build=self.front_info().get("build"))
             tracer.write()
         end = dict(
             stop_reason=(getattr(res, "stop_reason", None)
@@ -1385,6 +1393,8 @@ class BFSEngine:
             graph_captures=getattr(res, "graph_captures", None),
             graph_hits=getattr(res, "graph_hits", None),
             built=getattr(res, "built", None),
+            joint=getattr(res, "joint", None),
+            front_build=self.front_info().get("build"),
             invariants=list(self.inv_names))
         # The phases end here: run_end carries them all, the failed
         # attempts' too (the registry has had them since).
@@ -1916,10 +1926,13 @@ class BFSEngine:
         res.distinct += st[ST_NEW]
         res.generated += st[ST_GEN]
         built = st[chunk_mod.built_word(F)]
+        joint = st[chunk_mod.built_word(F) + 1]
         res.built += built
+        res.joint += joint
         mt.counter("engine/distinct", st[ST_NEW])
         mt.counter("engine/generated", st[ST_GEN])
         mt.counter("engine/built", built)
+        mt.counter("engine/joint", joint)
         mt.gauge("engine/seen_size", seen_size)
         mt.gauge("engine/seen_capacity", capacity)
         mt.gauge("engine/next_count", next_count)

@@ -34,7 +34,9 @@ generated, the novel and the POR-pruned counts), followed by control
 words: two the host writes before a chunk, the level's row count and the
 step limit, the cond after the chunk's last step, and the successors the
 v4 front's build launch built (``built_word``; the lanes the insert found
-new, so also the states its invariants were evaluated on).  The step
+new, so also the states its invariants were evaluated on) and, for the
+reconfiguration variant, those of them in which some server's latest
+config entry is joint (the word after it).  The step
 first evaluates the loop's ``cond`` on the card; a
 batch whose cond is false is still dispatched but changes nothing.  So
 the host can queue up to ``sync_every`` steps (``engine/bfs.py``
@@ -90,7 +92,8 @@ from ..ops.pipeline_v3 import ENQUEUE_METHODS
 # (engine/bfs.py ``chunk``), then 3F family counts, then three control
 # words: the level's rows and the step limit, which the host writes, and
 # the cond after the chunk's last step (``ChunkStep.CUR`` + 0, 1, 2), then
-# the successors built (``CUR`` + 3, ``built_word``).
+# the successors built (``CUR`` + 3, ``built_word``) and of them those with
+# a joint configuration (``CUR`` + 4).
 (ST_OFFSET, ST_STEPS, ST_COUNT, ST_SEEN, ST_TCOUNT, ST_GEN, ST_NEW, ST_OVF,
  ST_DEAD, ST_VIOL, ST_VINV, ST_FAIL, ST_EXPANDED) = range(13)
 N_SCALARS = 13
@@ -102,13 +105,16 @@ TRACE_ROW = 20
 def built_word(n_families: int) -> int:
     """The word of ``ChunkState.st`` that counts the successors the v4
     front's build launch built (it adds them itself; 0 on the plans that
-    build every compacted lane's successor before the insert)."""
+    build every compacted lane's successor before the insert); the word
+    after it counts those of them in which some server's latest config
+    entry is joint (the reconfiguration variant's builds add them; 0
+    otherwise)."""
     return N_SCALARS + 3 * n_families + 3
 
 
 def state_words(n_families: int) -> int:
     """Length of ``ChunkState.st``."""
-    return built_word(n_families) + 1
+    return built_word(n_families) + 2
 
 
 class BatchOut(NamedTuple):
@@ -352,7 +358,9 @@ def build_chunk_body(*, dims, v2, inv_fns, constraint, B: int, K: int,
     ``ops/chunk_front_cuda.py`` ``Front``, built for the same predicates
     and POR arrays) replaces the masks, compaction and lane stages with
     its keys before the insert and its build of the new lanes after it;
-    ``built`` ([1] int32), where given, counts the lanes built.
+    ``built`` ([1] or [2] int32), where given, counts the lanes built,
+    and in a second word those with a joint configuration
+    (``Front.build``).
     ``enqueue_method`` picks the tail ("fused", or split
     with "kernel", "scatter", "window"); "scatter" needs ``Q``, the first
     of its K trash rows.  ``por_mask`` [G] bool and ``por_priority`` [G]
@@ -536,7 +544,7 @@ class ChunkStep:
             a = self.cond(seen, cs)
             rows, valid = self.window(qcur, cs, a)
             out = self.body(rows, valid, seen, qnext, next_count, self.Q,
-                            None, cs.st.narrow(0, self.BUILT, 1))
+                            None, cs.st.narrow(0, self.BUILT, 2))
             self.update(out, rows, a, seen, tbuf, cs)
             return
         # On the card: cond + window in one launch, finish + update in
@@ -554,4 +562,4 @@ class ChunkStep:
                                   fo.lane_id.to(torch.int64) % glue.G, new)
 
         self.body(rows, valid, seen, qnext, next_count, self.Q, finish,
-                  cs.st.narrow(0, self.BUILT, 1))
+                  cs.st.narrow(0, self.BUILT, 2))

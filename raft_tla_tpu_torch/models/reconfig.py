@@ -306,6 +306,70 @@ class ReconfigDims(RaftDims):
         return False
 
 
+def is_joint(st, dims: ReconfigDims) -> torch.Tensor:
+    """[X] bool: whether some server's latest config entry in its own log
+    is joint (C_old,new), where BecomeLeader and AdvanceCommitIndex take
+    majorities of both configurations (``csrc/raft_model.cuh
+    joint_warp``)."""
+    L = dims.max_log
+    lanes = torch.arange(L, device=st.log_val.device)
+    is_cfg = (lanes < st.log_len.unsqueeze(-1)) & (st.log_val >= CFG_BASE)
+    k = torch.where(is_cfg, lanes, -1).max(-1).values         # [X, N]
+    enc = torch.gather(st.log_val, 2, k.clamp(0, L - 1).unsqueeze(-1)) \
+        .squeeze(-1) - CFG_BASE
+    return ((k >= 0) & (((enc >> 8) & 0xFF) > 0)).any(-1)
+
+
+def random_states(dims: ReconfigDims, count: int, seed: int,
+                  share: float = 0.3, max_msgs: int = 1) -> list:
+    """``models/smoke.py random_states`` (``count`` unstructured states at
+    ``seed``) with a seeded ``share`` of the values of their log entries
+    and of their messages' entries (AppendEntries' ``mentries``,
+    RequestVote responses' ``mlog``) replaced by config values: the joint
+    entries between the targets and the full membership and their final
+    entries, and one in ten an entry TypeOK refuses (an empty new
+    configuration, an old one outside the servers).  The parents whose
+    successors carry config entries, through the value high-byte planes,
+    to every predicate of the safety suite, TypeOK's value domain
+    included."""
+    import numpy as np
+
+    from .dims import AEQ, RVR
+    from .smoke import random_states as smoke_states
+    full = (1 << dims.n_servers) - 1
+    cfgs = sorted(set(dims.targets) | {full})
+    valid = sorted({joint_value(a, b) for a in cfgs for b in cfgs if a != b}
+                   | {final_value(c) for c in cfgs})
+    invalid = (joint_value(full, 0), CFG_BASE + ((full + 1) << 8) + full)
+    rng = np.random.default_rng([seed, 0x5EC0])
+
+    def value(v):
+        if rng.random() >= share:
+            return v
+        pool = invalid if rng.random() < 0.1 else valid
+        return int(pool[rng.integers(len(pool))])
+
+    def entries(es):
+        return tuple((t, value(v)) for t, v in es)
+
+    def message(m):
+        if m[0] == AEQ:
+            return m[:6] + (entries(m[6]),) + m[7:]
+        if m[0] == RVR:
+            return m[:5] + (entries(m[5]),)
+        return m
+
+    out = []
+    for s in smoke_states(dims, count, seed=seed, max_msgs=max_msgs):
+        bag = {}
+        for m, c in s.messages:
+            m = message(m)
+            bag[m] = bag.get(m, 0) + c
+        out.append(s.replace(log=tuple(entries(lg) for lg in s.log),
+                             messages=frozenset(bag.items())))
+    return out
+
+
 def _build_config_scan(dims: ReconfigDims):
     """``config_scan(st, i)``: the latest config entry of server i's log as
     (old_mask, new_mask, 1-based index), each [X, R]; (0, full, 0) when

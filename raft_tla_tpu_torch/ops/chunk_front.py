@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.reconfig import ReconfigDims, is_joint
 from ..models.schema import flatten_state, gather_states, unflatten_state
 from .compact_cuda import compact_plain
 
@@ -125,12 +126,14 @@ def build_plain(rows, fo: FrontOut, mask, *, dims, v2, constraint=None,
     """Plain version of the build half: the successors of the live lanes
     of ``mask`` ([K] bool) written into ``fo.krows``, ``fo.cons_ok`` and
     ``fo.inv`` in place (the constraint True and the id -1 without them);
-    ``built`` ([1] int32), where given, counts those lanes.  Returns
-    ``fo.cons_ok``."""
+    ``built`` ([1] or [2] int32), where given, counts those lanes in its
+    first word, and in a second, where it has one, those of them in which
+    some server's latest config entry is joint (``models/reconfig.py
+    is_joint``; none for the spec).  Returns ``fo.cons_ok``."""
     G = dims.n_instances
     idx = (mask & fo.kvalid).nonzero().squeeze(1)
     if built is not None:
-        built.add_(idx.shape[0])
+        built[:1].add_(idx.shape[0])
     if idx.shape[0] == 0:
         return fo.cons_ok
     lane = fo.lane_id.index_select(0, idx).to(torch.int64)
@@ -138,6 +141,9 @@ def build_plain(rows, fo: FrontOut, mask, *, dims, v2, constraint=None,
     _, _, succ = v2.lane_out(gather_states(states, lane // G), None,
                              lane % G, hashes=False)
     fo.krows[idx] = flatten_state(succ, dims)
+    if built is not None and built.numel() == 2 \
+            and isinstance(dims, ReconfigDims):
+        built[1:].add_(is_joint(succ, dims).sum().to(built.dtype))
     fo.cons_ok[idx] = constraint(succ) if constraint is not None else True
     if inv_id is not None:
         fo.inv[idx] = inv_id(succ)

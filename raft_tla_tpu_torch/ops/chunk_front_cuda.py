@@ -30,7 +30,8 @@ out mid-run that its kernel cannot run it:
   and the nine of the safety suite; at most 16), each built by
   ``models/invariants.py`` or ``models/safety.py`` (which tag it with
   ``.predicate``); a list that names one of the suite's runs the build
-  launch's build with the suite's device code (not for the variant);
+  launch's build with the suite's device code, the spec's or the
+  variant's (``reconfig_suite``), which reads the variant's values whole;
 - the ``BoundedSpace`` constraint or none.
 
 The fingerprint salt tables (``ops/fingerprint.py`` ``constants_np``) and
@@ -73,10 +74,9 @@ MAX_SMEM = 232448
 INT_MAX = 2**31 - 1
 
 
-def predicate_codes(inv_fns, reconfig=False):
+def predicate_codes(inv_fns):
     """Kernel codes of ``inv_fns`` in order; ``ValueError`` for a predicate
-    the kernel has no device code for (the safety suite's, for the
-    reconfiguration variant)."""
+    the kernel has no device code for, or a list longer than it takes."""
     fns = list(inv_fns or [])
     if len(fns) > MAX_INVARIANTS:
         raise ValueError(f"chunk front: {len(fns)} invariants, the kernel "
@@ -88,11 +88,6 @@ def predicate_codes(inv_fns, reconfig=False):
             raise ValueError(
                 f"chunk front: no device code for invariant "
                 f"{name or fn!r}; the kernel has {sorted(PREDICATES)}")
-        if reconfig and PREDICATES[name] > PREDICATES["NoLeaderElected"]:
-            raise ValueError(
-                f"chunk front: no device code for invariant {name} with "
-                "the reconfiguration variant; its builds take TypeOK and "
-                "NoLeaderElected (use the v3 plan)")
         codes.append(PREDICATES[name])
     return codes
 
@@ -193,7 +188,7 @@ def bind(lib):
              [i] * 4 + [ctypes.POINTER(i), i] + [p, p, i, i] + [p] * 18),
             (lib.chunk_front_build,
              [i] * 4 + [ctypes.POINTER(i), i] + [p, i, p, p]
-             + [ctypes.POINTER(i), i] + [i] * 4 + [p] * 8)):
+             + [ctypes.POINTER(i), i] + [i] * 4 + [p] * 9)):
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return lib
@@ -215,7 +210,7 @@ class Front:
         #: Whether the masks, keys and build launches run the
         #: reconfiguration variant's builds.
         self.reconfig = isinstance(dims, ReconfigDims)
-        self._codes = predicate_codes(inv_fns, self.reconfig)
+        self._codes = predicate_codes(inv_fns)
         self._bounds = constraint_bounds(constraint)
         if (por_mask is None) != (por_priority is None):
             raise ValueError("por_mask and por_priority must be given "
@@ -269,11 +264,20 @@ class Front:
                            constraint=self._constraint, inv_id=self._inv_id,
                            built=built)
 
+    @property
+    def build_name(self) -> str:
+        """The build launch's build: ``typeok`` (TypeOK and
+        NoLeaderElected), ``suite`` (with the safety suite's device code),
+        ``reconfig`` and ``reconfig_suite`` (the variant's two)."""
+        if self.reconfig:
+            return "reconfig_suite" if self.suite else "reconfig"
+        return "suite" if self.suite else "typeok"
+
     def _builds(self):
         """The codes (``csrc/chunk_front.cu`` ``with_build``) of the
         builds one call of this front launches, in ``LAUNCHES`` order."""
         if self.reconfig:
-            return (5, 1, 6, 7)
+            return (5, 1, 6, 8 if self.suite else 7)
         return (0, 1, 2, 4 if self.suite else 3)
 
     def launch_info(self):
@@ -306,14 +310,12 @@ class Front:
 
     def record(self) -> dict:
         """What this front runs: ``build``, the build launch's build
-        (``typeok``: TypeOK and NoLeaderElected; ``suite``: with the safety
-        suite's device code; ``reconfig``: the variant's), ``predicates``,
-        the codes in the run's order, and on the card ``launches``: each
-        launch's registers, local bytes a thread (spills), shared bytes
-        (static and dynamic) and, but for the compaction, blocks an SM."""
-        out = {"build": ("reconfig" if self.reconfig
-                         else "suite" if self.suite else "typeok"),
-               "predicates": list(self._codes), "launches": {}}
+        (``build_name``), ``predicates``, the codes in the run's order, and
+        on the card ``launches``: each launch's registers, local bytes a
+        thread (spills), shared bytes (static and dynamic) and, but for
+        the compaction, blocks an SM."""
+        out = {"build": self.build_name, "predicates": list(self._codes),
+               "launches": {}}
         if self._kspread.device.type != "cuda":
             return out
         occupancy = self.occupancy()
@@ -393,8 +395,11 @@ class Front:
         ``out.cons_ok`` and ``out.inv``, and no other lane written.  On
         the card ``tile_count`` (int32, a 64-lane tile each), where
         given, gets each tile's count of built lanes whose constraint
-        holds; ``built`` ([1] int32), where given, counts the lanes built,
-        on either device.  Returns ``out.cons_ok``."""
+        holds; ``built`` ([1] or [2] int32), where given, counts in its
+        first word the lanes built, and in a second word, where it has
+        one, those of them in which some server's latest config entry is
+        joint (none for the spec), on either device.  Returns
+        ``out.cons_ok``."""
         if rows.device.type == "cpu":
             return self.build_plain(rows, out, mask, built)
         d, K = self.dims, self.K
@@ -407,8 +412,13 @@ class Front:
                                        or tile_count.numel() < tiles):
             raise ValueError(f"chunk front: tile counts must be int32 of "
                              f"at least {tiles}")
-        if built is not None and built.dtype != torch.int32:
-            raise ValueError("chunk front: the built counter must be int32")
+        if built is not None and (built.dtype != torch.int32
+                                  or built.numel() not in (1, 2)
+                                  or not built.is_contiguous()):
+            raise ValueError("chunk front: the built counter must be one "
+                             "or two contiguous int32 words")
+        joint = (built.data_ptr() + 4
+                 if built is not None and built.numel() == 2 else None)
         err = _lib().chunk_front_build(
             d.n_servers, d.n_values, d.max_log, d.n_msg_slots,
             self._targets, self._n_targets, rows.data_ptr(), K,
@@ -416,7 +426,7 @@ class Front:
             len(self._codes), *self._bounds, edits.data_ptr(),
             mask.data_ptr(),
             tile_count.data_ptr() if tile_count is not None else None,
-            built.data_ptr() if built is not None else None,
+            built.data_ptr() if built is not None else None, joint,
             out.krows.data_ptr(), out.cons_ok.data_ptr(), out.inv.data_ptr(),
             torch.cuda.current_stream(rows.device).cuda_stream)
         build.check(err, "chunk_front_build")

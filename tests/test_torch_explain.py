@@ -247,7 +247,8 @@ def test_seeded_event_streams_equal_jax(seeded):
         # run_start and run_end carry the run's id, and run_end the run's
         # allocator, garbage-collector, device-time and CUDA graph
         # counters (no graph on the CPU), the successors its v4 build
-        # built, and the invariants it evaluated.
+        # built and of them those under a joint configuration, the
+        # front's build, and the invariants it evaluated.
         if t["event"] == "run_start":
             assert t.pop("trace_store") == "columnar"
         if t["event"] in ("run_start", "run_end"):
@@ -256,6 +257,8 @@ def test_seeded_event_streams_equal_jax(seeded):
             assert t.pop("alloc") == {} and t.pop("device_seconds") == 0.0
             assert (t.pop("graph_captures"), t.pop("graph_hits")) == (0, 0)
             assert t.pop("built") == tres.built
+            assert t.pop("joint") == tres.joint
+            assert t.pop("front_build") == tres.front.get("build")
             assert t.pop("invariants") == tres.invariants
             assert set(t.pop("gc")) == {"collections", "seconds",
                                         "gen2_collections", "gen2_seconds",

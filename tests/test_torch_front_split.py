@@ -89,6 +89,19 @@ def window(dims, seed, b=B, device="cpu"):
     return rows, valid
 
 
+def joint_lanes(dims, fo, m):
+    """The lanes of ``m`` whose successor row (``fo.krows``) has a server
+    whose latest config entry is joint."""
+    from raft_tla_tpu_torch.models.reconfig import config_of_py
+    from raft_tla_tpu_torch.models.schema import decode_state, unflatten_state
+    cols = unflatten_state(fo.krows[m], dims)
+    n = 0
+    for i in range(int(m.sum())):
+        s = decode_state(type(cols)(*(c[i].numpy() for c in cols)), dims)
+        n += any(config_of_py(log, dims.n_servers)[0] for log in s.log)
+    return n
+
+
 def masks(total, seed):
     """Lane masks over K: a third of the lanes, every lane (dead ones
     too), none."""
@@ -107,6 +120,7 @@ def masks(total, seed):
     ("TPUraft", SUITE, True),
     ("reconfig3", ["TypeOK", "NoLeaderElected"], False),
     ("reconfig3", ["TypeOK"], True),
+    ("reconfig3", SUITE, False),
 ])
 def test_build_of_a_mask_equals_the_whole_front(name, names, por):
     front = make_front(name, names, por)
@@ -127,10 +141,12 @@ def test_build_of_a_mask_equals_the_whole_front(name, names, por):
                 if f in LIVE_ONLY:
                     g, w = g[:total], w[:total]
                 assert torch.equal(g, w), (what, f)
-            built = torch.zeros(1, dtype=torch.int32)
+            built = torch.zeros(2, dtype=torch.int32)
             got = front.build(rows, out, edits, mask, None, built)
             m = mask & live
-            assert got is out.cons_ok and int(built) == int(m.sum())
+            assert got is out.cons_ok and int(built[0]) == int(m.sum())
+            assert int(built[1]) == (joint_lanes(front.dims, want, m)
+                                     if front.reconfig else 0)
             assert torch.equal(out.krows[m], want.krows[m]), what
             assert torch.equal(out.cons_ok[m], want.cons_ok[m]), what
             assert torch.equal(out.inv[m], want.inv[m]), what
@@ -178,7 +194,7 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,names,depth", [
     ("MCraft_safety", SUITE, 7), ("MCraft_bounded", ["TypeOK"], 7),
-    ("TPUraft", ["TypeOK"], 5)])
+    ("TPUraft", ["TypeOK"], 5), ("reconfig3", SUITE, 7)])
 def test_the_steps_build_equals_the_front_on_its_new_lanes(card, name,
                                                            names, depth):
     """Each batch of a v4 check, its steps dispatched one by one: the
@@ -198,14 +214,14 @@ def test_the_steps_build_equals_the_front_on_its_new_lanes(card, name,
 
     def hook(rows, valid, seen, qnext, nc, mc=None, finish=None,
              built=None):
-        before = int(built)
+        before = int(built[0])
 
         def grab(valid, fo, new, fail, count):
             finish(valid, fo, new, fail, count)
             if bool(valid.any()):
                 batches.append((rows.clone(), valid.clone(), FrontOut(
                     *(t.clone() for t in fo)), new.clone(),
-                    int(built) - before))
+                    int(built[0]) - before))
         return body(rows, valid, seen, qnext, nc, mc, grab, built)
 
     step.body = hook

@@ -37,12 +37,15 @@ from raft_tla_tpu.models.invariants import constraint_py
 from raft_tla_tpu.models.invariants import type_ok_py as j_type_ok_py
 from raft_tla_tpu.models.pystate import PyState as JPyState
 from raft_tla_tpu.models.pystate import init_state as j_init_state
+from raft_tla_tpu.models.safety import SAFETY_INVARIANTS as J_SAFETY
 from raft_tla_tpu.ops.chunk_front_pallas import build_front as j_build_front
 from raft_tla_tpu.utils.cfg import load_config as j_load_config
 from raft_tla_tpu_torch import cli
 from raft_tla_tpu_torch.engine import checkpoint as ckpt
 from raft_tla_tpu_torch.engine.bfs import BFSEngine, EngineConfig
+from raft_tla_tpu_torch.engine.check import resolve_invariants
 from raft_tla_tpu_torch.engine.swarm import SwarmEngine
+from raft_tla_tpu_torch.models import oracle as por
 from raft_tla_tpu_torch.models import reconfig as trc
 from raft_tla_tpu_torch.models import schema as tschema
 from raft_tla_tpu_torch.models.actions2 import V2Unavailable, build_v2
@@ -51,15 +54,24 @@ from raft_tla_tpu_torch.models.invariants import (build_constraint,
                                                   build_inv_id,
                                                   build_no_leader,
                                                   build_type_ok, type_ok_py)
+from raft_tla_tpu_torch.models.invariants import \
+    constraint_py as tconstraint_py
 from raft_tla_tpu_torch.models.pystate import PyState
 from raft_tla_tpu_torch.models.safety import SAFETY_INVARIANTS
 from raft_tla_tpu_torch.ops import chunk_front_cuda
 from raft_tla_tpu_torch.ops.chunk_front import LIVE_ONLY, FrontOut
 from raft_tla_tpu_torch.utils.cfg import load_config
 
+from tests.test_torch_front import assert_equal_fronts
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECONFIG = os.path.join(REPO, "configs/reconfig3.cfg")
 D4_DISTINCT = 3733           # tests/test_reconfig.py, the leader roots to D4
+#: TypeOK and raft.tla's nine, in configs/MCraft_safety.cfg's order.
+SUITE_NAMES = ["TypeOK", "MessagesInv", "LeaderVotesQuorum",
+               "CandidateTermNotInLog", "ElectionSafety", "LogMatching",
+               "VotesGrantedInv", "QuorumLogInv", "MoreUpToDateCorrect",
+               "LeaderCompleteness"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -356,16 +368,24 @@ def test_front_plain_equals_jax_build_front(setups):
 
 
 def test_front_refuses_what_the_variant_builds_lack(setups):
+    """The variant's builds take TypeOK and NoLeaderElected
+    (``reconfig``) and the safety suite (``reconfig_suite``, build 8 of
+    the launch table); another variant and more than 32 targets are
+    refused."""
     td, bounds = setups[1].dims, setups[1].bounds
     kw = dict(v2=build_v2(td, "cpu"), constraint=build_constraint(td, bounds),
               B=16, K=2048, device="cpu")
     suite = SAFETY_INVARIANTS["ElectionSafety"](td)
-    with pytest.raises(ValueError, match="reconfiguration variant"):
-        chunk_front_cuda.Front(dims=td, inv_fns=[build_type_ok(td), suite],
-                               **kw)
+    fr = chunk_front_cuda.Front(dims=td, inv_fns=[build_type_ok(td), suite],
+                                **kw)
+    assert fr.reconfig and fr.suite and fr.build_name == "reconfig_suite"
+    assert fr._builds() == (5, 1, 6, 8)
+    assert fr.record() == {"build": "reconfig_suite",
+                           "predicates": [1, 6], "launches": {}}
     fr = chunk_front_cuda.Front(dims=td, inv_fns=[build_no_leader(td)],
                                 **kw)
     assert fr.reconfig and fr._n_targets == 2
+    assert fr.build_name == "reconfig" and fr._builds() == (5, 1, 6, 7)
 
     class OtherVariant(RaftDims):
         @property
@@ -377,6 +397,76 @@ def test_front_refuses_what_the_variant_builds_lack(setups):
     many = trc.ReconfigDims(7, 1, 3, 8, targets=tuple(range(1, 34)))
     with pytest.raises(ValueError, match="at most 32"):
         chunk_front_cuda.check_dims(many)
+
+
+def suite_fns(names, dims, package):
+    """The registry predicates ``names`` of one package: TypeOK and the
+    suite's."""
+    if package == "jax":
+        return [j_type_ok(dims) if n == "TypeOK" else J_SAFETY[n](dims)
+                for n in names]
+    return [build_type_ok(dims) if n == "TypeOK" else SAFETY_INVARIANTS[n](dims)
+            for n in names]
+
+
+@pytest.mark.parametrize("order", ["cfg", "reversed"])
+def test_front_plain_with_the_suite_equals_jax_build_front(setups, order):
+    """The suite on the variant: windows of the rich seeds' offspring
+    (crafted states mid-change), of the leader roots' states to depth 3
+    (config entries in logs and in messages, joint and final, after a
+    legal election) and of ``models/reconfig.py random_states`` (config
+    values, some of them invalid, in a third of the entries), through the
+    JAX front (interpret mode) with the JAX suite and the port's front on
+    the CPU (``front_plain``) with the port's, field by field; the list in
+    the cfg's order and the nine in reverse.  Between the two orders the
+    random windows fail every predicate first somewhere, the elected ones
+    none."""
+    jsetup, setup = setups
+    jd, td = jsetup.dims, setup.dims
+    names = SUITE_NAMES if order == "cfg" else SUITE_NAMES[:0:-1]
+    bounds = constraint_py(jsetup.bounds)
+    lead = orc.bfs(leader_roots(jsetup), jd, constraint=bounds,
+                   check_deadlock=False, max_levels=3)
+    rich = orc.bfs(rich_seeds(jd), jd, constraint=bounds,
+                   check_deadlock=False, max_levels=1)
+    B, K = 16, 512
+    crafted = [to_port(s) for s in sorted(rich.parent, key=hash)[:B]]
+    elected = [to_port(s) for s in sorted(lead.parent, key=hash)[::29][:B]]
+    for states in (crafted, elected):
+        assert any(v >= trc.CFG_BASE for s in states for log in s.log
+                   for _t, v in log)
+    jf = j_build_front(dims=jd, v2=j_build_v2(jd),
+                       constraint=j_constraint(jd, jsetup.bounds),
+                       inv_fns=suite_fns(names, jd, "jax"), B=B,
+                       G=jd.n_instances, K=K, interpret=True)
+    tf = chunk_front_cuda.Front(
+        dims=td, v2=build_v2(td, "cpu"), inv_fns=suite_fns(names, td, "port"),
+        constraint=build_constraint(td, setup.bounds), B=B, K=K,
+        device="cpu")
+    assert tf.build_name == "reconfig_suite"
+    first = {"crafted": set(), "elected": set(), "random": set()}
+    windows = [("crafted", crafted), ("elected", elected),
+               ("random", trc.random_states(td, B, seed=5)),
+               ("random", trc.random_states(td, B, seed=6)),
+               ("random", trc.random_states(td, B, seed=7))]
+    for kind, parents in windows:
+        rows = torch.zeros((B, tschema.state_width(td)), dtype=torch.uint8)
+        rows[:len(parents)] = tschema.flatten_state(tschema.stack_states(
+            [tschema.encode_state(s, td) for s in parents], "cpu"), td)
+        valid = (torch.arange(B) % 6 != 5) & (torch.arange(B) < len(parents))
+        want = jax.device_get(jf(jnp.asarray(rows.numpy()),
+                                 jnp.asarray(valid.numpy())))
+        got = tf(rows, valid)
+        assert_equal_fronts(want, got)
+        first[kind].update(got.inv[:int(got.total)].tolist())
+    assert first["elected"] == {-1}, first
+    # Between the two orders every predicate fails first somewhere: in the
+    # cfg's order all but the two rarest, which the reversed list puts
+    # first.
+    failed = {names[i] for i in first["random"] if i >= 0}
+    rare = {"cfg": {"MoreUpToDateCorrect", "LeaderCompleteness"},
+            "reversed": {"VotesGrantedInv"}}[order]
+    assert failed >= set(names) - rare, (order, failed)
 
 
 # -- the engine, the checkpoint, the CLI -------------------------------------
@@ -456,6 +546,46 @@ def test_snapshots_cross_between_the_packages(setups, jax_d4, tmp_path):
     back = jax_engine(setups[0], max_diameter=4).run(
         resume=level_file(pdir, 2))
     assert (back.distinct, back.levels) == (jres.distinct, jres.levels)
+
+
+def test_v4_with_the_suite_equals_v3_and_counts_joint(setups):
+    """reconfig3 with the ten invariants from the leader roots to D4: v4
+    (both tails) equals the v3 plan, with no violation; v4's ``built`` is
+    the distinct states less the roots and ``joint`` the port oracle's
+    count of those in which some server's latest config entry is joint."""
+    jsetup, setup = setups
+    dims = setup.dims
+    invs = resolve_invariants(dataclasses.replace(setup,
+                                                  invariants=SUITE_NAMES))
+    roots = [to_port(s) for s in leader_roots(jsetup)]
+    got = {}
+    for pipeline, method in (("v3", "fused"), ("v4", "fused"),
+                             ("v4", "kernel")):
+        eng = BFSEngine(dims, invariants=invs,
+                        constraint=build_constraint(dims, setup.bounds),
+                        config=EngineConfig(
+                            batch=128, queue_capacity=1 << 14,
+                            seen_capacity=1 << 17, check_deadlock=False,
+                            max_diameter=4, pipeline=pipeline,
+                            enqueue_method=method), device="cpu")
+        res = eng.run(roots)
+        assert res.violation is None and res.invariants == SUITE_NAMES
+        got[pipeline, method] = res
+    v3 = got["v3", "fused"]
+    assert v3.distinct == D4_DISTINCT and (v3.built, v3.joint) == (0, 0)
+    ores = por.bfs(roots, dims, constraint=tconstraint_py(setup.bounds),
+                   check_deadlock=False, max_levels=4)
+    joint = sum(1 for s in ores.parent if s not in roots and any(
+        trc.config_of_py(log, dims.n_servers)[0] for log in s.log))
+    assert joint > 0
+    for key in (("v4", "fused"), ("v4", "kernel")):
+        res = got[key]
+        assert (res.distinct, res.generated, res.levels,
+                res.action_counts) == (v3.distinct, v3.generated, v3.levels,
+                                       v3.action_counts), key
+        assert (res.built, res.joint) == (res.distinct - len(roots),
+                                          joint), key
+        assert res.front["build"] == "reconfig_suite"
 
 
 def test_rich_seeds_to_d3_equal_the_jax_engine(setups):

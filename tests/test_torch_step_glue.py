@@ -446,7 +446,7 @@ def plain_glue(engine):
         rows, valid = step.window(qcur, cs, a)
         out = step.body(rows, valid, seen, qnext,
                         cs.st.narrow(0, ST_COUNT, 1), step.Q, None,
-                        cs.st.narrow(0, step.BUILT, 1))
+                        cs.st.narrow(0, step.BUILT, 2))
         step.update(out, rows, a, seen, tbuf, cs)
 
     def more(seen, cs):
@@ -575,7 +575,7 @@ def test_each_step_equals_the_plain_step(card):
             rows, valid = step.window(qcur, pcs, a)
             out = step.body(rows, valid, pseen, pq,
                             pcs.st.narrow(0, ST_COUNT, 1), step.Q, None,
-                            pcs.st.narrow(0, step.BUILT, 1))
+                            pcs.st.narrow(0, step.BUILT, 2))
             step.update(out, rows, a, pseen, ptb, pcs)
             step(qcur, seen, qnext, tbuf, cs)
             got = (*cs, qnext, tbuf, seen.keys.sort().values, seen.size)
